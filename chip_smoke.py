@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA H100 and check it.
+
+  python3 chip_smoke.py
+
+Phases (each one that fails ends the run with a non-zero exit):
+  1. environment: torch / CUDA versions, the card's name and power limit;
+     TF32 off for matrix products and convolutions.
+  2. build: every CUDA source of src/repro_torch/csrc with nvcc.
+  3. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes, on integer-valued inputs (every fp32 dot product is
+     exact: ids, scores and flags must be bit-identical, ties included) and
+     on float inputs (scores within rtol=1e-5, atol=1e-6; ids identical
+     except at near-ties).  ``ms``, ``plain_ms`` and ``library_ms`` are
+     device time per call (torch.profiler), beside ``bound_ms``, the least
+     time the card could take for the same work; ``call_ms`` is the time a
+     caller waits per back-to-back wrapper call (CUDA events).
+  4. serve default: the port's launch/serve.py one-shot, --index
+     ipnsw_plus, at the JAX package's defaults; recall@10 within 0.02 of the
+     JAX package's recall for the same command.
+  5. full size: IpNSWPlus and IpNSW at Yahoo!Music's size (136,736 x 300,
+     seeded synthetic lognormal items), ground truth from the mips_topk
+     kernel; build seconds, search time, QPS, recall@10, evals, peak memory,
+     graph invariants I1-I4; then a profiled IpNSW build and search: device
+     busy time, idle share, walk steps, host time per step.
+The line before the last is the JSON list of kernels; the last line is the
+JSON result the run is read by.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# `PYTHONPATH=src python -m repro.launch.serve` (the JAX package, on the CPU)
+# printed: [serve] index=ipnsw_plus shards=1 storage=f32 N=20000 B=256 ef=40:
+# recall@10=0.933 evals/q=540 (0.74 ms/query batch-amortized) xla_compiles=891
+JAX_SERVE_RECALL = 0.933
+RECALL_MARGIN = 0.02
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+
+N_FULL, D_FULL = 136_736, 300  # Yahoo!Music (paper §5 dataset table)
+BEAM_SHAPES = {  # walk: (B, L, M, S, V) on the main path, d = 300
+    "build_angular": (512, 10, 10, 1, 201),
+    "build_ip": (512, 32, 16, 161, 1185),
+    "search_angular": (256, 10, 10, 1, 201),
+    "search_ip": (256, 40, 16, 160, 1440),
+}
+COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
+MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000, 64, 10)}
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` as its caller sees them, by CUDA
+    events around back-to-back calls: where the host enqueues slower than
+    the card runs, this is host time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, only: str = "") -> float:
+    """Mean device milliseconds per call of ``fn``: the time its kernels
+    (those whose name contains ``only``) ran on the card, from
+    torch.profiler's device-side events; host gaps are not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):  # a session can come back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and only in e.key)
+        if us > 0:
+            return us / reps / 1e3
+        log(f"profiler session {attempt + 1} saw no device time; measuring again")
+    raise RuntimeError("the profiler saw no device time in 3 sessions")
+
+
+def warm_up_profiler() -> None:
+    """One throwaway profiler session: the first session of a process can
+    miss the card's events while the tracer starts up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1 << 20, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(10):
+            x = x * 1.0
+        torch.cuda.synchronize()
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    flops over the fp32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------- phases
+
+
+def phase_env() -> str:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False")
+    print(card, flush=True)
+    return card
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _lib
+
+    t0 = time.perf_counter()
+    path = _lib.build()
+    _lib.lib()
+    log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in _lib.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"ptxas {line.strip()}")
+
+
+def _int_or_float(shape, integer: bool, g):
+    import torch
+
+    if integer:
+        return torch.randint(-3, 4, shape, generator=g, device="cuda").float()
+    return torch.randn(shape, generator=g, device="cuda") / shape[-1] ** 0.5
+
+
+def _beam_state(shape, items, integer: bool, g):
+    """A valid walk state at ``shape``: pools sorted by the plain scorer,
+    empty tail slots, checked slots, rows done on input and rows with
+    nothing left unchecked, visited buffers that hit the adjacency rows."""
+    import torch
+
+    from repro_torch.core.similarity import gather_scores, top_l
+
+    b, l, m, _, v = shape
+    n, d = items.shape
+    dev = items.device
+    queries = _int_or_float((b, d), integer, g)
+    adj = torch.randint(0, n, (n, m), generator=g, device=dev, dtype=torch.int32)
+    adj[torch.rand((n, m), generator=g, device=dev) < 0.1] = -1
+    ids = torch.randint(0, n, (b, l), generator=g, device=dev, dtype=torch.int32)
+    n_empty = torch.randint(0, l // 2 + 1, (b, 1), generator=g, device=dev)
+    ids[torch.arange(l, device=dev) >= l - n_empty] = -1
+    scores = torch.where(ids >= 0, gather_scores(queries, items, ids), float("-inf"))
+    scores, order = top_l(scores, l)
+    ids = ids.gather(1, order)
+    checked = (torch.rand((b, l), generator=g, device=dev) < 0.5) | (ids < 0)
+    checked[: b // 16] = True
+    done = torch.rand(b, generator=g, device=dev) < 0.1
+    visited = torch.randint(0, n, (b, v), generator=g, device=dev, dtype=torch.int32)
+    visited[torch.rand((b, v), generator=g, device=dev) < 0.3] = -1
+    # every pool id was scored, so it is in the visited buffer, as in a walk
+    hits = adj[ids.clamp_min(0).long()][:, :, : m // 2].reshape(b, -1)
+    h = min(v // 2 - l, hits.shape[1])
+    visited[:, :l] = ids
+    visited[:, l: l + h] = hits[:, :h]
+    return (ids, scores.contiguous(), checked.contiguous(), visited, done, queries, adj, items)
+
+
+def _check_topk(name, ids_k, s_k, ids_p, s_p, integer: bool) -> int:
+    """Integer inputs: bit-identical.  Float inputs: the tolerance contract;
+    returns the rows that needed the near-tie exception."""
+    import torch
+
+    from repro_torch.testing import assert_topk_match
+
+    if integer:
+        assert torch.equal(ids_k, ids_p), f"{name}: ids differ on integer inputs"
+        assert torch.equal(s_k, s_p), f"{name}: scores differ on integer inputs"
+        return 0
+    return len(assert_topk_match(ids_k.cpu().numpy(), s_k.cpu().numpy(),
+                                 ids_p.cpu().numpy(), s_p.cpu().numpy()))
+
+
+def _max_abs_err(a, b) -> float:
+    import torch
+
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def phase_beam_step(items_by_kind, g) -> dict:
+    import torch
+
+    from repro_torch.kernels.beam_step import beam_step, beam_step_ref
+
+    out = {}
+    for walk, shape in BEAM_SHAPES.items():
+        for kind, items in items_by_kind.items():
+            args = _beam_state(shape, items, kind == "int", g)
+            k = beam_step(*args)
+            p = beam_step_ref(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(k.nbr_ids, p.nbr_ids), f"beam_step {walk}/{kind}: nbr_ids"
+            assert torch.equal(k.done, p.done), f"beam_step {walk}/{kind}: done"
+            assert torch.equal(k.n_scored, p.n_scored), f"beam_step {walk}/{kind}: n_scored"
+            rows = _check_topk(f"beam_step {walk}/{kind}", k.pool_ids, k.pool_scores,
+                               p.pool_ids, p.pool_scores, kind == "int")
+            if kind == "int":
+                assert torch.equal(k.pool_checked, p.pool_checked), f"beam_step {walk}: checked"
+            err = _max_abs_err(k.pool_scores, p.pool_scores)
+            ms = device_ms(lambda: beam_step(*args))
+            plain_ms = device_ms(lambda: beam_step_ref(*args))
+            call_ms = cuda_ms(lambda: beam_step(*args))
+            b, l, m, _, v = shape
+            d = items.shape[1]
+            upd = ~k.done
+            n_upd, n_scored = int(upd.sum()), int(k.n_scored.sum())
+            nbytes = (b * l * 9 + b + n_upd * (v * 4 + d * 4 + m * 4) + n_scored * d * 4
+                      + b * l * 9 + b * m * 4 + b * 5)
+            bound_ms, by = bound(nbytes, 2.0 * d * n_scored)
+            log(f"kernel=beam_step walk={walk} inputs={kind} B={b} L={l} M={m} V={v} d={d} "
+                f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+                f"bound_ms={bound_ms:.5f} "
+                f"bound_by={by} near_tie_rows={rows} max_abs_err={err:.3g} "
+                f"launches={beam_step.launches}")
+            if walk == "search_ip" and kind == "float":
+                out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           library_ms=None, max_abs_err=err)
+    return out
+
+
+def _commit_inputs(items, batch: int, m: int, g):
+    """One build batch's reverse-link proposals: the last ``batch`` items
+    propose themselves to M distinct, hub-skewed targets each (10% -1)."""
+    import torch
+
+    n = items.shape[0]
+    dev = items.device
+    adj = torch.randint(0, n - batch, (n, m), generator=g, device=dev, dtype=torch.int32)
+    adj[torch.rand((n, m), generator=g, device=dev) < 0.1] = -1
+    weights = 1.0 / torch.arange(1, n - batch + 1, device=dev, dtype=torch.float32)
+    targets = torch.multinomial(weights.expand(batch, -1), m, replacement=False,
+                                generator=g).to(torch.int32)
+    targets[torch.rand((batch, m), generator=g, device=dev) < 0.1] = -1
+    bids = torch.arange(n - batch, n, device=dev, dtype=torch.int32)
+    adj[bids.long()] = torch.where(targets >= 0, targets, -1)  # forward rows first
+    cands = bids[:, None].expand(-1, m)
+    scores = (items[targets.clamp_min(0).long()] * items[cands.long()]).sum(-1)
+    return adj, targets.reshape(-1), cands.reshape(-1).contiguous(), scores.reshape(-1)
+
+
+def phase_commit_merge(items_by_kind, g) -> dict:
+    import torch
+
+    from repro_torch.kernels.commit_merge import (
+        commit_merge, commit_merge_ref, commit_rows, commit_rows_ref, csr_proposals,
+    )
+
+    out = {}
+    for graph, (batch, m) in COMMIT_SHAPES.items():
+        for kind, items in items_by_kind.items():
+            adj0, targets, cands, scores = _commit_inputs(items, batch, m, g)
+            csr = csr_proposals(adj0.shape[0], targets, cands, scores)
+            tgt = csr.utgt.long()
+            work = adj0.clone()
+            commit_rows(work, items, csr)
+            rows_k = work[tgt]
+            rows_p = commit_rows_ref(adj0, items, *csr[:4])
+            torch.cuda.synchronize()
+            untouched = torch.ones(adj0.shape[0], dtype=torch.bool, device=adj0.device)
+            untouched[tgt] = False
+            assert torch.equal(work[untouched], adj0[untouched]), "commit_merge wrote a foreign row"
+            rs = lambda r: torch.where(  # noqa: E731 -- plain scores of a row's ids
+                r >= 0, (items[tgt][:, None, :] * items[r.clamp_min(0).long()]).sum(-1),
+                float("-inf"))
+            near = _check_topk(f"commit_merge {graph}/{kind}", rows_k, rs(rows_k),
+                               rows_p, rs(rows_p), kind == "int")
+            if kind == "int":
+                full = commit_merge(adj0.clone(), items, targets, cands, scores)
+                assert torch.equal(full, commit_merge_ref(adj0, items, targets, cands, scores)), \
+                    f"commit_merge {graph}: kernel path != two-sort commit_merge_ref"
+            # each launch merges into a fresh copy of the rows (copy time excluded)
+            ms = device_ms(lambda: (work.copy_(adj0), commit_rows(work, items, csr)),
+                           only="commit_merge_kernel")
+            call_ms = cuda_ms(lambda: commit_rows(work, items, csr))
+            plain_ms = device_ms(lambda: commit_rows_ref(adj0, items, *csr[:4]))
+            # the existing edges the kernel rescores: >= 0, not repeating an
+            # earlier slot, not repeated by a proposal of the same target
+            u, p, d = tgt.shape[0], csr.cand_ids.shape[0], items.shape[1]
+            ex = adj0[tgt].long()
+            seg = torch.repeat_interleave(torch.arange(u, device=ex.device),
+                                          (csr.offsets[1:] - csr.offsets[:-1]).long())
+            live = ex >= 0
+            for j in range(m):
+                live[:, j] &= ~(ex[:, :j] == ex[:, j: j + 1]).any(-1)
+                live[seg[csr.cand_ids.long() == ex[seg, j]], j] = False
+            n_rescored = int(live.sum())
+            nbytes = u * 4 + (u + 1) * 4 + p * 8 + u * m * 4 + u * d * 4 + n_rescored * d * 4 + u * m * 4
+            bound_ms, by = bound(nbytes, 2.0 * d * n_rescored)
+            err = _max_abs_err(rs(rows_k), rs(rows_p))
+            log(f"kernel=commit_merge graph={graph} inputs={kind} E={targets.shape[0]} U={u} "
+                f"P={p} max_seg={csr.max_seg} M={m} d={d} ms={ms:.4f} call_ms={call_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} "
+                f"library_ms=None bound_ms={bound_ms:.5f} bound_by={by} near_tie_rows={near} "
+                f"max_abs_err={err:.3g} launches={commit_merge.launches}")
+            if graph == "ip" and kind == "float":
+                out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           library_ms=None, max_abs_err=err)
+    return out
+
+
+def phase_mips_topk(g) -> dict:
+    import torch
+
+    from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
+
+    out = {}
+    for cell, (b, n, d, k) in MIPS_SHAPES.items():
+        for kind in ("int", "float"):
+            q = _int_or_float((b, d), kind == "int", g)
+            x = _int_or_float((n, d), kind == "int", g)
+            s_k, i_k = mips_topk(q, x, k=k)
+            s_p, i_p = mips_topk_ref(q, x, k=k)
+            torch.cuda.synchronize()
+            rows = _check_topk(f"mips_topk {cell}/{kind}", i_k, s_k, i_p, s_p, kind == "int")
+            err = _max_abs_err(s_k, s_p)
+            ms = device_ms(lambda: mips_topk(q, x, k=k))
+            call_ms = cuda_ms(lambda: mips_topk(q, x, k=k))
+            plain_ms = device_ms(lambda: mips_topk_ref(q, x, k=k))
+            library_ms = device_ms(lambda: torch.topk(torch.matmul(q, x.T), k, dim=1))
+            bound_ms, by = bound(b * d * 4 + n * d * 4 + b * k * 8, 2.0 * b * n * d)
+            log(f"kernel=mips_topk cell={cell} inputs={kind} B={b} N={n} d={d} k={k} "
+                f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={library_ms:.4f} "
+                f"bound_ms={bound_ms:.5f} bound_by={by} near_tie_rows={rows} "
+                f"max_abs_err={err:.3g} launches={mips_topk.launches}")
+            if cell == "full" and kind == "float":
+                out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           library_ms=library_ms, max_abs_err=err)
+    return out
+
+
+def phase_kernels() -> dict:
+    import torch
+
+    warm_up_profiler()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    items_by_kind = {kind: _int_or_float((N_FULL, D_FULL), kind == "int", g)
+                     for kind in ("int", "float")}
+    timings = {
+        "beam_step": phase_beam_step(items_by_kind, g),
+        "commit_merge": phase_commit_merge(items_by_kind, g),
+        "mips_topk": phase_mips_topk(g),
+    }
+    log("kernels: beam_step, commit_merge, mips_topk -- each equal to its plain version")
+    return timings
+
+
+def _kernel_counters():
+    from repro_torch.kernels.beam_step import beam_step
+    from repro_torch.kernels.commit_merge import commit_merge
+    from repro_torch.kernels.mips_topk import mips_topk
+
+    return {"beam_step": beam_step, "commit_merge": commit_merge, "mips_topk": mips_topk}
+
+
+def _zero_counts() -> None:
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_counters().items()}
+
+
+def phase_serve_default() -> None:
+    from repro_torch.launch import serve
+
+    _zero_counts()
+    res = serve.main(["--index", "ipnsw_plus"])
+    counts = _read_counts()
+    log(f"serve default: recall@10={res['recall']:.4f} (JAX {JAX_SERVE_RECALL}) "
+        f"evals/q={res['evals_per_query']:.1f} search_ms={res['search_seconds'] * 1e3:.3f} "
+        f"launches={counts}")
+    assert abs(res["recall"] - JAX_SERVE_RECALL) <= RECALL_MARGIN, \
+        f"serve recall {res['recall']} not within {RECALL_MARGIN} of JAX {JAX_SERVE_RECALL}"
+    assert all(c > 0 for c in counts.values()), f"a kernel was not launched: {counts}"
+
+
+def phase_full_size() -> dict:
+    import torch
+
+    from repro_torch.core.brute_force import exact_topk
+    from repro_torch.core.invariants import assert_graph_invariants
+    from repro_torch.core.ipnsw import IpNSW
+    from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.obs.recall import recall_at_k
+    from repro_torch.data import mips_dataset, mips_queries
+
+    items = torch.as_tensor(mips_dataset(N_FULL, D_FULL, "lognormal", seed=0), device="cuda")
+    queries = torch.as_tensor(mips_queries(256, D_FULL, seed=1), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    _, gt = exact_topk(queries, items, k=10)
+    gt = gt.cpu().numpy()
+    for name, cls in (("ipnsw_plus", IpNSWPlus), ("ipnsw", IpNSW)):
+        t0 = time.perf_counter()
+        index = cls(max_degree=16, ef_construction=32, insert_batch=512).build(items)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        index.search(queries, k=10, ef=40)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = index.search(queries, k=10, ef=40)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        rec = recall_at_k(r.ids.cpu().numpy(), gt)
+        graphs = ([("ang", index.ang_graph), ("ip", index.ip_graph)]
+                  if name == "ipnsw_plus" else [("ip", index.graph)])
+        for gname, graph in graphs:
+            assert_graph_invariants(graph, name=f"{name}/{gname}")
+        log(f"full size {name}: N={N_FULL} d={D_FULL} B=256 k=10 ef=40 "
+            f"build_s={build_s:.2f} search_ms={search_s * 1e3:.3f} "
+            f"qps={256 / search_s:.0f} recall@10={rec:.4f} "
+            f"evals/q={float(r.evals.float().mean()):.1f} invariants I1-I4 hold")
+        assert rec > 0.5, f"{name} recall@10 {rec} at full size"
+    counts = _read_counts()
+    log(f"full size peak_memory_bytes={torch.cuda.max_memory_allocated()} launches={counts}")
+    assert all(c > 0 for c in counts.values()), f"a kernel was not launched: {counts}"
+    phase_profile(items, queries, index)
+    return counts
+
+
+def _profiled(label: str, fn) -> None:
+    """Run ``fn`` under torch.profiler; print wall time, the device time
+    its kernels took (one stream, so they do not overlap), the idle share,
+    the walk steps and the host time per step, and the top device ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps0 = _kernel_counters()["beam_step"].launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = _kernel_counters()["beam_step"].launches - steps0
+    # device-side events only: a CPU op's entry repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    device_s = sum(e.self_device_time_total for e in events) * 1e-6
+    log(f"profile {label}: wall_s={wall:.3f} device_busy_s={device_s:.3f} "
+        f"idle_share={1 - device_s / wall:.3f} walk_steps={steps} "
+        f"host_ms_per_step={(wall - device_s) / max(steps, 1) * 1e3:.4f}")
+    for e in events[:6]:
+        log(f"profile {label}: {e.self_device_time_total * 1e-3:10.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+
+
+def phase_profile(items, queries, ipnsw) -> None:
+    """Where the time goes at full size (profiler on: the walls here are
+    longer than the unprofiled ones above)."""
+    from repro_torch.core.ipnsw import IpNSW
+
+    _profiled("ipnsw build", lambda: IpNSW(max_degree=16, ef_construction=32,
+                                           insert_batch=512).build(items))
+    _profiled("ipnsw search", lambda: ipnsw.search(queries, k=10, ef=40))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs the card",
+              file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401 -- fails here when run without the repository
+
+    card = phase_env()
+    phase_build()
+    timings = phase_kernels()
+    phase_serve_default()
+    counts = phase_full_size()
+    sources = {"beam_step": ("src/repro_torch/csrc/beam_step.cu",
+                             "src/repro/kernels/beam_step/kernel.py:50"),
+               "commit_merge": ("src/repro_torch/csrc/commit_merge.cu",
+                                "src/repro/kernels/commit_merge/kernel.py:78"),
+               "mips_topk": ("src/repro_torch/csrc/mips_topk.cu",
+                             "src/repro/kernels/mips_topk/kernel.py:48")}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=counts[name], **timings[name])
+               for name, (src, rep) in sources.items()]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

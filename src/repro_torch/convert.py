@@ -1,0 +1,59 @@
+"""Carry the JAX package's index state into the port.
+
+The functions take numpy arrays only -- ``np.asarray`` of the JAX package's
+``GraphIndex`` fields -- so this module imports nothing of that package.  A
+graph built by JAX can then be searched by the port and the ids compared.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import GraphIndex
+from repro_torch.core.ipnsw import IpNSW
+from repro_torch.core.ipnsw_plus import IpNSWPlus
+
+
+def graph_from_arrays(
+    adj: np.ndarray,
+    items: np.ndarray,
+    size,
+    entry,
+    entry_norm: float,
+    *,
+    device: str = "cuda",
+) -> GraphIndex:
+    """A ``GraphIndex`` on ``device`` from numpy state, copied (the build
+    writes ``adj`` in place)."""
+    return GraphIndex(
+        adj=torch.tensor(np.asarray(adj, np.int32), device=device),
+        items=torch.tensor(np.asarray(items, np.float32), device=device),
+        size=torch.tensor(int(size), dtype=torch.int64, device=device),
+        entry=torch.tensor(int(entry), dtype=torch.int64, device=device),
+        entry_norm=torch.tensor(float(entry_norm), dtype=torch.float32, device=device),
+    )
+
+
+def ipnsw_from_arrays(adj, items, size, entry, entry_norm, *,
+                      device: str = "cuda", **params) -> IpNSW:
+    """An ``IpNSW`` around one graph's numpy state; ``params`` are its build
+    knobs (``max_degree`` defaults to the adjacency's width)."""
+    params.setdefault("max_degree", np.asarray(adj).shape[1])
+    index = IpNSW(device=device, **params)
+    index.graph = graph_from_arrays(adj, items, size, entry, entry_norm, device=device)
+    return index
+
+
+def ipnsw_plus_from_arrays(ang: Mapping[str, np.ndarray], ip: Mapping[str, np.ndarray],
+                           *, device: str = "cuda", **params) -> IpNSWPlus:
+    """An ``IpNSWPlus`` around both graphs' numpy state; ``ang`` and ``ip``
+    hold the ``graph_from_arrays`` arguments (adj, items, size, entry,
+    entry_norm) of the angular and the inner-product graph."""
+    params.setdefault("ang_degree", np.asarray(ang["adj"]).shape[1])
+    params.setdefault("max_degree", np.asarray(ip["adj"]).shape[1])
+    index = IpNSWPlus(device=device, **params)
+    index.ang_graph = graph_from_arrays(**ang, device=device)
+    index.ip_graph = graph_from_arrays(**ip, device=device)
+    return index

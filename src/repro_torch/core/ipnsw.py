@@ -1,0 +1,50 @@
+"""ip-NSW (Morozov & Babenko 2018), the paper's baseline: NSW built and
+searched with the raw inner product.  This is the algorithm whose norm bias
+§3 of the paper analyses."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.core.build import build_graph
+from repro_torch.core.graph import GraphIndex
+from repro_torch.core.search import SearchResult, beam_search
+from repro_torch.core.similarity import Similarity
+
+
+@dataclass
+class IpNSW:
+    """Inner-product NSW index.  ``max_degree`` is the paper's M and
+    ``ef_construction`` the pool size l of insertion.  The index lives on
+    ``device``; the default is the card."""
+
+    max_degree: int = 16
+    ef_construction: int = 64
+    insert_batch: int = 128
+    reverse_links: bool = True
+    device: str = "cuda"
+    graph: Optional[GraphIndex] = None
+
+    def build(self, items) -> "IpNSW":
+        self.graph = build_graph(
+            torch.as_tensor(items, dtype=torch.float32, device=self.device),
+            similarity=Similarity.INNER_PRODUCT,
+            max_degree=self.max_degree,
+            ef_construction=self.ef_construction,
+            insert_batch=self.insert_batch,
+            reverse_links=self.reverse_links,
+        )
+        return self
+
+    def search(self, queries, k: int = 10, ef: int = 64,
+               max_steps: Optional[int] = None) -> SearchResult:
+        if self.graph is None:
+            raise RuntimeError("call build() first")
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        init = self.graph.entry.expand(q.shape[0], 1)
+        return beam_search(
+            self.graph, q, init, pool_size=max(ef, k),
+            max_steps=max_steps if max_steps is not None else 2 * ef, k=k,
+        )

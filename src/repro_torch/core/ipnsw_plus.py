@@ -1,0 +1,168 @@
+"""ip-NSW+ (the paper's contribution, §4, Algorithm 3).
+
+Two proximity graphs over the same items:
+  A_s -- angular NSW over the unit-normalized items (paper: M = l = 10)
+  G_s -- inner-product NSW (the parameters of plain ip-NSW)
+
+Search: walk A_s for the top-k' angular neighbors of q, seed the pool with
+their G_s out-neighbors (Theorem 2: the MIPS neighbor of an angular
+neighbor is likely a MIPS neighbor), then walk G_s.
+
+Build (§4.2): each batch is inserted into A_s first; its G_s neighbors are
+then found by the ip-NSW+ search itself, seeded from the angular neighbors
+just found.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.build import (
+    _bootstrap_neighbors,
+    batch_schedule,
+    commit_batch,
+    find_neighbors,
+)
+from repro_torch.core.graph import GraphIndex, empty_graph
+from repro_torch.core.search import beam_search
+from repro_torch.core.similarity import NEG_INF, normalize
+
+
+class PlusResult(NamedTuple):
+    ids: torch.Tensor          # [B, k] final MIPS ids
+    scores: torch.Tensor       # [B, k] inner products
+    evals: torch.Tensor        # [B] total evaluations (angular + ip)
+    ang_evals: torch.Tensor    # [B]
+    ip_evals: torch.Tensor     # [B]
+    visited_ang: torch.Tensor  # [B, Va] ids scored on A_s
+    visited_ip: torch.Tensor   # [B, Vi] ids scored on G_s
+
+
+def _seed_from_angular(ip_adj: torch.Tensor, ang_ids: torch.Tensor) -> torch.Tensor:
+    """Algorithm 3 lines 3-5: the G_s out-neighbors of the angular results.
+    [B, k'] ids (-1 padded) -> [B, k' * M] seeds (-1 padded)."""
+    rows = ip_adj[ang_ids.clamp_min(0).long()]               # [B, k', M]
+    rows = torch.where(ang_ids[..., None] >= 0, rows, -1)
+    return rows.reshape(ang_ids.shape[0], -1)
+
+
+def _find_ip_neighbors_seeded(
+    ip_graph: GraphIndex,
+    batch_items: torch.Tensor,
+    ang_nbr_ids: torch.Tensor,
+    *,
+    max_degree: int,
+    ef: int,
+    max_steps: int,
+):
+    """§4.2 insertion: an item's G_s neighbors by the angular-seeded walk.
+    The entry vertex joins the seeds so that the first, sparse batches still
+    have a valid start."""
+    seeds = _seed_from_angular(ip_graph.adj, ang_nbr_ids)
+    entry = ip_graph.entry.expand(batch_items.shape[0], 1).to(seeds.dtype)
+    res = beam_search(ip_graph, batch_items, torch.cat([seeds, entry], dim=-1),
+                      pool_size=ef, max_steps=max_steps, k=max_degree)
+    return torch.where(res.scores > NEG_INF, res.ids, -1), res.scores
+
+
+def _search_plus(
+    ang_graph: GraphIndex,
+    ip_graph: GraphIndex,
+    queries: torch.Tensor,
+    *,
+    k: int,
+    ef: int,
+    ang_ef: int,
+    k_angular: int,
+    max_steps: int,
+    ang_max_steps: int,
+) -> PlusResult:
+    b = queries.shape[0]
+    # Angular ranking is monotone in q . x_hat, so the raw query walks the
+    # normalized items.
+    ang = beam_search(ang_graph, queries, ang_graph.entry.expand(b, 1),
+                      pool_size=max(ang_ef, k_angular), max_steps=ang_max_steps,
+                      k=k_angular)
+    seeds = _seed_from_angular(ip_graph.adj, ang.ids)
+    ip = beam_search(ip_graph, queries, seeds, pool_size=max(ef, k),
+                     max_steps=max_steps, k=k)
+    return PlusResult(
+        ids=ip.ids,
+        scores=ip.scores,
+        evals=ang.evals + ip.evals,
+        ang_evals=ang.evals,
+        ip_evals=ip.evals,
+        visited_ang=ang.visited,
+        visited_ip=ip.visited,
+    )
+
+
+@dataclass
+class IpNSWPlus:
+    """Dual-graph MIPS index (Algorithm 3 + the §4.2 joint construction).
+    The angular graph uses the paper's M = l = 10; the inner-product graph
+    the parameters of plain ip-NSW.  The index lives on ``device``; the
+    default is the card."""
+
+    max_degree: int = 16          # M of G_s
+    ef_construction: int = 64     # l of G_s insertion
+    ang_degree: int = 10          # M of A_s
+    ang_ef: int = 10              # l of A_s
+    k_angular: int = 10           # k': angular results whose G_s edges seed C
+    insert_batch: int = 128
+    reverse_links: bool = True
+    device: str = "cuda"
+    ang_graph: Optional[GraphIndex] = None
+    ip_graph: Optional[GraphIndex] = None
+
+    def build(self, items) -> "IpNSWPlus":
+        items = torch.as_tensor(items, dtype=torch.float32, device=self.device).contiguous()
+        n = items.shape[0]
+        ang_items = normalize(items).contiguous()
+        norms = torch.linalg.vector_norm(items, dim=-1)
+        ang_norms = torch.ones(n, dtype=torch.float32, device=items.device)
+
+        first, batch_ids, batch_valid = batch_schedule(n, self.insert_batch)
+        ids0 = torch.arange(first, device=items.device)
+        a_nbr0, a_sc0 = _bootstrap_neighbors(ang_items[:first], self.ang_degree)
+        ang = commit_batch(empty_graph(ang_items, self.ang_degree), ids0, a_nbr0,
+                           a_sc0, ang_norms, reverse_links=self.reverse_links)
+        g_nbr0, g_sc0 = _bootstrap_neighbors(items[:first], self.max_degree)
+        ip = commit_batch(empty_graph(items, self.max_degree), ids0, g_nbr0, g_sc0,
+                          norms, reverse_links=self.reverse_links)
+
+        ang_ef = max(self.ang_ef, self.ang_degree)
+        for row, valid in zip(batch_ids, batch_valid):
+            bids = torch.as_tensor(row[valid], device=items.device)
+            # 1. insert into the angular graph (plain Algorithm 2)
+            a_nbr, a_sc = find_neighbors(ang, ang_items[bids], max_degree=self.ang_degree,
+                                         ef=ang_ef, max_steps=2 * ang_ef)
+            ang = commit_batch(ang, bids, a_nbr, a_sc, ang_norms,
+                               reverse_links=self.reverse_links)
+            # 2. insert into the ip graph with the ip-NSW+ search itself
+            g_nbr, g_sc = _find_ip_neighbors_seeded(
+                ip, items[bids], a_nbr[:, : self.k_angular],
+                max_degree=self.max_degree, ef=self.ef_construction,
+                max_steps=2 * self.ef_construction,
+            )
+            ip = commit_batch(ip, bids, g_nbr, g_sc, norms,
+                              reverse_links=self.reverse_links)
+        self.ang_graph, self.ip_graph = ang, ip
+        return self
+
+    def search(self, queries, k: int = 10, ef: int = 64,
+               ang_ef: Optional[int] = None, k_angular: Optional[int] = None,
+               max_steps: Optional[int] = None) -> PlusResult:
+        if self.ip_graph is None:
+            raise RuntimeError("call build() first")
+        ang_ef = ang_ef if ang_ef is not None else self.ang_ef
+        k_ang = k_angular if k_angular is not None else self.k_angular
+        return _search_plus(
+            self.ang_graph, self.ip_graph,
+            torch.as_tensor(queries, dtype=torch.float32, device=self.device),
+            k=k, ef=ef, ang_ef=ang_ef, k_angular=k_ang,
+            max_steps=max_steps if max_steps is not None else 2 * ef,
+            ang_max_steps=2 * max(ang_ef, k_ang),
+        )

@@ -1,0 +1,69 @@
+"""beam_step wrapper: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel of ``csrc/beam_step.cu`` or raises.
+
+``beam_step.launches`` counts kernel launches (plain runs do not count)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.beam_step.ref import StepResult, beam_step_ref
+
+
+def beam_step(
+    pool_ids: torch.Tensor,      # [B, L] int32, sorted desc by score
+    pool_scores: torch.Tensor,   # [B, L] fp32
+    pool_checked: torch.Tensor,  # [B, L] bool
+    visited: torch.Tensor,       # [B, V] int32, -1 padded
+    done: torch.Tensor,          # [B] bool
+    queries: torch.Tensor,       # [B, d] fp32
+    adj: torch.Tensor,           # [N, M] int32, -1 padded
+    items: torch.Tensor,         # [N, d] fp32
+    scales: "torch.Tensor | None" = None,
+    live: "torch.Tensor | None" = None,
+) -> StepResult:
+    """One Algorithm-1 iteration for every query; the result equals
+    ``beam_step_ref`` (ids bit-identical on exact scores)."""
+    if scales is not None or live is not None:
+        raise NotImplementedError(
+            "beam_step takes f32 items only: the int8 scales and the live "
+            "mask come with the storage and mutation slices of the port"
+        )
+    if not _lib.on_cuda(pool_ids):
+        return beam_step_ref(pool_ids, pool_scores, pool_checked, visited, done,
+                             queries, adj, items)
+    dev = pool_ids.device
+    B, L = pool_ids.shape
+    V = visited.shape[1]
+    N, M = adj.shape
+    d = queries.shape[1]
+    _lib.expect(pool_ids, "pool_ids", torch.int32, (B, L), dev)
+    _lib.expect(pool_scores, "pool_scores", torch.float32, (B, L), dev)
+    _lib.expect(pool_checked, "pool_checked", torch.bool, (B, L), dev)
+    _lib.expect(visited, "visited", torch.int32, (B, V), dev)
+    _lib.expect(done, "done", torch.bool, (B,), dev)
+    _lib.expect(queries, "queries", torch.float32, (B, d), dev)
+    _lib.expect(adj, "adj", torch.int32, (N, M), dev)
+    _lib.expect(items, "items", torch.float32, (N, d), dev)
+    out = StepResult(
+        pool_ids=torch.empty((B, L), dtype=torch.int32, device=dev),
+        pool_scores=torch.empty((B, L), dtype=torch.float32, device=dev),
+        pool_checked=torch.empty((B, L), dtype=torch.bool, device=dev),
+        nbr_ids=torch.empty((B, M), dtype=torch.int32, device=dev),
+        done=torch.empty((B,), dtype=torch.bool, device=dev),
+        n_scored=torch.empty((B,), dtype=torch.int32, device=dev),
+    )
+    if B == 0:
+        return out
+    rc = _lib.lib().beam_step_f32(
+        pool_ids.data_ptr(), pool_scores.data_ptr(), pool_checked.data_ptr(),
+        visited.data_ptr(), done.data_ptr(), queries.data_ptr(), adj.data_ptr(),
+        items.data_ptr(), B, L, V, M, d,
+        *(t.data_ptr() for t in out), _lib.stream(dev),
+    )
+    _lib.check(rc, "beam_step")
+    beam_step.launches += 1
+    return out
+
+
+beam_step.launches = 0

@@ -1,0 +1,59 @@
+"""mips_topk wrapper: a CPU tensor runs the plain version, a CUDA tensor
+launches the two-pass kernel of ``csrc/mips_topk.cu`` or raises.
+
+The wrapper picks the item chunking of pass 1 so that the grid holds about
+two blocks per SM, and allocates the per-chunk top-k lists pass 2 merges.
+``mips_topk.launches`` counts kernel launches."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.mips_topk.ref import mips_topk_ref
+
+QUERY_TILE = 64    # queries per pass-1 block (kBQ in csrc/mips_topk.cu)
+ITEM_TILE = 64     # items per pass-1 tile (kBN)
+MAX_K = 32         # pass 1 keeps 64 top-k lists in shared memory
+MAX_CANDIDATES = 4096  # chunks * k that pass 2 ranks in shared memory
+
+
+def chunking(b: int, n: int, k: int, sms: int):
+    """(chunks, items per chunk) for pass 1: about two blocks per SM, at
+    most one item tile per chunk's worth of items, and at most
+    ``MAX_CANDIDATES`` merge candidates per query."""
+    q_tiles = -(-b // QUERY_TILE)
+    n_tiles = -(-n // ITEM_TILE)
+    chunks = max(1, min(n_tiles, -(-2 * sms // q_tiles), MAX_CANDIDATES // k))
+    per_chunk = -(-n_tiles // chunks) * ITEM_TILE
+    return -(-n // per_chunk), per_chunk
+
+
+def mips_topk(queries: torch.Tensor, items: torch.Tensor, *, k: int = 10):
+    """Exact top-k MIPS: (scores [B, k] fp32, ids [B, k] int32)."""
+    if not _lib.on_cuda(queries):
+        return mips_topk_ref(queries, items, k=k)
+    dev = queries.device
+    b, d = queries.shape
+    n = items.shape[0]
+    _lib.expect(queries, "queries", torch.float32, (b, d), dev)
+    _lib.expect(items, "items", torch.float32, (n, d), dev)
+    if not 1 <= k <= min(MAX_K, n):
+        raise ValueError(f"mips_topk on the card takes 1 <= k <= min({MAX_K}, N={n}), got {k}")
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_s, out_i
+    chunks, per_chunk = chunking(b, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_s = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
+    rc = _lib.lib().mips_topk_f32(
+        queries.data_ptr(), items.data_ptr(), b, n, d, k, chunks, per_chunk,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        _lib.stream(dev),
+    )
+    _lib.check(rc, "mips_topk")
+    mips_topk.launches += 1
+    return out_s, out_i
+
+
+mips_topk.launches = 0
