@@ -7,22 +7,27 @@ Phases (each one that fails ends the run with a non-zero exit):
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for matrix products and convolutions.
   2. build: every CUDA source of src/repro_torch/csrc with nvcc.
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, on integer-valued inputs (every fp32 dot product is
-     exact: ids, scores and flags must be bit-identical, ties included) and
-     on float inputs (scores within rtol=1e-5, atol=1e-6; ids identical
-     except at near-ties).  ``ms``, ``plain_ms`` and ``library_ms`` are
-     device time per call (torch.profiler), beside ``bound_ms``, the least
-     time the card could take for the same work; ``call_ms`` is the time a
-     caller waits per back-to-back wrapper call (CUDA events).
+  3. each kernel and int8 variant against its plain PyTorch version on the
+     card, at the main path's shapes, on integer-valued inputs (queries,
+     items and codes integer, scales powers of two: every fp32 dot product
+     is exact, so ids, scores and flags must be bit-identical, ties
+     included) and on float inputs (scores within rtol=1e-5, atol=1e-6; ids
+     identical except at near-ties).  ``ms``, ``plain_ms`` and
+     ``library_ms`` are device time per call (torch.profiler), beside
+     ``bound_ms``, the least time the card could take for the same work;
+     ``call_ms`` is the time a caller waits per back-to-back wrapper call
+     (CUDA events).
   4. serve default: the port's launch/serve.py one-shot, --index
-     ipnsw_plus, at the JAX package's defaults; recall@10 within 0.02 of the
-     JAX package's recall for the same command.
+     ipnsw_plus, at the JAX package's defaults, with --storage f32 and with
+     --storage int8; recall@10 within 0.02 of the JAX package's recall for
+     the same command.
   5. full size: IpNSWPlus and IpNSW at Yahoo!Music's size (136,736 x 300,
      seeded synthetic lognormal items), ground truth from the mips_topk
-     kernel; build seconds, search time, QPS, recall@10, evals, peak memory,
-     graph invariants I1-I4; then a profiled IpNSW build and search: device
-     busy time, idle share, walk steps, host time per step.
+     kernel; each index searched with the f32 items and the int8 store, and
+     the int8 store's quantized scan; build seconds, search time, QPS,
+     recall@10, evals, peak memory, graph invariants I1-I4; then a profiled
+     IpNSW build, f32 search and int8 search: device busy time, idle share,
+     walk steps, host time per step.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -41,6 +46,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # printed: [serve] index=ipnsw_plus shards=1 storage=f32 N=20000 B=256 ef=40:
 # recall@10=0.933 evals/q=540 (0.74 ms/query batch-amortized) xla_compiles=891
 JAX_SERVE_RECALL = 0.933
+# `PYTHONPATH=src python -m repro.launch.serve --storage int8` (CPU) printed:
+# [serve] index=ipnsw_plus shards=1 storage=int8 N=20000 B=256 ef=40:
+# recall@10=0.935 evals/q=540 (0.44 ms/query batch-amortized) xla_compiles=970
+JAX_SERVE_RECALL_INT8 = 0.935
 RECALL_MARGIN = 0.02
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -54,6 +63,9 @@ BEAM_SHAPES = {  # walk: (B, L, M, S, V) on the main path, d = 300
     "search_ip": (256, 40, 16, 160, 1440),
 }
 COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
+# gathered scorers: (B, W) on the main path, d = 300
+QUANT_SHAPES = {"seed_ip": (256, 160), "seed_angular": (256, 1)}
+GATHER_SHAPES = {"seed_ip": (256, 160), "build_seed_ip": (512, 161), "rerank_ip": (256, 40)}
 MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000, 64, 10)}
 
 
@@ -89,17 +101,23 @@ def device_ms(fn, reps: int = 20, only: str = "") -> float:
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):  # a session can come back without device events
+    # A session can come back without device events, or with some of them
+    # lost: every kernel of ``fn`` runs on each call, so each must show at
+    # least ``reps`` launches.
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and only in e.key)
-        if us > 0:
-            return us / reps / 1e3
-        log(f"profiler session {attempt + 1} saw no device time; measuring again")
-    raise RuntimeError("the profiler saw no device time in 3 sessions")
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and only in e.key
+                   and e.self_device_time_total > 0]
+        fewest = min((e.count for e in kernels), default=0)
+        if fewest >= reps:
+            return sum(e.self_device_time_total for e in kernels) / reps / 1e3
+        log(f"profiler session {attempt + 1} saw {fewest} of {reps} launches of a "
+            f"kernel; measuring again")
+    raise RuntimeError("the profiler lost device events in 3 sessions")
 
 
 def warm_up_profiler() -> None:
@@ -150,7 +168,7 @@ def phase_build() -> None:
     _lib.lib()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in _lib.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"ptxas {line.strip()}")
 
 
@@ -162,24 +180,51 @@ def _int_or_float(shape, integer: bool, g):
     return torch.randn(shape, generator=g, device="cuda") / shape[-1] ** 0.5
 
 
-def _beam_state(shape, items, integer: bool, g):
-    """A valid walk state at ``shape``: pools sorted by the plain scorer,
-    empty tail slots, checked slots, rows done on input and rows with
-    nothing left unchecked, visited buffers that hit the adjacency rows."""
+def _int8_store(items, integer: bool, g):
+    """(codes, scales) of the int8 store: for integer items, small integer
+    codes and power-of-two scales (every quantized score exact); for float
+    items, the port's quantizer."""
     import torch
 
-    from repro_torch.core.similarity import gather_scores, top_l
+    from repro_torch.core.storage import quantize_items
+
+    if not integer:
+        return tuple(quantize_items(items))
+    n, d = items.shape
+    codes = torch.randint(-3, 4, (n, d), generator=g, device=items.device).to(torch.int8)
+    exps = torch.randint(-3, 4, (n,), generator=g, device=items.device).float()
+    return codes, torch.pow(2.0, exps)
+
+
+def _plain_scorer(scales):
+    """The plain scorer of one store: the fp32 dot, or quant_score_ref."""
+    from repro_torch.core.similarity import gather_scores
+    from repro_torch.kernels.quant_score import quant_score_ref
+
+    if scales is None:
+        return gather_scores
+    return lambda q, codes, ids: quant_score_ref(q, codes, scales, ids)
+
+
+def _beam_state(shape, rows, scales, integer: bool, g):
+    """A valid walk state at ``shape`` over ``rows`` (fp32 items, or int8
+    codes with ``scales``): pools sorted by the plain scorer, empty tail
+    slots, checked slots, rows done on input and rows with nothing left
+    unchecked, visited buffers that hit the adjacency rows."""
+    import torch
+
+    from repro_torch.core.similarity import top_l
 
     b, l, m, _, v = shape
-    n, d = items.shape
-    dev = items.device
+    n, d = rows.shape
+    dev = rows.device
     queries = _int_or_float((b, d), integer, g)
     adj = torch.randint(0, n, (n, m), generator=g, device=dev, dtype=torch.int32)
     adj[torch.rand((n, m), generator=g, device=dev) < 0.1] = -1
     ids = torch.randint(0, n, (b, l), generator=g, device=dev, dtype=torch.int32)
     n_empty = torch.randint(0, l // 2 + 1, (b, 1), generator=g, device=dev)
     ids[torch.arange(l, device=dev) >= l - n_empty] = -1
-    scores = torch.where(ids >= 0, gather_scores(queries, items, ids), float("-inf"))
+    scores = torch.where(ids >= 0, _plain_scorer(scales)(queries, rows, ids), float("-inf"))
     scores, order = top_l(scores, l)
     ids = ids.gather(1, order)
     checked = (torch.rand((b, l), generator=g, device=dev) < 0.5) | (ids < 0)
@@ -192,7 +237,7 @@ def _beam_state(shape, items, integer: bool, g):
     h = min(v // 2 - l, hits.shape[1])
     visited[:, :l] = ids
     visited[:, l: l + h] = hits[:, :h]
-    return (ids, scores.contiguous(), checked.contiguous(), visited, done, queries, adj, items)
+    return (ids, scores.contiguous(), checked.contiguous(), visited, done, queries, adj, rows)
 
 
 def _check_topk(name, ids_k, s_k, ids_p, s_p, integer: bool) -> int:
@@ -217,44 +262,127 @@ def _max_abs_err(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-def phase_beam_step(items_by_kind, g) -> dict:
+def phase_beam_step(items_by_kind, stores_by_kind, g) -> dict:
+    """beam_step over the fp32 items and over the int8 store; returns the
+    timings of both variants at the search IP shape, float inputs."""
     import torch
 
     from repro_torch.kernels.beam_step import beam_step, beam_step_ref
 
     out = {}
-    for walk, shape in BEAM_SHAPES.items():
+    for variant in ("f32", "int8"):
+        for walk, shape in BEAM_SHAPES.items():
+            for kind, items in items_by_kind.items():
+                rows, scales = (items, None) if variant == "f32" else stores_by_kind[kind]
+                args = _beam_state(shape, rows, scales, kind == "int", g)
+                run = lambda: beam_step(*args, scales)  # noqa: E731
+                plain = lambda: beam_step_ref(*args, score_fn=_plain_scorer(scales))  # noqa: E731
+                k, p = run(), plain()
+                torch.cuda.synchronize()
+                name = f"beam_step[{variant}] {walk}/{kind}"
+                assert torch.equal(k.nbr_ids, p.nbr_ids), f"{name}: nbr_ids"
+                assert torch.equal(k.done, p.done), f"{name}: done"
+                assert torch.equal(k.n_scored, p.n_scored), f"{name}: n_scored"
+                rows_tied = _check_topk(name, k.pool_ids, k.pool_scores, p.pool_ids,
+                                        p.pool_scores, kind == "int")
+                if kind == "int":
+                    assert torch.equal(k.pool_checked, p.pool_checked), f"{name}: checked"
+                err = _max_abs_err(k.pool_scores, p.pool_scores)
+                ms = device_ms(run)
+                plain_ms = device_ms(plain)
+                call_ms = cuda_ms(run)
+                b, l, m, _, v = shape
+                d = items.shape[1]
+                row_bytes = d * 4 if variant == "f32" else d + 4  # codes + scale
+                n_upd, n_scored = int((~k.done).sum()), int(k.n_scored.sum())
+                nbytes = (b * l * 9 + b + n_upd * (v * 4 + d * 4 + m * 4) + n_scored * row_bytes
+                          + b * l * 9 + b * m * 4 + b * 5)
+                bound_ms, by = bound(nbytes, 2.0 * d * n_scored)
+                launches = beam_step.launches if variant == "f32" else beam_step.launches_int8
+                log(f"kernel=beam_step variant={variant} walk={walk} inputs={kind} B={b} L={l} "
+                    f"M={m} V={v} d={d} ms={ms:.4f} call_ms={call_ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} library_ms=None bound_ms={bound_ms:.5f} "
+                    f"bound_by={by} near_tie_rows={rows_tied} max_abs_err={err:.3g} "
+                    f"launches={launches}")
+                if walk == "search_ip" and kind == "float":
+                    out[variant] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=by, library_ms=None, max_abs_err=err)
+    return out
+
+
+def _score_ids(b: int, w: int, n: int, g):
+    """[B, W] ids as the walk gives them: hub-skewed repeats and 10% -1."""
+    import torch
+
+    ids = torch.randint(0, n, (b, w), generator=g, device="cuda", dtype=torch.int32)
+    hubs = torch.rand((b, w), generator=g, device="cuda") < 0.2
+    ids[hubs] = torch.randint(0, 64, (int(hubs.sum()),), generator=g, device="cuda",
+                              dtype=torch.int32)
+    ids[torch.rand((b, w), generator=g, device="cuda") < 0.1] = -1
+    return ids
+
+
+def _check_scores(name, got, want, integer: bool) -> float:
+    """Integer inputs: bit-identical; float inputs: the tolerance contract.
+    -inf where and only where the plain version has it."""
+    import torch
+
+    from repro_torch.testing import scores_close
+
+    if integer:
+        assert torch.equal(got, want), f"{name}: scores differ on integer inputs"
+    else:
+        ok = scores_close(got.cpu().numpy(), want.cpu().numpy())
+        assert ok.all(), f"{name}: {int((~ok).sum())} scores outside the tolerance"
+    assert torch.equal(torch.isinf(got), torch.isinf(want)), f"{name}: -inf slots differ"
+    return _max_abs_err(got, want)
+
+
+def phase_scorers(items_by_kind, stores_by_kind, g) -> dict:
+    """quant_score at the int8 seed shapes and gather_score at the f32 seed
+    and rerank shapes; returns the timings at the IP seed shape, float."""
+    import torch
+
+    from repro_torch.kernels.gather_score import gather_score, gather_score_ref
+    from repro_torch.kernels.quant_score import quant_score, quant_score_ref
+
+    out = {}
+    cases = [("quant_score", cell, shape) for cell, shape in QUANT_SHAPES.items()]
+    cases += [("gather_score", cell, shape) for cell, shape in GATHER_SHAPES.items()]
+    for name, cell, (b, w) in cases:
         for kind, items in items_by_kind.items():
-            args = _beam_state(shape, items, kind == "int", g)
-            k = beam_step(*args)
-            p = beam_step_ref(*args)
+            n, d = items.shape
+            q = _int_or_float((b, d), kind == "int", g)
+            ids = _score_ids(b, w, n, g)
+            if name == "quant_score":
+                codes, scales = stores_by_kind[kind]
+                run = lambda: quant_score(q, codes, scales, ids)  # noqa: E731
+                plain = lambda: quant_score_ref(q, codes, scales, ids)  # noqa: E731
+                fn = quant_score
+            else:
+                run = lambda: gather_score(q, items, ids)  # noqa: E731
+                plain = lambda: gather_score_ref(q, items, ids)  # noqa: E731
+                fn = gather_score
+            got, want = run(), plain()
             torch.cuda.synchronize()
-            assert torch.equal(k.nbr_ids, p.nbr_ids), f"beam_step {walk}/{kind}: nbr_ids"
-            assert torch.equal(k.done, p.done), f"beam_step {walk}/{kind}: done"
-            assert torch.equal(k.n_scored, p.n_scored), f"beam_step {walk}/{kind}: n_scored"
-            rows = _check_topk(f"beam_step {walk}/{kind}", k.pool_ids, k.pool_scores,
-                               p.pool_ids, p.pool_scores, kind == "int")
-            if kind == "int":
-                assert torch.equal(k.pool_checked, p.pool_checked), f"beam_step {walk}: checked"
-            err = _max_abs_err(k.pool_scores, p.pool_scores)
-            ms = device_ms(lambda: beam_step(*args))
-            plain_ms = device_ms(lambda: beam_step_ref(*args))
-            call_ms = cuda_ms(lambda: beam_step(*args))
-            b, l, m, _, v = shape
-            d = items.shape[1]
-            upd = ~k.done
-            n_upd, n_scored = int(upd.sum()), int(k.n_scored.sum())
-            nbytes = (b * l * 9 + b + n_upd * (v * 4 + d * 4 + m * 4) + n_scored * d * 4
-                      + b * l * 9 + b * m * 4 + b * 5)
-            bound_ms, by = bound(nbytes, 2.0 * d * n_scored)
-            log(f"kernel=beam_step walk={walk} inputs={kind} B={b} L={l} M={m} V={v} d={d} "
-                f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
-                f"bound_ms={bound_ms:.5f} "
-                f"bound_by={by} near_tie_rows={rows} max_abs_err={err:.3g} "
-                f"launches={beam_step.launches}")
-            if walk == "search_ip" and kind == "float":
-                out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                           library_ms=None, max_abs_err=err)
+            err = _check_scores(f"{name} {cell}/{kind}", got, want, kind == "int")
+            ms = device_ms(run)
+            plain_ms = device_ms(plain)
+            call_ms = cuda_ms(run)
+            # each distinct row read once; a -1 id reads no row of the store
+            # (quant_score) or row 0 (gather_score clamps)
+            distinct = torch.unique(ids[ids >= 0] if name == "quant_score" else ids.clamp_min(0))
+            row_bytes = d + 4 if name == "quant_score" else d * 4
+            n_scored = int((ids >= 0).sum()) if name == "quant_score" else b * w
+            bound_ms, by = bound(b * w * 8 + distinct.numel() * row_bytes + b * d * 4,
+                                 2.0 * d * n_scored)
+            log(f"kernel={name} cell={cell} inputs={kind} B={b} W={w} d={d} ms={ms:.4f} "
+                f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+                f"bound_ms={bound_ms:.5f} bound_by={by} max_abs_err={err:.3g} "
+                f"launches={fn.launches}")
+            if cell == "seed_ip" and kind == "float":
+                out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                                 library_ms=None, max_abs_err=err)
     return out
 
 
@@ -339,33 +467,47 @@ def phase_commit_merge(items_by_kind, g) -> dict:
 
 
 def phase_mips_topk(g) -> dict:
+    """mips_topk over fp32 items and over the int8 store (the quantized
+    scan), at both MIPS_SHAPES."""
     import torch
 
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
 
     out = {}
-    for cell, (b, n, d, k) in MIPS_SHAPES.items():
-        for kind in ("int", "float"):
-            q = _int_or_float((b, d), kind == "int", g)
-            x = _int_or_float((n, d), kind == "int", g)
-            s_k, i_k = mips_topk(q, x, k=k)
-            s_p, i_p = mips_topk_ref(q, x, k=k)
-            torch.cuda.synchronize()
-            rows = _check_topk(f"mips_topk {cell}/{kind}", i_k, s_k, i_p, s_p, kind == "int")
-            err = _max_abs_err(s_k, s_p)
-            ms = device_ms(lambda: mips_topk(q, x, k=k))
-            call_ms = cuda_ms(lambda: mips_topk(q, x, k=k))
-            plain_ms = device_ms(lambda: mips_topk_ref(q, x, k=k))
-            library_ms = device_ms(lambda: torch.topk(torch.matmul(q, x.T), k, dim=1))
-            bound_ms, by = bound(b * d * 4 + n * d * 4 + b * k * 8, 2.0 * b * n * d)
-            log(f"kernel=mips_topk cell={cell} inputs={kind} B={b} N={n} d={d} k={k} "
-                f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={library_ms:.4f} "
-                f"bound_ms={bound_ms:.5f} bound_by={by} near_tie_rows={rows} "
-                f"max_abs_err={err:.3g} launches={mips_topk.launches}")
-            if cell == "full" and kind == "float":
-                out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                           library_ms=library_ms, max_abs_err=err)
+    for variant in ("f32", "int8"):
+        for cell, (b, n, d, k) in MIPS_SHAPES.items():
+            for kind in ("int", "float"):
+                q = _int_or_float((b, d), kind == "int", g)
+                x = _int_or_float((n, d), kind == "int", g)
+                if variant == "f32":
+                    scales = None
+                    library = lambda: torch.topk(torch.matmul(q, x.T), k, dim=1)  # noqa: E731
+                else:
+                    x, scales = _int8_store(x, kind == "int", g)
+                    library = None
+                run = lambda: mips_topk(q, x, scales, k=k)  # noqa: E731
+                plain = lambda: mips_topk_ref(q, x, k=k, scales=scales)  # noqa: E731
+                (s_k, i_k), (s_p, i_p) = run(), plain()
+                torch.cuda.synchronize()
+                rows = _check_topk(f"mips_topk[{variant}] {cell}/{kind}", i_k, s_k, i_p, s_p,
+                                   kind == "int")
+                err = _max_abs_err(s_k, s_p)
+                ms = device_ms(run)
+                call_ms = cuda_ms(run)
+                plain_ms = device_ms(plain)
+                library_ms = device_ms(library) if library is not None else None
+                row_bytes = d * 4 if variant == "f32" else d + 4
+                flops = 2.0 * b * n * d + (b * n if variant == "int8" else 0)
+                bound_ms, by = bound(b * d * 4 + n * row_bytes + b * k * 8, flops)
+                launches = mips_topk.launches if variant == "f32" else mips_topk.launches_int8
+                log(f"kernel=mips_topk variant={variant} cell={cell} inputs={kind} B={b} N={n} "
+                    f"d={d} k={k} ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={library_ms if library_ms is None else f'{library_ms:.4f}'} "
+                    f"bound_ms={bound_ms:.5f} bound_by={by} near_tie_rows={rows} "
+                    f"max_abs_err={err:.3g} launches={launches}")
+                if cell == "full" and kind == "float":
+                    out[variant] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=by, library_ms=library_ms, max_abs_err=err)
     return out
 
 
@@ -377,44 +519,77 @@ def phase_kernels() -> dict:
     g.manual_seed(0)
     items_by_kind = {kind: _int_or_float((N_FULL, D_FULL), kind == "int", g)
                      for kind in ("int", "float")}
+    stores_by_kind = {kind: _int8_store(items, kind == "int", g)
+                      for kind, items in items_by_kind.items()}
+    beam = phase_beam_step(items_by_kind, stores_by_kind, g)
+    scorers = phase_scorers(items_by_kind, stores_by_kind, g)
+    mips = phase_mips_topk(g)
     timings = {
-        "beam_step": phase_beam_step(items_by_kind, g),
+        "beam_step": beam["f32"],
+        "beam_step_int8": beam["int8"],
         "commit_merge": phase_commit_merge(items_by_kind, g),
-        "mips_topk": phase_mips_topk(g),
+        "mips_topk": mips["f32"],
+        "mips_topk_int8": mips["int8"],
+        "quant_score": scorers["quant_score"],
+        "gather_score": scorers["gather_score"],
     }
-    log("kernels: beam_step, commit_merge, mips_topk -- each equal to its plain version")
+    log(f"kernels: {', '.join(timings)} -- each equal to its plain version")
     return timings
 
 
 def _kernel_counters():
+    """name -> (wrapper, attribute of its launch count)."""
     from repro_torch.kernels.beam_step import beam_step
     from repro_torch.kernels.commit_merge import commit_merge
+    from repro_torch.kernels.gather_score import gather_score
     from repro_torch.kernels.mips_topk import mips_topk
+    from repro_torch.kernels.quant_score import quant_score
 
-    return {"beam_step": beam_step, "commit_merge": commit_merge, "mips_topk": mips_topk}
+    return {"beam_step": (beam_step, "launches"),
+            "beam_step_int8": (beam_step, "launches_int8"),
+            "commit_merge": (commit_merge, "launches"),
+            "mips_topk": (mips_topk, "launches"),
+            "mips_topk_int8": (mips_topk, "launches_int8"),
+            "quant_score": (quant_score, "launches"),
+            "gather_score": (gather_score, "launches")}
 
 
 def _zero_counts() -> None:
-    for fn in _kernel_counters().values():
-        fn.launches = 0
+    for fn, attr in _kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _kernel_counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _kernel_counters().items()}
+
+
+def _walk_steps() -> int:
+    counts = _read_counts()
+    return counts["beam_step"] + counts["beam_step_int8"]
+
+
+# kernels each serve path must launch (the exact scan runs once, the walks
+# score their seeds with gather_score or quant_score)
+SERVE_PATHS = {
+    "f32": (JAX_SERVE_RECALL, ("beam_step", "commit_merge", "mips_topk", "gather_score")),
+    "int8": (JAX_SERVE_RECALL_INT8, ("beam_step", "beam_step_int8", "commit_merge",
+                                     "mips_topk", "quant_score", "gather_score")),
+}
 
 
 def phase_serve_default() -> None:
     from repro_torch.launch import serve
 
-    _zero_counts()
-    res = serve.main(["--index", "ipnsw_plus"])
-    counts = _read_counts()
-    log(f"serve default: recall@10={res['recall']:.4f} (JAX {JAX_SERVE_RECALL}) "
-        f"evals/q={res['evals_per_query']:.1f} search_ms={res['search_seconds'] * 1e3:.3f} "
-        f"launches={counts}")
-    assert abs(res["recall"] - JAX_SERVE_RECALL) <= RECALL_MARGIN, \
-        f"serve recall {res['recall']} not within {RECALL_MARGIN} of JAX {JAX_SERVE_RECALL}"
-    assert all(c > 0 for c in counts.values()), f"a kernel was not launched: {counts}"
+    for storage, (jax_recall, path) in SERVE_PATHS.items():
+        _zero_counts()
+        res = serve.main(["--index", "ipnsw_plus", "--storage", storage])
+        counts = _read_counts()
+        log(f"serve default storage={storage}: recall@10={res['recall']:.4f} "
+            f"(JAX {jax_recall}) evals/q={res['evals_per_query']:.1f} "
+            f"search_ms={res['search_seconds'] * 1e3:.3f} launches={counts}")
+        assert abs(res["recall"] - jax_recall) <= RECALL_MARGIN, \
+            f"serve {storage} recall {res['recall']} not within {RECALL_MARGIN} of JAX {jax_recall}"
+        assert all(counts[name] > 0 for name in path), f"a kernel was not launched: {counts}"
 
 
 def phase_full_size() -> dict:
@@ -424,6 +599,7 @@ def phase_full_size() -> dict:
     from repro_torch.core.invariants import assert_graph_invariants
     from repro_torch.core.ipnsw import IpNSW
     from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.kernels.mips_topk import mips_topk
     from repro_torch.obs.recall import recall_at_k
     from repro_torch.data import mips_dataset, mips_queries
 
@@ -439,22 +615,36 @@ def phase_full_size() -> dict:
         index = cls(max_degree=16, ef_construction=32, insert_batch=512).build(items)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        index.search(queries, k=10, ef=40)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = index.search(queries, k=10, ef=40)
-        torch.cuda.synchronize()
-        search_s = time.perf_counter() - t0
-        rec = recall_at_k(r.ids.cpu().numpy(), gt)
         graphs = ([("ang", index.ang_graph), ("ip", index.ip_graph)]
                   if name == "ipnsw_plus" else [("ip", index.graph)])
         for gname, graph in graphs:
             assert_graph_invariants(graph, name=f"{name}/{gname}")
-        log(f"full size {name}: N={N_FULL} d={D_FULL} B=256 k=10 ef=40 "
-            f"build_s={build_s:.2f} search_ms={search_s * 1e3:.3f} "
-            f"qps={256 / search_s:.0f} recall@10={rec:.4f} "
-            f"evals/q={float(r.evals.float().mean()):.1f} invariants I1-I4 hold")
-        assert rec > 0.5, f"{name} recall@10 {rec} at full size"
+        recall = {}
+        for storage in ("f32", "int8"):
+            index.search(queries, k=10, ef=40, storage=storage)  # warm-up (int8: the store)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = index.search(queries, k=10, ef=40, storage=storage)
+            torch.cuda.synchronize()
+            search_s = time.perf_counter() - t0
+            recall[storage] = recall_at_k(r.ids.cpu().numpy(), gt)
+            log(f"full size {name}: storage={storage} N={N_FULL} d={D_FULL} B=256 k=10 ef=40 "
+                f"build_s={build_s:.2f} search_ms={search_s * 1e3:.3f} "
+                f"qps={256 / search_s:.0f} recall@10={recall[storage]:.4f} "
+                f"evals/q={float(r.evals.float().mean()):.1f} invariants I1-I4 hold")
+        assert recall["f32"] > 0.5, f"{name} recall@10 {recall['f32']} at full size"
+        assert recall["int8"] >= recall["f32"] - RECALL_MARGIN, \
+            f"{name} int8 recall@10 {recall['int8']} below f32 {recall['f32']} - {RECALL_MARGIN}"
+    # the int8 store's linear scan: quantized scores, no rerank
+    store = index.store
+    t0 = time.perf_counter()
+    _, scan_ids = mips_topk(queries, store.codes, store.scales, k=10)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    scan_recall = recall_at_k(scan_ids.cpu().numpy(), gt)
+    log(f"full size int8 quantized scan: recall@10={scan_recall:.4f} "
+        f"ms={scan_s * 1e3:.3f} (first call)")
+    assert scan_recall > 0.5, f"quantized scan recall@10 {scan_recall}"
     counts = _read_counts()
     log(f"full size peak_memory_bytes={torch.cuda.max_memory_allocated()} launches={counts}")
     assert all(c > 0 for c in counts.values()), f"a kernel was not launched: {counts}"
@@ -470,14 +660,14 @@ def _profiled(label: str, fn) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = _kernel_counters()["beam_step"].launches
+    steps0 = _walk_steps()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    steps = _kernel_counters()["beam_step"].launches - steps0
+    steps = _walk_steps() - steps0
     # device-side events only: a CPU op's entry repeats its kernels' time
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -499,6 +689,26 @@ def phase_profile(items, queries, ipnsw) -> None:
     _profiled("ipnsw build", lambda: IpNSW(max_degree=16, ef_construction=32,
                                            insert_batch=512).build(items))
     _profiled("ipnsw search", lambda: ipnsw.search(queries, k=10, ef=40))
+    _profiled("ipnsw search int8", lambda: ipnsw.search(queries, k=10, ef=40, storage="int8"))
+
+
+# kernel -> (its source, the TPU kernel it replaces)
+SOURCES = {
+    "beam_step": ("src/repro_torch/csrc/beam_step.cu",
+                  "src/repro/kernels/beam_step/kernel.py:50"),
+    "beam_step_int8": ("src/repro_torch/csrc/beam_step.cu",
+                       "src/repro/kernels/beam_step/kernel.py:151"),
+    "commit_merge": ("src/repro_torch/csrc/commit_merge.cu",
+                     "src/repro/kernels/commit_merge/kernel.py:78"),
+    "mips_topk": ("src/repro_torch/csrc/mips_topk.cu",
+                  "src/repro/kernels/mips_topk/kernel.py:48"),
+    "mips_topk_int8": ("src/repro_torch/csrc/mips_topk.cu",
+                       "src/repro/kernels/mips_topk/kernel.py:69"),
+    "quant_score": ("src/repro_torch/csrc/quant_score.cu",
+                    "src/repro/kernels/quant_score/kernel.py:23"),
+    "gather_score": ("src/repro_torch/csrc/gather_score.cu",
+                     "src/repro/kernels/gather_score/kernel.py:34"),
+}
 
 
 def main() -> int:
@@ -515,15 +725,9 @@ def main() -> int:
     timings = phase_kernels()
     phase_serve_default()
     counts = phase_full_size()
-    sources = {"beam_step": ("src/repro_torch/csrc/beam_step.cu",
-                             "src/repro/kernels/beam_step/kernel.py:50"),
-               "commit_merge": ("src/repro_torch/csrc/commit_merge.cu",
-                                "src/repro/kernels/commit_merge/kernel.py:78"),
-               "mips_topk": ("src/repro_torch/csrc/mips_topk.cu",
-                             "src/repro/kernels/mips_topk/kernel.py:48")}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])
-               for name, (src, rep) in sources.items()]
+               for name, (src, rep) in SOURCES.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,13 @@
 """Carry the JAX package's index state into the port.
 
 The functions take numpy arrays only -- ``np.asarray`` of the JAX package's
-``GraphIndex`` fields -- so this module imports nothing of that package.  A
-graph built by JAX can then be searched by the port and the ids compared.
+``GraphIndex`` fields, and of its ``ItemStore`` as ``(codes, scales)`` -- so
+this module imports nothing of that package.  A graph (and int8 store) built
+by JAX can then be searched by the port and the ids compared.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -14,6 +15,7 @@ import torch
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
+from repro_torch.core.storage import ItemStore
 
 
 def graph_from_arrays(
@@ -36,24 +38,46 @@ def graph_from_arrays(
     )
 
 
+def store_from_arrays(codes: np.ndarray, scales: np.ndarray, *,
+                      device: str = "cuda") -> ItemStore:
+    """An int8 ``ItemStore`` on ``device`` from numpy ``codes [N, d]`` and
+    ``scales [N]``."""
+    return ItemStore(
+        codes=torch.tensor(np.asarray(codes, np.int8), device=device),
+        scales=torch.tensor(np.asarray(scales, np.float32), device=device),
+    )
+
+
+def _store(arrays: Optional[Sequence[np.ndarray]], device: str) -> Optional[ItemStore]:
+    return None if arrays is None else store_from_arrays(*arrays, device=device)
+
+
 def ipnsw_from_arrays(adj, items, size, entry, entry_norm, *,
+                      store: Optional[Sequence[np.ndarray]] = None,
                       device: str = "cuda", **params) -> IpNSW:
-    """An ``IpNSW`` around one graph's numpy state; ``params`` are its build
-    knobs (``max_degree`` defaults to the adjacency's width)."""
+    """An ``IpNSW`` around one graph's numpy state, and its int8 store as
+    ``(codes, scales)`` if it has one; ``params`` are its knobs
+    (``max_degree`` defaults to the adjacency's width)."""
     params.setdefault("max_degree", np.asarray(adj).shape[1])
     index = IpNSW(device=device, **params)
     index.graph = graph_from_arrays(adj, items, size, entry, entry_norm, device=device)
+    index.store = _store(store, device)
     return index
 
 
 def ipnsw_plus_from_arrays(ang: Mapping[str, np.ndarray], ip: Mapping[str, np.ndarray],
-                           *, device: str = "cuda", **params) -> IpNSWPlus:
+                           *, ang_store: Optional[Sequence[np.ndarray]] = None,
+                           ip_store: Optional[Sequence[np.ndarray]] = None,
+                           device: str = "cuda", **params) -> IpNSWPlus:
     """An ``IpNSWPlus`` around both graphs' numpy state; ``ang`` and ``ip``
     hold the ``graph_from_arrays`` arguments (adj, items, size, entry,
-    entry_norm) of the angular and the inner-product graph."""
+    entry_norm) of the angular and the inner-product graph, ``ang_store``
+    and ``ip_store`` their int8 stores as ``(codes, scales)``."""
     params.setdefault("ang_degree", np.asarray(ang["adj"]).shape[1])
     params.setdefault("max_degree", np.asarray(ip["adj"]).shape[1])
     index = IpNSWPlus(device=device, **params)
     index.ang_graph = graph_from_arrays(**ang, device=device)
     index.ip_graph = graph_from_arrays(**ip, device=device)
+    index.ang_store = _store(ang_store, device)
+    index.ip_store = _store(ip_store, device)
     return index

@@ -11,6 +11,10 @@ neighbor is likely a MIPS neighbor), then walk G_s.
 Build (§4.2): each batch is inserted into A_s first; its G_s neighbors are
 then found by the ip-NSW+ search itself, seeded from the angular neighbors
 just found.
+
+With ``storage="int8"`` both walks of a search stream quantized stores, one
+per graph (the angular one holds the normalized copy), and each ends with
+its exact fp32 rerank.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.core.build import (
 from repro_torch.core.graph import GraphIndex, empty_graph
 from repro_torch.core.search import beam_search
 from repro_torch.core.similarity import NEG_INF, normalize
+from repro_torch.core.storage import ItemStore, make_store, validate_storage
 
 
 class PlusResult(NamedTuple):
@@ -78,16 +83,19 @@ def _search_plus(
     k_angular: int,
     max_steps: int,
     ang_max_steps: int,
+    storage: str = "f32",
+    ang_store: Optional[ItemStore] = None,
+    ip_store: Optional[ItemStore] = None,
 ) -> PlusResult:
     b = queries.shape[0]
     # Angular ranking is monotone in q . x_hat, so the raw query walks the
     # normalized items.
     ang = beam_search(ang_graph, queries, ang_graph.entry.expand(b, 1),
                       pool_size=max(ang_ef, k_angular), max_steps=ang_max_steps,
-                      k=k_angular)
+                      k=k_angular, storage=storage, store=ang_store)
     seeds = _seed_from_angular(ip_graph.adj, ang.ids)
     ip = beam_search(ip_graph, queries, seeds, pool_size=max(ef, k),
-                     max_steps=max_steps, k=k)
+                     max_steps=max_steps, k=k, storage=storage, store=ip_store)
     return PlusResult(
         ids=ip.ids,
         scores=ip.scores,
@@ -103,7 +111,8 @@ def _search_plus(
 class IpNSWPlus:
     """Dual-graph MIPS index (Algorithm 3 + the §4.2 joint construction).
     The angular graph uses the paper's M = l = 10; the inner-product graph
-    the parameters of plain ip-NSW.  The index lives on ``device``; the
+    the parameters of plain ip-NSW.  ``storage`` is the item representation
+    search streams, as ``IpNSW``'s.  The index lives on ``device``; the
     default is the card."""
 
     max_degree: int = 16          # M of G_s
@@ -113,11 +122,15 @@ class IpNSWPlus:
     k_angular: int = 10           # k': angular results whose G_s edges seed C
     insert_batch: int = 128
     reverse_links: bool = True
+    storage: str = "f32"
     device: str = "cuda"
     ang_graph: Optional[GraphIndex] = None
     ip_graph: Optional[GraphIndex] = None
+    ang_store: Optional[ItemStore] = None
+    ip_store: Optional[ItemStore] = None
 
     def build(self, items) -> "IpNSWPlus":
+        validate_storage(self.storage)
         items = torch.as_tensor(items, dtype=torch.float32, device=self.device).contiguous()
         n = items.shape[0]
         ang_items = normalize(items).contiguous()
@@ -150,13 +163,25 @@ class IpNSWPlus:
             ip = commit_batch(ip, bids, g_nbr, g_sc, norms,
                               reverse_links=self.reverse_links)
         self.ang_graph, self.ip_graph = ang, ip
+        self._make_stores(self.storage)
         return self
+
+    def _make_stores(self, storage: str) -> None:
+        """Derive both graphs' stores (None for "f32")."""
+        self.ang_store = make_store(self.ang_graph.items, storage)
+        self.ip_store = make_store(self.ip_graph.items, storage)
 
     def search(self, queries, k: int = 10, ef: int = 64,
                ang_ef: Optional[int] = None, k_angular: Optional[int] = None,
-               max_steps: Optional[int] = None) -> PlusResult:
+               max_steps: Optional[int] = None,
+               storage: Optional[str] = None) -> PlusResult:
+        """``storage`` overrides the index's own for this call."""
         if self.ip_graph is None:
             raise RuntimeError("call build() first")
+        st = storage if storage is not None else self.storage
+        validate_storage(st)
+        if st == "int8" and self.ip_store is None:
+            self._make_stores(st)  # an f32-built index searched with int8
         ang_ef = ang_ef if ang_ef is not None else self.ang_ef
         k_ang = k_angular if k_angular is not None else self.k_angular
         return _search_plus(
@@ -165,4 +190,7 @@ class IpNSWPlus:
             k=k, ef=ef, ang_ef=ang_ef, k_angular=k_ang,
             max_steps=max_steps if max_steps is not None else 2 * ef,
             ang_max_steps=2 * max(ang_ef, k_ang),
+            storage=st,
+            ang_store=self.ang_store if st == "int8" else None,
+            ip_store=self.ip_store if st == "int8" else None,
         )

@@ -13,16 +13,24 @@ when every query is done or ``max_steps`` is reached; it reads ``done`` back
 once per step (the condition of the JAX package's ``lax.while_loop``).  Each
 step is one ``beam_step`` call: the CUDA kernel for CUDA tensors, the plain
 version for CPU tensors.
+
+Storage (``storage=``, ``core/storage.py``): "int8" walks on the quantized
+store -- seeds by ``store_scores`` (the ``quant_score`` kernel), steps by the
+int8 ``beam_step`` -- and re-scores the final pool exactly in fp32
+(``gather_score``) before the top-k cut, so returned scores are exact inner
+products.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.graph import GraphIndex
-from repro_torch.core.similarity import NEG_INF, gather_scores, top_l
+from repro_torch.core.similarity import NEG_INF, top_l
+from repro_torch.core.storage import ItemStore, quantize_items, store_scores, validate_storage
 from repro_torch.kernels.beam_step import beam_step
+from repro_torch.kernels.gather_score import gather_score
 
 
 class SearchResult(NamedTuple):
@@ -49,6 +57,8 @@ def beam_search(
     pool_size: int,
     max_steps: int,
     k: int,
+    storage: str = "f32",
+    store: Optional[ItemStore] = None,
 ) -> SearchResult:
     """Run the batched walk.
 
@@ -56,8 +66,19 @@ def beam_search(
     init_ids: [B, S] int32 seed ids (-1 padded, repeats allowed): the entry
               vertex for ip-NSW, the G_s neighborhood of the angular results
               for ip-NSW+ (Algorithm 3).
+    storage:  "f32" | "int8" -- the item representation the walk streams.
+              "int8" scores seeds and steps with ``store`` (quantized from
+              ``graph.items`` here when not given; the index classes pass
+              their cached store), counts quantized evaluations, and cuts the
+              top k of the final pool by its exact fp32 scores; ids whose
+              exact score is -inf come back as -1.
     """
+    validate_storage(storage)
     adj, items = graph.adj, graph.items
+    if storage == "int8" and store is None:
+        store = quantize_items(items)
+    elif storage == "f32":
+        store = None
     queries = queries.float().contiguous()
     B, S = init_ids.shape
     M = adj.shape[1]
@@ -66,7 +87,13 @@ def beam_search(
 
     init_ids = _dedup_ids(init_ids.to(torch.int32))
     valid0 = init_ids >= 0
-    scores0 = torch.where(valid0, gather_scores(queries, items, init_ids), NEG_INF)
+    # seeds are scored by the walk's own scorer, so the pool order is one
+    # convention throughout
+    if store is None:
+        seed_scores = gather_score(queries, items, init_ids)
+    else:
+        seed_scores = store_scores(queries, store, init_ids)
+    scores0 = torch.where(valid0, seed_scores, NEG_INF)
     evals = valid0.sum(dim=-1, dtype=torch.int32)
 
     # seed pool: the top L seeds, sorted; empty slots are born checked
@@ -81,16 +108,32 @@ def beam_search(
     visited[:, :S] = init_ids
     done = torch.zeros(B, dtype=torch.bool, device=adj.device)
 
+    rows, scales = (items, None) if store is None else store
     step = 0
     while step < max_steps and not bool(done.all()):
         res = beam_step(pool_ids, pool_scores, pool_checked, visited, done,
-                        queries, adj, items)
+                        queries, adj, rows, scales)
         visited[:, S + step * M : S + (step + 1) * M] = res.nbr_ids
         evals += res.n_scored
         pool_ids, pool_scores, pool_checked, done = (
             res.pool_ids, res.pool_scores, res.pool_checked, res.done
         )
         step += 1
+
+    if store is not None:
+        # Exact fp32 rerank of the final pool: the quantized walk chose which
+        # L candidates survive, the fp32 scores decide their order and the
+        # cut.  evals stay the quantized counts.
+        exact = torch.where(pool_ids >= 0, gather_score(queries, items, pool_ids), NEG_INF)
+        vals, sel = top_l(exact, k)
+        ids = pool_ids.gather(1, sel)
+        return SearchResult(
+            ids=torch.where(vals > NEG_INF, ids, -1),
+            scores=vals,
+            evals=evals,
+            steps=step,
+            visited=visited,
+        )
 
     return SearchResult(
         ids=pool_ids[:, :k],

@@ -17,11 +17,20 @@ import torch
 NEG_INF = float("-inf")
 
 
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int32 keys in the total order of the fp32 scores: +0.0 above -0.0,
+    every other pair as the floats compare.  Negative floats have their
+    magnitude bits flipped, so larger magnitudes give smaller keys."""
+    bits = scores.float().contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
 def top_l(scores: torch.Tensor, l: int):
-    """``lax.top_k``'s order: score descending, the first occurrence winning
-    ties (-inf included).  Returns (values, positions) of the first ``l``."""
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :l], idx[..., :l]
+    """``lax.top_k``'s order: score descending with +0.0 above -0.0, the
+    first occurrence winning exact ties (-inf included).  Returns (values,
+    positions) of the first ``l``."""
+    idx = torch.sort(order_key(scores), dim=-1, descending=True, stable=True).indices[..., :l]
+    return scores.gather(-1, idx), idx
 
 
 class Similarity(enum.Enum):

@@ -1,4 +1,5 @@
-// beam_step: one Algorithm-1 iteration for every query of a walk, f32 items.
+// beam_step: one Algorithm-1 iteration for every query of a walk, over fp32
+// items (beam_step_f32) or the int8 store (beam_step_i8).
 //
 // Replaces the TPU kernel _beam_step_kernel (src/repro/kernels/beam_step/
 // kernel.py:50, launched by beam_step_pallas :188 behind ops.py:26).  The
@@ -7,20 +8,24 @@
 //   * done is sticky: done | no unchecked slot; done rows take no step;
 //   * a neighbour is valid if its id is >= 0 and not in the row's visited
 //     buffer; invalid ones get score -inf, id -1 and are born checked;
-//   * [pool, neighbours] merge into the top L by lax.top_k's order.
+//   * [pool, neighbours] merge into the top L by lax.top_k's order;
+//   * with the int8 store a neighbour scores (q . codes[id]) * scales[id]
+//     (kernel.py:151-161, quant_score/ref.py:19): repro::row_score, the
+//     same function quant_score.cu seeds the walk with.
 //
 // What bounds it on the H100: bytes.  A step reads, per updating query, its
 // pool, its visited buffer (V ids, the largest read: 1440 ids at the search
 // shape), M adjacency ids and up to M gathered rows of d floats, and does
 // 2*d flops per row -- far below the card's flop rate.  The rows are random
-// gathers, so the time goes to latency, not to streaming bandwidth.
+// gathers, so the time goes to latency, not to streaming bandwidth.  An int8
+// row is d bytes instead of 4*d plus a 4-byte scale.
 //
 // Design: one block per query.  The query row sits in shared memory; the M
 // adjacency ids are loaded once; the block scans the visited ids once,
 // coalesced, against all M ids in shared memory; one warp per neighbour row
 // loads it as float4 (d % 4 == 0) or floats and reduces with shuffles, so
 // every row is fetched by 32 lanes at once and the block keeps several rows
-// in flight.  The L+M merge ranks each candidate by counting (select.cuh) and
+// in flight (int8 rows: char4 loads, cast to float, one scale multiply).  The L+M merge ranks each candidate by counting (select.cuh) and
 // writes it to its slot: no sort.  Done rows copy their pool through and
 // fetch nothing -- the pool is sorted (it comes out of a merge or the seeding
 // top-k), so the merge would return it unchanged.
@@ -32,12 +37,15 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// Row is float (fp32 items; scales unused) or signed char (int8 codes).
+template <typename Row>
 __global__ void __launch_bounds__(kThreads) beam_step_kernel(
     const int* __restrict__ pool_ids, const float* __restrict__ pool_scores,
     const unsigned char* __restrict__ pool_checked,
     const int* __restrict__ visited, const unsigned char* __restrict__ done_in,
     const float* __restrict__ queries, const int* __restrict__ adj,
-    const float* __restrict__ items, int L, int V, int M, int d,
+    const Row* __restrict__ items, const float* __restrict__ scales, int L, int V, int M,
+    int d,
     int* __restrict__ out_ids, float* __restrict__ out_scores,
     unsigned char* __restrict__ out_checked, int* __restrict__ out_nbr,
     unsigned char* __restrict__ out_done, int* __restrict__ out_nscored) {
@@ -117,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(
     const int id = nbr[j];
     const bool valid = id >= 0 && !seen[j];
     float s = -INFINITY;
-    if (valid) s = repro::warp_dot(q_sh, items + static_cast<size_t>(id) * d, d, lane);
+    if (valid) s = repro::row_score(q_sh, items, scales, id, d, lane);
     if (lane == 0) {
       cs[L + j] = s;
       ci[L + j] = valid ? id : -1;
@@ -144,6 +152,25 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(
   }
 }
 
+template <typename Row>
+int launch(const int* pool_ids, const float* pool_scores, const unsigned char* pool_checked,
+           const int* visited, const unsigned char* done, const float* queries,
+           const int* adj, const Row* items, const float* scales, int B, int L, int V,
+           int M, int d, int* out_ids, float* out_scores, unsigned char* out_checked,
+           int* out_nbr, unsigned char* out_done, int* out_nscored, void* stream) {
+  const int C = L + M;
+  const size_t smem = sizeof(float) * ((d + 3) & ~3) + (sizeof(float) + sizeof(int)) * C +
+                      sizeof(int) * M + C + M;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(beam_step_kernel<Row>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  beam_step_kernel<Row><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      pool_ids, pool_scores, pool_checked, visited, done, queries, adj, items, scales, L, V,
+      M, d, out_ids, out_scores, out_checked, out_nbr, out_done, out_nscored);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int beam_step_f32(const int* pool_ids, const float* pool_scores,
@@ -154,15 +181,19 @@ extern "C" int beam_step_f32(const int* pool_ids, const float* pool_scores,
                              unsigned char* out_checked, int* out_nbr,
                              unsigned char* out_done, int* out_nscored,
                              void* stream) {
-  const int C = L + M;
-  const size_t smem = sizeof(float) * ((d + 3) & ~3) + (sizeof(float) + sizeof(int)) * C +
-                      sizeof(int) * M + C + M;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(beam_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  beam_step_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pool_ids, pool_scores, pool_checked, visited, done, queries, adj, items, L, V, M, d,
-      out_ids, out_scores, out_checked, out_nbr, out_done, out_nscored);
-  return static_cast<int>(cudaGetLastError());
+  return launch(pool_ids, pool_scores, pool_checked, visited, done, queries, adj, items,
+                static_cast<const float*>(nullptr), B, L, V, M, d, out_ids, out_scores,
+                out_checked, out_nbr, out_done, out_nscored, stream);
+}
+
+extern "C" int beam_step_i8(const int* pool_ids, const float* pool_scores,
+                            const unsigned char* pool_checked, const int* visited,
+                            const unsigned char* done, const float* queries, const int* adj,
+                            const signed char* codes, const float* scales, int B, int L,
+                            int V, int M, int d, int* out_ids, float* out_scores,
+                            unsigned char* out_checked, int* out_nbr,
+                            unsigned char* out_done, int* out_nscored, void* stream) {
+  return launch(pool_ids, pool_scores, pool_checked, visited, done, queries, adj, codes,
+                scales, B, L, V, M, d, out_ids, out_scores, out_checked, out_nbr, out_done,
+                out_nscored, stream);
 }

@@ -1,4 +1,5 @@
-// mips_topk: exact maximum-inner-product search with a streaming top-k, f32.
+// mips_topk: exact maximum-inner-product search with a streaming top-k, over
+// fp32 items (mips_topk_f32) or the int8 store (mips_topk_i8).
 //
 // Replaces the TPU kernel _mips_topk_kernel + _select_topk (src/repro/
 // kernels/mips_topk/kernel.py:32-88, launched by mips_topk_pallas :91 and by
@@ -13,7 +14,7 @@
 //
 // Design: the TPU's sequential grid carried the top-k accumulator across
 // item tiles; blocks on the card run in no order, so the work is split in
-// two passes.
+// two passes.  The ranking is lax.top_k's: +0.0 above -0.0.
 //   Pass 1: one block per (64-query tile x item chunk).  It walks its chunk
 //   in 64-item tiles: a shared-memory tiled product over d in steps of 16,
 //   each thread holding a 4x4 register tile of scores; then one warp per
@@ -21,6 +22,11 @@
 //   inserting only the (ballot-selected) scores that beat its current k-th.
 //   Pass 2: one block per query merges the chunk lists, ranking every
 //   candidate by counting under (score desc, id asc).
+//   int8 store (kernel.py:69-75): pass 1 casts the code tile to float as it
+//   fills shared memory and multiplies each finished score by its column's
+//   scale once, before the top-k insert -- the (q . codes) * scale order of
+//   quant_score/ref.py.  It streams d bytes per item instead of 4*d.  Pass 2
+//   is the same.
 #include <cuda_runtime.h>
 
 #include "select.cuh"
@@ -33,9 +39,9 @@ constexpr int kBK = 16;  // depth per shared-memory step
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ void topk_insert(float* ls, int* li, int k, float s, int id) {
-  if (!repro::precedes(s, id, ls[k - 1], li[k - 1])) return;
+  if (!repro::precedes_total(s, id, ls[k - 1], li[k - 1])) return;
   int p = k - 1;
-  while (p > 0 && repro::precedes(s, id, ls[p - 1], li[p - 1])) {
+  while (p > 0 && repro::precedes_total(s, id, ls[p - 1], li[p - 1])) {
     ls[p] = ls[p - 1];
     li[p] = li[p - 1];
     --p;
@@ -44,9 +50,12 @@ __device__ __forceinline__ void topk_insert(float* ls, int* li, int k, float s, 
   li[p] = id;
 }
 
+// Row is float (fp32 items; scales unused) or signed char (int8 codes).
+template <typename Row>
 __global__ void __launch_bounds__(kThreads) mips_topk_chunk_kernel(
-    const float* __restrict__ q, const float* __restrict__ x, int B, int N, int d, int k,
-    int chunk, float* __restrict__ part_s, int* __restrict__ part_i) {
+    const float* __restrict__ q, const Row* __restrict__ x, const float* __restrict__ scales,
+    int B, int N, int d, int k, int chunk, float* __restrict__ part_s,
+    int* __restrict__ part_i) {
   __shared__ float qs[kBK][kBQ + 1];
   __shared__ float xs[kBK][kBN + 1];
   __shared__ float S[kBQ][kBN + 1];
@@ -77,7 +86,8 @@ __global__ void __launch_bounds__(kThreads) mips_topk_chunk_kernel(
       for (int e = tid; e < kBN * kBK; e += kThreads) {
         const int r = e / kBK, kk = e % kBK;
         const int gn = n0 + r, gk = k0 + kk;
-        xs[kk][r] = (gn < n_end && gk < d) ? x[static_cast<size_t>(gn) * d + gk] : 0.f;
+        xs[kk][r] =
+            (gn < n_end && gk < d) ? static_cast<float>(x[static_cast<size_t>(gn) * d + gk]) : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -95,10 +105,16 @@ __global__ void __launch_bounds__(kThreads) mips_topk_chunk_kernel(
       __syncthreads();
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      const float scale = (scales != nullptr && col < n_end) ? scales[col] : 1.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        S[ty + 16 * i][tx + 16 * j] = (n0 + tx + 16 * j < n_end) ? acc[i][j] : -INFINITY;
+      for (int i = 0; i < 4; ++i) {
+        float s = acc[i][j];
+        if (scales != nullptr) s *= scale;
+        S[ty + 16 * i][tx + 16 * j] = col < n_end ? s : -INFINITY;
+      }
+    }
     __syncthreads();
 
     for (int r = warp; r < kBQ; r += nwarps) {
@@ -109,7 +125,7 @@ __global__ void __launch_bounds__(kThreads) mips_topk_chunk_kernel(
         const float s = S[r][half + lane];
         const int id = n0 + half + lane;
         unsigned mask =
-            __ballot_sync(repro::kFullMask, repro::precedes(s, id, ls[k - 1], li[k - 1]));
+            __ballot_sync(repro::kFullMask, repro::precedes_total(s, id, ls[k - 1], li[k - 1]));
         while (mask) {
           const int src = __ffs(mask) - 1;
           mask &= mask - 1;
@@ -152,7 +168,8 @@ __global__ void __launch_bounds__(kThreads) mips_topk_merge_kernel(
     const int idi = ci[i];
     int r = 0;
     for (int j = 0; j < C; ++j) {
-      r += repro::precedes(cs[j], ci[j], si, idi) || (cs[j] == si && ci[j] == idi && j < i);
+      r += repro::precedes_total(cs[j], ci[j], si, idi) ||
+           (cs[j] == si && ci[j] == idi && j < i);
     }
     if (r < k) {
       out_s[static_cast<size_t>(b) * k + r] = si;
@@ -161,19 +178,34 @@ __global__ void __launch_bounds__(kThreads) mips_topk_merge_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int mips_topk_f32(const float* q, const float* x, int B, int N, int d, int k,
-                             int nchunks, int chunk, float* part_s, int* part_i, float* out_s,
-                             int* out_i, void* stream) {
+template <typename Row>
+int launch(const float* q, const Row* x, const float* scales, int B, int N, int d, int k,
+           int nchunks, int chunk, float* part_s, int* part_i, float* out_s, int* out_i,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(nchunks, (B + kBQ - 1) / kBQ);
-  mips_topk_chunk_kernel<<<grid, kThreads, sizeof(float) * 2 * kBQ * k, s>>>(
-      q, x, B, N, d, k, chunk, part_s, part_i);
+  mips_topk_chunk_kernel<Row><<<grid, kThreads, sizeof(float) * 2 * kBQ * k, s>>>(
+      q, x, scales, B, N, d, k, chunk, part_s, part_i);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int C = nchunks * k;
   mips_topk_merge_kernel<<<B, kThreads, sizeof(float) * 2 * C, s>>>(part_s, part_i, C, k,
                                                                      out_s, out_i);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mips_topk_f32(const float* q, const float* x, int B, int N, int d, int k,
+                             int nchunks, int chunk, float* part_s, int* part_i, float* out_s,
+                             int* out_i, void* stream) {
+  return launch(q, x, static_cast<const float*>(nullptr), B, N, d, k, nchunks, chunk, part_s,
+                part_i, out_s, out_i, stream);
+}
+
+extern "C" int mips_topk_i8(const float* q, const signed char* codes, const float* scales,
+                            int B, int N, int d, int k, int nchunks, int chunk, float* part_s,
+                            int* part_i, float* out_s, int* out_i, void* stream) {
+  return launch(q, codes, scales, B, N, d, k, nchunks, chunk, part_s, part_i, out_s, out_i,
+                stream);
 }

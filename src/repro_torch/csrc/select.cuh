@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels: the two rank-counting
 // selectors that carry the JAX package's tie rules, and the one-warp gathered
-// dot product.
+// dot products over fp32 rows and int8 codes.
 //
 // A selection by counting gives each candidate its final position directly:
 // rank_i = #{j : j comes before i}.  With a strict total order every rank is
@@ -19,13 +19,30 @@ __device__ __forceinline__ bool precedes(float sa, int ka, float sb, int kb) {
   return sa > sb || (sa == sb && ka < kb);
 }
 
+// Key of a score in lax.top_k's total order: +0.0 above -0.0, every other
+// pair as the floats compare (core/similarity.py::order_key).
+__device__ __forceinline__ int order_key(float s) {
+  const int b = __float_as_int(s);
+  return b < 0 ? b ^ 0x7fffffff : b;
+}
+
+// precedes() in that total order: the order of lax.top_k, where lax.sort
+// (and so commit_merge) keeps -0.0 and +0.0 equal.
+__device__ __forceinline__ bool precedes_total(float sa, int ka, float sb, int kb) {
+  const int a = order_key(sa), b = order_key(sb);
+  return a > b || (a == b && ka < kb);
+}
+
 // lax.top_k / masked_top_l order (src/repro/kernels/topk_merge/kernel.py:23):
-// rank of candidate i of s[0, n) by score descending, the first occurrence
-// winning ties (-inf slots included).
+// rank of candidate i of s[0, n) by score descending, +0.0 above -0.0, the
+// first occurrence winning exact ties (-inf slots included).
 __device__ __forceinline__ int rank_first_occurrence(const float* s, int n, int i) {
-  const float si = s[i];
+  const int ki = order_key(s[i]);
   int r = 0;
-  for (int j = 0; j < n; ++j) r += precedes(s[j], j, si, i);
+  for (int j = 0; j < n; ++j) {
+    const int kj = order_key(s[j]);
+    r += kj > ki || (kj == ki && j < i);
+  }
   return r;
 }
 
@@ -69,6 +86,50 @@ __device__ __forceinline__ float warp_dot(const float* __restrict__ v_sh,
     for (int c = lane; c < d; c += 32) acc = fmaf(__ldg(row + c), v_sh[c], acc);
   }
   return warp_sum(acc);
+}
+
+// warp_dot over one row of int8 codes (d % 4 == 0: rows start on 4-byte
+// boundaries and load as char4).  The codes are cast to float and FMA'd in
+// the same order as warp_dot; the caller multiplies the sum by the row's
+// scale once, so every scorer of the int8 store does the same arithmetic.
+__device__ __forceinline__ float warp_dot_i8(const float* __restrict__ v_sh,
+                                             const signed char* __restrict__ row,
+                                             int d, int lane) {
+  float acc = 0.f;
+  if ((d & 3) == 0) {
+    const char4* r4 = reinterpret_cast<const char4*>(row);
+    const float4* v4 = reinterpret_cast<const float4*>(v_sh);
+    for (int c = lane; c < (d >> 2); c += 32) {
+      const char4 a = __ldg(r4 + c);
+      const float4 b = v4[c];
+      acc = fmaf(static_cast<float>(a.x), b.x, acc);
+      acc = fmaf(static_cast<float>(a.y), b.y, acc);
+      acc = fmaf(static_cast<float>(a.z), b.z, acc);
+      acc = fmaf(static_cast<float>(a.w), b.w, acc);
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      acc = fmaf(static_cast<float>(__ldg(row + c)), v_sh[c], acc);
+    }
+  }
+  return warp_sum(acc);
+}
+
+// The score of row ``id`` under each item store: the fp32 dot, or the int8
+// convention (q . codes[id]) * scales[id] -- one multiply after the dot,
+// never folded into the query or the row.
+__device__ __forceinline__ float row_score(const float* __restrict__ q_sh,
+                                           const float* __restrict__ items,
+                                           const float* __restrict__ /*scales*/,
+                                           int id, int d, int lane) {
+  return warp_dot(q_sh, items + static_cast<size_t>(id) * d, d, lane);
+}
+
+__device__ __forceinline__ float row_score(const float* __restrict__ q_sh,
+                                           const signed char* __restrict__ codes,
+                                           const float* __restrict__ scales,
+                                           int id, int d, int lane) {
+  return warp_dot_i8(q_sh, codes + static_cast<size_t>(id) * d, d, lane) * __ldg(scales + id);
 }
 
 }  // namespace repro

@@ -1,13 +1,18 @@
 """beam_step wrapper: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel of ``csrc/beam_step.cu`` or raises.
+launches a kernel of ``csrc/beam_step.cu`` or raises.
 
-``beam_step.launches`` counts kernel launches (plain runs do not count)."""
+``items`` holds the fp32 rows, or the int8 store's codes when ``scales`` is
+given (the ``beam_step_i8`` entry; scores ``(q . codes[id]) * scales[id]``).
+``beam_step.launches`` counts launches of the fp32 kernel and
+``beam_step.launches_int8`` those of the int8 one (plain runs count in
+neither)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.beam_step.ref import StepResult, beam_step_ref
+from repro_torch.kernels.quant_score.ref import quant_score_ref
 
 
 def beam_step(
@@ -18,20 +23,24 @@ def beam_step(
     done: torch.Tensor,          # [B] bool
     queries: torch.Tensor,       # [B, d] fp32
     adj: torch.Tensor,           # [N, M] int32, -1 padded
-    items: torch.Tensor,         # [N, d] fp32
-    scales: "torch.Tensor | None" = None,
+    items: torch.Tensor,         # [N, d] fp32, or int8 codes with scales
+    scales: "torch.Tensor | None" = None,  # [N] fp32: items are int8 codes
     live: "torch.Tensor | None" = None,
 ) -> StepResult:
     """One Algorithm-1 iteration for every query; the result equals
     ``beam_step_ref`` (ids bit-identical on exact scores)."""
-    if scales is not None or live is not None:
+    if live is not None:
         raise NotImplementedError(
-            "beam_step takes f32 items only: the int8 scales and the live "
-            "mask come with the storage and mutation slices of the port"
+            "beam_step takes no live mask yet: it comes with the mutation "
+            "slice of the port"
         )
     if not _lib.on_cuda(pool_ids):
+        if scales is None:
+            return beam_step_ref(pool_ids, pool_scores, pool_checked, visited, done,
+                                 queries, adj, items)
         return beam_step_ref(pool_ids, pool_scores, pool_checked, visited, done,
-                             queries, adj, items)
+                             queries, adj, items,
+                             score_fn=lambda q, c, ids: quant_score_ref(q, c, scales, ids))
     dev = pool_ids.device
     B, L = pool_ids.shape
     V = visited.shape[1]
@@ -44,7 +53,11 @@ def beam_step(
     _lib.expect(done, "done", torch.bool, (B,), dev)
     _lib.expect(queries, "queries", torch.float32, (B, d), dev)
     _lib.expect(adj, "adj", torch.int32, (N, M), dev)
-    _lib.expect(items, "items", torch.float32, (N, d), dev)
+    if scales is None:
+        _lib.expect(items, "items", torch.float32, (N, d), dev)
+    else:
+        _lib.expect(items, "codes", torch.int8, (N, d), dev)
+        _lib.expect(scales, "scales", torch.float32, (N,), dev)
     out = StepResult(
         pool_ids=torch.empty((B, L), dtype=torch.int32, device=dev),
         pool_scores=torch.empty((B, L), dtype=torch.float32, device=dev),
@@ -55,15 +68,19 @@ def beam_step(
     )
     if B == 0:
         return out
-    rc = _lib.lib().beam_step_f32(
-        pool_ids.data_ptr(), pool_scores.data_ptr(), pool_checked.data_ptr(),
-        visited.data_ptr(), done.data_ptr(), queries.data_ptr(), adj.data_ptr(),
-        items.data_ptr(), B, L, V, M, d,
-        *(t.data_ptr() for t in out), _lib.stream(dev),
-    )
-    _lib.check(rc, "beam_step")
-    beam_step.launches += 1
+    state = (pool_ids.data_ptr(), pool_scores.data_ptr(), pool_checked.data_ptr(),
+             visited.data_ptr(), done.data_ptr(), queries.data_ptr(), adj.data_ptr())
+    tail = (B, L, V, M, d, *(t.data_ptr() for t in out), _lib.stream(dev))
+    if scales is None:
+        rc = _lib.lib().beam_step_f32(*state, items.data_ptr(), *tail)
+        _lib.check(rc, "beam_step")
+        beam_step.launches += 1
+    else:
+        rc = _lib.lib().beam_step_i8(*state, items.data_ptr(), scales.data_ptr(), *tail)
+        _lib.check(rc, "beam_step (int8)")
+        beam_step.launches_int8 += 1
     return out
 
 
 beam_step.launches = 0
+beam_step.launches_int8 = 0

@@ -32,9 +32,13 @@ def beam_step_ref(
     queries: torch.Tensor,
     adj: torch.Tensor,
     items: torch.Tensor,
+    *,
+    score_fn=gather_scores,
 ) -> StepResult:
     """Select the best unchecked pool slot, expand its adjacency row, mask
-    visited and invalid neighbors, score the rest, merge into the pool."""
+    visited and invalid neighbors, score the rest, merge into the pool.
+    ``score_fn(queries, items, ids)`` scores the neighbors: the fp32 dot by
+    default, the int8 store's scorer for a quantized walk."""
     B, L = pool_ids.shape
     rows = torch.arange(B, device=pool_ids.device)
     iota = torch.arange(L, device=pool_ids.device)
@@ -54,7 +58,7 @@ def beam_step_ref(
     seen = (nbrs[:, :, None] == visited[:, None, :]).any(dim=-1)
     valid = (nbrs >= 0) & upd[:, None] & ~seen
 
-    nbr_scores = torch.where(valid, gather_scores(queries, items, nbrs), NEG_INF)
+    nbr_scores = torch.where(valid, score_fn(queries, items, nbrs), NEG_INF)
     nbr_ids = torch.where(valid, nbrs, -1).to(torch.int32)
 
     cand_ids = torch.cat([pool_ids, nbr_ids], dim=-1)

@@ -3,7 +3,9 @@ launches the two-pass kernel of ``csrc/mips_topk.cu`` or raises.
 
 The wrapper picks the item chunking of pass 1 so that the grid holds about
 two blocks per SM, and allocates the per-chunk top-k lists pass 2 merges.
-``mips_topk.launches`` counts kernel launches."""
+With ``scales`` the items are the int8 store's codes (the ``mips_topk_i8``
+entry).  ``mips_topk.launches`` counts launches of the fp32 kernel and
+``mips_topk.launches_int8`` those of the int8 one."""
 from __future__ import annotations
 
 import torch
@@ -28,15 +30,22 @@ def chunking(b: int, n: int, k: int, sms: int):
     return -(-n // per_chunk), per_chunk
 
 
-def mips_topk(queries: torch.Tensor, items: torch.Tensor, *, k: int = 10):
-    """Exact top-k MIPS: (scores [B, k] fp32, ids [B, k] int32)."""
+def mips_topk(queries: torch.Tensor, items: torch.Tensor,
+              scales: "torch.Tensor | None" = None, *, k: int = 10):
+    """Exact top-k MIPS: (scores [B, k] fp32, ids [B, k] int32).  With
+    ``scales`` ([N] fp32), ``items`` are int8 codes and the scores are
+    ``(q . codes) * scale``."""
     if not _lib.on_cuda(queries):
-        return mips_topk_ref(queries, items, k=k)
+        return mips_topk_ref(queries, items, k=k, scales=scales)
     dev = queries.device
     b, d = queries.shape
     n = items.shape[0]
     _lib.expect(queries, "queries", torch.float32, (b, d), dev)
-    _lib.expect(items, "items", torch.float32, (n, d), dev)
+    if scales is None:
+        _lib.expect(items, "items", torch.float32, (n, d), dev)
+    else:
+        _lib.expect(items, "codes", torch.int8, (n, d), dev)
+        _lib.expect(scales, "scales", torch.float32, (n,), dev)
     if not 1 <= k <= min(MAX_K, n):
         raise ValueError(f"mips_topk on the card takes 1 <= k <= min({MAX_K}, N={n}), got {k}")
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -46,14 +55,19 @@ def mips_topk(queries: torch.Tensor, items: torch.Tensor, *, k: int = 10):
     chunks, per_chunk = chunking(b, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
     part_s = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)
-    rc = _lib.lib().mips_topk_f32(
-        queries.data_ptr(), items.data_ptr(), b, n, d, k, chunks, per_chunk,
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        _lib.stream(dev),
-    )
-    _lib.check(rc, "mips_topk")
-    mips_topk.launches += 1
+    tail = (b, n, d, k, chunks, per_chunk, part_s.data_ptr(), part_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), _lib.stream(dev))
+    if scales is None:
+        rc = _lib.lib().mips_topk_f32(queries.data_ptr(), items.data_ptr(), *tail)
+        _lib.check(rc, "mips_topk")
+        mips_topk.launches += 1
+    else:
+        rc = _lib.lib().mips_topk_i8(queries.data_ptr(), items.data_ptr(), scales.data_ptr(),
+                                     *tail)
+        _lib.check(rc, "mips_topk (int8)")
+        mips_topk.launches_int8 += 1
     return out_s, out_i
 
 
 mips_topk.launches = 0
+mips_topk.launches_int8 = 0

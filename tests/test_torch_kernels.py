@@ -9,6 +9,7 @@ is ``repro_torch.testing``'s: scores within rtol=1e-5 / atol=1e-6, ids
 identical up to near-ties, and bit-identical on integer-valued items.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -19,6 +20,7 @@ from repro.kernels.commit_merge.ref import commit_merge_ref as jax_commit_merge_
 from repro.kernels.mips_topk.ops import mips_topk as jax_mips_topk
 
 from repro_torch.core.brute_force import exact_topk
+from repro_torch.core.similarity import top_l
 from repro_torch.kernels.beam_step import beam_step
 from repro_torch.kernels.commit_merge import (
     commit_merge,
@@ -112,12 +114,59 @@ def test_beam_step_all_done_is_a_no_op():
     assert np.array_equal(np.asarray(j.pool_ids), t.pool_ids.numpy())
 
 
-def test_beam_step_rejects_storage_and_live_operands():
+def test_beam_step_rejects_live_operand():
     state = [torch.from_numpy(a) for a in _beam_state(4)]
     with pytest.raises(NotImplementedError):
-        beam_step(*state, scales=torch.ones(state[7].shape[0]))
-    with pytest.raises(NotImplementedError):
         beam_step(*state, live=torch.ones(state[7].shape[0], dtype=torch.bool))
+
+
+# ------------------------------------------------------- signed-zero ordering
+
+
+def test_top_l_ranks_positive_zero_above_negative_zero_as_lax_top_k():
+    x = np.array([[-0.0, 0.0, -0.0, 0.0]], np.float32)
+    vals, idx = top_l(torch.from_numpy(x), 4)
+    j_vals, j_idx = jax.lax.top_k(jnp.asarray(x), 4)
+    assert np.asarray(j_idx).tolist() == [[1, 3, 0, 2]]
+    assert idx.tolist() == [[1, 3, 0, 2]]
+    assert np.array_equal(np.signbit(vals.numpy()), np.signbit(np.asarray(j_vals)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_top_l_matches_lax_top_k_with_signed_zeros_and_ties(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2, 3, (16, 48)).astype(np.float32)
+    x[rng.random(x.shape) < 0.3] = -0.0
+    x[rng.random(x.shape) < 0.1] = -np.inf
+    vals, idx = top_l(torch.from_numpy(x), 20)
+    j_vals, j_idx = jax.lax.top_k(jnp.asarray(x), 20)
+    assert np.array_equal(idx.numpy(), np.asarray(j_idx))
+    assert np.array_equal(np.signbit(vals.numpy()), np.signbit(np.asarray(j_vals)))
+
+
+def test_beam_step_ranks_signed_zero_neighbours_as_jax():
+    """d = 1 and a negative query: the row +0.0 scores -0.0 and the row -0.0
+    scores +0.0 (in both packages).  The neighbours come in that order, and
+    the pool already holds a -0.0 score, so a merge that keeps +-0 equal puts
+    the +0.0 neighbour last."""
+    items = np.array([[0.0], [-0.0], [1.0], [0.0]], np.float32)
+    queries = np.array([[-1.0]], np.float32)
+    adj = np.array([[2, -1, -1], [2, -1, -1], [3, -1, -1], [0, 1, -1]], np.int32)
+    state = (
+        np.array([[2, 3, -1, -1]], np.int32),                      # pool ids
+        np.array([[-1.0, -0.0, -np.inf, -np.inf]], np.float32),    # scores
+        np.array([[True, False, True, True]]),                     # checked
+        np.array([[2, 3, -1, -1, -1]], np.int32),                  # visited
+        np.array([False]),
+        queries,
+        adj,
+        items,
+    )
+    j, t = _run_both_steps(state)
+    assert np.asarray(j.pool_ids).tolist() == [[1, 3, 0, 2]]
+    assert np.array_equal(t.pool_ids.numpy(), np.asarray(j.pool_ids))
+    assert np.array_equal(np.signbit(t.pool_scores.numpy()), np.signbit(np.asarray(j.pool_scores)))
+    assert np.array_equal(t.pool_checked.numpy(), np.asarray(j.pool_checked))
 
 
 # --------------------------------------------------------------- commit_merge
