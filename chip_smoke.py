@@ -16,11 +16,20 @@ Phases (each one that fails ends the run with a non-zero exit):
      ``library_ms`` are device time per call (torch.profiler), beside
      ``bound_ms``, the least time the card could take for the same work;
      ``call_ms`` is the time a caller waits per back-to-back wrapper call
-     (CUDA events).
+     (CUDA events).  beam_step also runs with a tombstone mask over about
+     half the items (its live variants): n_dead must equal the plain
+     version's exactly.
   4. serve default: the port's launch/serve.py one-shot, --index
      ipnsw_plus, at the JAX package's defaults, with --storage f32 and with
      --storage int8; recall@10 within 0.02 of the JAX package's recall for
      the same command.
+  4b. serve default + churn: the serve default's index, built again and
+     opened as a MutableIndex (capacity 1.25 N, mutation_batch 32), takes
+     the JAX serve CLI's churn trace (turnover 0.2, one hub kill of 8, four
+     relink passes of 64), with a search between events; I1-I6 hold, no
+     tombstone surfaces (f32 and int8), recall@10 within 0.02 of the JAX
+     package's on the same trace and, after relinking to zero debt, at
+     least a fresh rebuild's - 0.02.
   5. full size: IpNSWPlus and IpNSW at Yahoo!Music's size (136,736 x 300,
      seeded synthetic lognormal items), ground truth from the mips_topk
      kernel; each index searched with the f32 items and the int8 store, and
@@ -28,6 +37,13 @@ Phases (each one that fails ends the run with a non-zero exit):
      recall@10, evals, peak memory, graph invariants I1-I4; then a profiled
      IpNSW build, f32 search and int8 search: device busy time, idle share,
      walk steps, host time per step.
+  6. full size + churn: a mutable IpNSWPlus at Yahoo!Music's size
+     (capacity 170,920) takes a churn trace of turnover 0.1 (427 upsert and
+     427 delete batches of 32, one hub kill, four relink passes); ms per
+     upsert batch, delete batch and relink pass, search ms with and without
+     the tombstone mask on the same index, dead evals per query, recall@10
+     before and after the trace and after relinking, health counters, peak
+     memory, launches, and one profiled upsert batch.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -50,6 +66,10 @@ JAX_SERVE_RECALL = 0.933
 # [serve] index=ipnsw_plus shards=1 storage=int8 N=20000 B=256 ef=40:
 # recall@10=0.935 evals/q=540 (0.44 ms/query batch-amortized) xla_compiles=970
 JAX_SERVE_RECALL_INT8 = 0.935
+# `PYTHONPATH=src python scripts/churn_reference.py` (the JAX package, on the
+# CPU) printed: recall@10 before=0.9332 after_trace=0.9258 after_relink=0.9258
+# after_relink_int8=0.9262 fresh_rebuild=0.9352 (the trace left no relink debt)
+JAX_CHURN_RECALL = 0.9258
 RECALL_MARGIN = 0.02
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -67,6 +87,10 @@ COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
 QUANT_SHAPES = {"seed_ip": (256, 160), "seed_angular": (256, 1)}
 GATHER_SHAPES = {"seed_ip": (256, 160), "build_seed_ip": (512, 161), "rerank_ip": (256, 40)}
 MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000, 64, 10)}
+# the JAX serve CLI's churn deployment (src/repro/launch/serve.py:309-321)
+CHURN = dict(batch=32, seed=3, profile="lognormal", duration_s=1.0, hub_kill_at=0.5,
+             hub_kill_k=8, relink_every=0.25, relink_budget=64)
+RELINK_PASS_CAP = 64  # full size: relink passes after the trace, at most
 
 
 def log(msg: str) -> None:
@@ -263,49 +287,64 @@ def _max_abs_err(a, b) -> float:
 
 
 def phase_beam_step(items_by_kind, stores_by_kind, g) -> dict:
-    """beam_step over the fp32 items and over the int8 store; returns the
-    timings of both variants at the search IP shape, float inputs."""
+    """beam_step over the fp32 items and over the int8 store, each without
+    and with a tombstone mask (about half the items dead); returns the
+    timings of the four variants at the search IP shape, float inputs."""
     import torch
 
     from repro_torch.kernels.beam_step import beam_step, beam_step_ref
 
     out = {}
+    counters = {"f32": "launches", "int8": "launches_int8", "f32_live": "launches_live",
+                "int8_live": "launches_int8_live"}
     for variant in ("f32", "int8"):
         for walk, shape in BEAM_SHAPES.items():
             for kind, items in items_by_kind.items():
                 rows, scales = (items, None) if variant == "f32" else stores_by_kind[kind]
                 args = _beam_state(shape, rows, scales, kind == "int", g)
-                run = lambda: beam_step(*args, scales)  # noqa: E731
-                plain = lambda: beam_step_ref(*args, score_fn=_plain_scorer(scales))  # noqa: E731
-                k, p = run(), plain()
-                torch.cuda.synchronize()
-                name = f"beam_step[{variant}] {walk}/{kind}"
-                assert torch.equal(k.nbr_ids, p.nbr_ids), f"{name}: nbr_ids"
-                assert torch.equal(k.done, p.done), f"{name}: done"
-                assert torch.equal(k.n_scored, p.n_scored), f"{name}: n_scored"
-                rows_tied = _check_topk(name, k.pool_ids, k.pool_scores, p.pool_ids,
-                                        p.pool_scores, kind == "int")
-                if kind == "int":
-                    assert torch.equal(k.pool_checked, p.pool_checked), f"{name}: checked"
-                err = _max_abs_err(k.pool_scores, p.pool_scores)
-                ms = device_ms(run)
-                plain_ms = device_ms(plain)
-                call_ms = cuda_ms(run)
-                b, l, m, _, v = shape
-                d = items.shape[1]
-                row_bytes = d * 4 if variant == "f32" else d + 4  # codes + scale
-                n_upd, n_scored = int((~k.done).sum()), int(k.n_scored.sum())
-                nbytes = (b * l * 9 + b + n_upd * (v * 4 + d * 4 + m * 4) + n_scored * row_bytes
-                          + b * l * 9 + b * m * 4 + b * 5)
-                bound_ms, by = bound(nbytes, 2.0 * d * n_scored)
-                launches = beam_step.launches if variant == "f32" else beam_step.launches_int8
-                log(f"kernel=beam_step variant={variant} walk={walk} inputs={kind} B={b} L={l} "
-                    f"M={m} V={v} d={d} ms={ms:.4f} call_ms={call_ms:.4f} "
-                    f"plain_ms={plain_ms:.4f} library_ms=None bound_ms={bound_ms:.5f} "
-                    f"bound_by={by} near_tie_rows={rows_tied} max_abs_err={err:.3g} "
-                    f"launches={launches}")
-                if walk == "search_ip" and kind == "float":
-                    out[variant] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                live = torch.rand(rows.shape[0], generator=g, device=rows.device) >= 0.5
+                for mask in (None, live):
+                    tag = variant if mask is None else f"{variant}_live"
+                    run = lambda: beam_step(*args, scales, mask)  # noqa: E731
+                    plain = lambda: beam_step_ref(  # noqa: E731
+                        *args, score_fn=_plain_scorer(scales), live=mask)
+                    k, p = run(), plain()
+                    torch.cuda.synchronize()
+                    name = f"beam_step[{tag}] {walk}/{kind}"
+                    assert torch.equal(k.nbr_ids, p.nbr_ids), f"{name}: nbr_ids"
+                    assert torch.equal(k.done, p.done), f"{name}: done"
+                    assert torch.equal(k.n_scored, p.n_scored), f"{name}: n_scored"
+                    if mask is None:
+                        assert k.n_dead is None and p.n_dead is None, f"{name}: n_dead"
+                    else:
+                        assert torch.equal(k.n_dead, p.n_dead), f"{name}: n_dead"
+                        assert int(k.n_dead.sum()) > 0, f"{name}: no tombstone was scored"
+                    rows_tied = _check_topk(name, k.pool_ids, k.pool_scores, p.pool_ids,
+                                            p.pool_scores, kind == "int")
+                    if kind == "int":
+                        assert torch.equal(k.pool_checked, p.pool_checked), f"{name}: checked"
+                    err = _max_abs_err(k.pool_scores, p.pool_scores)
+                    ms = device_ms(run)
+                    plain_ms = device_ms(plain)
+                    call_ms = cuda_ms(run)
+                    b, l, m, _, v = shape
+                    d = items.shape[1]
+                    row_bytes = d * 4 if variant == "f32" else d + 4  # codes + scale
+                    n_upd, n_scored = int((~k.done).sum()), int(k.n_scored.sum())
+                    nbytes = (b * l * 9 + b + n_upd * (v * 4 + d * 4 + m * 4)
+                              + n_scored * row_bytes + b * l * 9 + b * m * 4 + b * 5)
+                    if mask is not None:
+                        nbytes += n_scored + b * 4  # a live byte per valid neighbour, n_dead
+                    bound_ms, by = bound(nbytes, 2.0 * d * n_scored)
+                    launches = getattr(beam_step, counters[tag])
+                    log(f"kernel=beam_step variant={tag} walk={walk} inputs={kind} B={b} "
+                        f"L={l} M={m} V={v} d={d} ms={ms:.4f} call_ms={call_ms:.4f} "
+                        f"plain_ms={plain_ms:.4f} library_ms=None bound_ms={bound_ms:.5f} "
+                        f"bound_by={by} near_tie_rows={rows_tied} max_abs_err={err:.3g} "
+                        f"n_dead={0 if k.n_dead is None else int(k.n_dead.sum())} "
+                        f"launches={launches}")
+                    if walk == "search_ip" and kind == "float":
+                        out[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=by, library_ms=None, max_abs_err=err)
     return out
 
@@ -527,6 +566,8 @@ def phase_kernels() -> dict:
     timings = {
         "beam_step": beam["f32"],
         "beam_step_int8": beam["int8"],
+        "beam_step_live": beam["f32_live"],
+        "beam_step_int8_live": beam["int8_live"],
         "commit_merge": phase_commit_merge(items_by_kind, g),
         "mips_topk": mips["f32"],
         "mips_topk_int8": mips["int8"],
@@ -547,6 +588,8 @@ def _kernel_counters():
 
     return {"beam_step": (beam_step, "launches"),
             "beam_step_int8": (beam_step, "launches_int8"),
+            "beam_step_live": (beam_step, "launches_live"),
+            "beam_step_int8_live": (beam_step, "launches_int8_live"),
             "commit_merge": (commit_merge, "launches"),
             "mips_topk": (mips_topk, "launches"),
             "mips_topk_int8": (mips_topk, "launches_int8"),
@@ -564,8 +607,7 @@ def _read_counts() -> dict:
 
 
 def _walk_steps() -> int:
-    counts = _read_counts()
-    return counts["beam_step"] + counts["beam_step_int8"]
+    return sum(n for name, n in _read_counts().items() if name.startswith("beam_step"))
 
 
 # kernels each serve path must launch (the exact scan runs once, the walks
@@ -647,8 +689,203 @@ def phase_full_size() -> dict:
     assert scan_recall > 0.5, f"quantized scan recall@10 {scan_recall}"
     counts = _read_counts()
     log(f"full size peak_memory_bytes={torch.cuda.max_memory_allocated()} launches={counts}")
-    assert all(c > 0 for c in counts.values()), f"a kernel was not launched: {counts}"
+    live = [name for name in counts if name.endswith("_live")]
+    assert all(c > 0 for name, c in counts.items() if name not in live), \
+        f"a kernel was not launched: {counts}"
+    assert not any(counts[name] for name in live), f"a frozen index launched a live kernel: {counts}"
     phase_profile(items, queries, index)
+    return counts
+
+
+# kernels each churn phase must launch: the live walks of upserts, relinks
+# and searches (f32 and int8), the commits, the seeds' scorers and the
+# ground truth over the live catalog
+CHURN_PATH = ("beam_step_live", "beam_step_int8_live", "commit_merge", "gather_score",
+              "quant_score", "mips_topk")
+
+
+def _live_ground_truth(queries, m, k: int = 10):
+    """Exact top k over the live rows (the mips_topk kernel), as slot ids."""
+    import torch
+
+    from repro_torch.core.brute_force import exact_topk
+
+    live_ids = torch.nonzero(m.live).flatten()
+    _, pos = exact_topk(queries, m.graph.items[live_ids], k=k)
+    return live_ids[pos.long()].cpu().numpy()
+
+
+def _assert_no_tombstone(m, ids, what: str) -> None:
+    hit = (ids >= 0) & ~m.live[ids.clamp_min(0).long()]
+    assert not bool(hit.any()), f"{what}: a tombstoned id surfaced"
+
+
+def _dead_evals(m, res) -> float:
+    """Evaluations per query spent on tombstones: the dead ids among the
+    scored ids of both ip-NSW+ walks (each scored id is in a visited buffer
+    once)."""
+    dead = 0
+    for vis in (res.visited_ang, res.visited_ip):
+        dead = dead + ((vis >= 0) & ~m.live[vis.clamp_min(0).long()]).sum(-1)
+    return float(dead.float().mean())
+
+
+def phase_churn_default() -> dict:
+    """The serve default opened for mutation, under the JAX serve CLI's churn
+    trace, with a search between events; held to the JAX package's recall
+    on the same trace and to a fresh rebuild of the live catalog."""
+    import torch
+
+    from repro_torch.core import ChurnTrace, IpNSWPlus, MutableIndex, apply_churn_event
+    from repro_torch.core.brute_force import exact_topk
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.obs.recall import recall_at_k
+
+    n, d = 20_000, 64
+    items = torch.as_tensor(mips_dataset(n, d, "lognormal", seed=0), dtype=torch.float32,
+                            device="cuda")
+    queries = torch.as_tensor(mips_queries(256, d, seed=1), device="cuda")
+    index = IpNSWPlus(max_degree=16, ef_construction=32, insert_batch=512).build(items)
+    _zero_counts()
+    m = MutableIndex(index, capacity=int(n * 1.25), mutation_batch=32)
+    trace = ChurnTrace.generate(n_items=n, dim=d, turnover=0.2, **CHURN)
+    recall = {"before": recall_at_k(m.search(queries, k=10, ef=40).ids.cpu().numpy(),
+                                    _live_ground_truth(queries, m))}
+    for i, ev in enumerate(trace.events):
+        apply_churn_event(m, ev)
+        storage = "int8" if i % 16 == 15 else "f32"
+        _assert_no_tombstone(m, m.search(queries, k=10, ef=40, storage=storage).ids,
+                             f"search after event {i} ({ev.kind}, {storage})")
+    errs = m.check_invariants()
+    assert not errs, "invariants I1-I6 after the trace:\n  " + "\n  ".join(errs)
+    gt = _live_ground_truth(queries, m)
+    for storage in ("f32", "int8"):
+        r = m.search(queries, k=10, ef=40, storage=storage)
+        _assert_no_tombstone(m, r.ids, f"search after the trace ({storage})")
+        recall[f"after_trace_{storage}"] = recall_at_k(r.ids.cpu().numpy(), gt)
+    passes = 0
+    while m.relink_debt():
+        m.relink(64)
+        passes += 1
+    r = m.search(queries, k=10, ef=40)
+    _assert_no_tombstone(m, r.ids, "search after relinking")
+    recall["after_relink"] = recall_at_k(r.ids.cpu().numpy(), gt)
+    counts = _read_counts()
+    live_ids = torch.nonzero(m.live).flatten()
+    compact = m.graph.items[live_ids].contiguous()
+    fresh = IpNSWPlus(max_degree=16, ef_construction=32, insert_batch=512).build(compact)
+    _, gt_f = exact_topk(queries, compact, k=10)
+    recall["fresh_rebuild"] = recall_at_k(
+        fresh.search(queries, k=10, ef=40).ids.cpu().numpy(), gt_f.cpu().numpy())
+    log(f"churn default: N={n} d={d} capacity={m.capacity} events={trace.n_events} "
+        f"relink_passes_after_trace={passes} invariants I1-I6 hold, no tombstone surfaced "
+        f"recall@10 " + " ".join(f"{k}={v:.4f}" for k, v in recall.items())
+        + f" (JAX {JAX_CHURN_RECALL}) health={m.health()} launches={counts}")
+    for key in ("after_trace_f32", "after_relink"):
+        assert abs(recall[key] - JAX_CHURN_RECALL) <= RECALL_MARGIN, \
+            f"churn recall {key}={recall[key]} not within {RECALL_MARGIN} of JAX {JAX_CHURN_RECALL}"
+    assert recall["after_relink"] >= recall["fresh_rebuild"] - RECALL_MARGIN, \
+        f"churn recall {recall['after_relink']} below a fresh rebuild's {recall['fresh_rebuild']}"
+    assert all(counts[name] > 0 for name in CHURN_PATH), f"a kernel was not launched: {counts}"
+    return counts
+
+
+def phase_churn_full() -> dict:
+    """A mutable IpNSWPlus at Yahoo!Music's size under a churn trace of
+    turnover 0.1: the slice's main path at full width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ChurnTrace, IpNSWPlus, MutableIndex, apply_churn_event
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.obs.recall import recall_at_k
+
+    items = torch.as_tensor(mips_dataset(N_FULL, D_FULL, "lognormal", seed=0), device="cuda")
+    queries = torch.as_tensor(mips_queries(256, D_FULL, seed=1), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    index = IpNSWPlus(max_degree=16, ef_construction=32, insert_batch=512).build(items)
+    del items
+    _zero_counts()
+    m = MutableIndex(index, capacity=int(N_FULL * 1.25), mutation_batch=32)
+    trace = ChurnTrace.generate(n_items=N_FULL, dim=D_FULL, turnover=0.1, **CHURN)
+    recall = {}
+    gt = _live_ground_truth(queries, m)
+    recall["before"] = recall_at_k(m.search(queries, k=10, ef=40).ids.cpu().numpy(), gt)
+    recall["before_int8"] = recall_at_k(
+        m.search(queries, k=10, ef=40, storage="int8").ids.cpu().numpy(), gt)
+    ms = {"upsert": [], "delete": [], "relink": [], "hub_kill": []}
+    for i, ev in enumerate(trace.events):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply_churn_event(m, ev)
+        torch.cuda.synchronize()
+        ms[ev.kind].append((time.perf_counter() - t0) * 1e3)
+        if i % 64 == 63:
+            _assert_no_tombstone(m, m.search(queries, k=10, ef=40).ids,
+                                 f"search after event {i}")
+    errs = m.check_invariants()
+    assert not errs, "invariants I1-I6 after the trace:\n  " + "\n  ".join(errs)
+    for kind, t in ms.items():
+        log(f"churn full: {kind} n={len(t)} ms_mean={np.mean(t):.3f} ms_median="
+            f"{np.median(t):.3f} ms_max={np.max(t):.3f}")
+    # search with and without the tombstone mask, same index, ten pairs in
+    # turns (live first in even pairs)
+    times = {"live": [], "plain": []}
+    for pair in range(10):
+        for order in (("live", "plain") if pair % 2 == 0 else ("plain", "live")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if order == "live":
+                m.search(queries, k=10, ef=40)
+            else:
+                m.index.search(queries, k=10, ef=40)
+            torch.cuda.synchronize()
+            times[order].append((time.perf_counter() - t0) * 1e3)
+    log("churn full: search B=256 ef=40 ms " + " ".join(
+        f"{name}_median={np.median(t):.3f} {name}={['%.3f' % x for x in t]}"
+        for name, t in times.items()))
+    gt = _live_ground_truth(queries, m)
+    for storage in ("f32", "int8"):
+        r = m.search(queries, k=10, ef=40, storage=storage)
+        _assert_no_tombstone(m, r.ids, f"search after the trace ({storage})")
+        recall[f"after_trace_{storage}"] = recall_at_k(r.ids.cpu().numpy(), gt)
+        log(f"churn full: after the trace storage={storage} dead_evals/q={_dead_evals(m, r):.2f} "
+            f"evals/q={float(r.evals.float().mean()):.1f}")
+    debt0, passes = m.relink_debt(), 0
+    t0 = time.perf_counter()
+    while passes < RELINK_PASS_CAP and m.relink_debt():
+        m.relink(64)
+        passes += 1
+    torch.cuda.synchronize()
+    relink_s = time.perf_counter() - t0
+    r = m.search(queries, k=10, ef=40)
+    _assert_no_tombstone(m, r.ids, "search after relinking")
+    recall["after_relink"] = recall_at_k(r.ids.cpu().numpy(), gt)
+    log(f"churn full: relink debt after the trace {debt0}, {passes} passes of 64 in "
+        f"{relink_s:.2f} s (cap {RELINK_PASS_CAP}), debt left {m.relink_debt()}; "
+        f"after relinking dead_evals/q={_dead_evals(m, r):.2f}")
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()  # the mutable index's, before the rebuild
+    live_ids = torch.nonzero(m.live).flatten()
+    compact = m.graph.items[live_ids].contiguous()
+    t0 = time.perf_counter()
+    fresh = IpNSWPlus(max_degree=16, ef_construction=32, insert_batch=512).build(compact)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    pos = fresh.search(queries, k=10, ef=40).ids.long()
+    recall["fresh_rebuild"] = recall_at_k(
+        torch.where(pos >= 0, live_ids[pos.clamp_min(0)], -1).cpu().numpy(), gt)
+    del fresh, compact
+    log(f"churn full: fresh rebuild of the live catalog build_s={fresh_s:.2f}")
+    log(f"churn full: N={N_FULL} d={D_FULL} capacity={m.capacity} events={trace.n_events} "
+        f"recall@10 " + " ".join(f"{k}={v:.4f}" for k, v in recall.items())
+        + f" health={m.health()} peak_memory_bytes={peak} "
+        f"launches={counts}")
+    assert recall["after_relink"] > 0.5, f"churn full recall@10 {recall['after_relink']}"
+    assert all(counts[name] > 0 for name in CHURN_PATH), f"a kernel was not launched: {counts}"
+    payload = mips_dataset(32, D_FULL, "lognormal", seed=4)
+    _profiled("churn upsert batch of 32", lambda: m.upsert(payload))
     return counts
 
 
@@ -698,6 +935,10 @@ SOURCES = {
                   "src/repro/kernels/beam_step/kernel.py:50"),
     "beam_step_int8": ("src/repro_torch/csrc/beam_step.cu",
                        "src/repro/kernels/beam_step/kernel.py:151"),
+    "beam_step_live": ("src/repro_torch/csrc/beam_step.cu",
+                       "src/repro/kernels/beam_step/kernel.py:178"),
+    "beam_step_int8_live": ("src/repro_torch/csrc/beam_step.cu",
+                            "src/repro/kernels/beam_step/kernel.py:178"),
     "commit_merge": ("src/repro_torch/csrc/commit_merge.cu",
                      "src/repro/kernels/commit_merge/kernel.py:78"),
     "mips_topk": ("src/repro_torch/csrc/mips_topk.cu",
@@ -724,7 +965,10 @@ def main() -> int:
     phase_build()
     timings = phase_kernels()
     phase_serve_default()
+    phase_churn_default()
     counts = phase_full_size()
+    # each kernel's launches on the full-size path that runs it
+    counts.update({name: n for name, n in phase_churn_full().items() if name.endswith("_live")})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])
                for name, (src, rep) in SOURCES.items()]

@@ -3,11 +3,13 @@
 The functions take numpy arrays only -- ``np.asarray`` of the JAX package's
 ``GraphIndex`` fields, and of its ``ItemStore`` as ``(codes, scales)`` -- so
 this module imports nothing of that package.  A graph (and int8 store) built
-by JAX can then be searched by the port and the ids compared.
+by JAX can then be searched by the port and the ids compared, and a JAX
+``MutableIndex`` carried across in mid-churn can go on mutating in the port.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from collections import deque
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
+from repro_torch.core.mutation import MutableIndex
 from repro_torch.core.storage import ItemStore
 
 
@@ -81,3 +84,23 @@ def ipnsw_plus_from_arrays(ang: Mapping[str, np.ndarray], ip: Mapping[str, np.nd
     index.ang_store = _store(ang_store, device)
     index.ip_store = _store(ip_store, device)
     return index
+
+
+def mutable_from_arrays(index: Union[IpNSW, IpNSWPlus], *, norms: np.ndarray,
+                        live: np.ndarray, free: Sequence[int], next_fresh: int,
+                        mutation_count: int = 0, mutation_batch: int = 32,
+                        relink_threshold: float = 0.3) -> MutableIndex:
+    """A ``MutableIndex`` with a JAX ``MutableIndex``'s state.  ``index``
+    holds its padded graphs and stores (``ipnsw_from_arrays`` /
+    ``ipnsw_plus_from_arrays`` of ``m.index``'s fields); the rest is its
+    ``norms [capacity]``, ``live [capacity]`` bool, the free-slot deque
+    ``_free`` in order, ``_next_fresh``, ``mutation_count``, and its
+    ``mutation_batch`` and ``relink_threshold`` knobs."""
+    m = MutableIndex(index, mutation_batch=mutation_batch, relink_threshold=relink_threshold)
+    m.norms = torch.tensor(np.asarray(norms, np.float32), device=m.device)
+    m._live_host = np.asarray(live, bool).copy()
+    m.live = torch.tensor(m._live_host, device=m.device)
+    m._free = deque(int(i) for i in free)
+    m._next_fresh = int(next_fresh)
+    m.mutation_count = int(mutation_count)
+    return m

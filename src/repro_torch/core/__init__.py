@@ -21,6 +21,11 @@ _EXPORTS = {
     "PlusResult": "ipnsw_plus",
     "exact_topk": "brute_force",
     "check_graph_invariants": "invariants",
+    "dead_edge_fraction": "invariants",
+    "MutableIndex": "mutation",
+    "ChurnEvent": "mutation",
+    "ChurnTrace": "mutation",
+    "apply_churn_event": "mutation",
     "STORAGE_BACKENDS": "storage",
     "ItemStore": "storage",
     "dequantize": "storage",

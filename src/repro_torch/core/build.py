@@ -15,6 +15,8 @@ only), which is not navigable from a fixed entry vertex (DESIGN.md §2).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -26,7 +28,7 @@ from repro_torch.kernels.commit_merge import commit_merge
 
 def commit_batch(
     graph: GraphIndex,
-    batch_ids: torch.Tensor,   # [B] ids being inserted, ascending
+    batch_ids: torch.Tensor,   # [B] distinct ids being inserted, in any order
     nbr_ids: torch.Tensor,     # [B, M] int32 chosen neighbors (-1 padded)
     nbr_scores: torch.Tensor,  # [B, M] fp32
     norms: torch.Tensor,       # [N] fp32 (for the entry vertex)
@@ -34,7 +36,9 @@ def commit_batch(
 ) -> GraphIndex:
     """Write one insertion batch into ``graph.adj`` (in place) and advance
     size and entry.  The entry follows the largest norm: an O(B) compare of
-    the batch's best against the carried ``entry_norm``."""
+    the batch's best against the carried ``entry_norm``.  A build inserts
+    ascending ids; a mutable index commits reused slots in FIFO order, and
+    the first maximum in batch order wins, as in the JAX package."""
     m = graph.adj.shape[1]
     adj = graph.adj
     batch_ids = batch_ids.long()
@@ -48,7 +52,7 @@ def commit_batch(
             nbr_scores.reshape(-1).float(),
         )
     b_norms = norms[batch_ids]
-    best = torch.argmax(b_norms)  # first max = smallest id
+    best = torch.argmax(b_norms)  # the first max in batch order
     take = b_norms[best] > graph.entry_norm
     return GraphIndex(
         adj=adj,
@@ -83,11 +87,14 @@ def find_neighbors(
     max_degree: int,
     ef: int,
     max_steps: int,
+    live: Optional[torch.Tensor] = None,
 ):
-    """Algorithm-1 search of the current graph for each batch item's top M."""
+    """Algorithm-1 search of the current graph for each batch item's top M.
+    ``live`` is a mutable index's tombstone mask: the walk routes through
+    dead nodes but never returns one, so no new edge points at a tombstone."""
     init = graph.entry.expand(batch_items.shape[0], 1)
     res = beam_search(graph, batch_items, init, pool_size=ef,
-                      max_steps=max_steps, k=max_degree)
+                      max_steps=max_steps, k=max_degree, live=live)
     return torch.where(res.scores > NEG_INF, res.ids, -1), res.scores
 
 

@@ -5,7 +5,9 @@ A graph over N items with max out-degree M is one ``[N, M]`` int32 tensor
 which is the quantity the paper's Figure 4 analyses.  Unlike the JAX
 package's functional updates, the build writes ``adj`` in place
 (``core/build.py``), so one ``[N, M]`` buffer lives on the device for the
-whole build.
+whole build; a mutable index (``core/mutation.py``) writes its padded copy
+in place too.  ``dataclasses.replace(graph, entry=..., entry_norm=...)``
+takes the place of the JAX NamedTuple's ``_replace``.
 """
 from __future__ import annotations
 
@@ -52,6 +54,22 @@ def empty_graph(items: torch.Tensor, max_degree: int) -> GraphIndex:
         size=torch.zeros((), dtype=torch.int64, device=dev),
         entry=torch.zeros((), dtype=torch.int64, device=dev),
         entry_norm=torch.full((), float("-inf"), dtype=torch.float32, device=dev),
+    )
+
+
+def pad_graph(graph: GraphIndex, capacity: int) -> GraphIndex:
+    """A copy of ``graph`` with ``capacity`` rows: adjacency rows padded
+    with -1, item rows with 0.  Always a copy, so in-place mutation of the
+    result never writes the caller's tensors."""
+    n, m = graph.adj.shape
+    pad = capacity - n
+    adj, items = graph.adj, graph.items
+    return GraphIndex(
+        adj=torch.cat([adj, adj.new_full((pad, m), -1)]),
+        items=torch.cat([items, items.new_zeros((pad, items.shape[1]))]),
+        size=graph.size.clone(),
+        entry=graph.entry.clone(),
+        entry_norm=graph.entry_norm.clone(),
     )
 
 

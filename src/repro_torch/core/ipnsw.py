@@ -59,8 +59,11 @@ class IpNSW:
 
     def search(self, queries, k: int = 10, ef: int = 64,
                max_steps: Optional[int] = None,
-               storage: Optional[str] = None) -> SearchResult:
-        """``storage`` overrides the index's own for this call."""
+               storage: Optional[str] = None,
+               live: Optional[torch.Tensor] = None) -> SearchResult:
+        """``storage`` overrides the index's own for this call.  ``live`` is
+        the [N] tombstone mask of a mutable index (``core/mutation.py``):
+        dead nodes route the walk but never appear in the results."""
         if self.graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -70,5 +73,5 @@ class IpNSW:
         return beam_search(
             self.graph, q, init, pool_size=max(ef, k),
             max_steps=max_steps if max_steps is not None else 2 * ef, k=k,
-            storage=st, store=store,
+            storage=st, store=store, live=live,
         )

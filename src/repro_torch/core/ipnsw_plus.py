@@ -61,14 +61,16 @@ def _find_ip_neighbors_seeded(
     max_degree: int,
     ef: int,
     max_steps: int,
+    live: Optional[torch.Tensor] = None,
 ):
     """§4.2 insertion: an item's G_s neighbors by the angular-seeded walk.
     The entry vertex joins the seeds so that the first, sparse batches still
-    have a valid start."""
+    have a valid start.  ``live`` is a mutable index's tombstone mask, as in
+    ``build.find_neighbors``: no new edge points at a dead slot."""
     seeds = _seed_from_angular(ip_graph.adj, ang_nbr_ids)
     entry = ip_graph.entry.expand(batch_items.shape[0], 1).to(seeds.dtype)
     res = beam_search(ip_graph, batch_items, torch.cat([seeds, entry], dim=-1),
-                      pool_size=ef, max_steps=max_steps, k=max_degree)
+                      pool_size=ef, max_steps=max_steps, k=max_degree, live=live)
     return torch.where(res.scores > NEG_INF, res.ids, -1), res.scores
 
 
@@ -86,16 +88,19 @@ def _search_plus(
     storage: str = "f32",
     ang_store: Optional[ItemStore] = None,
     ip_store: Optional[ItemStore] = None,
+    live: Optional[torch.Tensor] = None,
 ) -> PlusResult:
     b = queries.shape[0]
     # Angular ranking is monotone in q . x_hat, so the raw query walks the
-    # normalized items.
+    # normalized items.  Both graphs index the same slots, so one tombstone
+    # mask serves both walks; the angular walk cuts dead ids from its own
+    # results, so no G_s seed row comes from a deleted item.
     ang = beam_search(ang_graph, queries, ang_graph.entry.expand(b, 1),
                       pool_size=max(ang_ef, k_angular), max_steps=ang_max_steps,
-                      k=k_angular, storage=storage, store=ang_store)
+                      k=k_angular, storage=storage, store=ang_store, live=live)
     seeds = _seed_from_angular(ip_graph.adj, ang.ids)
     ip = beam_search(ip_graph, queries, seeds, pool_size=max(ef, k),
-                     max_steps=max_steps, k=k, storage=storage, store=ip_store)
+                     max_steps=max_steps, k=k, storage=storage, store=ip_store, live=live)
     return PlusResult(
         ids=ip.ids,
         scores=ip.scores,
@@ -174,8 +179,10 @@ class IpNSWPlus:
     def search(self, queries, k: int = 10, ef: int = 64,
                ang_ef: Optional[int] = None, k_angular: Optional[int] = None,
                max_steps: Optional[int] = None,
-               storage: Optional[str] = None) -> PlusResult:
-        """``storage`` overrides the index's own for this call."""
+               storage: Optional[str] = None,
+               live: Optional[torch.Tensor] = None) -> PlusResult:
+        """``storage`` overrides the index's own for this call; ``live`` is
+        the tombstone mask of a mutable index, applied to both walks."""
         if self.ip_graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -193,4 +200,5 @@ class IpNSWPlus:
             storage=st,
             ang_store=self.ang_store if st == "int8" else None,
             ip_store=self.ip_store if st == "int8" else None,
+            live=live,
         )

@@ -19,6 +19,11 @@ store -- seeds by ``store_scores`` (the ``quant_score`` kernel), steps by the
 int8 ``beam_step`` -- and re-scores the final pool exactly in fp32
 (``gather_score``) before the top-k cut, so returned scores are exact inner
 products.
+
+Tombstones (``live=``, ``core/mutation.py``): walks route through dead
+nodes, which keep their scores in the pool and their adjacency rows, and
+count the evaluations spent on them (``SearchResult.dead_evals``); the final
+cut never returns one.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ class SearchResult(NamedTuple):
     evals: torch.Tensor    # [B] int32 similarity evaluations
     steps: int             # loop iterations executed
     visited: torch.Tensor  # [B, V] int32 every scored id (-1 padded)
+    dead_evals: Optional[torch.Tensor] = None  # [B] int32 evals on tombstones
+    #   (None without a live mask)
 
 
 def _dedup_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -59,6 +66,7 @@ def beam_search(
     k: int,
     storage: str = "f32",
     store: Optional[ItemStore] = None,
+    live: Optional[torch.Tensor] = None,
 ) -> SearchResult:
     """Run the batched walk.
 
@@ -72,6 +80,11 @@ def beam_search(
               their cached store), counts quantized evaluations, and cuts the
               top k of the final pool by its exact fp32 scores; ids whose
               exact score is -inf come back as -1.
+    live:     [N] bool tombstone mask of a mutable index, or None.  Dead
+              nodes route the walk but are cut from the results (ids -1 when
+              fewer than k live ids remain), and ``dead_evals`` counts the
+              evaluations spent on them.  ``None`` runs the frozen-index path
+              unchanged.
     """
     validate_storage(storage)
     adj, items = graph.adj, graph.items
@@ -95,6 +108,11 @@ def beam_search(
         seed_scores = store_scores(queries, store, init_ids)
     scores0 = torch.where(valid0, seed_scores, NEG_INF)
     evals = valid0.sum(dim=-1, dtype=torch.int32)
+    dead_evals = None
+    if live is not None:
+        live = live.bool()
+        dead_evals = (valid0 & ~live[init_ids.clamp_min(0).long()]).sum(
+            dim=-1, dtype=torch.int32)
 
     # seed pool: the top L seeds, sorted; empty slots are born checked
     top0, idx0 = top_l(scores0, min(L, S))
@@ -112,9 +130,11 @@ def beam_search(
     step = 0
     while step < max_steps and not bool(done.all()):
         res = beam_step(pool_ids, pool_scores, pool_checked, visited, done,
-                        queries, adj, rows, scales)
+                        queries, adj, rows, scales, live)
         visited[:, S + step * M : S + (step + 1) * M] = res.nbr_ids
         evals += res.n_scored
+        if live is not None:
+            dead_evals += res.n_dead
         pool_ids, pool_scores, pool_checked, done = (
             res.pool_ids, res.pool_scores, res.pool_checked, res.done
         )
@@ -123,8 +143,12 @@ def beam_search(
     if store is not None:
         # Exact fp32 rerank of the final pool: the quantized walk chose which
         # L candidates survive, the fp32 scores decide their order and the
-        # cut.  evals stay the quantized counts.
-        exact = torch.where(pool_ids >= 0, gather_score(queries, items, pool_ids), NEG_INF)
+        # cut.  evals stay the quantized counts.  Tombstones routed the walk
+        # but are masked out of the cut.
+        keep = pool_ids >= 0
+        if live is not None:
+            keep &= live[pool_ids.clamp_min(0).long()]
+        exact = torch.where(keep, gather_score(queries, items, pool_ids), NEG_INF)
         vals, sel = top_l(exact, k)
         ids = pool_ids.gather(1, sel)
         return SearchResult(
@@ -133,6 +157,22 @@ def beam_search(
             evals=evals,
             steps=step,
             visited=visited,
+            dead_evals=dead_evals,
+        )
+
+    if live is not None:
+        # The pool is sorted, so a masked top k (the first index winning
+        # ties) returns the best k live entries in their pool order.
+        keep = (pool_ids >= 0) & live[pool_ids.clamp_min(0).long()]
+        vals, sel = top_l(torch.where(keep, pool_scores, NEG_INF), k)
+        ids = pool_ids.gather(1, sel)
+        return SearchResult(
+            ids=torch.where(vals > NEG_INF, ids, -1),
+            scores=vals,
+            evals=evals,
+            steps=step,
+            visited=visited,
+            dead_evals=dead_evals,
         )
 
     return SearchResult(

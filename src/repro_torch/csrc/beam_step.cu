@@ -11,7 +11,12 @@
 //   * [pool, neighbours] merge into the top L by lax.top_k's order;
 //   * with the int8 store a neighbour scores (q . codes[id]) * scales[id]
 //     (kernel.py:151-161, quant_score/ref.py:19): repro::row_score, the
-//     same function quant_score.cu seeds the walk with.
+//     same function quant_score.cu seeds the walk with;
+//   * with a tombstone mask (live != nullptr, the mutation layer's [N] bool
+//     live bytes; kernel.py:57-77, 128-144, 178-183) out_ndead counts the
+//     valid neighbours that are dead.  The mask changes nothing else: dead
+//     nodes are scored and merged like live ones (they still route walks).
+//     A null live pointer writes no n_dead.
 //
 // What bounds it on the H100: bytes.  A step reads, per updating query, its
 // pool, its visited buffer (V ids, the largest read: 1440 ids at the search
@@ -25,10 +30,14 @@
 // coalesced, against all M ids in shared memory; one warp per neighbour row
 // loads it as float4 (d % 4 == 0) or floats and reduces with shuffles, so
 // every row is fetched by 32 lanes at once and the block keeps several rows
-// in flight (int8 rows: char4 loads, cast to float, one scale multiply).  The L+M merge ranks each candidate by counting (select.cuh) and
-// writes it to its slot: no sort.  Done rows copy their pool through and
-// fetch nothing -- the pool is sorted (it comes out of a merge or the seeding
-// top-k), so the merge would return it unchanged.
+// in flight (int8 rows: char4 loads, cast to float, one scale multiply).
+// The L+M merge ranks each candidate by counting (select.cuh) and writes it
+// to its slot: no sort.  Done rows copy their pool through and fetch nothing
+// -- the pool is sorted (it comes out of a merge or the seeding top-k), so
+// the merge would return it unchanged.  With a mask, lane 0 of the warp that
+// scores a valid neighbour also reads its one live byte into a shared flag,
+// and thread 0 sums the flags beside n_scored: at most M bytes per updating
+// query beside M rows of 4*d, so the byte bound barely moves.
 #include <cuda_runtime.h>
 
 #include "select.cuh"
@@ -48,7 +57,8 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(
     int d,
     int* __restrict__ out_ids, float* __restrict__ out_scores,
     unsigned char* __restrict__ out_checked, int* __restrict__ out_nbr,
-    unsigned char* __restrict__ out_done, int* __restrict__ out_nscored) {
+    unsigned char* __restrict__ out_done, int* __restrict__ out_nscored,
+    const unsigned char* __restrict__ live, int* __restrict__ out_ndead) {
   extern __shared__ float4 smem4[];
   const int dq = (d + 3) & ~3;
   const int C = L + M;
@@ -58,6 +68,7 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(
   int* nbr = ci + C;                                              // [M]
   unsigned char* cc = reinterpret_cast<unsigned char*>(nbr + M);  // [C]
   unsigned char* seen = cc + C;                                   // [M]
+  unsigned char* dead = seen + M;                                 // [M]
   __shared__ int s_slot, s_upd;
 
   const int b = blockIdx.x;
@@ -91,6 +102,7 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(
     if (tid == 0) {
       out_done[b] = 1;
       out_nscored[b] = 0;
+      if (live) out_ndead[b] = 0;
     }
     return;
   }
@@ -130,6 +142,7 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(
       cs[L + j] = s;
       ci[L + j] = valid ? id : -1;
       cc[L + j] = !valid;
+      dead[j] = live && valid && !live[id];
     }
   }
   __syncthreads();
@@ -145,10 +158,14 @@ __global__ void __launch_bounds__(kThreads) beam_step_kernel(
   }
   for (int j = tid; j < M; j += blockDim.x) out_nbr[static_cast<size_t>(b) * M + j] = ci[L + j];
   if (tid == 0) {
-    int n = 0;
-    for (int j = 0; j < M; ++j) n += ci[L + j] >= 0;
+    int n = 0, n_dead = 0;
+    for (int j = 0; j < M; ++j) {
+      n += ci[L + j] >= 0;
+      n_dead += dead[j];
+    }
     out_done[b] = 0;
     out_nscored[b] = n;
+    if (live) out_ndead[b] = n_dead;
   }
 }
 
@@ -157,17 +174,19 @@ int launch(const int* pool_ids, const float* pool_scores, const unsigned char* p
            const int* visited, const unsigned char* done, const float* queries,
            const int* adj, const Row* items, const float* scales, int B, int L, int V,
            int M, int d, int* out_ids, float* out_scores, unsigned char* out_checked,
-           int* out_nbr, unsigned char* out_done, int* out_nscored, void* stream) {
+           int* out_nbr, unsigned char* out_done, int* out_nscored,
+           const unsigned char* live, int* out_ndead, void* stream) {
   const int C = L + M;
   const size_t smem = sizeof(float) * ((d + 3) & ~3) + (sizeof(float) + sizeof(int)) * C +
-                      sizeof(int) * M + C + M;
+                      sizeof(int) * M + C + 2 * M;
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(beam_step_kernel<Row>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
   beam_step_kernel<Row><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       pool_ids, pool_scores, pool_checked, visited, done, queries, adj, items, scales, L, V,
-      M, d, out_ids, out_scores, out_checked, out_nbr, out_done, out_nscored);
+      M, d, out_ids, out_scores, out_checked, out_nbr, out_done, out_nscored, live,
+      out_ndead);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -180,10 +199,10 @@ extern "C" int beam_step_f32(const int* pool_ids, const float* pool_scores,
                              int V, int M, int d, int* out_ids, float* out_scores,
                              unsigned char* out_checked, int* out_nbr,
                              unsigned char* out_done, int* out_nscored,
-                             void* stream) {
+                             const unsigned char* live, int* out_ndead, void* stream) {
   return launch(pool_ids, pool_scores, pool_checked, visited, done, queries, adj, items,
                 static_cast<const float*>(nullptr), B, L, V, M, d, out_ids, out_scores,
-                out_checked, out_nbr, out_done, out_nscored, stream);
+                out_checked, out_nbr, out_done, out_nscored, live, out_ndead, stream);
 }
 
 extern "C" int beam_step_i8(const int* pool_ids, const float* pool_scores,
@@ -192,8 +211,9 @@ extern "C" int beam_step_i8(const int* pool_ids, const float* pool_scores,
                             const signed char* codes, const float* scales, int B, int L,
                             int V, int M, int d, int* out_ids, float* out_scores,
                             unsigned char* out_checked, int* out_nbr,
-                            unsigned char* out_done, int* out_nscored, void* stream) {
+                            unsigned char* out_done, int* out_nscored,
+                            const unsigned char* live, int* out_ndead, void* stream) {
   return launch(pool_ids, pool_scores, pool_checked, visited, done, queries, adj, codes,
                 scales, B, L, V, M, d, out_ids, out_scores, out_checked, out_nbr, out_done,
-                out_nscored, stream);
+                out_nscored, live, out_ndead, stream);
 }

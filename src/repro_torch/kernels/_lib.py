@@ -35,8 +35,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes (the stream is the last pointer of each)
 SIGNATURES = {
-    "beam_step_f32": [_P] * 8 + [_I] * 5 + [_P] * 6 + [_P],
-    "beam_step_i8": [_P] * 9 + [_I] * 5 + [_P] * 6 + [_P],
+    "beam_step_f32": [_P] * 8 + [_I] * 5 + [_P] * 8 + [_P],
+    "beam_step_i8": [_P] * 9 + [_I] * 5 + [_P] * 8 + [_P],
     "commit_merge_f32": [_P] * 6 + [_I] * 4 + [_P],
     "gather_score_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "mips_topk_f32": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_P],

@@ -4,7 +4,7 @@ CUDA kernel (``csrc/beam_step.cu``) is held to, and runs every walk on the
 CPU."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,6 +21,8 @@ class StepResult(NamedTuple):
     nbr_ids: torch.Tensor       # [B, M] int32 newly scored ids (-1 masked)
     done: torch.Tensor          # [B] bool (sticky)
     n_scored: torch.Tensor      # [B] int32 similarity evaluations this step
+    n_dead: Optional[torch.Tensor] = None  # [B] int32 evaluations on tombstones
+    #   (None when the walk carries no live mask: mutation off)
 
 
 def beam_step_ref(
@@ -34,11 +36,17 @@ def beam_step_ref(
     items: torch.Tensor,
     *,
     score_fn=gather_scores,
+    live: Optional[torch.Tensor] = None,
 ) -> StepResult:
     """Select the best unchecked pool slot, expand its adjacency row, mask
     visited and invalid neighbors, score the rest, merge into the pool.
     ``score_fn(queries, items, ids)`` scores the neighbors: the fp32 dot by
-    default, the int8 store's scorer for a quantized walk."""
+    default, the int8 store's scorer for a quantized walk.
+
+    ``live`` ([N] bool, the mutation layer's tombstone mask) does not change
+    which neighbors are scored or merged: dead nodes stay routing vertices.
+    Its only effect is ``n_dead``, the valid neighbors that are tombstones;
+    without it ``n_dead`` is None, not zeros."""
     B, L = pool_ids.shape
     rows = torch.arange(B, device=pool_ids.device)
     iota = torch.arange(L, device=pool_ids.device)
@@ -61,6 +69,11 @@ def beam_step_ref(
     nbr_scores = torch.where(valid, score_fn(queries, items, nbrs), NEG_INF)
     nbr_ids = torch.where(valid, nbrs, -1).to(torch.int32)
 
+    n_dead = None
+    if live is not None:
+        dead = valid & ~live.bool()[nbrs.clamp_min(0).long()]
+        n_dead = dead.sum(dim=-1, dtype=torch.int32)
+
     cand_ids = torch.cat([pool_ids, nbr_ids], dim=-1)
     cand_scores = torch.cat([pool_scores, nbr_scores], dim=-1)
     cand_checked = torch.cat([checked, ~valid], dim=-1)
@@ -72,4 +85,5 @@ def beam_step_ref(
         nbr_ids=nbr_ids,
         done=new_done,
         n_scored=valid.sum(dim=-1, dtype=torch.int32),
+        n_dead=n_dead,
     )

@@ -33,7 +33,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_importing_the_port_leaves_jax_unloaded():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.convert, repro_torch.testing; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.convert, repro_torch.testing, "
+            "repro_torch.core.mutation; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -59,18 +60,21 @@ def test_wrappers_check_the_device():
     assert _lib.on_cuda(torch.zeros(1)) is False
 
 
-@pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve"])
+@pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks a host without CUDA")
     from repro_torch.core.ipnsw import IpNSW
     from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.core.mutation import MutableIndex
     from repro_torch.launch import serve
 
     items = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     with pytest.raises((RuntimeError, AssertionError)):
         if entry == "serve":
             serve.main(["--n-items", "64", "--dim", "8", "--batch", "4"])
+        elif entry == "mutable":
+            MutableIndex(IpNSW().build(items), capacity=80).upsert(items[:4])
         else:
             (IpNSW if entry == "ipnsw" else IpNSWPlus)().build(items)
 

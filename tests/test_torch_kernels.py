@@ -18,6 +18,7 @@ from repro.core.brute_force import exact_topk as jax_exact_topk
 from repro.kernels.beam_step.ref import beam_step_ref as jax_beam_step_ref
 from repro.kernels.commit_merge.ref import commit_merge_ref as jax_commit_merge_ref
 from repro.kernels.mips_topk.ops import mips_topk as jax_mips_topk
+from repro.kernels.quant_score.ref import quant_score_ref as jax_quant_score_ref
 
 from repro_torch.core.brute_force import exact_topk
 from repro_torch.core.similarity import top_l
@@ -114,10 +115,44 @@ def test_beam_step_all_done_is_a_no_op():
     assert np.array_equal(np.asarray(j.pool_ids), t.pool_ids.numpy())
 
 
-def test_beam_step_rejects_live_operand():
-    state = [torch.from_numpy(a) for a in _beam_state(4)]
-    with pytest.raises(NotImplementedError):
-        beam_step(*state, live=torch.ones(state[7].shape[0], dtype=torch.bool))
+@pytest.mark.parametrize("dead_share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("variant", ["f32", "int8"])
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_beam_step_live_matches_jax(integer, variant, dead_share):
+    """The tombstone count: ``n_dead`` equals JAX's, and the mask changes no
+    other output (dead nodes are scored and merged like live ones)."""
+    state = _beam_state(4 + int(integer), integer=integer)
+    rng = np.random.default_rng(9)
+    n = state[7].shape[0]
+    live = rng.random(n) >= dead_share
+    scales = None
+    j_kw = {}
+    if variant == "int8":
+        codes = rng.integers(-3, 4, state[7].shape).astype(np.int8)
+        scales = np.exp2(rng.integers(-3, 4, n)).astype(np.float32)
+        state = (*state[:7], codes)
+        j_kw["score_fn"] = lambda q, c, ids: jax_quant_score_ref(q, c, jnp.asarray(scales), ids)
+    j = jax_beam_step_ref(*map(jnp.asarray, state), live=jnp.asarray(live), **j_kw)
+    t_args = [torch.from_numpy(a) for a in state]
+    t_scales = None if scales is None else torch.from_numpy(scales)
+    t = beam_step(*t_args, t_scales, live=torch.from_numpy(live))
+    off = beam_step(*t_args, t_scales)
+    assert off.n_dead is None and t.n_dead.dtype == torch.int32
+    assert np.array_equal(t.n_dead.numpy(), np.asarray(j.n_dead))
+    for field in ("pool_ids", "pool_scores", "pool_checked", "nbr_ids", "done", "n_scored"):
+        assert torch.equal(getattr(t, field), getattr(off, field)), field
+    for field in ("nbr_ids", "done", "n_scored"):
+        assert np.array_equal(np.asarray(getattr(j, field)), getattr(t, field).numpy()), field
+    if integer:
+        assert np.array_equal(t.pool_ids.numpy(), np.asarray(j.pool_ids))
+    n_dead = t.n_dead.numpy()
+    assert (n_dead <= t.n_scored.numpy()).all()
+    if dead_share == 0.0:
+        assert (n_dead == 0).all()
+    elif dead_share == 1.0:
+        assert np.array_equal(n_dead, t.n_scored.numpy()) and n_dead.sum() > 0
+    else:
+        assert 0 < n_dead.sum() < t.n_scored.numpy().sum()
 
 
 # ------------------------------------------------------- signed-zero ordering
@@ -252,7 +287,11 @@ def test_exact_topk_matches_jax(integer):
 
 def test_cpu_wrappers_never_launch():
     beam_step.launches = commit_merge.launches = mips_topk.launches = 0
+    beam_step.launches_live = beam_step.launches_int8_live = 0
     test_beam_step_matches_jax(0, False)
+    test_beam_step_live_matches_jax(False, "f32", 0.5)
+    test_beam_step_live_matches_jax(False, "int8", 0.5)
     test_commit_merge_matches_jax("random")
     test_exact_topk_matches_jax(False)
     assert beam_step.launches == commit_merge.launches == mips_topk.launches == 0
+    assert beam_step.launches_live == beam_step.launches_int8_live == 0
