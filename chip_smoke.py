@@ -18,7 +18,18 @@ Phases (each one that fails ends the run with a non-zero exit):
      ``call_ms`` is the time a caller waits per back-to-back wrapper call
      (CUDA events).  beam_step also runs with a tombstone mask over about
      half the items (its live variants): n_dead must equal the plain
-     version's exactly.
+     version's exactly.  topk_merge runs at the walk's merge shapes (a pure
+     selection: bit-identical on integer and float inputs, +-0 pairs and
+     -inf / -1 slots included); flash_attn at granite-3-2b's attention and
+     gemma3-12b's local layer (S = T = 4096, and one q_offset case), fp32
+     within rtol = atol = 2e-5; bf16 within 2**-7 |plain| + 0.04 spread of
+     the plain version in bf16 (spread = sqrt(sum p^2 v^2), the size of the
+     weighted sum), and within 2**-8 |plain| + 0.015 spread of the plain
+     version in fp32 on the same bf16 values, with p's bf16 rounding showing
+     (FLASH_TOL); scaled_dot_product_attention as library_ms.
+     Then both kernels' own entry points are driven once at these shapes:
+     they have no system caller, so their launches in the kernels line are
+     those.
   4. serve default: the port's launch/serve.py one-shot, --index
      ipnsw_plus, at the JAX package's defaults, with --storage f32 and with
      --storage int8; recall@10 within 0.02 of the JAX package's recall for
@@ -30,6 +41,11 @@ Phases (each one that fails ends the run with a non-zero exit):
      tombstone surfaces (f32 and int8), recall@10 within 0.02 of the JAX
      package's on the same trace and, after relinking to zero debt, at
      least a fresh rebuild's - 0.02.
+  4c. serve default through the serving loop: serve --loop (virtual clock),
+     with --storage int8 and with --churn-trace 0.2; the batch schedule's
+     digest, p50 / p99 / QPS / occupancy / miss fraction (the service
+     model's) and the churn events and health equal to the JAX package's,
+     recall@10 within 0.02 of it, no steady-state build, no rejection.
   5. full size: IpNSWPlus and IpNSW at Yahoo!Music's size (136,736 x 300,
      seeded synthetic lognormal items), ground truth from the mips_topk
      kernel; each index searched with the f32 items and the int8 store, and
@@ -37,6 +53,13 @@ Phases (each one that fails ends the run with a non-zero exit):
      recall@10, evals, peak memory, graph invariants I1-I4; then a profiled
      IpNSW build, f32 search and int8 search: device busy time, idle share,
      walk steps, host time per step.
+  5b. full-size serving loop: an IpNSWPlus at Yahoo!Music's size serves
+     4,096 Poisson requests at 2,000 QPS in three deadline classes on the
+     ladder (64, 256) x (10, 20, 40), under the wall clock with the f32 and
+     the int8 store and under the virtual clock: p50 / p99 latency, QPS,
+     occupancy, miss fraction, degraded share, recall@10, steady builds (0),
+     peak memory, launches; a request served at the same ef in the wall and
+     the virtual run gets the same ids.
   6. full size + churn: a mutable IpNSWPlus at Yahoo!Music's size
      (capacity 170,920) takes a churn trace of turnover 0.1 (427 upsert and
      427 delete batches of 32, one hub kill, four relink passes); ms per
@@ -71,9 +94,33 @@ JAX_SERVE_RECALL_INT8 = 0.935
 # after_relink_int8=0.9262 fresh_rebuild=0.9352 (the trace left no relink debt)
 JAX_CHURN_RECALL = 0.9258
 RECALL_MARGIN = 0.02
+# `PYTHONPATH=src python -m repro.launch.serve --loop [--storage int8 |
+# --churn-trace 0.2]` (the JAX package, on the CPU) printed for f32:
+# [serve --loop] index=ipnsw_plus storage=f32 clock=virtual N=20000 rate=2000qps
+# requests=256 ladder=64x10/64x20/64x40/256x10/256x20/256x40: recall@10=0.933
+# p50=7.73ms p99=12.47ms qps=2051 occupancy=0.25 miss_frac=0.000
+# recompiles(warmup/steady)=6/0 xla_compiles=1587
+# and, with the churn trace, `churn: events=255 rejected=0 live_frac=1.000
+# dead_edge_frac=0.000 relink_debt=0`.  The unrounded values and the digest of
+# the batch schedule come from `PYTHONPATH=src python
+# tools/serve_loop_reference.py [--storage int8 | --churn-trace 0.2]` (the same
+# runs).  Under the virtual clock the schedule and the latencies are the
+# LinearServiceModel's, a pure function of the trace: the port must print
+# them exactly; recall@10 is the index's (the churn run's ground truth is the
+# catalog before the churn, as in the JAX CLI).
+JAX_LOOP_RECALL = {"f32": 0.9332031250000001, "int8": 0.934765625, "churn": 0.776953125}
+JAX_LOOP_SUMMARY = {"p50_ms": 7.728291443464242, "p99_ms": 12.474367708361871,
+                    "qps": 2051.2348791342347, "occupancy": 0.25, "deadline_miss_frac": 0.0,
+                    "served": 256, "batches": 16, "recompiles_warmup": 6,
+                    "recompiles_steady": 0, "rejected": 0}
+JAX_LOOP_SCHEDULE_SHA256 = "b9a4f4e5473c23af7c4c8d147eaf15d81cb08e58293bc6c52540013b47aece78"
+JAX_LOOP_CHURN = {"mutation_events": 255, "health_live_fraction": 1.000,
+                  "health_dead_edge_frac": 0.000, "health_relink_debt": 0.0}  # as printed
 
+PROFILER_SESSIONS = 8      # sessions device_ms tries before it gives up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
 
 N_FULL, D_FULL = 136_736, 300  # Yahoo!Music (paper §5 dataset table)
 BEAM_SHAPES = {  # walk: (B, L, M, S, V) on the main path, d = 300
@@ -87,6 +134,30 @@ COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
 QUANT_SHAPES = {"seed_ip": (256, 160), "seed_angular": (256, 1)}
 GATHER_SHAPES = {"seed_ip": (256, 160), "build_seed_ip": (512, 161), "rerank_ip": (256, 40)}
 MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000, 64, 10)}
+# topk_merge at the walk's merge shapes: (B, L, M)
+MERGE_SHAPES = {"search_ip": (256, 40, 16), "build_ip": (512, 32, 16),
+                "search_angular": (256, 10, 10)}
+# flash_attn at two model widths (src/repro/configs/granite_3_2b.py, the local
+# layer of gemma3_12b.py): (B, S, T, H, KV, hd, q_offset, window)
+FLASH_SHAPES = {"granite_3_2b": (1, 4096, 4096, 32, 8, 64, 0, None),
+                "granite_3_2b_offset": (1, 2048, 4096, 32, 8, 64, 2048, None),
+                "gemma3_12b_local": (1, 4096, 4096, 16, 8, 256, 0, 1024)}
+# flash_attn: |out - plain| <= atol + rtol * |plain| + c * spread, where spread =
+# sqrt(sum_t p_t^2 v_t^2) is the size of the weighted sum each output is (a
+# relative error e in every weight p_t moves it by about e * spread).  The
+# bf16 limits come from the readings phase 3 logs (largest error by |out| bin
+# and by row, beside rtol * |out| and over the spread; PERF.md, PR 14).
+FLASH_TOL = {"float32": (2e-5, 2e-5, 0.0),   # (rtol, atol, c): the JAX tests' fp32 limit
+             "bfloat16": (2**-7, 0.0, 0.04)}  # one ulp of the output's rounding, and the
+#   plain version's own rounding of q.k to bf16 before its softmax (largest
+#   excess 0.022 spread)
+# bf16 held a second time, against the plain version in fp32 on the same bf16
+# values: half an ulp for the output's rounding, and the rounding of p to bf16
+# (kernel.py:69; largest excess 0.008 spread), which must show somewhere
+FLASH_BF16_VS_FP32 = (2**-8, 0.0, 0.015)
+FLASH_P_ROUNDED = 1e-4  # least largest excess over the spread: p was rounded to bf16
+# the full-size loop: 4,096 queries at 2,000 QPS on _build_ladder(256, 40)
+LOOP_FULL_REQUESTS, LOOP_FULL_RATE = 4096, 2000.0
 # the JAX serve CLI's churn deployment (src/repro/launch/serve.py:309-321)
 CHURN = dict(batch=32, seed=3, profile="lognormal", duration_s=1.0, hub_kill_at=0.5,
              hub_kill_k=8, relink_every=0.25, relink_budget=64)
@@ -128,7 +199,7 @@ def device_ms(fn, reps: int = 20, only: str = "") -> float:
     # A session can come back without device events, or with some of them
     # lost: every kernel of ``fn`` runs on each call, so each must show at
     # least ``reps`` launches.
-    for attempt in range(3):
+    for attempt in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -141,26 +212,32 @@ def device_ms(fn, reps: int = 20, only: str = "") -> float:
             return sum(e.self_device_time_total for e in kernels) / reps / 1e3
         log(f"profiler session {attempt + 1} saw {fewest} of {reps} launches of a "
             f"kernel; measuring again")
-    raise RuntimeError("the profiler lost device events in 3 sessions")
+    raise RuntimeError(f"the profiler lost device events in {PROFILER_SESSIONS} sessions")
 
 
 def warm_up_profiler() -> None:
-    """One throwaway profiler session: the first session of a process can
-    miss the card's events while the tracer starts up."""
+    """Throwaway profiler sessions until one sees every launch: the first
+    sessions of a process can miss the card's events while the tracer
+    starts up."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.ones(1 << 20, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        for _ in range(10):
-            x = x * 1.0
-        torch.cuda.synchronize()
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                x = x * 1.0
+            torch.cuda.synchronize()
+        seen = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if seen >= 10:
+            return
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
     """(ms, what bounds it): the larger of bytes over the memory rate and
-    flops over the fp32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    flops over ``flop_rate`` (the fp32 rate unless named)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -550,6 +627,266 @@ def phase_mips_topk(g) -> dict:
     return out
 
 
+def _merge_inputs(shape, integer: bool, g):
+    """A walk's merge at ``shape``: a pool sorted as lax.top_k sorts it with
+    an empty (-inf, -1) tail, and M new candidates with about a quarter
+    invalid (-inf, -1); integer scores with exact ties and +-0 pairs, or
+    float scores."""
+    import torch
+
+    from repro_torch.core.similarity import top_l
+
+    b, l, m = shape
+
+    def scores(cols):
+        if integer:
+            s = torch.randint(-4, 5, (b, cols), generator=g, device="cuda").float()
+            neg = torch.rand((b, cols), generator=g, device="cuda") < 0.5
+            return torch.where((s == 0) & neg, -0.0, s)
+        return torch.randn((b, cols), generator=g, device="cuda")
+
+    pool_s = scores(l)
+    pool_i = torch.randint(0, N_FULL, (b, l), generator=g, device="cuda", dtype=torch.int32)
+    n_empty = torch.randint(0, l // 2 + 1, (b, 1), generator=g, device="cuda")
+    empty = torch.arange(l, device="cuda") >= l - n_empty
+    pool_s = torch.where(empty, float("-inf"), pool_s)
+    pool_i = torch.where(empty, -1, pool_i)
+    pool_s, order = top_l(pool_s, l)
+    pool_i = pool_i.gather(1, order)
+    pool_c = ((torch.rand((b, l), generator=g, device="cuda") < 0.5) | (pool_i < 0)).int()
+    new_s = scores(m)
+    new_i = torch.randint(0, N_FULL, (b, m), generator=g, device="cuda", dtype=torch.int32)
+    bad = torch.rand((b, m), generator=g, device="cuda") < 0.25
+    new_s = torch.where(bad, float("-inf"), new_s)
+    new_i = torch.where(bad, -1, new_i)
+    return pool_s, pool_i, pool_c, new_s, new_i, bad.int()
+
+
+def phase_topk_merge(g) -> dict:
+    """topk_merge at the walk's merge shapes against topk_merge_ref: a pure
+    selection, so ids, flags and score bits are equal on integer and float
+    inputs alike."""
+    import torch
+
+    from repro_torch.kernels.topk_merge import topk_merge, topk_merge_ref
+
+    out = {}
+    for cell, (b, l, m) in MERGE_SHAPES.items():
+        for kind in ("int", "float"):
+            args = _merge_inputs((b, l, m), kind == "int", g)
+            run = lambda: topk_merge(*args)  # noqa: E731
+            plain = lambda: topk_merge_ref(*args)  # noqa: E731
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            name = f"topk_merge {cell}/{kind}"
+            for x, y, what in zip(got, want, ("scores", "ids", "checked")):
+                assert torch.equal(x.view(torch.int32), y.view(torch.int32)), f"{name}: {what}"
+            if kind == "int":
+                zeros = want[0] == 0
+                assert bool((zeros & torch.signbit(want[0])).any()) and bool(
+                    (zeros & ~torch.signbit(want[0])).any()), f"{name}: no +-0 pair kept"
+            assert bool((args[1] < 0).any()) and bool((args[4] < 0).any()), f"{name}: no -1 slot"
+            err = _max_abs_err(got[0], want[0])
+            ms = device_ms(run)
+            plain_ms = device_ms(plain)
+            call_ms = cuda_ms(run)
+            bound_ms, by = bound(b * (l + m) * 12 + b * l * 12, 0.0)
+            log(f"kernel=topk_merge cell={cell} inputs={kind} B={b} L={l} M={m} ms={ms:.4f} "
+                f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
+                f"bound_ms={bound_ms:.5f} bound_by={by} max_abs_err={err:.3g} "
+                f"launches={topk_merge.launches}")
+            if cell == "search_ip" and kind == "float":
+                out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           library_ms=None, max_abs_err=err)
+    return out
+
+
+def _flash_pairs(s: int, t: int, q_offset: int, window) -> int:
+    """(query, key) pairs inside the causal (and window) mask: the work the
+    inputs need."""
+    import numpy as np
+
+    pos = q_offset + np.arange(s)
+    hi = np.minimum(pos, t - 1)
+    lo = np.zeros_like(pos) if window is None else np.maximum(pos - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _sdpa(q, k, v, q_offset: int, window):
+    """The library yardstick: one scaled_dot_product_attention call on the
+    same inputs (heads first, grouped heads by ``enable_gqa``), causal by
+    flag where the mask is plain causal, else by a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    s, t = q.shape[1], k.shape[1]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if q_offset or window is not None or s != t:
+        qi = q_offset + torch.arange(s, device=q.device)[:, None]
+        ki = torch.arange(t, device=q.device)[None, :]
+        mask = ki <= qi
+        if window is not None:
+            mask &= ki > qi - window
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  is_causal=mask is None, enable_gqa=True)
+
+
+def _flash_spread(q, k, v, q_offset: int, window):
+    """sqrt(sum_t p_t^2 v_t^2) per output, [B, S, H, hd], in fp32 from the
+    same inputs: p from fp32 scores, masked as the plain version masks."""
+    import torch
+
+    s, t, hd = q.shape[1], k.shape[1], q.shape[3]
+    g = q.shape[2] // k.shape[2]
+    qh = q.float().transpose(1, 2)
+    kh, vh = (x.float().repeat_interleave(g, 2).transpose(1, 2) for x in (k, v))
+    qi = q_offset + torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(t, device=q.device)[None, :]
+    ok = ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    p = torch.softmax((qh @ kh.transpose(-1, -2) / hd ** 0.5).masked_fill(~ok, float("-inf")),
+                      dim=-1).nan_to_num_(0.0)
+    return (p.square_() @ vh.square()).sqrt_().transpose(1, 2)
+
+
+def _flash_readings(name: str, diff, want, spread, rtol: float) -> None:
+    """Logs the largest error, and its excess over ``rtol * |want|`` (alone
+    and over the spread), by bin of |want| and by query row: the readings
+    the tolerance is set from."""
+    import torch
+
+    a = want.abs()
+    excess = diff - rtol * a
+    ratio = excess / spread.clamp_min(1e-30)
+    edges = (0.0, 2**-10, 2**-8, 2**-6, 2**-4, 2**-2, 1.0, 2.0, 4.0, float("inf"))
+    bins = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        m = (a >= lo) & (a < hi)
+        if bool(m.any()):
+            bins.append(f"[{lo:g},{hi:g}):n={int(m.sum())},err={float(diff[m].max()):.3g},"
+                        f"excess={float(excess[m].max()):.3g}")
+    s = want.shape[1]
+    cuts = sorted({min(max(x, 0), s) for x in (0, 16, 256, s - 64, s)})
+    rows = [f"rows[{lo},{hi}):excess={float(excess[:, lo:hi].max()):.3g},"
+            f"excess/spread={float(ratio[:, lo:hi].max()):.3g}"
+            for lo, hi in zip(cuts[:-1], cuts[1:])]
+    log(f"flash_attn readings {name} rtol={rtol:g}: " + " ".join(bins + rows)
+        + f" values_differing={int((diff > 0).sum())} of {diff.numel()}"
+        + f" median_abs_out={float(torch.median(a.flatten()[::97])):.3g}"
+        + f" median_spread={float(torch.median(spread.flatten()[::97])):.3g}")
+
+
+def _check_flash(name: str, got, want, spread, tol):
+    """Asserts |got - want| <= atol + rtol * |want| + c * spread everywhere
+    (and got finite); logs the readings; returns the largest error and the
+    largest excess over ``rtol * |want|`` divided by the spread."""
+    import torch
+
+    rtol, atol, c = tol
+    assert bool(torch.isfinite(got).all()), f"flash_attn {name}: not finite"
+    want = want.float()
+    diff = (got.float() - want).abs()
+    _flash_readings(name, diff, want, spread, rtol)
+    bad = diff > atol + rtol * want.abs() + c * spread
+    err = float(diff.max())
+    assert not bool(bad.any()), (f"flash_attn {name}: {int(bad.sum())} values outside "
+                                 f"rtol={rtol:g} atol={atol:g} c={c:g}, max_abs_err={err}")
+    return err, float(((diff - rtol * want.abs()) / spread.clamp_min(1e-30)).max())
+
+
+def _flash_inputs(shape, dtype, g):
+    import torch
+
+    b, s, t, h, kv, hd = shape[:6]
+    return tuple(torch.randn(dims, generator=g, device="cuda").to(dtype)
+                 for dims in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+
+def phase_flash_attn(g) -> dict:
+    """flash_attention at granite-3-2b's and gemma3-12b's local attention
+    widths, fp32 and bf16, against flash_attention_ref in the same dtype."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+
+    out = {}
+    for cell, (b, s, t, h, kv, hd, off, win) in FLASH_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            if cell.endswith("_offset") and dtype == torch.bfloat16:
+                continue
+            q, k, v = _flash_inputs(FLASH_SHAPES[cell], dtype, g)
+            run = lambda: flash_attention(q, k, v, q_offset=off, window=win)  # noqa: E731
+            plain = lambda: flash_attention_ref(q, k, v, q_offset=off, window=win)  # noqa: E731
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[-1]
+            tol = FLASH_TOL[dname]
+            spread = _flash_spread(q, k, v, off, win)
+            err, _ = _check_flash(f"{cell}/{dname}", got, want, spread, tol)
+            if dtype == torch.bfloat16:
+                exact = flash_attention_ref(q.float(), k.float(), v.float(), q_offset=off,
+                                            window=win)
+                _, rounded = _check_flash(f"{cell}/{dname} vs fp32 plain", got, exact, spread,
+                                          FLASH_BF16_VS_FP32)
+                assert rounded >= FLASH_P_ROUNDED, (
+                    f"flash_attn {cell}/{dname}: within {rounded:.3g} spread of fp32 "
+                    f"arithmetic, p was not rounded to bf16")
+                del exact
+            library = _sdpa(q, k, v, off, win)
+            ms = device_ms(run, reps=5)
+            plain_ms = device_ms(plain, reps=5)
+            library_ms = device_ms(library, reps=5)
+            call_ms = cuda_ms(run, reps=5)
+            itemsize = q.element_size()
+            nbytes = 2 * q.numel() * itemsize + (k.numel() + v.numel()) * itemsize
+            flops = 4.0 * hd * _flash_pairs(s, t, off, win) * b * h
+            rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+            bound_ms, by = bound(nbytes, flops, rate)
+            log(f"kernel=flash_attn cell={cell} dtype={dname} B={b} S={s} T={t} H={h} KV={kv} "
+                f"hd={hd} q_offset={off} window={win} flops={flops:.4g} ms={ms:.4f} "
+                f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"bound_ms={bound_ms:.5f} bound_by={by} (rate {rate / 1e12:.0f} TFLOP/s) "
+                f"rtol, atol, c={tol} max_abs_err={err:.3g}")
+            if cell == "granite_3_2b":
+                key = "flash_attn" if dtype == torch.float32 else "flash_attn_bf16"
+                out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                                library_ms=library_ms, max_abs_err=err)
+            del q, k, v, got, want, spread
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry_points(g) -> dict:
+    """topk_merge and flash_attn have no system caller: their path is their
+    own public entry point.  Each is driven once at every shape above, with
+    the counts set to 0 just before; returns the counts read just after."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_head
+    from repro_torch.kernels.topk_merge import topk_merge
+
+    merges = [_merge_inputs(shape, False, g) for shape in MERGE_SHAPES.values()]
+    _zero_counts()
+    for args in merges:
+        topk_merge(*args)
+    for (b, s, t, h, kv, hd, off, win) in FLASH_SHAPES.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs((b, s, t, h, kv, hd), dtype, g)
+            out = flash_attention(q, k, v, q_offset=off, window=win)
+            assert out.shape == q.shape and bool(torch.isfinite(out).all())
+            head = flash_attention_head(*(x[0, :, 0].contiguous() for x in (q, k, v)),
+                                        q_offset=off, window=win)
+            assert head.shape == (s, hd) and bool(torch.isfinite(head).all())
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    log(f"entry points topk_merge / flash_attention / flash_attention_head: launches={counts}")
+    for name in ("topk_merge", "flash_attn", "flash_attn_bf16"):
+        assert counts[name] > 0, f"{name} was not launched: {counts}"
+    return {name: counts[name] for name in ("topk_merge", "flash_attn", "flash_attn_bf16")}
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -563,6 +900,7 @@ def phase_kernels() -> dict:
     beam = phase_beam_step(items_by_kind, stores_by_kind, g)
     scorers = phase_scorers(items_by_kind, stores_by_kind, g)
     mips = phase_mips_topk(g)
+    flash = phase_flash_attn(g)
     timings = {
         "beam_step": beam["f32"],
         "beam_step_int8": beam["int8"],
@@ -573,18 +911,23 @@ def phase_kernels() -> dict:
         "mips_topk_int8": mips["int8"],
         "quant_score": scorers["quant_score"],
         "gather_score": scorers["gather_score"],
+        "topk_merge": phase_topk_merge(g),
+        "flash_attn": flash["flash_attn"],
+        "flash_attn_bf16": flash["flash_attn_bf16"],
     }
     log(f"kernels: {', '.join(timings)} -- each equal to its plain version")
-    return timings
+    return timings, phase_entry_points(g)
 
 
 def _kernel_counters():
     """name -> (wrapper, attribute of its launch count)."""
     from repro_torch.kernels.beam_step import beam_step
     from repro_torch.kernels.commit_merge import commit_merge
+    from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.gather_score import gather_score
     from repro_torch.kernels.mips_topk import mips_topk
     from repro_torch.kernels.quant_score import quant_score
+    from repro_torch.kernels.topk_merge import topk_merge
 
     return {"beam_step": (beam_step, "launches"),
             "beam_step_int8": (beam_step, "launches_int8"),
@@ -594,7 +937,10 @@ def _kernel_counters():
             "mips_topk": (mips_topk, "launches"),
             "mips_topk_int8": (mips_topk, "launches_int8"),
             "quant_score": (quant_score, "launches"),
-            "gather_score": (gather_score, "launches")}
+            "gather_score": (gather_score, "launches"),
+            "topk_merge": (topk_merge, "launches"),
+            "flash_attn": (flash_attention, "launches"),
+            "flash_attn_bf16": (flash_attention, "launches_bf16")}
 
 
 def _zero_counts() -> None:
@@ -690,11 +1036,143 @@ def phase_full_size() -> dict:
     counts = _read_counts()
     log(f"full size peak_memory_bytes={torch.cuda.max_memory_allocated()} launches={counts}")
     live = [name for name in counts if name.endswith("_live")]
-    assert all(c > 0 for name, c in counts.items() if name not in live), \
+    assert all(c > 0 for name, c in counts.items() if name not in live + list(ENTRY_ONLY)), \
         f"a kernel was not launched: {counts}"
     assert not any(counts[name] for name in live), f"a frozen index launched a live kernel: {counts}"
     phase_profile(items, queries, index)
     return counts
+
+
+def _loop_report(label: str, stats, gt) -> dict:
+    """Print and return a loop run's metrics: latency percentiles, QPS,
+    occupancy, misses, degraded share and recall@10, by request id."""
+    import numpy as np
+
+    from repro_torch.obs.recall import recall_at_k
+
+    by_rid = sorted(stats.responses, key=lambda r: r.rid)
+    s = stats.summary()
+    out = dict(p50_ms=s["p50_ms"], p99_ms=s["p99_ms"], qps=s["qps"], occupancy=s["occupancy"],
+               deadline_miss_frac=s["deadline_miss_frac"],
+               degraded_share=float(np.mean([r.degraded for r in by_rid])),
+               recall=recall_at_k(np.stack([r.ids for r in by_rid]), gt),
+               batches=s["batches"], served=s["served"],
+               recompiles_warmup=s["recompiles_warmup"],
+               recompiles_steady=s["recompiles_steady"],
+               ef_served={e: sum(r.ef_served == e for r in by_rid)
+                          for e in sorted({r.ef_served for r in by_rid})})
+    log(f"loop full {label}: " + " ".join(f"{k}={v!r}" for k, v in out.items()))
+    return out
+
+
+def phase_loop_full() -> dict:
+    """The serving loop at Yahoo!Music's size: an IpNSWPlus over 136,736 x
+    300 items, 4,096 Poisson requests at 2,000 QPS in three deadline
+    classes, _build_ladder(256, 40); wall clock with the f32 and the int8
+    store, and the virtual clock with f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.brute_force import exact_topk
+    from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.launch import serve_loop as sl
+    from repro_torch.launch.serve import _build_ladder
+
+    items = torch.as_tensor(mips_dataset(N_FULL, D_FULL, "lognormal", seed=0), device="cuda")
+    queries = mips_queries(LOOP_FULL_REQUESTS, D_FULL, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    index = IpNSWPlus(max_degree=16, ef_construction=32, insert_batch=512).build(items)
+    _zero_counts()  # the serving path: the ground truth, then the three runs
+    _, gt = exact_topk(torch.as_tensor(queries, device="cuda"), items, k=10)
+    gt = gt.cpu().numpy()
+    ladder = _build_ladder(256, 40)
+    trace = sl.poisson_trace(queries, rate_qps=LOOP_FULL_RATE, seed=2, ef=40,
+                             classes=("interactive", "standard", "relaxed"))
+    runs, stats_by = {}, {}
+    for label, storage, clock in (("wall_f32", "f32", sl.WallClock),
+                                  ("wall_int8", "int8", sl.WallClock),
+                                  ("virtual_f32", "f32", sl.VirtualClock)):
+        index.storage = storage
+        executor = sl.BucketExecutor(index, ladder, k=10)
+        executor.warmup()  # before the clock starts: the trace meets a warm server
+        loop = sl.ServeLoop(index, ladder=ladder, clock=clock(), executor=executor,
+                            service_model=sl.LinearServiceModel())
+        stats = loop.run(trace)
+        stats_by[label] = stats
+        runs[label] = _loop_report(label, stats, gt)
+        assert runs[label]["served"] == LOOP_FULL_REQUESTS, f"{label}: a request was not answered"
+        assert runs[label]["recompiles_steady"] == 0, f"{label}: a steady-state build"
+        assert runs[label]["recall"] > 0.5, f"{label}: recall {runs[label]['recall']}"
+    index.storage = "f32"
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # A response depends only on its query and its served ef (padding and
+    # batch composition do not change a row), so the virtual and the wall
+    # f32 runs must agree on every request served at the same ef.
+    wall = {r.rid: r for r in stats_by["wall_f32"].responses}
+    virt = {r.rid: r for r in stats_by["virtual_f32"].responses}
+    same = [rid for rid in wall if wall[rid].ef_served == virt[rid].ef_served]
+    assert all(np.array_equal(wall[r].ids, virt[r].ids) for r in same), \
+        "wall and virtual runs differ on a request served at the same ef"
+    log(f"loop full: requests served at the same ef in the wall and virtual f32 runs "
+        f"{len(same)} of {LOOP_FULL_REQUESTS}, ids identical on all of them; "
+        f"peak_memory_bytes={peak} launches={counts}")
+    for name in ("beam_step", "beam_step_int8", "mips_topk", "quant_score", "gather_score"):
+        assert counts[name] > 0, f"loop full: {name} was not launched: {counts}"
+    full = sl.Bucket(256, 40)
+    _profiled("loop dispatch of a full 256x40 bucket, f32",
+              lambda: executor.run(full, queries[:256], np.ones(256, bool)))
+    return runs
+
+
+# kernels whose only path is their own entry point (phase_entry_points)
+ENTRY_ONLY = ("topk_merge", "flash_attn", "flash_attn_bf16")
+
+# kernels each serving-loop path must launch: the build, the ground truth,
+# the walks' steps and seeds (f32: gather_score; int8: quant_score, and
+# gather_score for the rerank); under churn the live walks of the searches
+# and the upserts, and their commits
+LOOP_PATHS = {
+    "f32": ([], ("beam_step", "commit_merge", "mips_topk", "gather_score")),
+    "int8": (["--storage", "int8"], ("beam_step", "beam_step_int8", "commit_merge",
+                                     "mips_topk", "quant_score", "gather_score")),
+    "churn": (["--churn-trace", "0.2"], ("beam_step", "beam_step_live", "commit_merge",
+                                         "mips_topk", "gather_score")),
+}
+
+
+def phase_serve_loop_default() -> None:
+    """serve --loop at the JAX CLI's defaults, virtual clock: the schedule,
+    the service model's latencies, the churn events and health equal to the
+    JAX package's; recall@10 within 0.02 of it."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve_loop import schedule_digest
+
+    for name, (flags, path) in LOOP_PATHS.items():
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = serve.main(["--loop", *flags])
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        s, digest = res["summary"], schedule_digest(res["batches"])
+        log(f"serve --loop {name}: recall@10={res['recall']!r} (JAX "
+            f"{JAX_LOOP_RECALL[name]!r}) schedule_sha256={digest} summary={s} "
+            f"wall_s={wall:.2f} launches={counts}")
+        assert abs(res["recall"] - JAX_LOOP_RECALL[name]) <= RECALL_MARGIN, \
+            f"loop {name} recall {res['recall']} not within {RECALL_MARGIN} of JAX"
+        assert digest == JAX_LOOP_SCHEDULE_SHA256, f"loop {name}: the schedule differs from JAX's"
+        for key, want in JAX_LOOP_SUMMARY.items():
+            assert s[key] == want, f"loop {name}: {key}={s[key]!r}, JAX {want!r}"
+        if name == "churn":
+            assert s["mutation_events"] == JAX_LOOP_CHURN["mutation_events"], s
+            for key in ("health_live_fraction", "health_dead_edge_frac"):
+                assert f"{s[key]:.3f}" == f"{JAX_LOOP_CHURN[key]:.3f}", f"loop churn: {key}"
+            assert s["health_relink_debt"] == JAX_LOOP_CHURN["health_relink_debt"], s
+        else:
+            assert s["mutation_events"] == 0, s
+        assert all(counts[k] > 0 for k in path), f"loop {name}: a kernel was not launched"
 
 
 # kernels each churn phase must launch: the live walks of upserts, relinks
@@ -949,6 +1427,12 @@ SOURCES = {
                     "src/repro/kernels/quant_score/kernel.py:23"),
     "gather_score": ("src/repro_torch/csrc/gather_score.cu",
                      "src/repro/kernels/gather_score/kernel.py:34"),
+    "topk_merge": ("src/repro_torch/csrc/topk_merge.cu",
+                   "src/repro/kernels/topk_merge/kernel.py:55"),
+    "flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash_attn/kernel.py:34"),
+    "flash_attn_bf16": ("src/repro_torch/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn/kernel.py:34"),
 }
 
 
@@ -963,12 +1447,15 @@ def main() -> int:
 
     card = phase_env()
     phase_build()
-    timings = phase_kernels()
+    timings, entry_counts = phase_kernels()
     phase_serve_default()
     phase_churn_default()
+    phase_serve_loop_default()
     counts = phase_full_size()
+    phase_loop_full()
     # each kernel's launches on the full-size path that runs it
     counts.update({name: n for name, n in phase_churn_full().items() if name.endswith("_live")})
+    counts.update(entry_counts)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])
                for name, (src, rep) in SOURCES.items()]

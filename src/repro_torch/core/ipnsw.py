@@ -60,10 +60,14 @@ class IpNSW:
     def search(self, queries, k: int = 10, ef: int = 64,
                max_steps: Optional[int] = None,
                storage: Optional[str] = None,
-               live: Optional[torch.Tensor] = None) -> SearchResult:
+               live: Optional[torch.Tensor] = None,
+               valid: Optional[torch.Tensor] = None) -> SearchResult:
         """``storage`` overrides the index's own for this call.  ``live`` is
         the [N] tombstone mask of a mutable index (``core/mutation.py``):
-        dead nodes route the walk but never appear in the results."""
+        dead nodes route the walk but never appear in the results.
+        ``valid`` is the [B] bucket-padding mask (``search.beam_search``):
+        pad rows come back as ids -1 at no evaluation, valid rows as an
+        unpadded search gives them."""
         if self.graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -73,5 +77,10 @@ class IpNSW:
         return beam_search(
             self.graph, q, init, pool_size=max(ef, k),
             max_steps=max_steps if max_steps is not None else 2 * ef, k=k,
-            storage=st, store=store, live=live,
+            storage=st, store=store, live=live, valid=_as_mask(valid, self.device),
         )
+
+
+def _as_mask(valid, device: str) -> Optional[torch.Tensor]:
+    """A [B] bool mask on ``device`` (None stays None)."""
+    return None if valid is None else torch.as_tensor(valid, dtype=torch.bool, device=device)

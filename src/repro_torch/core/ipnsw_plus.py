@@ -30,6 +30,7 @@ from repro_torch.core.build import (
     find_neighbors,
 )
 from repro_torch.core.graph import GraphIndex, empty_graph
+from repro_torch.core.ipnsw import _as_mask
 from repro_torch.core.search import beam_search
 from repro_torch.core.similarity import NEG_INF, normalize
 from repro_torch.core.storage import ItemStore, make_store, validate_storage
@@ -89,18 +90,22 @@ def _search_plus(
     ang_store: Optional[ItemStore] = None,
     ip_store: Optional[ItemStore] = None,
     live: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
 ) -> PlusResult:
     b = queries.shape[0]
     # Angular ranking is monotone in q . x_hat, so the raw query walks the
     # normalized items.  Both graphs index the same slots, so one tombstone
     # mask serves both walks; the angular walk cuts dead ids from its own
-    # results, so no G_s seed row comes from a deleted item.
+    # results, so no G_s seed row comes from a deleted item.  The padding
+    # mask also masks both: a pad row's angular walk returns -1 ids, which
+    # seed nothing.
     ang = beam_search(ang_graph, queries, ang_graph.entry.expand(b, 1),
                       pool_size=max(ang_ef, k_angular), max_steps=ang_max_steps,
-                      k=k_angular, storage=storage, store=ang_store, live=live)
+                      k=k_angular, storage=storage, store=ang_store, live=live, valid=valid)
     seeds = _seed_from_angular(ip_graph.adj, ang.ids)
     ip = beam_search(ip_graph, queries, seeds, pool_size=max(ef, k),
-                     max_steps=max_steps, k=k, storage=storage, store=ip_store, live=live)
+                     max_steps=max_steps, k=k, storage=storage, store=ip_store, live=live,
+                     valid=valid)
     return PlusResult(
         ids=ip.ids,
         scores=ip.scores,
@@ -180,9 +185,13 @@ class IpNSWPlus:
                ang_ef: Optional[int] = None, k_angular: Optional[int] = None,
                max_steps: Optional[int] = None,
                storage: Optional[str] = None,
-               live: Optional[torch.Tensor] = None) -> PlusResult:
+               live: Optional[torch.Tensor] = None,
+               valid: Optional[torch.Tensor] = None) -> PlusResult:
         """``storage`` overrides the index's own for this call; ``live`` is
-        the tombstone mask of a mutable index, applied to both walks."""
+        the tombstone mask of a mutable index and ``valid`` the [B]
+        bucket-padding mask (``search.beam_search``), each applied to both
+        walks: pad rows skip the angular stage, seed nothing and come back
+        as ids -1."""
         if self.ip_graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -201,4 +210,5 @@ class IpNSWPlus:
             ang_store=self.ang_store if st == "int8" else None,
             ip_store=self.ip_store if st == "int8" else None,
             live=live,
+            valid=_as_mask(valid, self.device),
         )

@@ -24,6 +24,11 @@ Tombstones (``live=``, ``core/mutation.py``): walks route through dead
 nodes, which keep their scores in the pool and their adjacency rows, and
 count the evaluations spent on them (``SearchResult.dead_evals``); the final
 cut never returns one.
+
+Bucket padding (``valid=``, ``launch/serve_loop.py``): pad rows lose their
+seeds and are born done, so they take no step, spend no evaluation and come
+back as ids -1 / scores -inf; the host loop ends once every valid row is
+done.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ def beam_search(
     storage: str = "f32",
     store: Optional[ItemStore] = None,
     live: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
 ) -> SearchResult:
     """Run the batched walk.
 
@@ -85,6 +91,12 @@ def beam_search(
               fewer than k live ids remain), and ``dead_evals`` counts the
               evaluations spent on them.  ``None`` runs the frozen-index path
               unchanged.
+    valid:    [B] bool bucket-padding mask of the serving loop, or None.
+              Pad rows (False) are born done with an empty pool: no step, 0
+              evals and 0 dead evals, ids -1 and scores -inf.  Every step is
+              row-wise and done rows are frozen, so a valid row's result is
+              bit-identical to the same query searched without padding.  Pad
+              query rows are ignored but must hold finite values.
     """
     validate_storage(storage)
     adj, items = graph.adj, graph.items
@@ -99,6 +111,11 @@ def beam_search(
     V = S + max_steps * M
 
     init_ids = _dedup_ids(init_ids.to(torch.int32))
+    if valid is not None:
+        # pad rows lose their seeds: an all -1 seed row gives an all-checked
+        # -inf pool below, and done keeps every step from advancing it
+        valid = valid.to(device=init_ids.device, dtype=torch.bool)
+        init_ids = torch.where(valid[:, None], init_ids, -1)
     valid0 = init_ids >= 0
     # seeds are scored by the walk's own scorer, so the pool order is one
     # convention throughout
@@ -124,7 +141,8 @@ def beam_search(
 
     visited = torch.full((B, V), -1, dtype=torch.int32, device=adj.device)
     visited[:, :S] = init_ids
-    done = torch.zeros(B, dtype=torch.bool, device=adj.device)
+    done = (torch.zeros(B, dtype=torch.bool, device=adj.device) if valid is None
+            else ~valid)
 
     rows, scales = (items, None) if store is None else store
     step = 0

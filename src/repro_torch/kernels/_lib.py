@@ -7,9 +7,9 @@ started together, and one more ``nvcc`` links the objects.  The library lands
 in ``build/kernels/`` at the repository root under a name that carries a hash
 of the sources, so an edited source is rebuilt at its first use.
 
-Each exported function takes device pointers, ints and the current CUDA
-stream, allocates nothing and returns ``cudaGetLastError()``; ``check``
-raises on anything but 0.  Nothing here runs at import: the library is built
+Each exported function takes device pointers, ints (flash_attn also a float
+scale) and the current CUDA stream, allocates nothing and returns
+``cudaGetLastError()``; ``check`` raises on anything but 0.  Nothing here runs at import: the library is built
 and loaded by the first wrapper that launches a kernel.
 """
 from __future__ import annotations
@@ -27,21 +27,24 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("beam_step.cu", "commit_merge.cu", "gather_score.cu", "mips_topk.cu",
-           "quant_score.cu")
+SOURCES = ("beam_step.cu", "commit_merge.cu", "flash_attn.cu", "gather_score.cu",
+           "mips_topk.cu", "quant_score.cu", "topk_merge.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes (the stream is the last pointer of each)
 SIGNATURES = {
     "beam_step_f32": [_P] * 8 + [_I] * 5 + [_P] * 8 + [_P],
     "beam_step_i8": [_P] * 9 + [_I] * 5 + [_P] * 8 + [_P],
     "commit_merge_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "flash_attn_f32": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
+    "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
     "gather_score_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "mips_topk_f32": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_P],
     "mips_topk_i8": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_P],
     "quant_score_i8": [_P] * 4 + [_I] * 3 + [_P] + [_P],
+    "topk_merge_f32": [_P] * 6 + [_I] * 3 + [_P] * 3 + [_P],
 }
 
 

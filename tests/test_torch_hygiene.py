@@ -34,7 +34,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, repro_torch.testing, "
-            "repro_torch.core.mutation; "
+            "repro_torch.core.mutation, repro_torch.launch.serve_loop, "
+            "repro_torch.kernels.topk_merge, repro_torch.kernels.flash_attn; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -60,7 +61,7 @@ def test_wrappers_check_the_device():
     assert _lib.on_cuda(torch.zeros(1)) is False
 
 
-@pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable"])
+@pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable", "serve_loop"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks a host without CUDA")
@@ -73,6 +74,9 @@ def test_default_device_raises_without_cuda(entry):
     with pytest.raises((RuntimeError, AssertionError)):
         if entry == "serve":
             serve.main(["--n-items", "64", "--dim", "8", "--batch", "4"])
+        elif entry == "serve_loop":
+            serve.main(["--loop", "--n-items", "64", "--dim", "8", "--batch", "4",
+                        "--requests", "4"])
         elif entry == "mutable":
             MutableIndex(IpNSW().build(items), capacity=80).upsert(items[:4])
         else:

@@ -1,5 +1,5 @@
 """Port vs JAX parity for each module that holds a kernel: beam_step,
-commit_merge and mips_topk / exact_topk.
+commit_merge, mips_topk / exact_topk, topk_merge and flash_attn.
 
 The same seeded numpy inputs go through the JAX package's plain references
 (``beam_step_ref``, ``commit_merge_ref``, ``exact_topk(backend="jnp")``, and
@@ -17,8 +17,13 @@ import torch
 from repro.core.brute_force import exact_topk as jax_exact_topk
 from repro.kernels.beam_step.ref import beam_step_ref as jax_beam_step_ref
 from repro.kernels.commit_merge.ref import commit_merge_ref as jax_commit_merge_ref
+from repro.kernels.flash_attn import flash_attention as jax_flash_attention
+from repro.kernels.flash_attn import flash_attention_head as jax_flash_attention_head
+from repro.kernels.flash_attn import flash_attention_head_ref as jax_flash_attention_head_ref
 from repro.kernels.mips_topk.ops import mips_topk as jax_mips_topk
 from repro.kernels.quant_score.ref import quant_score_ref as jax_quant_score_ref
+from repro.kernels.topk_merge import topk_merge as jax_topk_merge
+from repro.kernels.topk_merge import topk_merge_ref as jax_topk_merge_ref
 
 from repro_torch.core.brute_force import exact_topk
 from repro_torch.core.similarity import top_l
@@ -29,7 +34,13 @@ from repro_torch.kernels.commit_merge import (
     commit_rows_ref,
     csr_proposals,
 )
+from repro_torch.kernels.flash_attn import (
+    flash_attention,
+    flash_attention_head,
+    flash_attention_head_ref,
+)
 from repro_torch.kernels.mips_topk import mips_topk
+from repro_torch.kernels.topk_merge import topk_merge
 from repro_torch.testing import assert_topk_match, scores_close
 
 
@@ -295,3 +306,181 @@ def test_cpu_wrappers_never_launch():
     test_exact_topk_matches_jax(False)
     assert beam_step.launches == commit_merge.launches == mips_topk.launches == 0
     assert beam_step.launches_live == beam_step.launches_int8_live == 0
+
+
+# ----------------------------------------------------------------- topk_merge
+#
+# The port follows topk_merge_ref (lax.top_k's order).  Scores, ids and flags
+# of the plain version must equal JAX's bit for bit: both select by the same
+# total order and gather the same slots.
+
+
+def _merge_inputs(rng, b, l, m, *, padded, integer=False):
+    def scores(shape):
+        if integer:
+            return rng.integers(-4, 5, shape).astype(np.float32)
+        return rng.normal(size=shape).astype(np.float32)
+
+    pool_s, new_s = scores((b, l)), scores((b, m))
+    pool_i = rng.integers(-1 if padded else 0, 100, (b, l)).astype(np.int32)
+    new_i = rng.integers(-1 if padded else 0, 100, (b, m)).astype(np.int32)
+    if padded:  # -1 slots carry -inf, like a real pool
+        pool_s[pool_i < 0] = -np.inf
+        new_s[new_i < 0] = -np.inf
+    return (pool_s, pool_i, rng.integers(0, 2, (b, l)).astype(np.int32),
+            new_s, new_i, rng.integers(0, 2, (b, m)).astype(np.int32))
+
+
+def _assert_merge_equal(got, want):
+    for g, w, name in zip(got, want, ("scores", "ids", "checked")):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype, name
+        assert np.array_equal(g.view(np.int32), w.view(np.int32)), name  # bits, +-0 included
+
+
+@pytest.mark.parametrize("b,l,m,padded", [(5, 16, 8, False), (130, 64, 16, False),
+                                          (17, 33, 9, True), (3, 7, 5, True)])
+def test_topk_merge_matches_jax_ref_and_pallas(b, l, m, padded):
+    """The JAX package's own shapes (tests/test_kernels.py): the port's
+    wrapper (its plain version on the CPU) equals ``topk_merge_ref`` bit for
+    bit, and the Pallas kernel in interpret mode on inputs without signed
+    zeros."""
+    args = _merge_inputs(np.random.default_rng(b * l + m), b, l, m, padded=padded)
+    got = topk_merge(*map(torch.from_numpy, args))
+    _assert_merge_equal([t.numpy() for t in got], jax_topk_merge_ref(*map(jnp.asarray, args)))
+    _assert_merge_equal([t.numpy() for t in got], jax_topk_merge(*map(jnp.asarray, args)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_topk_merge_integer_ties_and_signed_zeros_match_jax_ref(seed):
+    """Integer scores with exact ties, -inf / -1 slots and +-0 pairs: the
+    port equals ``topk_merge_ref`` bit for bit."""
+    rng = np.random.default_rng(seed)
+    args = list(_merge_inputs(rng, 64, 40, 16, padded=True, integer=True))
+    for s in (args[0], args[3]):
+        zero = s == 0
+        s[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    assert np.signbit(args[0][args[0] == 0]).any() and (~np.signbit(args[3][args[3] == 0])).any()
+    got = topk_merge(*map(torch.from_numpy, args))
+    _assert_merge_equal([t.numpy() for t in got], jax_topk_merge_ref(*map(jnp.asarray, args)))
+
+
+def test_topk_merge_signed_zero_pins_the_ref_not_the_pallas_kernel():
+    """Pool [(-0.0, 7, checked), (-1, 8)] merged with [(+0.0, 9), (-2, 10)]:
+    ``topk_merge_ref`` (lax.top_k) ranks +0.0 above -0.0 and keeps each
+    slot's score; the Pallas kernel keeps them equal, takes the first, and
+    emits the row maximum (+0.0 for id 7).  The port follows the ref."""
+    args = (np.array([[-0.0, -1.0]], np.float32), np.array([[7, 8]], np.int32),
+            np.array([[1, 0]], np.int32), np.array([[0.0, -2.0]], np.float32),
+            np.array([[9, 10]], np.int32), np.array([[0, 0]], np.int32))
+    s, i, c = (t.numpy() for t in topk_merge(*map(torch.from_numpy, args)))
+    assert i.tolist() == [[9, 7]] and c.tolist() == [[0, 1]]
+    assert s.tolist() == [[0.0, 0.0]] and np.signbit(s).tolist() == [[False, True]]
+    _assert_merge_equal((s, i, c), jax_topk_merge_ref(*map(jnp.asarray, args)))
+    ps, pi, pc = map(np.asarray, jax_topk_merge(*map(jnp.asarray, args)))
+    assert pi.tolist() == [[7, 9]] and pc.tolist() == [[1, 0]]
+    assert not np.signbit(ps).any()
+
+
+# ----------------------------------------------------------------- flash_attn
+#
+# fp32: the JAX tests' own tolerance, rtol = atol = 2e-5.  bf16: the port's
+# plain version against JAX's reference, both in bf16, within one bf16 ulp of
+# the output's scale (rtol = atol = 2**-7): the two CPU matmuls may round a
+# bf16 score or output differently in the last bit.
+
+FLASH_TOL = dict(rtol=2e-5, atol=2e-5)
+FLASH_BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -7)
+
+
+def _qkv(rng, *shapes):
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("s,t,hd,off,win", [(128, 128, 64, 0, None), (128, 256, 64, 128, None),
+                                            (128, 128, 64, 0, 32), (256, 256, 128, 0, None)])
+def test_flash_attention_head_matches_jax_ref_and_pallas(s, t, hd, off, win):
+    """The JAX package's shapes (tests/test_kernels.py): the port's head
+    entry (its plain version on the CPU) against ``flash_attention_head_ref``
+    and the Pallas kernel in interpret mode."""
+    q, k, v = _qkv(np.random.default_rng(s + t + hd + off), (s, hd), (t, hd), (t, hd))
+    got = flash_attention_head(*map(torch.from_numpy, (q, k, v)), q_offset=off, window=win)
+    ref = jax_flash_attention_head_ref(*map(jnp.asarray, (q, k, v)), q_offset=off, window=win)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FLASH_TOL)
+    plain = flash_attention_head_ref(*map(torch.from_numpy, (q, k, v)), q_offset=off, window=win)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(ref), **FLASH_TOL)
+    pallas = jax_flash_attention_head(*map(jnp.asarray, (q, k, v)), q_offset=off, window=win,
+                                      bq=64, bk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **FLASH_TOL)
+
+
+def test_flash_attention_fully_masked_rows_are_zero_as_the_ref():
+    """q_offset = 100 with a window of 8 over 64 keys: no row has a key in
+    range.  The port gives 0, as ``flash_attention_head_ref``; the Pallas
+    kernel's finite mask gives the mean of v instead (the reference's
+    divergence, kept out of the port)."""
+    q, k, v = _qkv(np.random.default_rng(3), (64, 64), (64, 64), (64, 64))
+    got = flash_attention_head(*map(torch.from_numpy, (q, k, v)), q_offset=100, window=8)
+    ref = jax_flash_attention_head_ref(*map(jnp.asarray, (q, k, v)), q_offset=100, window=8)
+    plain = flash_attention_head_ref(*map(torch.from_numpy, (q, k, v)), q_offset=100, window=8)
+    assert not got.numpy().any() and not np.asarray(ref).any() and not plain.numpy().any()
+    pallas = np.asarray(jax_flash_attention_head(*map(jnp.asarray, (q, k, v)), q_offset=100,
+                                                 window=8, bq=64, bk=64))
+    np.testing.assert_allclose(pallas, np.broadcast_to(v.mean(0), pallas.shape), rtol=1e-5,
+                               atol=1e-5)
+    # a window that leaves the keys: rows 0-10 see some, rows 11-63 none
+    got = flash_attention_head(*map(torch.from_numpy, (q, k, v)), q_offset=60, window=8)
+    ref = jax_flash_attention_head_ref(*map(jnp.asarray, (q, k, v)), q_offset=60, window=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FLASH_TOL)
+    assert got.numpy()[:11].all(axis=1).all() and not got.numpy()[11:].any()
+
+
+@pytest.mark.parametrize("q_offset,window", [(0, None), (64, 48)])
+def test_flash_attention_gqa_matches_jax(q_offset, window):
+    """The grouped-query wrapper: head h reads kv head h // (H / KV), as the
+    JAX wrapper's reshape groups them; against the Pallas wrapper in
+    interpret mode and against the per-head reference."""
+    B, S, T, H, KV, hd = 2, 128, 192, 8, 2, 64
+    q, k, v = _qkv(np.random.default_rng(5), (B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), q_offset=q_offset, window=window)
+    assert got.shape == (B, S, H, hd)
+    pallas = jax_flash_attention(*map(jnp.asarray, (q, k, v)), q_offset=q_offset, window=window,
+                                 bq=64, bk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **FLASH_TOL)
+    for b in range(B):
+        for h in range(H):
+            ref = jax_flash_attention_head_ref(*map(jnp.asarray, (q[b, :, h], k[b, :, h // 4],
+                                                                  v[b, :, h // 4])),
+                                               q_offset=q_offset, window=window)
+            np.testing.assert_allclose(got.numpy()[b, :, h], np.asarray(ref), **FLASH_TOL)
+
+
+def test_flash_attention_bf16_matches_jax_ref():
+    """bf16 inputs (the models' dtype): the port's plain version and JAX's
+    reference both score, round p and multiply in bf16."""
+    q, k, v = _qkv(np.random.default_rng(7), (1, 256, 4, 64), (1, 256, 2, 64), (1, 256, 2, 64))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, window=96)
+    assert got.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v))
+    for h in range(4):
+        ref = jax_flash_attention_head_ref(jq[0, :, h], jk[0, :, h // 2], jv[0, :, h // 2],
+                                           window=96)
+        np.testing.assert_allclose(got[0, :, h].float().numpy(), np.asarray(ref, np.float32),
+                                   **FLASH_BF16_TOL)
+
+
+def test_flash_attention_rejects_what_the_kernel_cannot_take():
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros(1, 4, 2, 64, device="meta"), q, q)
+
+
+def test_cpu_topk_merge_and_flash_attn_never_launch():
+    topk_merge.launches = flash_attention.launches = flash_attention.launches_bf16 = 0
+    test_topk_merge_integer_ties_and_signed_zeros_match_jax_ref(0)
+    test_flash_attention_gqa_matches_jax(0, None)
+    test_flash_attention_bf16_matches_jax_ref()
+    assert topk_merge.launches == flash_attention.launches == flash_attention.launches_bf16 == 0
