@@ -26,7 +26,15 @@ Phases (each one that fails ends the run with a non-zero exit):
      the plain version in bf16 (spread = sqrt(sum p^2 v^2), the size of the
      weighted sum), and within 2**-8 |plain| + 0.015 spread of the plain
      version in fp32 on the same bf16 values, with p's bf16 rounding showing
-     (FLASH_TOL); scaled_dot_product_attention as library_ms.
+     (FLASH_TOL); scaled_dot_product_attention as library_ms.  The bf16
+     kernel (tensor cores) is also held to those limits at its edges
+     (FLASH_EDGE_SHAPES: ragged S and T, hd 32 and 256 with q_offset, rows
+     with no key in their window, which must be 0), and mips_topk at its
+     own (MIPS_EDGE_SHAPES: a ragged query tile, k = 1 and 32, a depth not a
+     multiple of 4) and at the full-size loop's ground truth (4,096
+     queries).  A "roofline" line gives each redesigned kernel's TFLOP/s,
+     share of its bound and ms over library_ms; phase 2 counts the
+     tensor-core instructions of the bf16 kernel's SASS (cuobjdump).
      Then both kernels' own entry points are driven once at these shapes:
      they have no system caller, so their launches in the kernels line are
      those.
@@ -123,6 +131,8 @@ FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
 
 N_FULL, D_FULL = 136_736, 300  # Yahoo!Music (paper §5 dataset table)
+# the full-size loop: 4,096 queries at 2,000 QPS on _build_ladder(256, 40)
+LOOP_FULL_REQUESTS, LOOP_FULL_RATE = 4096, 2000.0
 BEAM_SHAPES = {  # walk: (B, L, M, S, V) on the main path, d = 300
     "build_angular": (512, 10, 10, 1, 201),
     "build_ip": (512, 32, 16, 161, 1185),
@@ -133,7 +143,13 @@ COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
 # gathered scorers: (B, W) on the main path, d = 300
 QUANT_SHAPES = {"seed_ip": (256, 160), "seed_angular": (256, 1)}
 GATHER_SHAPES = {"seed_ip": (256, 160), "build_seed_ip": (512, 161), "rerank_ip": (256, 40)}
-MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000, 64, 10)}
+MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000, 64, 10),
+               # the full-size loop's ground truth: 4,096 queries in one call
+               "loop_ground_truth": (LOOP_FULL_REQUESTS, N_FULL, D_FULL, 10)}
+# mips_topk's edges, checked only: a ragged query tile with k = 1 and with the
+# largest k, and a depth that is not a multiple of 4 (the scalar loads)
+MIPS_EDGE_SHAPES = {"b100_k1": (100, 20_000, 64, 1), "b100_k32": (100, 20_000, D_FULL, 32),
+                    "b100_d37": (100, 5_000, 37, 10)}
 # topk_merge at the walk's merge shapes: (B, L, M)
 MERGE_SHAPES = {"search_ip": (256, 40, 16), "build_ip": (512, 32, 16),
                 "search_angular": (256, 10, 10)}
@@ -142,6 +158,12 @@ MERGE_SHAPES = {"search_ip": (256, 40, 16), "build_ip": (512, 32, 16),
 FLASH_SHAPES = {"granite_3_2b": (1, 4096, 4096, 32, 8, 64, 0, None),
                 "granite_3_2b_offset": (1, 2048, 4096, 32, 8, 64, 2048, None),
                 "gemma3_12b_local": (1, 4096, 4096, 16, 8, 256, 0, 1024)}
+# the bf16 kernel's edges (TMA boxes past the end, q_offset, hd 32 / 256, rows
+# with no key, which must be 0), checked only, under the bf16 limits below
+FLASH_EDGE_SHAPES = {"ragged_gqa": (2, 1000, 1000, 4, 2, 128, 0, None),
+                     "hd32_offset": (1, 300, 700, 4, 2, 32, 400, None),
+                     "hd256_offset_window": (1, 300, 700, 4, 2, 256, 400, 100),
+                     "fully_masked": (1, 64, 64, 2, 1, 64, 100, 8)}
 # flash_attn: |out - plain| <= atol + rtol * |plain| + c * spread, where spread =
 # sqrt(sum_t p_t^2 v_t^2) is the size of the weighted sum each output is (a
 # relative error e in every weight p_t moves it by about e * spread).  The
@@ -156,8 +178,6 @@ FLASH_TOL = {"float32": (2e-5, 2e-5, 0.0),   # (rtol, atol, c): the JAX tests' f
 # (kernel.py:69; largest excess 0.008 spread), which must show somewhere
 FLASH_BF16_VS_FP32 = (2**-8, 0.0, 0.015)
 FLASH_P_ROUNDED = 1e-4  # least largest excess over the spread: p was rounded to bf16
-# the full-size loop: 4,096 queries at 2,000 QPS on _build_ladder(256, 40)
-LOOP_FULL_REQUESTS, LOOP_FULL_RATE = 4096, 2000.0
 # the JAX serve CLI's churn deployment (src/repro/launch/serve.py:309-321)
 CHURN = dict(batch=32, seed=3, profile="lognormal", duration_s=1.0, hub_kill_at=0.5,
              hub_kill_k=8, relink_every=0.25, relink_budget=64)
@@ -271,6 +291,35 @@ def phase_build() -> None:
     for line in _lib.build_log().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"ptxas {line.strip()}")
+    log_tensor_core_sass(path)
+
+
+def log_tensor_core_sass(library: Path) -> None:
+    """Counts the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in
+    the SASS of each bf16 attention kernel, by cuobjdump where the toolkit
+    has it; the kernel must have some."""
+    import shutil
+
+    from repro_torch.kernels import _lib
+
+    tool = shutil.which("cuobjdump") or str(Path(_lib.nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        log("cuobjdump not found: tensor-core instructions of flash_attn_bf16 not counted")
+        return
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif name is not None and "flash_attn_bf16_kernel" in name:
+            c = counts.setdefault(name, {"HGMMA": 0, "HMMA": 0})
+            for op in c:
+                c[op] += f" {op}." in line or f" {op} " in line
+    for fn, c in counts.items():
+        log(f"sass {fn}: HGMMA={c['HGMMA']} HMMA={c['HMMA']}")
+        assert c["HGMMA"] + c["HMMA"] > 0, f"{fn} has no tensor-core instruction"
+    assert counts, "no flash_attn_bf16_kernel in the library's SASS"
 
 
 def _int_or_float(shape, integer: bool, g):
@@ -621,10 +670,36 @@ def phase_mips_topk(g) -> dict:
                     f"library_ms={library_ms if library_ms is None else f'{library_ms:.4f}'} "
                     f"bound_ms={bound_ms:.5f} bound_by={by} near_tie_rows={rows} "
                     f"max_abs_err={err:.3g} launches={launches}")
+                if kind == "float" and cell != "serve_default":
+                    _log_roofline(f"mips_topk[{variant}] {cell}", flops, ms, bound_ms,
+                                  library_ms, pass2_ms=device_ms(run, only="merge"))
                 if cell == "full" and kind == "float":
                     out[variant] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by=by, library_ms=library_ms, max_abs_err=err)
+                del q, x, scales
+        for cell, (b, n, d, k) in MIPS_EDGE_SHAPES.items():
+            for kind in ("int", "float"):
+                q = _int_or_float((b, d), kind == "int", g)
+                x = _int_or_float((n, d), kind == "int", g)
+                scales = None
+                if variant == "int8":
+                    x, scales = _int8_store(x, kind == "int", g)
+                (s_k, i_k), (s_p, i_p) = mips_topk(q, x, scales, k=k), mips_topk_ref(
+                    q, x, k=k, scales=scales)
+                torch.cuda.synchronize()
+                rows = _check_topk(f"mips_topk[{variant}] {cell}/{kind}", i_k, s_k, i_p, s_p,
+                                   kind == "int")
+                log(f"kernel=mips_topk variant={variant} edge={cell} inputs={kind} B={b} N={n} "
+                    f"d={d} k={k} near_tie_rows={rows} max_abs_err={_max_abs_err(s_k, s_p):.3g}")
     return out
+
+
+def _log_roofline(name: str, flops: float, ms: float, bound_ms: float, library_ms, **extra):
+    """The redesigned kernels' line: achieved TFLOP/s, share of the bound,
+    and time over one PyTorch call's."""
+    ratio = "none" if library_ms is None else f"{ms / library_ms:.3f}"
+    log(f"roofline {name}: tflops={flops / ms / 1e9:.2f} share_of_bound={bound_ms / ms:.4f} "
+        f"ms_over_library_ms={ratio} " + " ".join(f"{k}={v:.4f}" for k, v in extra.items()))
 
 
 def _merge_inputs(shape, integer: bool, g):
@@ -849,12 +924,36 @@ def phase_flash_attn(g) -> dict:
                 f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
                 f"bound_ms={bound_ms:.5f} bound_by={by} (rate {rate / 1e12:.0f} TFLOP/s) "
                 f"rtol, atol, c={tol} max_abs_err={err:.3g}")
+            if dtype == torch.bfloat16:
+                _log_roofline(f"flash_attn[bf16] {cell}", flops, ms, bound_ms, library_ms)
             if cell == "granite_3_2b":
                 key = "flash_attn" if dtype == torch.float32 else "flash_attn_bf16"
                 out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                                 library_ms=library_ms, max_abs_err=err)
             del q, k, v, got, want, spread
             torch.cuda.empty_cache()
+    for cell, (b, s, t, h, kv, hd, off, win) in FLASH_EDGE_SHAPES.items():
+        q, k, v = _flash_inputs(FLASH_EDGE_SHAPES[cell], torch.bfloat16, g)
+        got = flash_attention(q, k, v, q_offset=off, window=win)
+        want = flash_attention_ref(q, k, v, q_offset=off, window=win)
+        torch.cuda.synchronize()
+        spread = _flash_spread(q, k, v, off, win)
+        err, _ = _check_flash(f"{cell}/bfloat16", got, want, spread, FLASH_TOL["bfloat16"])
+        exact = flash_attention_ref(q.float(), k.float(), v.float(), q_offset=off, window=win)
+        _, rounded = _check_flash(f"{cell}/bfloat16 vs fp32 plain", got, exact, spread,
+                                  FLASH_BF16_VS_FP32)
+        pos = off + torch.arange(s, device="cuda")
+        seen = torch.minimum(pos, torch.tensor(t - 1, device="cuda")) + 1
+        if win is not None:
+            seen -= torch.clamp(pos - win + 1, min=0)
+        empty = seen <= 0  # rows with no key in their window
+        assert bool((got[:, empty] == 0).all()), f"flash_attn {cell}: a row with no key is not 0"
+        if not bool(empty.all()):
+            assert rounded >= FLASH_P_ROUNDED, (
+                f"flash_attn {cell}: within {rounded:.3g} spread of fp32 arithmetic")
+        log(f"kernel=flash_attn edge={cell} dtype=bfloat16 B={b} S={s} T={t} H={h} KV={kv} "
+            f"hd={hd} q_offset={off} window={win} rows_without_keys={int(empty.sum())} "
+            f"max_abs_err={err:.3g}")
     return out
 
 

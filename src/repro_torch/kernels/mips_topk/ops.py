@@ -1,8 +1,8 @@
 """mips_topk wrapper: a CPU tensor runs the plain version, a CUDA tensor
 launches the two-pass kernel of ``csrc/mips_topk.cu`` or raises.
 
-The wrapper picks the item chunking of pass 1 so that the grid holds about
-two blocks per SM, and allocates the per-chunk top-k lists pass 2 merges.
+The wrapper picks the item chunking of pass 1 (``chunking``) and allocates
+the per-chunk top-k lists pass 2 merges.
 With ``scales`` the items are the int8 store's codes (the ``mips_topk_i8``
 entry).  ``mips_topk.launches`` counts launches of the fp32 kernel and
 ``mips_topk.launches_int8`` those of the int8 one."""
@@ -13,21 +13,36 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.mips_topk.ref import mips_topk_ref
 
-QUERY_TILE = 64    # queries per pass-1 block (kBQ in csrc/mips_topk.cu)
-ITEM_TILE = 64     # items per pass-1 tile (kBN)
-MAX_K = 32         # pass 1 keeps 64 top-k lists in shared memory
+QUERY_TILE = 128   # queries per pass-1 block (kBQ in csrc/mips_topk.cu)
+ITEM_TILE = 128    # items per pass-1 tile (kBN)
+BLOCKS_PER_SM = 2  # pass-1 blocks an SM holds (__launch_bounds__ and shared memory)
+MAX_K = 32         # kMaxK: pass 1 keeps 128 top-k lists in shared memory
 MAX_CANDIDATES = 4096  # chunks * k that pass 2 ranks in shared memory
+# what a chunk's first tiles cost beyond their products, in tiles: they merge
+# many candidates (measured on an H100: tiles of 10-tile chunks took 1.2x
+# those of 134-tile chunks)
+CHUNK_START_TILES = 2
 
 
 def chunking(b: int, n: int, k: int, sms: int):
-    """(chunks, items per chunk) for pass 1: about two blocks per SM, at
-    most one item tile per chunk's worth of items, and at most
-    ``MAX_CANDIDATES`` merge candidates per query."""
+    """(chunks, items per chunk) for pass 1.  Every chunk but the last is a
+    whole number of item tiles and the chunks cover [0, n) once, with at
+    most ``MAX_CANDIDATES`` merge candidates per query.  Of those chunk
+    counts it takes the fewest that minimise the tiles the busiest block
+    slot walks: waves of ``sms * BLOCKS_PER_SM`` blocks times the tiles of
+    one chunk plus ``CHUNK_START_TILES``."""
     q_tiles = -(-b // QUERY_TILE)
     n_tiles = -(-n // ITEM_TILE)
-    chunks = max(1, min(n_tiles, -(-2 * sms // q_tiles), MAX_CANDIDATES // k))
-    per_chunk = -(-n_tiles // chunks) * ITEM_TILE
-    return -(-n // per_chunk), per_chunk
+    slots = sms * BLOCKS_PER_SM
+    best = None
+    for want in range(1, max(1, min(n_tiles, MAX_CANDIDATES // k)) + 1):
+        per = -(-n_tiles // want)
+        chunks = -(-n_tiles // per)
+        cost = -(-q_tiles * chunks // slots) * (per + CHUNK_START_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, chunks, per)
+    _, chunks, per = best
+    return chunks, per * ITEM_TILE
 
 
 def mips_topk(queries: torch.Tensor, items: torch.Tensor,

@@ -39,7 +39,9 @@ from repro_torch.kernels.flash_attn import (
     flash_attention_head,
     flash_attention_head_ref,
 )
+from repro_torch.kernels.flash_attn.ops import check_kernel_inputs
 from repro_torch.kernels.mips_topk import mips_topk
+from repro_torch.kernels.mips_topk.ops import ITEM_TILE, MAX_CANDIDATES, chunking
 from repro_torch.kernels.topk_merge import topk_merge
 from repro_torch.testing import assert_topk_match, scores_close
 
@@ -308,6 +310,22 @@ def test_cpu_wrappers_never_launch():
     assert beam_step.launches_live == beam_step.launches_int8_live == 0
 
 
+@pytest.mark.parametrize("b,n,k", [(256, 136736, 10), (4096, 136736, 10), (100, 20000, 32),
+                                   (1, 5, 5)])
+def test_mips_topk_chunking_covers_every_item_once(b, n, k):
+    """Pass 1's chunks, as the kernel cuts them ([c * per, min(n, (c + 1) *
+    per))), hold every item exactly once, in whole item tiles, with at most
+    MAX_CANDIDATES merge candidates a query."""
+    chunks, per = chunking(b, n, k, sms=132)
+    assert per % ITEM_TILE == 0 and chunks * k <= MAX_CANDIDATES
+    hits = np.zeros(n, np.int64)
+    for c in range(chunks):
+        lo, hi = c * per, min(n, (c + 1) * per)
+        assert lo < hi, f"chunk {c} is empty"
+        hits[lo:hi] += 1
+    assert (hits == 1).all()
+
+
 # ----------------------------------------------------------------- topk_merge
 #
 # The port follows topk_merge_ref (lax.top_k's order).  Scores, ids and flags
@@ -476,6 +494,26 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take():
         flash_attention(q, q, q, window=0)
     with pytest.raises(ValueError):
         flash_attention(torch.zeros(1, 4, 2, 64, device="meta"), q, q)
+
+
+@pytest.mark.parametrize("case", ["float16", "head_dim", "grouping", "k_dtype", "k_shape",
+                                  "v_strided"])
+def test_flash_attention_kernel_inputs_rejected_on_meta(case):
+    """What neither kernel takes raises before any launch (meta tensors: no
+    data, no device)."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, dtype=dtype, device="meta")
+    q, k, v = t(1, 64, 4, 64), t(1, 64, 2, 64), t(1, 64, 2, 64)
+    check_kernel_inputs(q, k, v)
+    check_kernel_inputs(q.float(), k.float(), v.float())
+    bad = {"float16": (q.half(), k.half(), v.half()),
+           "head_dim": (t(1, 64, 4, 96), t(1, 64, 2, 96), t(1, 64, 2, 96)),
+           "grouping": (t(1, 64, 6, 64), t(1, 64, 4, 64), t(1, 64, 4, 64)),
+           "k_dtype": (q, k.float(), v),
+           "k_shape": (q, t(1, 64, 2, 32), v),
+           "v_strided": (q, k, t(1, 2, 64, 64).transpose(1, 2))}[case]
+    with pytest.raises((TypeError, ValueError)):
+        check_kernel_inputs(*bad)
 
 
 def test_cpu_topk_merge_and_flash_attn_never_launch():
