@@ -31,17 +31,30 @@ Phases (each one that fails ends the run with a non-zero exit):
      (FLASH_EDGE_SHAPES: ragged S and T, hd 32 and 256 with q_offset, rows
      with no key in their window, which must be 0), and mips_topk at its
      own (MIPS_EDGE_SHAPES: a ragged query tile, k = 1 and 32, a depth not a
-     multiple of 4) and at the full-size loop's ground truth (4,096
-     queries).  A "roofline" line gives each redesigned kernel's TFLOP/s,
-     share of its bound and ms over library_ms; phase 2 counts the
-     tensor-core instructions of the bf16 kernel's SASS (cuobjdump).
-     Then both kernels' own entry points are driven once at these shapes:
-     they have no system caller, so their launches in the kernels line are
-     those.
+     multiple of 4), at the full-size loop's ground truth (4,096 queries)
+     and past k = 32 (MIPS_WIDE_SHAPES, the select route: k = 33, 100 and
+     1,000 at full size, k = N at N = 5,000).  A "roofline" line gives each
+     redesigned kernel's TFLOP/s, share of its bound and ms over
+     library_ms; phase 2 counts the tensor-core instructions of the bf16
+     kernel's SASS (cuobjdump).  beam_walk, the whole walk in one launch,
+     runs in every variant (f32, int8, each with and without a tombstone
+     mask) at the main path's walks (WALK_SHAPES), at pad rows born done,
+     a max_steps cut, a walk that ends before max_steps (WALK_LONG), an
+     ef of 400 whose visited rows stay in device memory (WALK_LARGE_V) and
+     a width of 37 (scalar loads), on integer and float inputs: every output (pool, visited, evals, dead
+     evals, per-row and global steps) bit-identical to the host loop of the
+     beam_step kernel, and to beam_walk_ref on integer inputs (float: the
+     tolerance contract); at the search IP walk ``ms`` beside the per-step
+     loop's device and call time.  Then the entry points without a system
+     caller (topk_merge, flash_attn, the per-step beam_step, mips_topk's
+     int8 select route) are driven once: their launches in the kernels
+     line are those.
   4. serve default: the port's launch/serve.py one-shot, --index
      ipnsw_plus, at the JAX package's defaults, with --storage f32 and with
      --storage int8; recall@10 within 0.02 of the JAX package's recall for
-     the same command.
+     the same command; and with --k 33 (mips_topk's select route).  Every
+     system path from here on walks with beam_walk and launches no
+     per-step beam_step kernel.
   4b. serve default + churn: the serve default's index, built again and
      opened as a MutableIndex (capacity 1.25 N, mutation_batch 32), takes
      the JAX serve CLI's churn trace (turnover 0.2, one hub kill of 8, four
@@ -58,28 +71,33 @@ Phases (each one that fails ends the run with a non-zero exit):
      seeded synthetic lognormal items), ground truth from the mips_topk
      kernel; each index searched with the f32 items and the int8 store, and
      the int8 store's quantized scan; build seconds, search time, QPS,
-     recall@10, evals, peak memory, graph invariants I1-I4; then a profiled
-     IpNSW build, f32 search and int8 search: device busy time, idle share,
-     walk steps, host time per step.
+     recall@10, evals, peak memory, graph invariants I1-I4; every search
+     again with per-step walks (the host loop of the beam_step kernel, as
+     the port walked before beam_walk): every output equal; IpNSW's f32 and
+     int8 searches timed both ways in turns; then a profiled IpNSW build,
+     f32 search and int8 search, each with per-step walks and with
+     beam_walk: device busy time, idle share, walk steps, host time per
+     step.
   5b. full-size serving loop: an IpNSWPlus at Yahoo!Music's size serves
      4,096 Poisson requests at 2,000 QPS in three deadline classes on the
      ladder (64, 256) x (10, 20, 40), under the wall clock with the f32 and
      the int8 store and under the virtual clock: p50 / p99 latency, QPS,
      occupancy, miss fraction, degraded share, recall@10, steady builds (0),
      peak memory, launches; a request served at the same ef in the wall and
-     the virtual run gets the same ids.
+     the virtual run gets the same ids; a profiled dispatch both ways.
   6. full size + churn: a mutable IpNSWPlus at Yahoo!Music's size
      (capacity 170,920) takes a churn trace of turnover 0.1 (427 upsert and
      427 delete batches of 32, one hub kill, four relink passes); ms per
      upsert batch, delete batch and relink pass, search ms with and without
      the tombstone mask on the same index, dead evals per query, recall@10
      before and after the trace and after relinking, health counters, peak
-     memory, launches, and one profiled upsert batch.
+     memory, launches, and one profiled upsert batch both ways.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -139,6 +157,20 @@ BEAM_SHAPES = {  # walk: (B, L, M, S, V) on the main path, d = 300
     "search_angular": (256, 10, 10, 1, 201),
     "search_ip": (256, 40, 16, 160, 1440),
 }
+# beam_walk: (B, L, M, S, max_steps) of the main path's walks, d = 300; V = S +
+# max_steps * M (ef 40 on ip-NSW+: 160 + 80 * 16 = 1,440 visited ids)
+WALK_SHAPES = {
+    "build_angular": (512, 10, 10, 1, 20),
+    "build_ip": (512, 32, 16, 161, 64),
+    "search_angular": (256, 10, 10, 1, 20),
+    "search_ip": (256, 40, 16, 160, 80),
+}
+# on a random graph new candidates keep entering the pool, so these walks run
+# to max_steps; with 400 steps the search IP walk ends on its own
+WALK_LONG = (256, 40, 16, 160, 400)
+# ef 400: V = 160 + 800 * 16 = 12,960 ids, past VISITED_SHARED_MAX, so the
+# walk scans its visited rows in device memory
+WALK_LARGE_V = (64, 400, 16, 160, 800)
 COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
 # gathered scorers: (B, W) on the main path, d = 300
 QUANT_SHAPES = {"seed_ip": (256, 160), "seed_angular": (256, 1)}
@@ -150,6 +182,10 @@ MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000,
 # largest k, and a depth that is not a multiple of 4 (the scalar loads)
 MIPS_EDGE_SHAPES = {"b100_k1": (100, 20_000, 64, 1), "b100_k32": (100, 20_000, D_FULL, 32),
                     "b100_d37": (100, 5_000, 37, 10)}
+# the select route (k > 32) at full size, and k = N at a small N
+MIPS_WIDE_SHAPES = {"full_k33": (256, N_FULL, D_FULL, 33), "full_k100": (256, N_FULL, D_FULL, 100),
+                    "full_k1000": (256, N_FULL, D_FULL, 1000),
+                    "n5000_kN": (100, 5_000, 64, 5_000)}
 # topk_merge at the walk's merge shapes: (B, L, M)
 MERGE_SHAPES = {"search_ip": (256, 40, 16), "build_ip": (512, 32, 16),
                 "search_angular": (256, 10, 10)}
@@ -206,10 +242,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20, only: str = "") -> float:
+def device_ms(fn, reps: int = 20, only: str = "", once: bool = False) -> float:
     """Mean device milliseconds per call of ``fn``: the time its kernels
     (those whose name contains ``only``) ran on the card, from
-    torch.profiler's device-side events; host gaps are not counted."""
+    torch.profiler's device-side events; host gaps are not counted.
+    ``once``: ``fn`` launches the one kernel named by ``only`` once a call,
+    so its mean over the launches a session recorded is the time a call
+    (a session may drop a launch's event)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -217,8 +256,9 @@ def device_ms(fn, reps: int = 20, only: str = "") -> float:
     fn()
     torch.cuda.synchronize()
     # A session can come back without device events, or with some of them
-    # lost: every kernel of ``fn`` runs on each call, so each must show at
-    # least ``reps`` launches.
+    # lost: every kernel that carries a twentieth of the time runs on each
+    # call, so each must show at least ``reps`` launches.  (A plain version
+    # may launch a small kernel on some calls only: the library's choice.)
     for attempt in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -227,11 +267,16 @@ def device_ms(fn, reps: int = 20, only: str = "") -> float:
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and only in e.key
                    and e.self_device_time_total > 0]
-        fewest = min((e.count for e in kernels), default=0)
-        if fewest >= reps:
-            return sum(e.self_device_time_total for e in kernels) / reps / 1e3
-        log(f"profiler session {attempt + 1} saw {fewest} of {reps} launches of a "
-            f"kernel; measuring again")
+        total = sum(e.self_device_time_total for e in kernels)
+        if once and len(kernels) == 1 and kernels[0].count >= reps // 2:
+            return total / kernels[0].count / 1e3
+        fewest = min((e for e in kernels if e.self_device_time_total >= total / 20),
+                     key=lambda e: e.count, default=None)
+        if fewest is not None and fewest.count >= reps:
+            return total / reps / 1e3
+        log(f"profiler session {attempt + 1} saw {0 if fewest is None else fewest.count} of "
+            f"{reps} launches of {'no kernel' if fewest is None else fewest.key[:80]}; "
+            f"measuring again")
     raise RuntimeError(f"the profiler lost device events in {PROFILER_SESSIONS} sessions")
 
 
@@ -475,6 +520,245 @@ def phase_beam_step(items_by_kind, stores_by_kind, g) -> dict:
     return out
 
 
+def _walk_inputs(shape, rows, scales, integer: bool, live, g, *, pad_rows: bool = False):
+    """A walk's seeded state as core/search.beam_search makes it, over a
+    random graph (10% empty slots) of the ``rows`` store: deduplicated
+    seeds (10% -1), the seed pool sorted by the plain scorer, visited with
+    the seeds then -1, about 10% of the rows born done (``pad_rows``: a
+    third are pad rows, seedless and done), seed evals and dead evals.
+    Returns (args, kwargs) of beam_walk, with ``max_steps``."""
+    import torch
+
+    from repro_torch.core.search import _dedup_ids
+    from repro_torch.core.similarity import top_l
+
+    b, l, m, s, max_steps = shape
+    n, d = rows.shape
+    dev = rows.device
+    queries = _int_or_float((b, d), integer, g)
+    adj = torch.randint(0, n, (n, m), generator=g, device=dev, dtype=torch.int32)
+    adj[torch.rand((n, m), generator=g, device=dev) < 0.1] = -1
+    seeds = torch.randint(0, n, (b, s), generator=g, device=dev, dtype=torch.int32)
+    seeds[torch.rand((b, s), generator=g, device=dev) < 0.1] = -1
+    done = torch.rand(b, generator=g, device=dev) < 0.1
+    if pad_rows:
+        done = torch.arange(b, device=dev) % 3 == 1
+        seeds[done] = -1
+    seeds = _dedup_ids(seeds)
+    ok = seeds >= 0
+    scores = torch.where(ok, _plain_scorer(scales)(queries, rows, seeds), float("-inf"))
+    top, idx = top_l(scores, min(l, s))
+    pool_ids = torch.full((b, l), -1, dtype=torch.int32, device=dev)
+    pool_scores = torch.full((b, l), float("-inf"), device=dev)
+    pool_ids[:, : idx.shape[1]] = seeds.gather(1, idx)
+    pool_scores[:, : idx.shape[1]] = top
+    visited = torch.full((b, s + max_steps * m), -1, dtype=torch.int32, device=dev)
+    visited[:, :s] = seeds
+    evals = ok.sum(-1, dtype=torch.int32)
+    dead = None if live is None else (ok & ~live[seeds.clamp_min(0).long()]).sum(
+        -1, dtype=torch.int32)
+    args = (pool_ids, pool_scores, pool_ids < 0, visited, done, evals, queries, adj, rows,
+            scales, live, dead)
+    return args, dict(max_steps=max_steps)
+
+
+def _fresh(args):
+    """The walk's arguments with a fresh visited buffer (a walk writes its
+    visited in place)."""
+    return (*args[:3], args[3].clone(), *args[4:])
+
+
+def per_step_walk(pool_ids, pool_scores, pool_checked, visited, done, evals, queries, adj,
+                  items, scales=None, live=None, dead_evals=None, *, max_steps):
+    """The yardstick: beam_walk as a host loop of the beam_step kernel (one
+    launch and one done.all() read a step), the walk the port ran before
+    beam_walk.  Same arguments and result."""
+    from repro_torch.kernels.beam_step import beam_step, host_walk
+
+    def step(ids, scores, checked, vis, dn):
+        return beam_step(ids, scores, checked, vis, dn, queries, adj, items, scales, live)
+
+    return host_walk(step, pool_ids, pool_scores, pool_checked, visited, done, evals,
+                     dead_evals if live is not None else None, max_steps=max_steps)
+
+
+def _walk_plain(args, kw):
+    """beam_walk_ref on the same arguments (the plain scorer of the store)."""
+    from repro_torch.kernels.beam_step import beam_walk_ref
+
+    (pool_ids, pool_scores, checked, visited, done, evals, queries, adj, rows, scales, live,
+     dead) = args
+    return beam_walk_ref(pool_ids, pool_scores, checked, visited, done, evals, queries, adj,
+                         rows, score_fn=_plain_scorer(scales), live=live, dead_evals=dead, **kw)
+
+
+WALK_FIELDS = ("pool_ids", "pool_scores", "pool_checked", "visited", "evals", "dead_evals",
+               "row_steps")
+
+
+def _check_walk(name, got, want, exact: bool):
+    """Every output of two walks bit-identical, steps included (``exact``);
+    else (float inputs against the plain version, whose scores differ in
+    the last bits) the final pools within the tolerance contract: a near-tie
+    ordered the other way can send a row's walk elsewhere on its way to the
+    same pool, so visited and the counts are held on integer inputs only.
+    Returns (near-tie rows, rows whose visited differs)."""
+    import torch
+
+    if exact:
+        assert got.steps == want.steps, f"{name}: steps {got.steps} != {want.steps}"
+        for field in WALK_FIELDS:
+            x, y = getattr(got, field), getattr(want, field)
+            assert (x is None) == (y is None), f"{name}: {field}"
+            if x is not None:
+                assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                   y.view(torch.int32) if y.dtype == torch.float32 else y), \
+                    f"{name}: {field} differs"
+        return 0, 0
+    tied = _check_topk(name, got.pool_ids, got.pool_scores, want.pool_ids, want.pool_scores,
+                       False)
+    return tied, int((got.visited != want.visited).any(-1).sum())
+
+
+def _walk_bound(args, res, max_steps: int, expanded: int):
+    """(ms, by) for one walk: each distinct adjacency row it expanded and
+    each distinct item row it scored read once (int8: codes and scale; with
+    a mask one live byte), the queries, pools and seed evals read, the pools
+    and counts written, and the visited columns of the steps the rows ran
+    written once; 2 d flops per scored neighbour."""
+    import torch
+
+    pool_ids, queries, adj, rows, scales, live = (args[0], args[6], args[7], args[8], args[9],
+                                                  args[10])
+    b, l = pool_ids.shape
+    d = rows.shape[1]
+    m = adj.shape[1]
+    cols = res.visited[:, res.visited.shape[1] - max_steps * m:]
+    scored = torch.unique(cols[cols >= 0]).numel()
+    row_bytes = d * 4 if scales is None else d + 4
+    nbytes = (expanded * m * 4 + scored * (row_bytes + (live is not None))
+              + b * d * 4 + 2 * b * l * 9 + b * (1 + 4 + 4 + 4)
+              + int(res.row_steps.sum()) * m * 4)
+    n_scored = int((res.evals - args[5]).sum())
+    return bound(nbytes, 2.0 * d * n_scored)
+
+
+def _expanded_nodes(args, kw) -> int:
+    """Distinct nodes whose adjacency rows the walk read: the chosen slot's
+    id of every step that advanced, from a host loop of the plain version."""
+    import torch
+
+    from repro_torch.kernels.beam_step import beam_step_ref, host_walk
+
+    (_, _, _, _, _, _, queries, adj, rows, scales, live, _) = args
+    chosen = []
+
+    def step(ids, scores, checked, vis, dn):
+        unchecked = ~checked & (ids >= 0)
+        slot = torch.where(unchecked, torch.arange(ids.shape[1], device=ids.device),
+                           ids.shape[1]).min(-1).values
+        upd = ~dn & (slot < ids.shape[1])
+        chosen.append(ids.gather(1, slot.clamp_max(ids.shape[1] - 1)[:, None])[upd, 0])
+        return beam_step_ref(ids, scores, checked, vis, dn, queries, adj, rows,
+                             score_fn=_plain_scorer(scales), live=live)
+
+    fresh = _fresh(args)
+    host_walk(step, *fresh[:6], fresh[11] if live is not None else None, **kw)
+    return torch.unique(torch.cat(chosen)).numel() if chosen else 0
+
+
+def phase_beam_walk(items_by_kind, stores_by_kind, g) -> dict:
+    """beam_walk in every variant (f32, int8, each without and with a
+    tombstone mask over about half the items) at the main path's walks, and
+    at pad rows, a max_steps cut and a large ef whose visited rows stay in
+    device memory: every output bit-identical to the host loop of the
+    beam_step kernel on any input, and to beam_walk_ref on integer inputs
+    (float inputs: the tolerance contract).  Returns the timings of the
+    four variants at the search IP shape, float inputs."""
+    import torch
+
+    from repro_torch.kernels.beam_step import beam_walk
+    from repro_torch.kernels.beam_step.ops import VISITED_SHARED_MAX
+
+    out = {}
+    # d = 37: the scalar loads (repro::row_score) instead of the 16-byte ones
+    narrow = {kind: _int_or_float((20_000, 37), kind == "int", g) for kind in items_by_kind}
+    narrow_stores = {kind: _int8_store(x, kind == "int", g) for kind, x in narrow.items()}
+    cells = [(variant, walk, shape, {}) for variant in ("f32", "int8")
+             for walk, shape in WALK_SHAPES.items()]
+    cells += [("f32", "search_ip_pad_rows", WALK_SHAPES["search_ip"], {"pad_rows": True}),
+              ("int8", "search_ip_max_steps_cut", (*WALK_SHAPES["search_ip"][:4], 6), {}),
+              ("f32", "search_ip_long", WALK_LONG, {}),
+              ("f32", "large_v_ef400", WALK_LARGE_V, {}),
+              ("f32", "search_ip_d37", WALK_SHAPES["search_ip"], {}),
+              ("int8", "search_ip_d37", WALK_SHAPES["search_ip"], {})]
+    for variant, walk, shape, opts in cells:
+        for kind in items_by_kind:
+            items, stores = ((narrow, narrow_stores) if walk.endswith("d37")
+                             else (items_by_kind, stores_by_kind))
+            items = items[kind]
+            rows, scales = (items, None) if variant == "f32" else stores[kind]
+            half_dead = torch.rand(rows.shape[0], generator=g, device=rows.device) >= 0.5
+            for mask in (None, half_dead):
+                tag = variant if mask is None else f"{variant}_live"
+                args, kw = _walk_inputs(shape, rows, scales, kind == "int", mask, g, **opts)
+                got = beam_walk(*_fresh(args), **kw)
+                loop = per_step_walk(*_fresh(args), **kw)
+                plain = _walk_plain(_fresh(args), kw)
+                torch.cuda.synchronize()
+                name = f"beam_walk[{tag}] {walk}/{kind}"
+                _check_walk(f"{name} vs the beam_step loop", got, loop, True)
+                tied, strayed = _check_walk(f"{name} vs beam_walk_ref", got, plain,
+                                            kind == "int")
+                assert got.steps == int(got.row_steps.max()), f"{name}: steps"
+                b, l, m, s, max_steps = shape
+                v = s + max_steps * m
+                done = args[4]
+                assert got.steps > 0 and bool((got.row_steps[done] == 0).all()), \
+                    f"{name}: a row done on entry took a step"
+                if mask is not None:
+                    assert int((got.dead_evals - args[11]).sum()) > 0, f"{name}: no dead eval"
+                if opts.get("pad_rows"):
+                    assert bool((got.visited[done] == -1).all()) and bool(
+                        (got.evals[done] == 0).all()), f"{name}: a pad row was walked"
+                if walk.endswith("max_steps_cut"):
+                    assert got.steps == max_steps, f"{name}: the walk was not cut"
+                if walk.endswith("long"):
+                    assert got.steps < max_steps, f"{name}: max_steps cut the walk"
+                err = _max_abs_err(got.pool_scores, plain.pool_scores)
+                line = (f"kernel=beam_walk variant={tag} walk={walk} inputs={kind} B={b} L={l} "
+                        f"M={m} S={s} V={v} d={rows.shape[1]} max_steps={max_steps} "
+                        f"visited_in_shared={v <= VISITED_SHARED_MAX} steps={got.steps} "
+                        f"mean_row_steps={float(got.row_steps.float().mean()):.2f} "
+                        f"near_tie_rows={tied} rows_walked_elsewhere_than_plain={strayed} "
+                        f"max_abs_err={err:.3g}")
+                timed = walk == "search_ip" or (walk == "large_v_ef400" and mask is None)
+                if kind == "float" and timed:
+                    reps = 10 if walk == "search_ip" else 3
+                    run = lambda: beam_walk(*_fresh(args), **kw)  # noqa: E731
+                    ms = device_ms(run, reps=reps, only="beam_walk_kernel", once=True)
+                    loop_ms = device_ms(lambda: per_step_walk(*_fresh(args), **kw), reps=reps,
+                                        only="beam_step")
+                    call_ms = cuda_ms(run, reps=reps)
+                    loop_call_ms = cuda_ms(lambda: per_step_walk(*_fresh(args), **kw), reps=reps)
+                    bound_ms, by = _walk_bound(args, got, max_steps, _expanded_nodes(args, kw))
+                    line += (f" ms={ms:.4f} call_ms={call_ms:.4f} step_loop_ms={loop_ms:.4f} "
+                             f"step_loop_call_ms={loop_call_ms:.4f} library_ms=None "
+                             f"bound_ms={bound_ms:.5f} bound_by={by} "
+                             f"us_per_step={ms / got.steps * 1e3:.3f}")
+                    if walk == "search_ip":
+                        plain_ms = device_ms(lambda: _walk_plain(_fresh(args), kw), reps=3)
+                        line += f" plain_ms={plain_ms:.4f}"
+                        out[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by=by, library_ms=None, max_abs_err=err)
+                log(line + f" launches={getattr(beam_walk, _WALK_COUNTERS[tag])}")
+    return out
+
+
+_WALK_COUNTERS = {"f32": "launches", "int8": "launches_int8", "f32_live": "launches_live",
+                  "int8_live": "launches_int8_live"}
+
+
 def _score_ids(b: int, w: int, n: int, g):
     """[B, W] ids as the walk gives them: hub-skewed repeats and 10% -1."""
     import torch
@@ -691,6 +975,43 @@ def phase_mips_topk(g) -> dict:
                                    kind == "int")
                 log(f"kernel=mips_topk variant={variant} edge={cell} inputs={kind} B={b} N={n} "
                     f"d={d} k={k} near_tie_rows={rows} max_abs_err={_max_abs_err(s_k, s_p):.3g}")
+        for cell, (b, n, d, k) in MIPS_WIDE_SHAPES.items():
+            for kind in ("int", "float"):
+                q = _int_or_float((b, d), kind == "int", g)
+                x = _int_or_float((n, d), kind == "int", g)
+                scales = None
+                if variant == "int8":
+                    x, scales = _int8_store(x, kind == "int", g)
+                run = lambda: mips_topk(q, x, scales, k=k)  # noqa: E731
+                plain = lambda: mips_topk_ref(q, x, k=k, scales=scales)  # noqa: E731
+                (s_k, i_k), (s_p, i_p) = run(), plain()
+                torch.cuda.synchronize()
+                rows = _check_topk(f"mips_topk[{variant}] {cell}/{kind}", i_k, s_k, i_p, s_p,
+                                   kind == "int")
+                err = _max_abs_err(s_k, s_p)
+                line = (f"kernel=mips_topk variant={variant} route=select cell={cell} "
+                        f"inputs={kind} B={b} N={n} d={d} k={k} near_tie_rows={rows} "
+                        f"max_abs_err={err:.3g}")
+                if cell == "full_k33" and kind == "float":
+                    library = None if variant == "int8" else (
+                        lambda: torch.topk(torch.matmul(q, x.T), k, dim=1))
+                    ms = device_ms(run)
+                    call_ms = cuda_ms(run)
+                    plain_ms = device_ms(plain)
+                    library_ms = device_ms(library) if library is not None else None
+                    row_bytes = d * 4 if variant == "f32" else d + 4
+                    flops = 2.0 * b * n * d + (b * n if variant == "int8" else 0)
+                    bound_ms, by = bound(b * d * 4 + n * row_bytes + b * k * 8, flops)
+                    line += (f" ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+                             f"library_ms={library_ms if library_ms is None else f'{library_ms:.4f}'}"
+                             f" bound_ms={bound_ms:.5f} bound_by={by}")
+                    _log_roofline(f"mips_topk[{variant}] select {cell}", flops, ms, bound_ms,
+                                  library_ms, select_ms=device_ms(run, only="select", once=True))
+                    out[f"select_{variant}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                                    bound_by=by, library_ms=library_ms,
+                                                    max_abs_err=err)
+                log(line)
+                del q, x, scales
     return out
 
 
@@ -958,18 +1279,34 @@ def phase_flash_attn(g) -> dict:
 
 
 def phase_entry_points(g) -> dict:
-    """topk_merge and flash_attn have no system caller: their path is their
-    own public entry point.  Each is driven once at every shape above, with
-    the counts set to 0 just before; returns the counts read just after."""
+    """topk_merge, flash_attn, the per-step beam_step kernels (the walks
+    launch beam_walk) and the int8 select route of mips_topk have no system
+    caller: their path is their own public entry point.  Each is driven
+    once (topk_merge and flash_attn at every shape above, beam_step in its
+    four variants at the search IP step, mips_topk at k = 33 over an int8
+    store), with the counts set to 0 just before; returns the counts read
+    just after."""
     import torch
 
+    from repro_torch.kernels.beam_step import beam_step
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_head
+    from repro_torch.kernels.mips_topk import mips_topk
     from repro_torch.kernels.topk_merge import topk_merge
 
     merges = [_merge_inputs(shape, False, g) for shape in MERGE_SHAPES.values()]
+    items = _int_or_float((N_FULL, D_FULL), False, g)
+    codes, scales = _int8_store(items, False, g)
+    half_dead = torch.rand(N_FULL, generator=g, device="cuda") >= 0.5
+    steps = [(_beam_state(BEAM_SHAPES["search_ip"], rows, sc, False, g), sc, live)
+             for rows, sc in ((items, None), (codes, scales)) for live in (None, half_dead)]
+    q = _int_or_float((256, 64), False, g)
+    wide = _int8_store(_int_or_float((20_000, 64), False, g), False, g)
     _zero_counts()
     for args in merges:
         topk_merge(*args)
+    for args, sc, live in steps:
+        beam_step(*args, sc, live)
+    mips_topk(q, *wide, k=33)
     for (b, s, t, h, kv, hd, off, win) in FLASH_SHAPES.values():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_inputs((b, s, t, h, kv, hd), dtype, g)
@@ -980,10 +1317,11 @@ def phase_entry_points(g) -> dict:
             assert head.shape == (s, hd) and bool(torch.isfinite(head).all())
     torch.cuda.synchronize()
     counts = _read_counts()
-    log(f"entry points topk_merge / flash_attention / flash_attention_head: launches={counts}")
-    for name in ("topk_merge", "flash_attn", "flash_attn_bf16"):
+    log(f"entry points topk_merge / flash_attention / flash_attention_head / beam_step / "
+        f"mips_topk (k 33, int8): launches={counts}")
+    for name in ENTRY_ONLY:
         assert counts[name] > 0, f"{name} was not launched: {counts}"
-    return {name: counts[name] for name in ("topk_merge", "flash_attn", "flash_attn_bf16")}
+    return {name: counts[name] for name in ENTRY_ONLY}
 
 
 def phase_kernels() -> dict:
@@ -998,19 +1336,29 @@ def phase_kernels() -> dict:
                       for kind, items in items_by_kind.items()}
     beam = phase_beam_step(items_by_kind, stores_by_kind, g)
     scorers = phase_scorers(items_by_kind, stores_by_kind, g)
+    commit = phase_commit_merge(items_by_kind, g)
     mips = phase_mips_topk(g)
+    merge = phase_topk_merge(g)
     flash = phase_flash_attn(g)
+    walk = phase_beam_walk(items_by_kind, stores_by_kind, g)
+    torch.cuda.empty_cache()
     timings = {
         "beam_step": beam["f32"],
         "beam_step_int8": beam["int8"],
         "beam_step_live": beam["f32_live"],
         "beam_step_int8_live": beam["int8_live"],
-        "commit_merge": phase_commit_merge(items_by_kind, g),
+        "beam_walk": walk["f32"],
+        "beam_walk_int8": walk["int8"],
+        "beam_walk_live": walk["f32_live"],
+        "beam_walk_int8_live": walk["int8_live"],
+        "commit_merge": commit,
         "mips_topk": mips["f32"],
         "mips_topk_int8": mips["int8"],
+        "mips_topk_select": mips["select_f32"],
+        "mips_topk_select_int8": mips["select_int8"],
         "quant_score": scorers["quant_score"],
         "gather_score": scorers["gather_score"],
-        "topk_merge": phase_topk_merge(g),
+        "topk_merge": merge,
         "flash_attn": flash["flash_attn"],
         "flash_attn_bf16": flash["flash_attn_bf16"],
     }
@@ -1020,7 +1368,7 @@ def phase_kernels() -> dict:
 
 def _kernel_counters():
     """name -> (wrapper, attribute of its launch count)."""
-    from repro_torch.kernels.beam_step import beam_step
+    from repro_torch.kernels.beam_step import beam_step, beam_walk
     from repro_torch.kernels.commit_merge import commit_merge
     from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.gather_score import gather_score
@@ -1032,9 +1380,15 @@ def _kernel_counters():
             "beam_step_int8": (beam_step, "launches_int8"),
             "beam_step_live": (beam_step, "launches_live"),
             "beam_step_int8_live": (beam_step, "launches_int8_live"),
+            "beam_walk": (beam_walk, "launches"),
+            "beam_walk_int8": (beam_walk, "launches_int8"),
+            "beam_walk_live": (beam_walk, "launches_live"),
+            "beam_walk_int8_live": (beam_walk, "launches_int8_live"),
             "commit_merge": (commit_merge, "launches"),
             "mips_topk": (mips_topk, "launches"),
             "mips_topk_int8": (mips_topk, "launches_int8"),
+            "mips_topk_select": (mips_topk, "launches_select"),
+            "mips_topk_select_int8": (mips_topk, "launches_select_int8"),
             "quant_score": (quant_score, "launches"),
             "gather_score": (gather_score, "launches"),
             "topk_merge": (topk_merge, "launches"),
@@ -1043,40 +1397,70 @@ def _kernel_counters():
 
 
 def _zero_counts() -> None:
+    from repro_torch.kernels.beam_step import beam_walk
+
     for fn, attr in _kernel_counters().values():
         setattr(fn, attr, 0)
+    beam_walk.steps = 0
 
 
 def _read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _kernel_counters().items()}
 
 
+# the per-step kernels: the walks launch beam_walk, these only their entry
+# point (and the per-step loop that phase 3 and the before/after runs time)
+STEP_KERNELS = ("beam_step", "beam_step_int8", "beam_step_live", "beam_step_int8_live")
+
+
 def _walk_steps() -> int:
-    return sum(n for name, n in _read_counts().items() if name.startswith("beam_step"))
+    """Walk steps so far: beam_walk's step counts, and one a launch of the
+    per-step kernel (the per-step loop)."""
+    from repro_torch.kernels.beam_step import beam_walk
+
+    counts = _read_counts()
+    return beam_walk.steps + sum(counts[name] for name in STEP_KERNELS)
+
+
+def _assert_path(label: str, counts: dict, path) -> None:
+    """Every kernel of ``path`` launched, and no per-step kernel: a system
+    path walks with beam_walk."""
+    assert all(counts[name] > 0 for name in path), f"{label}: a kernel was not launched: {counts}"
+    assert not any(counts[name] for name in STEP_KERNELS), \
+        f"{label}: a per-step kernel was launched: {counts}"
 
 
 # kernels each serve path must launch (the exact scan runs once, the walks
-# score their seeds with gather_score or quant_score)
+# score their seeds with gather_score or quant_score); --k 33 takes the
+# select route of the exact scan
 SERVE_PATHS = {
-    "f32": (JAX_SERVE_RECALL, ("beam_step", "commit_merge", "mips_topk", "gather_score")),
-    "int8": (JAX_SERVE_RECALL_INT8, ("beam_step", "beam_step_int8", "commit_merge",
-                                     "mips_topk", "quant_score", "gather_score")),
+    "f32": (JAX_SERVE_RECALL, [], ("beam_walk", "commit_merge", "mips_topk", "gather_score")),
+    "int8": (JAX_SERVE_RECALL_INT8, [], ("beam_walk", "beam_walk_int8", "commit_merge",
+                                         "mips_topk", "quant_score", "gather_score")),
+    "f32_k33": (None, ["--k", "33"], ("beam_walk", "commit_merge", "mips_topk_select",
+                                      "gather_score")),
 }
 
 
-def phase_serve_default() -> None:
+def phase_serve_default() -> dict:
+    """The serve one-shots; returns the launches of the --k 33 run."""
     from repro_torch.launch import serve
 
-    for storage, (jax_recall, path) in SERVE_PATHS.items():
+    for name, (jax_recall, flags, path) in SERVE_PATHS.items():
+        storage = name.split("_")[0]
         _zero_counts()
-        res = serve.main(["--index", "ipnsw_plus", "--storage", storage])
+        res = serve.main(["--index", "ipnsw_plus", "--storage", storage, *flags])
         counts = _read_counts()
-        log(f"serve default storage={storage}: recall@10={res['recall']:.4f} "
+        log(f"serve default {name}: recall@k={res['recall']:.4f} "
             f"(JAX {jax_recall}) evals/q={res['evals_per_query']:.1f} "
             f"search_ms={res['search_seconds'] * 1e3:.3f} launches={counts}")
-        assert abs(res["recall"] - jax_recall) <= RECALL_MARGIN, \
-            f"serve {storage} recall {res['recall']} not within {RECALL_MARGIN} of JAX {jax_recall}"
-        assert all(counts[name] > 0 for name in path), f"a kernel was not launched: {counts}"
+        if jax_recall is not None:
+            assert abs(res["recall"] - jax_recall) <= RECALL_MARGIN, \
+                f"serve {storage} recall {res['recall']} not within {RECALL_MARGIN} of JAX {jax_recall}"
+        else:
+            assert res["recall"] > 0.5, f"serve {name}: recall {res['recall']}"
+        _assert_path(f"serve {name}", counts, path)
+    return counts
 
 
 def phase_full_size() -> dict:
@@ -1097,6 +1481,7 @@ def phase_full_size() -> dict:
     _zero_counts()
     _, gt = exact_topk(queries, items, k=10)
     gt = gt.cpu().numpy()
+    searched = {}
     for name, cls in (("ipnsw_plus", IpNSWPlus), ("ipnsw", IpNSW)):
         t0 = time.perf_counter()
         index = cls(max_degree=16, ef_construction=32, insert_batch=512).build(items)
@@ -1115,6 +1500,7 @@ def phase_full_size() -> dict:
             torch.cuda.synchronize()
             search_s = time.perf_counter() - t0
             recall[storage] = recall_at_k(r.ids.cpu().numpy(), gt)
+            searched[name, storage] = (index, r, recall[storage])
             log(f"full size {name}: storage={storage} N={N_FULL} d={D_FULL} B=256 k=10 ef=40 "
                 f"build_s={build_s:.2f} search_ms={search_s * 1e3:.3f} "
                 f"qps={256 / search_s:.0f} recall@10={recall[storage]:.4f} "
@@ -1135,11 +1521,61 @@ def phase_full_size() -> dict:
     counts = _read_counts()
     log(f"full size peak_memory_bytes={torch.cuda.max_memory_allocated()} launches={counts}")
     live = [name for name in counts if name.endswith("_live")]
-    assert all(c > 0 for name, c in counts.items() if name not in live + list(ENTRY_ONLY)), \
-        f"a kernel was not launched: {counts}"
+    _assert_path("full size", counts, [name for name in counts
+                                       if name not in live + list(ENTRY_ONLY) + list(K33_PATH)])
     assert not any(counts[name] for name in live), f"a frozen index launched a live kernel: {counts}"
+    phase_walk_before_after(searched, queries, gt)
     phase_profile(items, queries, index)
     return counts
+
+
+def phase_walk_before_after(searched, queries, gt) -> None:
+    """The before and after of the fused walk on one card: a full-size
+    search launches one walk kernel a walk (two for ip-NSW+); each search
+    again with per-step walks (the host loop of the beam_step kernel),
+    every output equal to the fused walk's, recall@10 equal; then
+    IpNSW's f32 and int8 searches timed with each, in turns (fused first in
+    even pairs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs.recall import recall_at_k
+
+    walks = ("beam_walk", "beam_walk_int8")
+    for (name, storage), (index, fused, recall) in searched.items():
+        before = _read_counts()
+        index.search(queries, k=10, ef=40, storage=storage)
+        launched = sum(_read_counts()[w] - before[w] for w in walks)
+        assert launched == (2 if name == "ipnsw_plus" else 1), \
+            f"full size {name} {storage}: a search launched {launched} walk kernels"
+        with per_step_walks():
+            looped = index.search(queries, k=10, ef=40, storage=storage)
+        torch.cuda.synchronize()
+        for field, x in zip(fused._fields, fused):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, getattr(looped, field)), \
+                    f"full size {name} {storage}: {field} differs from the per-step loop's"
+            else:
+                assert x == getattr(looped, field), f"full size {name} {storage}: {field}"
+        rec = recall_at_k(looped.ids.cpu().numpy(), gt)
+        assert rec == recall, f"full size {name} {storage}: recall {rec} != {recall}"
+        log(f"full size {name} storage={storage}: one search, {launched} walk launch(es); the "
+            f"per-step loop's outputs equal the fused walk's, recall@10={rec:.4f} both")
+    for storage in ("f32", "int8"):
+        index = searched["ipnsw", storage][0]
+        times = {"fused": [], "per_step": []}
+        for pair in range(6):
+            for mode in (("fused", "per_step") if pair % 2 == 0 else ("per_step", "fused")):
+                with per_step_walks() if mode == "per_step" else contextlib.nullcontext():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    index.search(queries, k=10, ef=40, storage=storage)
+                    torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+        log(f"full size ipnsw search storage={storage} B=256 ef=40 ms " + " ".join(
+            f"{mode}_median={np.median(t):.4f} {mode}={['%.4f' % x for x in t]}"
+            for mode, t in times.items())
+            + f" speedup={np.median(times['per_step']) / np.median(times['fused']):.2f}")
 
 
 def _loop_report(label: str, stats, gt) -> dict:
@@ -1218,26 +1654,29 @@ def phase_loop_full() -> dict:
     log(f"loop full: requests served at the same ef in the wall and virtual f32 runs "
         f"{len(same)} of {LOOP_FULL_REQUESTS}, ids identical on all of them; "
         f"peak_memory_bytes={peak} launches={counts}")
-    for name in ("beam_step", "beam_step_int8", "mips_topk", "quant_score", "gather_score"):
-        assert counts[name] > 0, f"loop full: {name} was not launched: {counts}"
+    _assert_path("loop full", counts, ("beam_walk", "beam_walk_int8", "mips_topk", "quant_score",
+                                       "gather_score"))
     full = sl.Bucket(256, 40)
-    _profiled("loop dispatch of a full 256x40 bucket, f32",
-              lambda: executor.run(full, queries[:256], np.ones(256, bool)))
+    _profiled_both("loop dispatch of a full 256x40 bucket, f32",
+                   lambda: executor.run(full, queries[:256], np.ones(256, bool)))
     return runs
 
 
 # kernels whose only path is their own entry point (phase_entry_points)
-ENTRY_ONLY = ("topk_merge", "flash_attn", "flash_attn_bf16")
+ENTRY_ONLY = ("topk_merge", "flash_attn", "flash_attn_bf16", *STEP_KERNELS,
+              "mips_topk_select_int8")
+# kernels whose path is serve --k 33 (phase 4)
+K33_PATH = ("mips_topk_select",)
 
 # kernels each serving-loop path must launch: the build, the ground truth,
 # the walks' steps and seeds (f32: gather_score; int8: quant_score, and
 # gather_score for the rerank); under churn the live walks of the searches
 # and the upserts, and their commits
 LOOP_PATHS = {
-    "f32": ([], ("beam_step", "commit_merge", "mips_topk", "gather_score")),
-    "int8": (["--storage", "int8"], ("beam_step", "beam_step_int8", "commit_merge",
+    "f32": ([], ("beam_walk", "commit_merge", "mips_topk", "gather_score")),
+    "int8": (["--storage", "int8"], ("beam_walk", "beam_walk_int8", "commit_merge",
                                      "mips_topk", "quant_score", "gather_score")),
-    "churn": (["--churn-trace", "0.2"], ("beam_step", "beam_step_live", "commit_merge",
+    "churn": (["--churn-trace", "0.2"], ("beam_walk", "beam_walk_live", "commit_merge",
                                          "mips_topk", "gather_score")),
 }
 
@@ -1271,13 +1710,13 @@ def phase_serve_loop_default() -> None:
             assert s["health_relink_debt"] == JAX_LOOP_CHURN["health_relink_debt"], s
         else:
             assert s["mutation_events"] == 0, s
-        assert all(counts[k] > 0 for k in path), f"loop {name}: a kernel was not launched"
+        _assert_path(f"loop {name}", counts, path)
 
 
 # kernels each churn phase must launch: the live walks of upserts, relinks
 # and searches (f32 and int8), the commits, the seeds' scorers and the
 # ground truth over the live catalog
-CHURN_PATH = ("beam_step_live", "beam_step_int8_live", "commit_merge", "gather_score",
+CHURN_PATH = ("beam_walk_live", "beam_walk_int8_live", "commit_merge", "gather_score",
               "quant_score", "mips_topk")
 
 
@@ -1363,7 +1802,7 @@ def phase_churn_default() -> dict:
             f"churn recall {key}={recall[key]} not within {RECALL_MARGIN} of JAX {JAX_CHURN_RECALL}"
     assert recall["after_relink"] >= recall["fresh_rebuild"] - RECALL_MARGIN, \
         f"churn recall {recall['after_relink']} below a fresh rebuild's {recall['fresh_rebuild']}"
-    assert all(counts[name] > 0 for name in CHURN_PATH), f"a kernel was not launched: {counts}"
+    _assert_path("churn default", counts, CHURN_PATH)
     return counts
 
 
@@ -1460,9 +1899,9 @@ def phase_churn_full() -> dict:
         + f" health={m.health()} peak_memory_bytes={peak} "
         f"launches={counts}")
     assert recall["after_relink"] > 0.5, f"churn full recall@10 {recall['after_relink']}"
-    assert all(counts[name] > 0 for name in CHURN_PATH), f"a kernel was not launched: {counts}"
+    _assert_path("churn full", counts, CHURN_PATH)
     payload = mips_dataset(32, D_FULL, "lognormal", seed=4)
-    _profiled("churn upsert batch of 32", lambda: m.upsert(payload))
+    _profiled_both("churn upsert batch of 32", lambda: m.upsert(payload))
     return counts
 
 
@@ -1495,15 +1934,40 @@ def _profiled(label: str, fn) -> None:
             f"{e.key[:90]}")
 
 
+def _profiled_both(label: str, fn) -> None:
+    """``_profiled`` with per-step walks (before), then with the fused walk
+    (after), in one run."""
+    with per_step_walks():
+        _profiled(f"{label} [per-step loop]", fn)
+    _profiled(label, fn)
+
+
+@contextlib.contextmanager
+def per_step_walks():
+    """Inside, every walk of core/search runs as the host loop of the
+    beam_step kernel (``per_step_walk``), as the port walked before
+    beam_walk."""
+    from repro_torch.core import search
+
+    fused = search.beam_walk
+    search.beam_walk = per_step_walk
+    try:
+        yield
+    finally:
+        search.beam_walk = fused
+
+
 def phase_profile(items, queries, ipnsw) -> None:
     """Where the time goes at full size (profiler on: the walls here are
-    longer than the unprofiled ones above)."""
+    longer than the unprofiled ones above), with per-step walks and with
+    the fused walk."""
     from repro_torch.core.ipnsw import IpNSW
 
-    _profiled("ipnsw build", lambda: IpNSW(max_degree=16, ef_construction=32,
-                                           insert_batch=512).build(items))
-    _profiled("ipnsw search", lambda: ipnsw.search(queries, k=10, ef=40))
-    _profiled("ipnsw search int8", lambda: ipnsw.search(queries, k=10, ef=40, storage="int8"))
+    _profiled_both("ipnsw build", lambda: IpNSW(max_degree=16, ef_construction=32,
+                                                insert_batch=512).build(items))
+    _profiled_both("ipnsw search", lambda: ipnsw.search(queries, k=10, ef=40))
+    _profiled_both("ipnsw search int8",
+                   lambda: ipnsw.search(queries, k=10, ef=40, storage="int8"))
 
 
 # kernel -> (its source, the TPU kernel it replaces)
@@ -1516,12 +1980,24 @@ SOURCES = {
                        "src/repro/kernels/beam_step/kernel.py:178"),
     "beam_step_int8_live": ("src/repro_torch/csrc/beam_step.cu",
                             "src/repro/kernels/beam_step/kernel.py:178"),
+    "beam_walk": ("src/repro_torch/csrc/beam_step.cu",
+                  "src/repro/kernels/beam_step/kernel.py:50"),
+    "beam_walk_int8": ("src/repro_torch/csrc/beam_step.cu",
+                       "src/repro/kernels/beam_step/kernel.py:151"),
+    "beam_walk_live": ("src/repro_torch/csrc/beam_step.cu",
+                       "src/repro/kernels/beam_step/kernel.py:178"),
+    "beam_walk_int8_live": ("src/repro_torch/csrc/beam_step.cu",
+                            "src/repro/kernels/beam_step/kernel.py:178"),
     "commit_merge": ("src/repro_torch/csrc/commit_merge.cu",
                      "src/repro/kernels/commit_merge/kernel.py:78"),
     "mips_topk": ("src/repro_torch/csrc/mips_topk.cu",
                   "src/repro/kernels/mips_topk/kernel.py:48"),
     "mips_topk_int8": ("src/repro_torch/csrc/mips_topk.cu",
                        "src/repro/kernels/mips_topk/kernel.py:69"),
+    "mips_topk_select": ("src/repro_torch/csrc/mips_topk.cu",
+                         "src/repro/kernels/mips_topk/kernel.py:48"),
+    "mips_topk_select_int8": ("src/repro_torch/csrc/mips_topk.cu",
+                              "src/repro/kernels/mips_topk/kernel.py:69"),
     "quant_score": ("src/repro_torch/csrc/quant_score.cu",
                     "src/repro/kernels/quant_score/kernel.py:23"),
     "gather_score": ("src/repro_torch/csrc/gather_score.cu",
@@ -1547,7 +2023,7 @@ def main() -> int:
     card = phase_env()
     phase_build()
     timings, entry_counts = phase_kernels()
-    phase_serve_default()
+    k33_counts = phase_serve_default()
     phase_churn_default()
     phase_serve_loop_default()
     counts = phase_full_size()
@@ -1555,6 +2031,7 @@ def main() -> int:
     # each kernel's launches on the full-size path that runs it
     counts.update({name: n for name, n in phase_churn_full().items() if name.endswith("_live")})
     counts.update(entry_counts)
+    counts.update({name: k33_counts[name] for name in K33_PATH})
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])
                for name, (src, rep) in SOURCES.items()]

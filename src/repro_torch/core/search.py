@@ -8,15 +8,15 @@ B queries advance in lock-step.  Per query:
              (seeds + step * M);
   evals   -- similarity evaluations (the paper's Fig-5/8a metric).
 
-A query is done when every slot of its pool is checked.  The host loop ends
-when every query is done or ``max_steps`` is reached; it reads ``done`` back
-once per step (the condition of the JAX package's ``lax.while_loop``).  Each
-step is one ``beam_step`` call: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors.
+A query is done when every slot of its pool is checked.  The walk ends
+when every query is done or ``max_steps`` is reached (the condition of the
+JAX package's ``lax.while_loop``).  It is one ``beam_walk`` call: on the
+card one kernel launch that runs every row's steps and reads back only the
+step count; on the CPU the host loop of ``beam_step``'s plain version.
 
 Storage (``storage=``, ``core/storage.py``): "int8" walks on the quantized
 store -- seeds by ``store_scores`` (the ``quant_score`` kernel), steps by the
-int8 ``beam_step`` -- and re-scores the final pool exactly in fp32
+int8 walk -- and re-scores the final pool exactly in fp32
 (``gather_score``) before the top-k cut, so returned scores are exact inner
 products.
 
@@ -27,8 +27,7 @@ cut never returns one.
 
 Bucket padding (``valid=``, ``launch/serve_loop.py``): pad rows lose their
 seeds and are born done, so they take no step, spend no evaluation and come
-back as ids -1 / scores -inf; the host loop ends once every valid row is
-done.
+back as ids -1 / scores -inf; the walk ends once every valid row is done.
 """
 from __future__ import annotations
 
@@ -39,7 +38,7 @@ import torch
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.similarity import NEG_INF, top_l
 from repro_torch.core.storage import ItemStore, quantize_items, store_scores, validate_storage
-from repro_torch.kernels.beam_step import beam_step
+from repro_torch.kernels.beam_step import beam_walk
 from repro_torch.kernels.gather_score import gather_score
 
 
@@ -145,18 +144,10 @@ def beam_search(
             else ~valid)
 
     rows, scales = (items, None) if store is None else store
-    step = 0
-    while step < max_steps and not bool(done.all()):
-        res = beam_step(pool_ids, pool_scores, pool_checked, visited, done,
-                        queries, adj, rows, scales, live)
-        visited[:, S + step * M : S + (step + 1) * M] = res.nbr_ids
-        evals += res.n_scored
-        if live is not None:
-            dead_evals += res.n_dead
-        pool_ids, pool_scores, pool_checked, done = (
-            res.pool_ids, res.pool_scores, res.pool_checked, res.done
-        )
-        step += 1
+    walk = beam_walk(pool_ids, pool_scores, pool_checked, visited, done, evals, queries,
+                     adj, rows, scales, live, dead_evals, max_steps=max_steps)
+    pool_ids, pool_scores, evals, dead_evals, step = (
+        walk.pool_ids, walk.pool_scores, walk.evals, walk.dead_evals, walk.steps)
 
     if store is not None:
         # Exact fp32 rerank of the final pool: the quantized walk chose which

@@ -45,6 +45,18 @@
 //   fill shared memory (d bytes a row streamed instead of 4*d) and multiplies
 //   each finished score by its column's scale once, before the top-k test --
 //   the (q . codes) * scale order of quant_score/ref.py.  Pass 2 is the same.
+//
+// k > 32 (mips_topk_select_*): the lists no longer fit beside the tiles, so
+// pass 1 runs the same product with an epilogue that writes every score
+// into a [rows, N] scratch (queries in chunks of rows, so the scratch stays
+// bounded), and one block per query selects its top k from the row: a radix
+// select, 8 bits at a time from the top, on the 64-bit key (order_key of the
+// score, then the complement of the id) -- a strict total order, lax.top_k's
+// with ties to the lower id -- finds the k-th key; the keys at or above it
+// are gathered and sorted (bitonic, in shared memory) into the output.  A k
+// beyond one sort's 4,096 keys takes several rounds, each below the last
+// round's smallest key.  The bytes bound it: one write and about four reads
+// of the scratch beside the product.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -180,7 +192,9 @@ __device__ __forceinline__ void lane_best_bound(const float (&sc)[8], const int 
 }
 
 // Row is float (fp32 items; scales unused) or signed char (int8 codes).
-template <typename Row, bool VEC>
+// SCORES: the k > 32 route -- part_s is the [B, N] score scratch, and the
+// epilogue writes every score there instead of keeping top-k lists.
+template <typename Row, bool VEC, bool SCORES>
 __global__ void __launch_bounds__(kThreads, 2) mips_topk_chunk_kernel(
     const float* __restrict__ q, const Row* __restrict__ x, const float* __restrict__ scales,
     int B, int N, int d, int k, int chunk, float* __restrict__ part_s,
@@ -204,9 +218,11 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_chunk_kernel(
   // loader: thread -> row lr of the tile, 4-column groups lg and lg + 2
   const int lr = tid & (kBQ - 1), lg = tid >> 7;
 
-  for (int e = tid; e < kBQ * k; e += kThreads) {
-    top_s[e] = -INFINITY;
-    top_i[e] = kEmptyId;
+  if (!SCORES) {
+    for (int e = tid; e < kBQ * k; e += kThreads) {
+      top_s[e] = -INFINITY;
+      top_i[e] = kEmptyId;
+    }
   }
 
   const int nslices = (d + kBK - 1) / kBK;
@@ -277,6 +293,16 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_chunk_kernel(
     for (int i = 0; i < 8; ++i) {
       const int row = i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
       if (q0 + row >= B) continue;
+      if (SCORES) {
+        float* out = part_s + static_cast<size_t>(q0 + row) * N;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (ids[j] < n_end) {
+            out[ids[j]] = scales != nullptr ? acc[i][j] * scale[j] : acc[i][j];
+          }
+        }
+        continue;
+      }
       float* ls = top_s + row * k;
       int* li = top_i + row * k;
       float sc[8];
@@ -322,6 +348,7 @@ __global__ void __launch_bounds__(kThreads, 2) mips_topk_chunk_kernel(
                       new_i + ty * kMaxK);
     }
   }
+  if (SCORES) return;
   __syncthreads();
 
   for (int e = tid; e < kBQ * k; e += kThreads) {
@@ -382,19 +409,28 @@ __global__ void __launch_bounds__(kThreads) mips_topk_merge_kernel(
   }
 }
 
-template <typename Row, bool VEC>
+template <typename Row, bool VEC, bool SCORES = false>
 cudaError_t launch_chunks(const float* q, const Row* x, const float* scales, int B, int N, int d,
                           int k, int nchunks, int chunk, float* part_s, int* part_i,
                           cudaStream_t s) {
-  const size_t smem = sizeof(float) * (2 * kBQ * k + 2 * 16 * kBN + 2 * 16 * kMaxK);
+  const size_t smem =
+      SCORES ? 0 : sizeof(float) * (2 * kBQ * k + 2 * 16 * kBN + 2 * 16 * kMaxK);
   const cudaError_t attr = cudaFuncSetAttribute(
-      mips_topk_chunk_kernel<Row, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mips_topk_chunk_kernel<Row, VEC, SCORES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(nchunks, (B + kBQ - 1) / kBQ);
-  mips_topk_chunk_kernel<Row, VEC><<<grid, kThreads, smem, s>>>(q, x, scales, B, N, d, k, chunk,
-                                                                part_s, part_i);
+  mips_topk_chunk_kernel<Row, VEC, SCORES><<<grid, kThreads, smem, s>>>(
+      q, x, scales, B, N, d, k, chunk, part_s, part_i);
   return cudaGetLastError();
+}
+
+// 16-byte loads of q and fp32 rows (4-byte loads of int8 rows) need d % 4 ==
+// 0 and aligned bases; anything else takes the scalar loads
+template <typename Row>
+bool vector_loads(const float* q, const Row* x, int d) {
+  return d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % (sizeof(Row) == 4 ? 16 : 4) == 0;
 }
 
 template <typename Row>
@@ -403,10 +439,7 @@ int launch(const float* q, const Row* x, const float* scales, int B, int N, int 
            void* stream) {
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 16-byte loads of q and fp32 rows (4-byte loads of int8 rows) need d % 4
-  // == 0 and aligned bases; anything else takes the scalar loads
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % (sizeof(Row) == 4 ? 16 : 4) == 0;
+  const bool vec = vector_loads(q, x, d);
   const cudaError_t err =
       vec ? launch_chunks<Row, true>(q, x, scales, B, N, d, k, nchunks, chunk, part_s, part_i, s)
           : launch_chunks<Row, false>(q, x, scales, B, N, d, k, nchunks, chunk, part_s, part_i, s);
@@ -419,6 +452,148 @@ int launch(const float* q, const Row* x, const float* scales, int B, int N, int 
   mips_topk_merge_kernel<<<B, kThreads, sizeof(float) * 3 * C, s>>>(part_s, part_i, C, k,
                                                                      out_s, out_i);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// ------------------------------------------------- k > 32: select from scores
+
+constexpr int kSelThreads = 512;
+constexpr int kSortMax = 4096;  // keys one round sorts in shared memory
+
+// The strict total order of the output as one unsigned 64-bit key, larger
+// first: order_key of the score (sign flipped to unsigned order), then the
+// complement of the id (the lower id first).
+__device__ __forceinline__ unsigned long long select_key(float s, int id) {
+  const unsigned hi = static_cast<unsigned>(repro::order_key(s)) ^ 0x80000000u;
+  return (static_cast<unsigned long long>(hi) << 32) | (0xffffffffu - static_cast<unsigned>(id));
+}
+
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  const int ok = static_cast<int>(static_cast<unsigned>(key >> 32) ^ 0x80000000u);
+  return __int_as_float(ok < 0 ? ok ^ 0x7fffffff : ok);
+}
+
+// One block per query row of ``scores`` ([rows, N]): its top k keys, in
+// rounds of at most kSortMax.
+__global__ void __launch_bounds__(kSelThreads) mips_topk_select_kernel(
+    const float* __restrict__ scores, int N, int k, float* __restrict__ out_s,
+    int* __restrict__ out_i) {
+  __shared__ unsigned long long keys[kSortMax];
+  __shared__ int hist[256];
+  __shared__ int s_digit, s_need, s_done, s_count;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const float* row = scores + static_cast<size_t>(b) * N;
+  unsigned long long bound = 0;  // round > 0: only keys below the last round's smallest
+  for (int off = 0; off < k; off += kSortMax) {
+    const int want = min(kSortMax, k - off);
+    const bool bounded = off > 0;
+    // radix select of the want-th largest key below the bound: after the
+    // digit at shift ``shift`` the keys whose bits from ``shift`` up equal
+    // ``prefix`` hold the want-th, ``need`` of them to take
+    unsigned long long prefix = 0;
+    int shift = 64, need = want;
+    while (shift > 0) {
+      shift -= 8;
+      for (int i = tid; i < 256; i += kSelThreads) hist[i] = 0;
+      __syncthreads();
+      for (int e0 = 0; e0 < N; e0 += kSelThreads) {
+        const int e = e0 + tid;
+        int digit = 256;  // not counted
+        if (e < N) {
+          const unsigned long long key = select_key(row[e], e);
+          const bool below = !bounded || key < bound;
+          const bool match = shift == 56 || (key >> (shift + 8)) == (prefix >> (shift + 8));
+          if (below && match) digit = static_cast<int>((key >> shift) & 255);
+        }
+        const unsigned peers = __match_any_sync(repro::kFullMask, digit);
+        if (digit < 256 && lane == __ffs(peers) - 1) atomicAdd(hist + digit, __popc(peers));
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int above = 0, dg = 255;
+        while (above + hist[dg] < need) above += hist[dg--];
+        s_digit = dg;
+        s_need = need - above;
+        s_done = hist[dg] == need - above;  // every key of this digit is taken
+      }
+      __syncthreads();
+      prefix |= static_cast<unsigned long long>(s_digit) << shift;
+      need = s_need;
+      const bool done = s_done;
+      __syncthreads();
+      if (done) break;
+    }
+    // gather the keys at or above the threshold (exactly ``want`` of them)
+    if (tid == 0) s_count = 0;
+    __syncthreads();
+    for (int e0 = 0; e0 < N; e0 += kSelThreads) {
+      const int e = e0 + tid;
+      bool take = false;
+      unsigned long long key = 0;
+      if (e < N) {
+        key = select_key(row[e], e);
+        take = (!bounded || key < bound) && (key >> shift) >= (prefix >> shift);
+      }
+      const unsigned who = __ballot_sync(repro::kFullMask, take);
+      int base = 0;
+      if (lane == 0 && who) base = atomicAdd(&s_count, __popc(who));
+      base = __shfl_sync(repro::kFullMask, base, 0);
+      if (take) keys[base + __popc(who & ((1u << lane) - 1))] = key;
+    }
+    int size = 1;
+    while (size < want) size <<= 1;
+    for (int i = want + tid; i < size; i += kSelThreads) keys[i] = 0;  // below every key
+    __syncthreads();
+    // bitonic sort, descending
+    for (int len = 2; len <= size; len <<= 1) {
+      for (int stride = len >> 1; stride > 0; stride >>= 1) {
+        for (int i = tid; i < size; i += kSelThreads) {
+          const int j = i ^ stride;
+          if (j > i) {
+            const unsigned long long a = keys[i], c = keys[j];
+            const bool desc = (i & len) == 0;
+            if (desc ? a < c : a > c) {
+              keys[i] = c;
+              keys[j] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int i = tid; i < want; i += kSelThreads) {
+      const size_t o = static_cast<size_t>(b) * k + off + i;
+      out_s[o] = key_score(keys[i]);
+      out_i[o] = static_cast<int>(0xffffffffu - static_cast<unsigned>(keys[i]));
+    }
+    bound = keys[want - 1];
+    __syncthreads();
+  }
+}
+
+template <typename Row>
+int launch_select(const float* q, const Row* x, const float* scales, int B, int N, int d, int k,
+                  int rows, int nchunks, int chunk, float* scores, float* out_s, int* out_i,
+                  void* stream) {
+  if (k < 1 || k > N || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int r0 = 0; r0 < B; r0 += rows) {
+    const int nr = min(rows, B - r0);
+    const float* qr = q + static_cast<size_t>(r0) * d;
+    const cudaError_t err =
+        vector_loads(qr, x, d)
+            ? launch_chunks<Row, true, true>(qr, x, scales, nr, N, d, k, nchunks, chunk, scores,
+                                             nullptr, s)
+            : launch_chunks<Row, false, true>(qr, x, scales, nr, N, d, k, nchunks, chunk,
+                                              scores, nullptr, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mips_topk_select_kernel<<<nr, kSelThreads, 0, s>>>(scores, N, k,
+                                                       out_s + static_cast<size_t>(r0) * k,
+                                                       out_i + static_cast<size_t>(r0) * k);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -435,4 +610,19 @@ extern "C" int mips_topk_i8(const float* q, const signed char* codes, const floa
                             int* part_i, float* out_s, int* out_i, void* stream) {
   return launch(q, codes, scales, B, N, d, k, nchunks, chunk, part_s, part_i, out_s, out_i,
                 stream);
+}
+
+extern "C" int mips_topk_select_f32(const float* q, const float* x, int B, int N, int d, int k,
+                                    int rows, int nchunks, int chunk, float* scores,
+                                    float* out_s, int* out_i, void* stream) {
+  return launch_select(q, x, static_cast<const float*>(nullptr), B, N, d, k, rows, nchunks,
+                       chunk, scores, out_s, out_i, stream);
+}
+
+extern "C" int mips_topk_select_i8(const float* q, const signed char* codes,
+                                   const float* scales, int B, int N, int d, int k, int rows,
+                                   int nchunks, int chunk, float* scores, float* out_s,
+                                   int* out_i, void* stream) {
+  return launch_select(q, codes, scales, B, N, d, k, rows, nchunks, chunk, scores, out_s, out_i,
+                       stream);
 }

@@ -37,12 +37,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "beam_step_f32": [_P] * 8 + [_I] * 5 + [_P] * 8 + [_P],
     "beam_step_i8": [_P] * 9 + [_I] * 5 + [_P] * 8 + [_P],
+    "beam_walk_f32": [_P] * 10 + [_I] * 8 + [_P] * 7 + [_P],
+    "beam_walk_i8": [_P] * 11 + [_I] * 8 + [_P] * 7 + [_P],
     "commit_merge_f32": [_P] * 6 + [_I] * 4 + [_P],
     "flash_attn_f32": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
     "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
     "gather_score_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "mips_topk_f32": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_P],
     "mips_topk_i8": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_P],
+    "mips_topk_select_f32": [_P] * 2 + [_I] * 7 + [_P] * 3 + [_P],
+    "mips_topk_select_i8": [_P] * 3 + [_I] * 7 + [_P] * 3 + [_P],
     "quant_score_i8": [_P] * 4 + [_I] * 3 + [_P] + [_P],
     "topk_merge_f32": [_P] * 6 + [_I] * 3 + [_P] * 3 + [_P],
 }

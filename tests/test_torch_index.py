@@ -4,7 +4,8 @@
   * carried across: a graph the JAX package built, converted with
     ``repro_torch.convert``, searched by the port -- ids identical on every
     row except where a near-tie shows, evals identical on the other rows,
-    the same number of walk steps;
+    the same number of walk steps, also where ``max_steps`` cuts the walk or
+    ``valid=`` pads rows (born done: no step, no evaluation);
   * end to end: the port builds its own IpNSW / IpNSWPlus (whole builds are
     compared by invariants and recall, not adjacency) -- recall@10 above
     ``test_recall.FLOORS`` and within 0.02 of the JAX index on the same
@@ -125,3 +126,31 @@ def test_degrees_and_recall_curve_match_jax():
                             _gt("lognormal"))
     np.testing.assert_allclose(got, want, rtol=0, atol=0.01)
     assert got[1][0] > got[0][0] and got[1][1] >= got[0][1]
+
+
+@pytest.mark.parametrize("case", ["max_steps_cut", "pad_rows", "all_pad"])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_walk_cuts_and_pad_rows_on_carried_graph_match_jax(kind, case):
+    q = _queries()
+    b = q.shape[0]
+    kw = dict(k=K, ef=EF, max_steps=6 if case == "max_steps_cut" else None)
+    valid = {"max_steps_cut": None, "pad_rows": np.arange(b) % 4 != 0,
+             "all_pad": np.zeros(b, bool)}[case]
+    j = _jax_index(kind, "lognormal").search(
+        jnp.asarray(q), valid=None if valid is None else jnp.asarray(valid), **kw)
+    t = _carried(kind, "lognormal").search(
+        torch.from_numpy(q), valid=None if valid is None else torch.from_numpy(valid), **kw)
+    tied = near_tie_rows(t.ids.numpy(), np.asarray(j.ids), t.scores.numpy(), np.asarray(j.scores))
+    rows = np.setdiff1d(np.arange(b), tied)
+    assert len(rows) >= b - 2
+    assert np.array_equal(t.evals.numpy()[rows], np.asarray(j.evals)[rows])
+    visited = ["visited"] if kind == "ipnsw" else ["visited_ang", "visited_ip"]
+    for field in visited:
+        assert np.array_equal(getattr(t, field).numpy()[rows], np.asarray(getattr(j, field))[rows])
+    if kind == "ipnsw":
+        assert t.steps == int(j.steps)
+        assert t.steps == {"max_steps_cut": 6, "all_pad": 0}.get(case, t.steps) and (
+            case == "all_pad" or t.steps > 0)
+    if valid is not None:
+        assert (t.evals.numpy()[~valid] == 0).all() and (t.ids.numpy()[~valid] == -1).all()
+        assert all((getattr(t, f).numpy()[~valid] == -1).all() for f in visited)

@@ -1,5 +1,5 @@
-"""Port vs JAX parity for each module that holds a kernel: beam_step,
-commit_merge, mips_topk / exact_topk, topk_merge and flash_attn.
+"""Port vs JAX parity for each module that holds a kernel: beam_step and
+beam_walk, commit_merge, mips_topk / exact_topk, topk_merge and flash_attn.
 
 The same seeded numpy inputs go through the JAX package's plain references
 (``beam_step_ref``, ``commit_merge_ref``, ``exact_topk(backend="jnp")``, and
@@ -15,6 +15,9 @@ import pytest
 import torch
 
 from repro.core.brute_force import exact_topk as jax_exact_topk
+from repro.core.graph import GraphIndex as JaxGraphIndex
+from repro.core.search import beam_search as jax_beam_search
+from repro.core.storage import ItemStore as JaxItemStore
 from repro.kernels.beam_step.ref import beam_step_ref as jax_beam_step_ref
 from repro.kernels.commit_merge.ref import commit_merge_ref as jax_commit_merge_ref
 from repro.kernels.flash_attn import flash_attention as jax_flash_attention
@@ -25,9 +28,13 @@ from repro.kernels.quant_score.ref import quant_score_ref as jax_quant_score_ref
 from repro.kernels.topk_merge import topk_merge as jax_topk_merge
 from repro.kernels.topk_merge import topk_merge_ref as jax_topk_merge_ref
 
+from repro_torch.convert import graph_from_arrays
 from repro_torch.core.brute_force import exact_topk
+from repro_torch.core.search import beam_search
 from repro_torch.core.similarity import top_l
-from repro_torch.kernels.beam_step import beam_step
+from repro_torch.core.storage import ItemStore
+from repro_torch.kernels.beam_step import beam_step, beam_walk, beam_walk_ref
+from repro_torch.kernels.beam_step.ops import check_walk_inputs
 from repro_torch.kernels.commit_merge import (
     commit_merge,
     commit_merge_ref,
@@ -41,7 +48,15 @@ from repro_torch.kernels.flash_attn import (
 )
 from repro_torch.kernels.flash_attn.ops import check_kernel_inputs
 from repro_torch.kernels.mips_topk import mips_topk
-from repro_torch.kernels.mips_topk.ops import ITEM_TILE, MAX_CANDIDATES, chunking
+from repro_torch.kernels.mips_topk.ops import (
+    ITEM_TILE,
+    MAX_CANDIDATES,
+    MAX_K,
+    SCRATCH_FLOATS,
+    chunking,
+    select_rows,
+)
+from repro_torch.kernels.mips_topk.ops import check_kernel_inputs as check_mips_inputs
 from repro_torch.kernels.topk_merge import topk_merge
 from repro_torch.testing import assert_topk_match, scores_close
 
@@ -166,6 +181,177 @@ def test_beam_step_live_matches_jax(integer, variant, dead_share):
         assert np.array_equal(n_dead, t.n_scored.numpy()) and n_dead.sum() > 0
     else:
         assert 0 < n_dead.sum() < t.n_scored.numpy().sum()
+
+
+# ------------------------------------------------------------------ beam_walk
+#
+# A walk is the host loop of beam_step (beam_walk_ref on the CPU; one kernel
+# launch on the card).  Through beam_search it is held to the JAX package's
+# lax.while_loop walk (backend="reference") on integer inputs, where every
+# score is exact: ids, scores, evals, dead_evals, steps and visited
+# bit-identical.
+
+WALK_CASES = {  # name -> (storage, live, valid, max_steps)
+    "f32": ("f32", False, "all", 64),
+    "int8": ("int8", False, "all", 64),
+    "live": ("f32", True, "all", 64),
+    "int8_live": ("int8", True, "all", 64),
+    "valid": ("f32", False, "some", 64),
+    "max_steps_cut": ("f32", True, "some", 3),
+    "all_born_done": ("int8", True, "none", 64),
+}
+
+
+def _walk_case(seed, *, n=300, d=12, m=8, b=24, s=4):
+    """A random graph (15% empty slots, repeats allowed) over integer items
+    and codes with power-of-two scales, integer queries, and seeds with
+    repeats and -1."""
+    rng = np.random.default_rng(seed)
+    items = _vectors(rng, (n, d), True)
+    adj = rng.integers(0, n, (n, m)).astype(np.int32)
+    adj[rng.random((n, m)) < 0.15] = -1
+    codes = rng.integers(-3, 4, (n, d)).astype(np.int8)
+    scales = np.exp2(rng.integers(-3, 4, n)).astype(np.float32)
+    queries = _vectors(rng, (b, d), True)
+    init = rng.integers(0, n, (b, s)).astype(np.int32)
+    init[:, 2] = init[:, 0]
+    init[rng.random((b, s)) < 0.2] = -1
+    live = rng.random(n) >= 0.3
+    return items, adj, codes, scales, queries, init, live
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_beam_walk_ref_matches_jax_beam_search(case):
+    storage, use_live, rows, max_steps = WALK_CASES[case]
+    items, adj, codes, scales, queries, init, live = _walk_case(31)
+    b, n = queries.shape[0], items.shape[0]
+    valid = {"all": None, "some": np.arange(b) % 3 != 1, "none": np.zeros(b, bool)}[rows]
+    kw = dict(pool_size=10, max_steps=max_steps, k=6, storage=storage)
+    jg = JaxGraphIndex(adj=jnp.asarray(adj), items=jnp.asarray(items), size=jnp.int32(n),
+                       entry=jnp.int32(0))
+    j = jax_beam_search(
+        jg, jnp.asarray(queries), jnp.asarray(init), backend="reference",
+        store=JaxItemStore(jnp.asarray(codes), jnp.asarray(scales)) if storage == "int8" else None,
+        live=jnp.asarray(live) if use_live else None,
+        valid=None if valid is None else jnp.asarray(valid), **kw)
+    t = beam_search(
+        graph_from_arrays(adj, items, n, 0, 1.0, device="cpu"), torch.from_numpy(queries),
+        torch.from_numpy(init),
+        store=ItemStore(torch.from_numpy(codes), torch.from_numpy(scales)) if storage == "int8"
+        else None,
+        live=torch.from_numpy(live) if use_live else None,
+        valid=None if valid is None else torch.from_numpy(valid), **kw)
+    for field in ("ids", "scores", "evals", "visited"):
+        assert np.array_equal(getattr(t, field).numpy(), np.asarray(getattr(j, field))), field
+    assert t.steps == int(j.steps)
+    if use_live:
+        assert np.array_equal(t.dead_evals.numpy(), np.asarray(j.dead_evals))
+        assert rows == "none" or int(t.dead_evals.sum()) > 0
+    else:
+        assert t.dead_evals is None
+    if valid is not None:
+        pad = ~valid
+        assert (t.evals.numpy()[pad] == 0).all() and (t.visited.numpy()[pad] == -1).all()
+        assert (t.ids.numpy()[pad] == -1).all()
+    if case == "all_born_done":
+        assert t.steps == 0
+    elif case == "max_steps_cut":
+        assert t.steps == max_steps
+    else:
+        assert 0 < t.steps < max_steps  # the walks ended on their own
+
+
+def _walk_state(seed, *, integer=True, n=300, d=12, m=8, b=24, l=10, s=4, max_steps=40):
+    """Seeded pools as beam_search makes them, with some rows born done."""
+    items, adj, codes, scales, queries, init, live = _walk_case(seed, n=n, d=d, m=m, b=b, s=s)
+    if not integer:
+        rng = np.random.default_rng(seed + 1)
+        items, queries = _vectors(rng, items.shape, False), _vectors(rng, queries.shape, False)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    seeds = torch.sort(t(init), dim=1).values
+    seeds[:, 1:][seeds[:, 1:] == seeds[:, :-1]] = -1
+    scores = torch.where(seeds >= 0, (t(queries)[:, None] * t(items)[seeds.clamp_min(0).long()]
+                                      ).sum(-1), float("-inf"))
+    top, idx = top_l(scores, s)
+    pool_ids = torch.full((b, l), -1, dtype=torch.int32)
+    pool_scores = torch.full((b, l), float("-inf"))
+    pool_ids[:, :s], pool_scores[:, :s] = seeds.gather(1, idx), top
+    visited = torch.full((b, s + max_steps * m), -1, dtype=torch.int32)
+    visited[:, :s] = seeds
+    done = t(np.arange(b) % 5 == 4)
+    evals = (seeds >= 0).sum(1, dtype=torch.int32)
+    return (pool_ids, pool_scores, pool_ids < 0, visited, done, evals, t(queries), t(adj),
+            t(items))
+
+
+@pytest.mark.parametrize("max_steps", [2, 40])
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_beam_walk_ref_steps_rule_and_row_independence(integer, max_steps):
+    """Each row's count is the steps it ran, the step that found no unchecked
+    slot included, capped at max_steps, 0 for a row done on entry; the walk's
+    steps is the largest count.  Rows are independent: each equals a walk of
+    that row alone, whose steps is its count -- what the kernel relies on."""
+    state = _walk_state(5, integer=integer, max_steps=max_steps)
+    whole = beam_walk_ref(*[x.clone() for x in state], max_steps=max_steps)
+    counts = whole.row_steps.numpy()
+    assert whole.steps == counts.max() <= max_steps
+    assert (counts[state[4].numpy()] == 0).all() and (counts[~state[4].numpy()] > 0).all()
+    if max_steps == 2:
+        assert counts.max() == 2
+    else:
+        assert counts.max() < max_steps and len(set(counts.tolist())) > 2
+    for r in range(state[0].shape[0]):
+        one = beam_walk_ref(*[x[r: r + 1].clone() for x in state[:7]], *state[7:],
+                            max_steps=max_steps)
+        assert one.steps == counts[r]
+        for field in ("pool_ids", "pool_scores", "pool_checked", "visited", "evals"):
+            assert torch.equal(getattr(one, field)[0], getattr(whole, field)[r]), (r, field)
+    # the columns past a row's last step stay -1
+    m = state[7].shape[1]
+    s = state[3].shape[1] - max_steps * m
+    for r, c in enumerate(counts):
+        assert (whole.visited[r, s + c * m:] == -1).all()
+
+
+def test_beam_walk_on_cpu_is_beam_walk_ref():
+    state = _walk_state(6)
+    a = beam_walk(*[x.clone() for x in state], max_steps=40)
+    b = beam_walk_ref(*[x.clone() for x in state], max_steps=40)
+    for x, y in zip(a, b):
+        assert x == y if isinstance(x, int) or x is None else torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["ok", "max_steps", "visited_dtype", "evals_shape",
+                                  "live_without_dead_evals", "codes_dtype"])
+def test_beam_walk_kernel_inputs_rejected_on_meta(case):
+    """What the walk kernel does not take raises before any launch; the seed
+    columns S = V - max_steps * M come back."""
+    def t(*shape, dtype):
+        return torch.zeros(*shape, dtype=dtype, device="meta")
+    b, l, n, m, d, s, steps = 4, 10, 50, 8, 12, 3, 5
+    args = [t(b, l, dtype=torch.int32), t(b, l, dtype=torch.float32), t(b, l, dtype=torch.bool),
+            t(b, s + steps * m, dtype=torch.int32), t(b, dtype=torch.bool),
+            t(b, dtype=torch.int32), t(b, d, dtype=torch.float32), t(n, m, dtype=torch.int32),
+            t(n, d, dtype=torch.float32)]
+    kw = {}
+    if case == "ok":
+        assert check_walk_inputs(*args, max_steps=steps) == s
+        assert check_walk_inputs(*args[:8], t(n, d, dtype=torch.int8),
+                                 t(n, dtype=torch.float32), t(n, dtype=torch.bool),
+                                 t(b, dtype=torch.int32), max_steps=steps) == s
+        return
+    if case == "max_steps":
+        kw["max_steps"] = steps + 1
+    elif case == "visited_dtype":
+        args[3] = t(b, s + steps * m, dtype=torch.int64)
+    elif case == "evals_shape":
+        args[5] = t(b + 1, dtype=torch.int32)
+    elif case == "live_without_dead_evals":
+        args += [None, t(n, dtype=torch.bool)]
+    elif case == "codes_dtype":
+        args += [t(n, dtype=torch.float32)]
+    with pytest.raises((TypeError, ValueError)):
+        check_walk_inputs(*args, **{"max_steps": steps, **kw})
 
 
 # ------------------------------------------------------- signed-zero ordering
@@ -298,16 +484,46 @@ def test_exact_topk_matches_jax(integer):
     assert torch.equal(i, i2) and bool(scores_close(s.numpy(), s2.numpy()).all())
 
 
+@pytest.mark.parametrize("k", [33, 100, "N"])
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
+def test_exact_topk_past_32_matches_jax(k, integer):
+    """k > 32 (the card's select route) answers as JAX's exact_topk, up to
+    k = N: the whole catalog in lax.top_k's order."""
+    rng = np.random.default_rng(12)
+    q = _vectors(rng, (9, 37), integer)
+    x = _vectors(rng, (300, 37), integer)
+    k = x.shape[0] if k == "N" else k
+    s, i = exact_topk(torch.from_numpy(q), torch.from_numpy(x), k=k)
+    js, ji = (np.asarray(a) for a in jax_exact_topk(jnp.asarray(q), jnp.asarray(x), k=k,
+                                                   backend="jnp"))
+    assert s.shape == i.shape == (9, k)
+    if integer:
+        assert np.array_equal(i.numpy(), ji) and np.array_equal(s.numpy(), js)
+    else:
+        assert_topk_match(i.numpy(), s.numpy(), ji, js)
+
+
 def test_cpu_wrappers_never_launch():
     beam_step.launches = commit_merge.launches = mips_topk.launches = 0
     beam_step.launches_live = beam_step.launches_int8_live = 0
+    walk_counters = ("launches", "launches_int8", "launches_live", "launches_int8_live",
+                     "steps")
+    for attr in walk_counters:
+        setattr(beam_walk, attr, 0)
+    mips_topk.launches_select = mips_topk.launches_select_int8 = 0
     test_beam_step_matches_jax(0, False)
     test_beam_step_live_matches_jax(False, "f32", 0.5)
     test_beam_step_live_matches_jax(False, "int8", 0.5)
+    for case in WALK_CASES:
+        test_beam_walk_ref_matches_jax_beam_search(case)
+    test_beam_walk_on_cpu_is_beam_walk_ref()
     test_commit_merge_matches_jax("random")
     test_exact_topk_matches_jax(False)
+    test_exact_topk_past_32_matches_jax(33, False)
     assert beam_step.launches == commit_merge.launches == mips_topk.launches == 0
     assert beam_step.launches_live == beam_step.launches_int8_live == 0
+    assert all(getattr(beam_walk, attr) == 0 for attr in walk_counters)
+    assert mips_topk.launches_select == mips_topk.launches_select_int8 == 0
 
 
 @pytest.mark.parametrize("b,n,k", [(256, 136736, 10), (4096, 136736, 10), (100, 20000, 32),
@@ -324,6 +540,45 @@ def test_mips_topk_chunking_covers_every_item_once(b, n, k):
         assert lo < hi, f"chunk {c} is empty"
         hits[lo:hi] += 1
     assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("b,n,k", [(256, 136736, 33), (4096, 136736, 1000), (100, 5000, 5000),
+                                   (3, 1 << 27, 40), (1, 40, 40)])
+def test_mips_topk_select_chunking_covers_every_query_and_item_once(b, n, k):
+    """The select route (k > 32) scores ``select_rows`` queries at a time
+    into a scratch of at most SCRATCH_FLOATS (one row where a row is
+    larger), every query once; pass 1 cuts each row's items as the k <= 32
+    route does, every item once."""
+    assert k > MAX_K
+    rows = select_rows(b, n)
+    assert 1 <= rows <= b and (rows * n <= SCRATCH_FLOATS or rows == 1)
+    seen = np.zeros(b, np.int64)
+    for r0 in range(0, b, rows):
+        seen[r0: min(b, r0 + rows)] += 1
+    assert (seen == 1).all()
+    chunks, per = chunking(rows, n, 1, sms=132)
+    assert per % ITEM_TILE == 0 and (chunks - 1) * per < n <= chunks * per
+
+
+@pytest.mark.parametrize("case", ["ok", "k_zero", "k_past_n", "items_dtype", "codes_scales",
+                                  "queries_width"])
+def test_mips_topk_kernel_inputs_rejected_on_meta(case):
+    """Any 1 <= k <= N goes to a kernel (k = 33 and k = N included); what no
+    kernel takes raises before any launch."""
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype, device="meta")
+    q, x = t(5, 16), t(70, 16)
+    if case == "ok":
+        for k in (1, MAX_K, MAX_K + 1, 70):
+            check_mips_inputs(q, x, None, k)
+        check_mips_inputs(q, t(70, 16, dtype=torch.int8), t(70), 70)
+        return
+    bad = {"k_zero": (q, x, None, 0), "k_past_n": (q, x, None, 71),
+           "items_dtype": (q, t(70, 16, dtype=torch.float64), None, 10),
+           "codes_scales": (q, t(70, 16, dtype=torch.int8), t(69), 10),
+           "queries_width": (t(5, 15), x, None, 10)}[case]
+    with pytest.raises((TypeError, ValueError)):
+        check_mips_inputs(*bad)
 
 
 # ----------------------------------------------------------------- topk_merge

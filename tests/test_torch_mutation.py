@@ -51,7 +51,7 @@ from repro_torch.core import (
     dead_edge_fraction,
 )
 from repro_torch.core.search import beam_search
-from repro_torch.kernels.beam_step import beam_step, beam_step_ref
+from repro_torch.kernels.beam_step import beam_step, beam_step_ref, beam_walk
 from repro_torch.testing import RECALL_MARGIN, near_tie_rows
 
 N, D, K = 300, 16, 10
@@ -464,9 +464,11 @@ def test_mid_churn_jax_index_carried_across_continues_identically():
 
 def test_cpu_walks_never_launch_the_live_kernels():
     beam_step.launches_live = beam_step.launches_int8_live = 0
+    beam_walk.launches_live = beam_walk.launches_int8_live = 0
     tm = MutableIndex(IpNSW(device="cpu", storage="int8", **PARAMS).build(_float_items(N, 7)),
                       capacity=N + 16, mutation_batch=16)
     tm.delete([1, 2, 3])
     tm.upsert(_float_items(3, 17))
     tm.search(torch.from_numpy(mips_queries(4, D, seed=1)), k=K, ef=16, storage="int8")
     assert beam_step.launches_live == beam_step.launches_int8_live == 0
+    assert beam_walk.launches_live == beam_walk.launches_int8_live == 0

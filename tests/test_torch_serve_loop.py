@@ -36,7 +36,7 @@ from repro.launch import serve_loop as jsl
 from repro_torch.convert import ipnsw_from_arrays, ipnsw_plus_from_arrays, mutable_from_arrays
 from repro_torch.core import ChurnTrace, IpNSW, IpNSWPlus, MutableIndex
 from repro_torch.core.search import beam_search
-from repro_torch.kernels.beam_step import beam_step
+from repro_torch.kernels.beam_step import beam_step, beam_walk
 from repro_torch.launch import serve_loop as sl
 from repro_torch.launch.serve_loop import (
     Bucket,
@@ -459,6 +459,7 @@ def test_serve_loop_cli_on_cpu(capsys):
     from repro_torch.launch import serve
 
     beam_step.launches = beam_step.launches_live = 0
+    beam_walk.launches = beam_walk.launches_live = beam_walk.steps = 0
     res = serve.main(["--loop", "--index", "ipnsw", "--n-items", "800", "--dim", "16",
                       "--requests", "48", "--batch", "16", "--ef", "32", "--device", "cpu"])
     out = capsys.readouterr().out
@@ -474,3 +475,4 @@ def test_serve_loop_cli_on_cpu(capsys):
     assert "[serve --loop] churn: events=" in out and "rejected=0" in out
     assert res["summary"]["mutation_events"] > 0 and res["summary"]["health_live_fraction"] > 0.9
     assert beam_step.launches == beam_step.launches_live == 0
+    assert beam_walk.launches == beam_walk.launches_live == beam_walk.steps == 0

@@ -48,7 +48,7 @@ from repro_torch.core.storage import (
     store_scores,
     update_store_rows,
 )
-from repro_torch.kernels.beam_step import beam_step
+from repro_torch.kernels.beam_step import beam_step, beam_walk
 from repro_torch.kernels.gather_score import gather_score, gather_score_ref
 from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
 from repro_torch.kernels.quant_score import quant_score, quant_score_ref
@@ -404,7 +404,7 @@ def test_unknown_storage_raises_before_any_work(kind, monkeypatch):
 
     monkeypatch.setattr(port_search, "gather_score", no_work)
     monkeypatch.setattr(port_search, "store_scores", no_work)
-    monkeypatch.setattr(port_search, "beam_step", no_work)
+    monkeypatch.setattr(port_search, "beam_walk", no_work)
     with pytest.raises(ValueError, match="storage"):
         KINDS[kind][1](storage="fp16", device="cpu").build(items)
     with pytest.raises(ValueError, match="storage"):
@@ -454,7 +454,8 @@ def test_serve_int8_on_cpu(capsys):
 
 
 def test_cpu_int8_wrappers_never_launch():
-    counters = [(beam_step, "launches_int8"), (mips_topk, "launches_int8"),
+    counters = [(beam_step, "launches_int8"), (beam_walk, "launches_int8"),
+                (mips_topk, "launches_int8"), (mips_topk, "launches_select_int8"),
                 (quant_score, "launches"), (gather_score, "launches")]
     for fn, attr in counters:
         setattr(fn, attr, 0)
