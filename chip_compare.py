@@ -5,12 +5,14 @@
   python3 chip_compare.py --walk --variants walk_prefetch_rows,walk_prefetch_adj
   python3 chip_compare.py --faults
 
-Each variant or fault is a named edit of a CUDA source (EDITS below),
-applied to a copy of ``src/`` under ``build/compare/<name>``, which builds
-its own kernel library.  ``--variants`` times ``mips_topk`` and the bf16
-``flash_attention`` of the checkout and of each variant, one process per
-tree, in turns (checkout, variants, variants reversed, checkout), at the
-shapes of ``chip_smoke.py``'s phase 3; with ``--walk`` it times
+Each variant or fault is a named edit of a source (EDITS below), applied
+to a copy of ``src/`` under ``build/compare/<name>``, which builds its own
+kernel library.  ``--variants`` times ``mips_topk`` (k = 10, and its select
+route at k = 33 and 1,000 with the select kernels' sum), the bf16
+``flash_attention`` and ``commit_merge`` (both COMMIT_SHAPES cells) of the
+checkout and of each variant, one process per tree, in turns (checkout,
+variants, variants reversed, checkout), at the shapes of ``chip_smoke.py``'s
+phase 3; with ``--walk`` it times
 ``beam_walk`` instead: at phase 3's search IP walk (random graph, f32 and
 int8) and in an IpNSW search of 256 queries at Yahoo!Music's size.  ``--faults`` runs each planted fault
 through the check that must catch it (``chip_smoke.py``'s limits) and exits
@@ -142,10 +144,119 @@ EDITS["walk_phase_clock"] = (
       "ph[2] / steps, ph[3] / steps, ph[4] / steps);\n"
       "  }\n"
       "  if (tid == 0) {\n    out_evals[b] = evals_in[b] + n_eval;\n")])
-FAULTS = ("dropped_kv_tile", "ragged_depth")
+EDITS.update({
+    "commit_8_warps": (
+        "commit_merge with 8 warps a block (the warps not at a run's head hold their block)",
+        [(f"{CSRC}/commit_merge.cu", "constexpr int kWarps = 1;", "constexpr int kWarps = 8;")]),
+    "commit_prefetch_rows": (
+        "commit_merge: prefetch.global.L2 of every existing slot's row as soon as the slots are "
+        "read, before the slots are sorted out and rescored",
+        [(f"{CSRC}/commit_merge.cu",
+          "  for (int j = lane; j < M; j += 32) ex[j] = row[j];\n  __syncwarp();\n",
+          "  for (int j = lane; j < M; j += 32) ex[j] = row[j];\n  __syncwarp();\n"
+          "  {\n"
+          "    const int bytes = d * static_cast<int>(sizeof(float));\n"
+          "    const int lines = (bytes + 127) / 128 + 1;\n"
+          "    for (int q = lane; q < M * lines; q += 32) {\n"
+          "      const int id = ex[q / lines];\n"
+          "      if (id >= 0) {\n"
+          "        const char* p = reinterpret_cast<const char*>(items + static_cast<size_t>(id) * d);\n"
+          "        asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(p + min(128 * (q % lines), bytes - 1)));\n"
+          "      }\n"
+          "    }\n"
+          "  }\n")]),
+    "commit_rows_8": (
+        "commit_merge: 8 existing rows' loads in flight at once (16 warps an SM, <= 128 registers)",
+        [(f"{CSRC}/commit_merge.cu", "constexpr int kRows = 4;", "constexpr int kRows = 8;"),
+         (f"{CSRC}/commit_merge.cu", "constexpr int kWarpsPerSm = 24;", "constexpr int kWarpsPerSm = 16;")]),
+    "commit_l2_256": (
+        "commit_merge: the rescored rows loaded with ld.global.nc.L2::256B (L2 fills 256-byte "
+        "blocks of the 1,200-byte rows)",
+        [(f"{CSRC}/commit_merge.cu", "// Rows ids[0, kRows) (id < 0: none)",
+          "__device__ __forceinline__ float4 ldg256(const float4* p) {\n"
+          "  float4 v;\n"
+          "  asm(\"ld.global.nc.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];\"\n"
+          "      : \"=f\"(v.x), \"=f\"(v.y), \"=f\"(v.z), \"=f\"(v.w) : \"l\"(p));\n"
+          "  return v;\n"
+          "}\n\n// Rows ids[0, kRows) (id < 0: none)"),
+         (f"{CSRC}/commit_merge.cu", "? __ldg(r4 + c) :", "? ldg256(r4 + c) :")]),
+    "commit_batch_1": (
+        "commit_merge: one round of 32 proposals loaded at a time (fewer registers, longer runs "
+        "wait once a round)",
+        [(f"{CSRC}/commit_merge.cu", "constexpr int kBatch = 4;", "constexpr int kBatch = 1;")]),
+    "commit_batch_8": (
+        "commit_merge: eight rounds of 32 proposals loaded at a time",
+        [(f"{CSRC}/commit_merge.cu", "constexpr int kBatch = 4;", "constexpr int kBatch = 8;")]),
+    "commit_no_merge": (
+        "commit_merge without its merges (answers wrong; timing only)",
+        [(f"{CSRC}/commit_merge.cu", "  int n = merge_top_m(cs, ci, 0, es, ex, M, M, ns, ni, lane);\n",
+          "  int n = 0;\n"),
+         (f"{CSRC}/commit_merge.cu", "      n = merge_top_m(cs, ci, n, rs, ri, 32, M, ns, ni, lane);\n",
+          "")]),
+    "commit_no_rescore": (
+        "commit_merge without the rescore's row loads (answers wrong; timing only)",
+        [(f"{CSRC}/commit_merge.cu", "    for (int j = 0; j < kRows; ++j) ids[j] = j0 + j < M ? ex[j0 + j] : -1;\n",
+          "    for (int j = 0; j < kRows; ++j) ids[j] = -1;\n")]),
+    "commit_merge_unroll8": (
+        "commit_merge: the merge's rank counts unrolled 8 entries at a time",
+        [(f"{CSRC}/commit_merge.cu",
+          "    int r = p;\n    for (int y = 0; y < R; ++y)",
+          "    int r = p;\n#pragma unroll 8\n    for (int y = 0; y < R; ++y)"),
+         (f"{CSRC}/commit_merge.cu",
+          "    int r = lo;\n    for (int y = 0; y < R; ++y)",
+          "    int r = lo;\n#pragma unroll 8\n    for (int y = 0; y < R; ++y)")]),
+    "commit_clock": (
+        "commit_merge instrumented (diagnostic): at the ip cell the heads of runs of more than "
+        "128 proposals, and every 1,024th position's head, print their time from the head test "
+        "to the row's write (%globaltimer)",
+        [(f"{CSRC}/commit_merge.cu", "#include <cuda_runtime.h>\n",
+          "#include <cuda_runtime.h>\n#include <cstdio>\n"),
+         (f"{CSRC}/commit_merge.cu",
+          "  if (t < 0 || (i0 > 0 && tgt[i0 - 1] == t)) return;  // not the head of a target's run\n",
+          "  if (t < 0 || (i0 > 0 && tgt[i0 - 1] == t)) return;  // not the head of a target's run\n"
+          "  unsigned long long t_start;\n"
+          "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_start));\n"
+          "  int nb = 1;\n"),
+         (f"{CSRC}/commit_merge.cu", "      more = load_batch(p + 32 * kBatch, s, id);\n",
+          "      more = load_batch(p + 32 * kBatch, s, id);\n      ++nb;\n"),
+         (f"{CSRC}/commit_merge.cu",
+          "  for (int r = lane; r < M; r += 32) row[r] = r < n ? ci[r] : -1;\n",
+          "  for (int r = lane; r < M; r += 32) row[r] = r < n ? ci[r] : -1;\n"
+          "  if (lane == 0 && M == 16 && (nb >= 2 || i0 % 1024 == 0)) {\n"
+          "    unsigned long long t_end;\n"
+          "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_end));\n"
+          "    printf(\"RESULT phases commit head=%d batches=%d n=%d us=%.2f\\n\", i0, nb, n,\n"
+          "           (t_end - t_start) * 1e-3);\n"
+          "  }\n")]),
+    "commit_32_warps": (
+        "commit_merge built for 32 resident warps an SM (<= 64 registers)",
+        [(f"{CSRC}/commit_merge.cu", "constexpr int kWarpsPerSm = 24;",
+          "constexpr int kWarpsPerSm = 32;")]),
+    "select_slice_32k": (
+        "mips_topk select: 32,768 scores a block of the streaming passes (a quarter of the blocks)",
+        [("src/repro_torch/kernels/mips_topk/ops.py", "SELECT_SLICE = 8192", "SELECT_SLICE = 32768")]),
+    "select_drops_bin_key": (
+        "fault: the select compaction drops the last threshold-bin key of each warp's ballot",
+        [(f"{CSRC}/mips_topk.cu",
+          "    const bool take = e != INT_MAX && select_bin(s) >= tb;\n",
+          "    bool take = e != INT_MAX && select_bin(s) >= tb;\n"
+          "    const unsigned in_bin = __ballot_sync(repro::kFullMask, take && select_bin(s) == tb);\n"
+          "    take = take && !(in_bin && (lane == 31 - __clz(in_bin)));\n")]),
+    "commit_keeps_repeated_slot": (
+        "fault: commit_merge keeps an existing slot that a proposal repeats",
+        [(f"{CSRC}/commit_merge.cu", "        if (hit) ex[j] = -1;\n", "")]),
+    "commit_skips_round_2": (
+        "fault: commit_merge skips the second round of 32 proposals of a run",
+        [(f"{CSRC}/commit_merge.cu",
+          "      if (!__any_sync(repro::kFullMask, enters)) continue;\n",
+          "      if (u == 1 || !__any_sync(repro::kFullMask, enters)) continue;\n")]),
+})
+FAULTS = ("dropped_kv_tile", "ragged_depth", "select_drops_bin_key", "commit_keeps_repeated_slot",
+          "commit_skips_round_2")
 
 TIMING = r'''
 import torch, repro_torch, chip_smoke as cs
+from repro_torch.kernels.commit_merge import commit_merge
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.mips_topk import mips_topk
 cs.warm_up_profiler()
@@ -164,6 +275,18 @@ for cell in ("granite_3_2b", "gemma3_12b_local"):
     q, k, v = cs._flash_inputs(cs.FLASH_SHAPES[cell], torch.bfloat16, g)
     out.append(f"flash_attn[bf16]/{cell}="
                f"{cs.device_ms(lambda: flash_attention(q, k, v, q_offset=off, window=win), reps=10):.4f}")
+items = cs._int_or_float((cs.N_FULL, cs.D_FULL), False, g)
+for cell in ("full_k33", "full_k1000"):
+    b, n, d, k = cs.MIPS_WIDE_SHAPES[cell]
+    q = cs._int_or_float((b, d), False, g)
+    run = lambda: mips_topk(q, items, k=k)
+    out.append(f"mips_topk[select]/{cell}={cs.device_ms(run, reps=10):.4f}"
+               f"(select={cs.device_ms(run, reps=10, only='select'):.4f})")
+for graph, (batch, m) in cs.COMMIT_SHAPES.items():
+    adj0, t, c, sc = cs._commit_inputs(items, batch, m, g)
+    work = adj0.clone()
+    call = lambda: (work.copy_(adj0), commit_merge(work, items, t, c, sc))
+    out.append(f"commit_merge/{graph}={cs.device_ms(call, only='commit_merge_kernel'):.4f}")
 print("RESULT", " ".join(out), flush=True)
 '''
 
@@ -230,7 +353,33 @@ for kind in ("int", "float"):
     except AssertionError as e:
         print("RESULT caught", kind, str(e)[:200], flush=True)
 ''',
+    "select_drops_bin_key": r'''
+import torch, repro_torch, chip_smoke as cs
+from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+for cell in ("full_k33", "n5000_kN"):
+    b, n, d, k = cs.MIPS_WIDE_SHAPES[cell]
+    q = cs._int_or_float((b, d), True, g); x = cs._int_or_float((n, d), True, g)
+    (s_k, i_k), (s_p, i_p) = mips_topk(q, x, k=k), mips_topk_ref(q, x, k=k)
+    try:
+        cs._check_topk(f"{cell}/int", i_k, s_k, i_p, s_p, True)
+        print("RESULT not caught", cell, flush=True)
+    except AssertionError as e:
+        print("RESULT caught", cell, str(e)[:200], flush=True)
+''',
+    "commit_merge": r'''
+import torch, repro_torch, chip_smoke as cs
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+items = {"int": cs._int_or_float((cs.N_FULL, cs.D_FULL), True, g)}
+try:
+    cs.phase_commit_merge(items, g)
+    print("RESULT not caught", flush=True)
+except AssertionError as e:
+    print("RESULT caught", str(e)[:200], flush=True)
+''',
 }
+FAULT_CHECKS["commit_keeps_repeated_slot"] = FAULT_CHECKS["commit_merge"]
+FAULT_CHECKS["commit_skips_round_2"] = FAULT_CHECKS.pop("commit_merge")
 
 
 def tree(name: str) -> Path:
@@ -282,10 +431,10 @@ def main() -> int:
         trees = [("checkout", ROOT / "src")] + [(n, tree(n)) for n in names]
         for label, src in trees + trees[::-1]:
             lines = run(src, WALK_TIMING if args.walk else TIMING)
-            print(f"{label}: {lines[-1]}", flush=True)
             phases = [ln for ln in lines if ln.startswith("phases")]
+            print(f"{label}: {[ln for ln in lines if ln not in phases][-1]}", flush=True)
             if phases:  # an instrumented variant: its last few walks
-                print("\n".join(f"{label}: {ln}" for ln in phases[-4:]), flush=True)
+                print("\n".join(f"{label}: {ln}" for ln in phases[-12:]), flush=True)
     if args.faults:
         for name in FAULTS:
             for line in run(tree(name), FAULT_CHECKS[name]):

@@ -33,7 +33,13 @@ Phases (each one that fails ends the run with a non-zero exit):
      own (MIPS_EDGE_SHAPES: a ragged query tile, k = 1 and 32, a depth not a
      multiple of 4), at the full-size loop's ground truth (4,096 queries)
      and past k = 32 (MIPS_WIDE_SHAPES, the select route: k = 33, 100 and
-     1,000 at full size, k = N at N = 5,000).  A "roofline" line gives each
+     1,000 at full size, k = N at N = 5,000, each timed with its select
+     kernels' sum, library_ms, bound and candidates per row; and
+     MIPS_TIED_SHAPES, every score of a query tied, so each row overflows
+     its candidate buffer and is selected from its scores).  commit_merge
+     also runs one whole commit (pre-pass and kernel) per cell under
+     torch.cuda.set_sync_debug_mode("error"): no read-back from the card.
+     A "roofline" line gives each
      redesigned kernel's TFLOP/s, share of its bound and ms over
      library_ms; phase 2 counts the tensor-core instructions of the bf16
      kernel's SASS (cuobjdump).  beam_walk, the whole walk in one launch,
@@ -186,6 +192,9 @@ MIPS_EDGE_SHAPES = {"b100_k1": (100, 20_000, 64, 1), "b100_k32": (100, 20_000, D
 MIPS_WIDE_SHAPES = {"full_k33": (256, N_FULL, D_FULL, 33), "full_k100": (256, N_FULL, D_FULL, 100),
                     "full_k1000": (256, N_FULL, D_FULL, 1000),
                     "n5000_kN": (100, 5_000, 64, 5_000)}
+# the select route where one bin holds every key (all scores of a query tie):
+# each row overflows its candidate buffer and is selected from its scores
+MIPS_TIED_SHAPES = {"tied_k33": (64, N_FULL, 64, 33)}
 # topk_merge at the walk's merge shapes: (B, L, M)
 MERGE_SHAPES = {"search_ip": (256, 40, 16), "build_ip": (512, 32, 16),
                 "search_angular": (256, 10, 10)}
@@ -837,7 +846,8 @@ def phase_scorers(items_by_kind, stores_by_kind, g) -> dict:
 
 def _commit_inputs(items, batch: int, m: int, g):
     """One build batch's reverse-link proposals: the last ``batch`` items
-    propose themselves to M distinct, hub-skewed targets each (10% -1)."""
+    propose themselves to M distinct, hub-skewed targets each (10% -1); a
+    tenth of the proposals repeat an edge their target already has."""
     import torch
 
     n = items.shape[0]
@@ -851,27 +861,34 @@ def _commit_inputs(items, batch: int, m: int, g):
     bids = torch.arange(n - batch, n, device=dev, dtype=torch.int32)
     adj[bids.long()] = torch.where(targets >= 0, targets, -1)  # forward rows first
     cands = bids[:, None].expand(-1, m)
+    repeat = (targets >= 0) & (torch.rand((batch, m), generator=g, device=dev) < 0.1)
+    slot = torch.randint(0, m, (batch, m), generator=g, device=dev)
+    adj[targets[repeat].long(), slot[repeat]] = cands[repeat]
     scores = (items[targets.clamp_min(0).long()] * items[cands.long()]).sum(-1)
     return adj, targets.reshape(-1), cands.reshape(-1).contiguous(), scores.reshape(-1)
 
 
 def phase_commit_merge(items_by_kind, g) -> dict:
+    """commit_merge at each COMMIT_SHAPES cell: the kernel against its plain
+    version on the same sorted proposals (and, on integer items, the whole
+    commit against the two-sort oracle), no foreign row written, and one
+    whole commit under torch.cuda.set_sync_debug_mode("error"): a read-back
+    from the card anywhere in the pre-pass or the launch fails the run."""
     import torch
 
     from repro_torch.kernels.commit_merge import (
-        commit_merge, commit_merge_ref, commit_rows, commit_rows_ref, csr_proposals,
+        commit_merge, commit_merge_ref, commit_rows, commit_rows_ref, sort_proposals,
     )
 
     out = {}
     for graph, (batch, m) in COMMIT_SHAPES.items():
         for kind, items in items_by_kind.items():
             adj0, targets, cands, scores = _commit_inputs(items, batch, m, g)
-            csr = csr_proposals(adj0.shape[0], targets, cands, scores)
-            tgt = csr.utgt.long()
+            props = sort_proposals(adj0.shape[0], targets, cands, scores)
             work = adj0.clone()
-            commit_rows(work, items, csr)
+            commit_rows(work, items, props)
+            tgt, rows_p = commit_rows_ref(adj0, items, *props)
             rows_k = work[tgt]
-            rows_p = commit_rows_ref(adj0, items, *csr[:4])
             torch.cuda.synchronize()
             untouched = torch.ones(adj0.shape[0], dtype=torch.bool, device=adj0.device)
             untouched[tgt] = False
@@ -881,37 +898,72 @@ def phase_commit_merge(items_by_kind, g) -> dict:
                 float("-inf"))
             near = _check_topk(f"commit_merge {graph}/{kind}", rows_k, rs(rows_k),
                                rows_p, rs(rows_p), kind == "int")
+            full = adj0.clone()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                commit_merge(full, items, targets, cands, scores)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert torch.equal(full, work), f"commit_merge {graph}: the commit != its kernel's rows"
             if kind == "int":
-                full = commit_merge(adj0.clone(), items, targets, cands, scores)
                 assert torch.equal(full, commit_merge_ref(adj0, items, targets, cands, scores)), \
                     f"commit_merge {graph}: kernel path != two-sort commit_merge_ref"
             # each launch merges into a fresh copy of the rows (copy time excluded)
-            ms = device_ms(lambda: (work.copy_(adj0), commit_rows(work, items, csr)),
+            ms = device_ms(lambda: (work.copy_(adj0), commit_rows(work, items, props)),
                            only="commit_merge_kernel")
-            call_ms = cuda_ms(lambda: commit_rows(work, items, csr))
-            plain_ms = device_ms(lambda: commit_rows_ref(adj0, items, *csr[:4]))
+            kernel_call_ms = cuda_ms(lambda: commit_rows(work, items, props))
+            call_ms = cuda_ms(lambda: commit_merge(work, items, targets, cands, scores))
+            plain_ms = device_ms(lambda: commit_rows_ref(adj0, items, *props))
             # the existing edges the kernel rescores: >= 0, not repeating an
             # earlier slot, not repeated by a proposal of the same target
-            u, p, d = tgt.shape[0], csr.cand_ids.shape[0], items.shape[1]
+            t_s, c_s = props.targets.long(), props.cands.long()
+            pair = torch.cat([torch.ones(1, dtype=torch.bool, device=t_s.device),
+                              (t_s[1:] != t_s[:-1]) | (c_s[1:] != c_s[:-1])])
+            prop = (t_s >= 0) & (c_s >= 0) & pair
+            u, p, d = tgt.shape[0], int(prop.sum()), items.shape[1]
+            run = torch.bincount(t_s[t_s >= 0])
             ex = adj0[tgt].long()
-            seg = torch.repeat_interleave(torch.arange(u, device=ex.device),
-                                          (csr.offsets[1:] - csr.offsets[:-1]).long())
+            seg = torch.searchsorted(tgt, t_s[prop])
             live = ex >= 0
             for j in range(m):
                 live[:, j] &= ~(ex[:, :j] == ex[:, j: j + 1]).any(-1)
-                live[seg[csr.cand_ids.long() == ex[seg, j]], j] = False
+                live[seg[c_s[prop] == ex[seg, j]], j] = False
             n_rescored = int(live.sum())
-            nbytes = u * 4 + (u + 1) * 4 + p * 8 + u * m * 4 + u * d * 4 + n_rescored * d * 4 + u * m * 4
+            # the sorted proposals, the touched rows and target vectors, the rescored
+            # neighbour rows read; the touched rows written
+            nbytes = targets.shape[0] * 12 + u * m * 4 + u * d * 4 + n_rescored * d * 4 + u * m * 4
             bound_ms, by = bound(nbytes, 2.0 * d * n_rescored)
             err = _max_abs_err(rs(rows_k), rs(rows_p))
             log(f"kernel=commit_merge graph={graph} inputs={kind} E={targets.shape[0]} U={u} "
-                f"P={p} max_seg={csr.max_seg} M={m} d={d} ms={ms:.4f} call_ms={call_ms:.4f} "
+                f"P={p} P_per_U={p / max(u, 1):.2f} longest_run={int(run.max())} M={m} d={d} "
+                f"ms={ms:.4f} kernel_call_ms={kernel_call_ms:.4f} call_ms={call_ms:.4f} "
                 f"plain_ms={plain_ms:.4f} "
                 f"library_ms=None bound_ms={bound_ms:.5f} bound_by={by} near_tie_rows={near} "
-                f"max_abs_err={err:.3g} launches={commit_merge.launches}")
+                f"max_abs_err={err:.3g} launches={commit_merge.launches} "
+                f"no_read_back=True")
             if graph == "ip" and kind == "float":
                 out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                            library_ms=None, max_abs_err=err)
+    # a width that is no multiple of 4: the rescore's scalar loads
+    batch, m = COMMIT_SHAPES["ip"]
+    for kind, items in items_by_kind.items():
+        items = items[:, :37].contiguous()
+        adj0, targets, cands, scores = _commit_inputs(items, batch, m, g)
+        work = commit_merge(adj0.clone(), items, targets, cands, scores)
+        tgt, rows_p = commit_rows_ref(adj0, items, *sort_proposals(adj0.shape[0], targets, cands,
+                                                                   scores))
+        want = adj0.clone()
+        want[tgt] = rows_p
+        if kind == "int":
+            assert torch.equal(work, want), "commit_merge d=37: kernel != plain version"
+            assert torch.equal(work, commit_merge_ref(adj0, items, targets, cands, scores))
+        rs = lambda r: torch.where(  # noqa: E731
+            r >= 0, (items[tgt][:, None, :] * items[r.clamp_min(0).long()]).sum(-1),
+            float("-inf"))
+        near = _check_topk(f"commit_merge d=37/{kind}", work[tgt], rs(work[tgt]), rows_p,
+                           rs(rows_p), kind == "int")
+        log(f"kernel=commit_merge edge=d37 inputs={kind} near_tie_rows={near}")
     return out
 
 
@@ -920,7 +972,8 @@ def phase_mips_topk(g) -> dict:
     scan), at both MIPS_SHAPES."""
     import torch
 
-    from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
+    from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref, mips_topk_select
+    from repro_torch.kernels.mips_topk.ops import select_plan
 
     out = {}
     for variant in ("f32", "int8"):
@@ -975,41 +1028,53 @@ def phase_mips_topk(g) -> dict:
                                    kind == "int")
                 log(f"kernel=mips_topk variant={variant} edge={cell} inputs={kind} B={b} N={n} "
                     f"d={d} k={k} near_tie_rows={rows} max_abs_err={_max_abs_err(s_k, s_p):.3g}")
-        for cell, (b, n, d, k) in MIPS_WIDE_SHAPES.items():
+        for cell, (b, n, d, k) in {**MIPS_WIDE_SHAPES, **MIPS_TIED_SHAPES}.items():
             for kind in ("int", "float"):
                 q = _int_or_float((b, d), kind == "int", g)
                 x = _int_or_float((n, d), kind == "int", g)
+                if cell in MIPS_TIED_SHAPES:  # one row repeated: every score of a query ties
+                    x = x[:1].expand(n, d).contiguous()
                 scales = None
                 if variant == "int8":
                     x, scales = _int8_store(x, kind == "int", g)
                 run = lambda: mips_topk(q, x, scales, k=k)  # noqa: E731
                 plain = lambda: mips_topk_ref(q, x, k=k, scales=scales)  # noqa: E731
                 (s_k, i_k), (s_p, i_p) = run(), plain()
+                _, _, cands = mips_topk_select(q, x, scales, k=k)
                 torch.cuda.synchronize()
                 rows = _check_topk(f"mips_topk[{variant}] {cell}/{kind}", i_k, s_k, i_p, s_p,
                                    kind == "int")
                 err = _max_abs_err(s_k, s_p)
+                cands = cands.float()
                 line = (f"kernel=mips_topk variant={variant} route=select cell={cell} "
                         f"inputs={kind} B={b} N={n} d={d} k={k} near_tie_rows={rows} "
-                        f"max_abs_err={err:.3g}")
-                if cell == "full_k33" and kind == "float":
+                        f"max_abs_err={err:.3g} candidates_median={cands.median().item():.0f} "
+                        f"candidates_max={cands.max().item():.0f} "
+                        f"rows_from_scores={int((cands > select_plan(n, k)[1]).sum())}")
+                if kind == "float":
                     library = None if variant == "int8" else (
                         lambda: torch.topk(torch.matmul(q, x.T), k, dim=1))
                     ms = device_ms(run)
+                    select_ms = device_ms(run, only="select")  # the four select kernels
                     call_ms = cuda_ms(run)
                     plain_ms = device_ms(plain)
                     library_ms = device_ms(library) if library is not None else None
                     row_bytes = d * 4 if variant == "f32" else d + 4
                     flops = 2.0 * b * n * d + (b * n if variant == "int8" else 0)
                     bound_ms, by = bound(b * d * 4 + n * row_bytes + b * k * 8, flops)
-                    line += (f" ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+                    # the select alone: two reads of the scratch, candidates and out written
+                    select_bound_ms, _ = bound(2 * b * n * 4 + cands.sum().item() * 8 + b * k * 8, 0)
+                    line += (f" ms={ms:.4f} select_ms={select_ms:.4f} "
+                             f"select_bound_ms={select_bound_ms:.5f} call_ms={call_ms:.4f} "
+                             f"plain_ms={plain_ms:.4f} "
                              f"library_ms={library_ms if library_ms is None else f'{library_ms:.4f}'}"
                              f" bound_ms={bound_ms:.5f} bound_by={by}")
                     _log_roofline(f"mips_topk[{variant}] select {cell}", flops, ms, bound_ms,
-                                  library_ms, select_ms=device_ms(run, only="select", once=True))
-                    out[f"select_{variant}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                                    bound_by=by, library_ms=library_ms,
-                                                    max_abs_err=err)
+                                  library_ms, select_ms=select_ms)
+                    if cell == "full_k33":
+                        out[f"select_{variant}"] = dict(ms=ms, plain_ms=plain_ms,
+                                                        bound_ms=bound_ms, bound_by=by,
+                                                        library_ms=library_ms, max_abs_err=err)
                 log(line)
                 del q, x, scales
     return out

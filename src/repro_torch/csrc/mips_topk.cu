@@ -49,14 +49,13 @@
 // k > 32 (mips_topk_select_*): the lists no longer fit beside the tiles, so
 // pass 1 runs the same product with an epilogue that writes every score
 // into a [rows, N] scratch (queries in chunks of rows, so the scratch stays
-// bounded), and one block per query selects its top k from the row: a radix
-// select, 8 bits at a time from the top, on the 64-bit key (order_key of the
-// score, then the complement of the id) -- a strict total order, lax.top_k's
-// with ties to the lower id -- finds the k-th key; the keys at or above it
-// are gathered and sorted (bitonic, in shared memory) into the output.  A k
-// beyond one sort's 4,096 keys takes several rounds, each below the last
-// round's smallest key.  The bytes bound it: one write and about four reads
-// of the scratch beside the product.
+// bounded), and the top k of each row is selected from it by the 64-bit key
+// (order_key of the score, then the complement of the id) -- a strict total
+// order, lax.top_k's with ties to the lower id.  The bytes bound the select:
+// it reads the scratch twice, each pass over a (rows x slices) grid -- a
+// histogram of the key's top 11 bits, then a compaction of the keys at or
+// above the bin where the count from the top reaches k -- and one block a
+// row sorts the few candidates (see the section below).
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -456,9 +455,35 @@ int launch(const float* q, const Row* x, const float* scales, int B, int N, int 
 
 
 // ------------------------------------------------- k > 32: select from scores
+//
+// After pass 1 has written a chunk of ``rows`` score rows, four kernels pick
+// each row's top k by the 64-bit key (select_key):
+//   hist:    a (rows x slices) grid; each block counts its slice of a row
+//            into a 2,048-bin histogram of the key's top 11 bits (sign,
+//            exponent, two mantissa bits of the score) in shared memory,
+//            plain shared atomics, and adds the bins it saw to the row's
+//            global histogram.  Read 1 of the scratch.
+//   find:    a block per row: the threshold bin, the highest bin whose
+//            count from the top reaches k.  The row's top k lie at or
+//            above it.
+//   compact: the same grid; each block appends the keys of its slice at or
+//            above the threshold bin to the row's candidate buffer (one
+//            ballot and one atomic a warp) and counts them.  Read 2.
+//   sort:    a block per row takes the exact top k of its candidates: all
+//            of them sorted in shared memory when they fit one sort
+//            (kSortMax), else a radix select, 8 bits at a time from the
+//            top, finds the k-th key and the keys at or above it are
+//            sorted, in rounds of kSortMax below the last round's
+//            smallest key.  A row whose candidates overflowed the buffer
+//            (a threshold bin holding most of the row: scores in a narrow
+//            band, mass ties) runs that radix select over its score row.
 
-constexpr int kSelThreads = 512;
-constexpr int kSortMax = 4096;  // keys one round sorts in shared memory
+constexpr int kSelThreads = 512;      // the sort block
+constexpr int kScanThreads = 256;     // hist / find / compact blocks
+constexpr int kSortMax = 4096;        // keys one round sorts in shared memory
+constexpr int kBinBits = 11;
+constexpr int kBins = 1 << kBinBits;  // the histogram of the streaming passes
+constexpr int kUnroll = 8;            // loads a thread keeps in flight
 
 // The strict total order of the output as one unsigned 64-bit key, larger
 // first: order_key of the score (sign flipped to unsigned order), then the
@@ -468,81 +493,186 @@ __device__ __forceinline__ unsigned long long select_key(float s, int id) {
   return (static_cast<unsigned long long>(hi) << 32) | (0xffffffffu - static_cast<unsigned>(id));
 }
 
+__device__ __forceinline__ int select_bin(float s) {
+  return static_cast<int>((static_cast<unsigned>(repro::order_key(s)) ^ 0x80000000u) >>
+                          (32 - kBinBits));
+}
+
 __device__ __forceinline__ float key_score(unsigned long long key) {
   const int ok = static_cast<int>(static_cast<unsigned>(key >> 32) ^ 0x80000000u);
   return __int_as_float(ok < 0 ? ok ^ 0x7fffffff : ok);
 }
 
-// One block per query row of ``scores`` ([rows, N]): its top k keys, in
-// rounds of at most kSortMax.
-__global__ void __launch_bounds__(kSelThreads) mips_topk_select_kernel(
-    const float* __restrict__ scores, int N, int k, float* __restrict__ out_s,
-    int* __restrict__ out_i) {
-  __shared__ unsigned long long keys[kSortMax];
-  __shared__ int hist[256];
+// Calls f(e, score) for the scores of block (row blockIdx.x, slice
+// blockIdx.y) of ``scores`` ([rows, N]), kUnroll coalesced loads in flight
+// a thread.  Every thread of the block runs the same number of iterations
+// (f may hold warp-wide collectives); e >= N marks a lane with no score.
+template <class F>
+__device__ __forceinline__ void for_slice(const float* __restrict__ scores, int N, int per, F f) {
+  const float* row = scores + static_cast<size_t>(blockIdx.x) * N;
+  const int lo = blockIdx.y * per;
+  const int hi = min(N, lo + per);
+  for (int e0 = lo; e0 < hi; e0 += kScanThreads * kUnroll) {
+    float v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = e0 + u * kScanThreads + threadIdx.x;
+      v[u] = e < hi ? row[e] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = e0 + u * kScanThreads + threadIdx.x;
+      f(e < hi ? e : INT_MAX, v[u]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads) mips_topk_select_hist_kernel(
+    const float* __restrict__ scores, int N, int per, int* __restrict__ hist) {
+  __shared__ int bins[kBins];
+  for (int i = threadIdx.x; i < kBins; i += kScanThreads) bins[i] = 0;
+  __syncthreads();
+  for_slice(scores, N, per, [&](int e, float s) {
+    if (e != INT_MAX) atomicAdd(bins + select_bin(s), 1);
+  });
+  __syncthreads();
+  int* out = hist + static_cast<size_t>(blockIdx.x) * kBins;
+  for (int i = threadIdx.x; i < kBins; i += kScanThreads) {
+    if (bins[i]) atomicAdd(out + i, bins[i]);
+  }
+}
+
+// thresh[row]: the highest bin b with #{keys in bins >= b} >= k.  Thread t
+// owns the 8 bins below 2,048 - 8 t; a scan from the top finds the owner.
+__global__ void __launch_bounds__(kScanThreads) mips_topk_select_find_kernel(
+    const int* __restrict__ hist, int k, int* __restrict__ thresh) {
+  constexpr int kPer = kBins / kScanThreads;
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int* h = hist + static_cast<size_t>(blockIdx.x) * kBins;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int top = kBins - 1 - kPer * tid;  // this thread's bins: top, top - 1, ...
+  int c[kPer], mine = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    c[i] = h[top - i];
+    mine += c[i];
+  }
+  int incl = mine;  // inclusive scan over threads, from the top bin down
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(repro::kFullMask, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += warp_sums[w];
+  int above = incl - mine;  // keys in the bins above this thread's
+  if (above < k && incl >= k) {
+    int b = 0;
+    while (above + c[b] < k) above += c[b++];
+    thresh[blockIdx.x] = top - b;
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads) mips_topk_select_compact_kernel(
+    const float* __restrict__ scores, int N, int per, const int* __restrict__ thresh,
+    int* __restrict__ counts, int cap, unsigned long long* __restrict__ cands) {
+  const int row = blockIdx.x, lane = threadIdx.x & 31;
+  const int tb = thresh[row];
+  int* count = counts + row;
+  unsigned long long* out = cands + static_cast<size_t>(row) * cap;
+  for_slice(scores, N, per, [&](int e, float s) {
+    const bool take = e != INT_MAX && select_bin(s) >= tb;
+    const unsigned who = __ballot_sync(repro::kFullMask, take);
+    if (!who) return;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(count, __popc(who));
+    base = __shfl_sync(repro::kFullMask, base, 0) + __popc(who & ((1u << lane) - 1));
+    if (take && base < cap) out[base] = select_key(s, e);
+  });
+}
+
+// The keys of a select source: a row of scores (the key built from score and
+// position) or a row of candidate keys.
+struct ScoreKeys {
+  const float* row;
+  __device__ __forceinline__ unsigned long long operator()(int e) const {
+    return select_key(row[e], e);
+  }
+};
+
+struct CandidateKeys {
+  const unsigned long long* row;
+  __device__ __forceinline__ unsigned long long operator()(int e) const { return row[e]; }
+};
+
+// The top k of the n keys of ``src``, by one block of kSelThreads, written to
+// out_s / out_i (one query's k slots).
+template <class Src>
+__device__ void select_top_k(Src src, int n, int k, unsigned long long* keys, int* hist,
+                             float* __restrict__ out_s, int* __restrict__ out_i) {
   __shared__ int s_digit, s_need, s_done, s_count;
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
-  const float* row = scores + static_cast<size_t>(b) * N;
+  const int tid = threadIdx.x, lane = tid & 31;
   unsigned long long bound = 0;  // round > 0: only keys below the last round's smallest
   for (int off = 0; off < k; off += kSortMax) {
     const int want = min(kSortMax, k - off);
     const bool bounded = off > 0;
-    // radix select of the want-th largest key below the bound: after the
-    // digit at shift ``shift`` the keys whose bits from ``shift`` up equal
-    // ``prefix`` hold the want-th, ``need`` of them to take
-    unsigned long long prefix = 0;
-    int shift = 64, need = want;
-    while (shift > 0) {
-      shift -= 8;
-      for (int i = tid; i < 256; i += kSelThreads) hist[i] = 0;
-      __syncthreads();
-      for (int e0 = 0; e0 < N; e0 += kSelThreads) {
-        const int e = e0 + tid;
-        int digit = 256;  // not counted
-        if (e < N) {
-          const unsigned long long key = select_key(row[e], e);
+    int size = 1;
+    if (!bounded && n <= kSortMax) {  // every key fits one sort: no select
+      for (int e = tid; e < n; e += kSelThreads) keys[e] = src(e);
+      while (size < n) size <<= 1;
+      for (int i = n + tid; i < size; i += kSelThreads) keys[i] = 0;  // below every key
+    } else {
+      // radix select of the want-th largest key below the bound: after the
+      // digit at shift ``shift`` the keys whose bits from ``shift`` up equal
+      // ``prefix`` hold the want-th, ``need`` of them to take
+      unsigned long long prefix = 0;
+      int shift = 64, need = want;
+      while (shift > 0) {
+        shift -= 8;
+        for (int i = tid; i < 256; i += kSelThreads) hist[i] = 0;
+        __syncthreads();
+        for (int e = tid; e < n; e += kSelThreads) {
+          const unsigned long long key = src(e);
           const bool below = !bounded || key < bound;
           const bool match = shift == 56 || (key >> (shift + 8)) == (prefix >> (shift + 8));
-          if (below && match) digit = static_cast<int>((key >> shift) & 255);
+          if (below && match) atomicAdd(hist + static_cast<int>((key >> shift) & 255), 1);
         }
-        const unsigned peers = __match_any_sync(repro::kFullMask, digit);
-        if (digit < 256 && lane == __ffs(peers) - 1) atomicAdd(hist + digit, __popc(peers));
+        __syncthreads();
+        if (tid == 0) {
+          int above = 0, dg = 255;
+          while (above + hist[dg] < need) above += hist[dg--];
+          s_digit = dg;
+          s_need = need - above;
+          s_done = hist[dg] == need - above;  // every key of this digit is taken
+        }
+        __syncthreads();
+        prefix |= static_cast<unsigned long long>(s_digit) << shift;
+        need = s_need;
+        const bool done = s_done;
+        __syncthreads();
+        if (done) break;
       }
+      // gather the keys at or above the threshold (exactly ``want`` of them)
+      if (tid == 0) s_count = 0;
       __syncthreads();
-      if (tid == 0) {
-        int above = 0, dg = 255;
-        while (above + hist[dg] < need) above += hist[dg--];
-        s_digit = dg;
-        s_need = need - above;
-        s_done = hist[dg] == need - above;  // every key of this digit is taken
+      for (int e0 = 0; e0 < n; e0 += kSelThreads) {
+        const int e = e0 + tid;
+        bool take = false;
+        unsigned long long key = 0;
+        if (e < n) {
+          key = src(e);
+          take = (!bounded || key < bound) && (key >> shift) >= (prefix >> shift);
+        }
+        const unsigned who = __ballot_sync(repro::kFullMask, take);
+        int base = 0;
+        if (lane == 0 && who) base = atomicAdd(&s_count, __popc(who));
+        base = __shfl_sync(repro::kFullMask, base, 0);
+        if (take) keys[base + __popc(who & ((1u << lane) - 1))] = key;
       }
-      __syncthreads();
-      prefix |= static_cast<unsigned long long>(s_digit) << shift;
-      need = s_need;
-      const bool done = s_done;
-      __syncthreads();
-      if (done) break;
+      while (size < want) size <<= 1;
+      for (int i = want + tid; i < size; i += kSelThreads) keys[i] = 0;
     }
-    // gather the keys at or above the threshold (exactly ``want`` of them)
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-    for (int e0 = 0; e0 < N; e0 += kSelThreads) {
-      const int e = e0 + tid;
-      bool take = false;
-      unsigned long long key = 0;
-      if (e < N) {
-        key = select_key(row[e], e);
-        take = (!bounded || key < bound) && (key >> shift) >= (prefix >> shift);
-      }
-      const unsigned who = __ballot_sync(repro::kFullMask, take);
-      int base = 0;
-      if (lane == 0 && who) base = atomicAdd(&s_count, __popc(who));
-      base = __shfl_sync(repro::kFullMask, base, 0);
-      if (take) keys[base + __popc(who & ((1u << lane) - 1))] = key;
-    }
-    int size = 1;
-    while (size < want) size <<= 1;
-    for (int i = want + tid; i < size; i += kSelThreads) keys[i] = 0;  // below every key
     __syncthreads();
     // bitonic sort, descending
     for (int len = 2; len <= size; len <<= 1) {
@@ -562,36 +692,66 @@ __global__ void __launch_bounds__(kSelThreads) mips_topk_select_kernel(
       }
     }
     for (int i = tid; i < want; i += kSelThreads) {
-      const size_t o = static_cast<size_t>(b) * k + off + i;
-      out_s[o] = key_score(keys[i]);
-      out_i[o] = static_cast<int>(0xffffffffu - static_cast<unsigned>(keys[i]));
+      out_s[off + i] = key_score(keys[i]);
+      out_i[off + i] = static_cast<int>(0xffffffffu - static_cast<unsigned>(keys[i]));
     }
     bound = keys[want - 1];
     __syncthreads();
   }
 }
 
+// One block per row: the top k of its candidates, or of its score row when
+// they overflowed the buffer.
+__global__ void __launch_bounds__(kSelThreads) mips_topk_select_sort_kernel(
+    const float* __restrict__ scores, int N, const unsigned long long* __restrict__ cands,
+    int cap, const int* __restrict__ counts, int k, float* __restrict__ out_s,
+    int* __restrict__ out_i) {
+  __shared__ unsigned long long keys[kSortMax];
+  __shared__ int hist[256];
+  const int b = blockIdx.x;
+  const int n = counts[b];
+  float* os = out_s + static_cast<size_t>(b) * k;
+  int* oi = out_i + static_cast<size_t>(b) * k;
+  if (n <= cap) {
+    select_top_k(CandidateKeys{cands + static_cast<size_t>(b) * cap}, n, k, keys, hist, os, oi);
+  } else {
+    select_top_k(ScoreKeys{scores + static_cast<size_t>(b) * N}, N, k, keys, hist, os, oi);
+  }
+}
+
 template <typename Row>
 int launch_select(const float* q, const Row* x, const float* scales, int B, int N, int d, int k,
-                  int rows, int nchunks, int chunk, float* scores, float* out_s, int* out_i,
+                  int rows, int nchunks, int chunk, int per, int cap, float* scores, int* hist,
+                  int* thresh, int* counts, unsigned long long* cands, float* out_s, int* out_i,
                   void* stream) {
-  if (k < 1 || k > N || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1 || k > N || rows < 1 || per < 1 || cap < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int slices = (N + per - 1) / per;
+  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(B), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   for (int r0 = 0; r0 < B; r0 += rows) {
     const int nr = min(rows, B - r0);
     const float* qr = q + static_cast<size_t>(r0) * d;
-    const cudaError_t err =
-        vector_loads(qr, x, d)
-            ? launch_chunks<Row, true, true>(qr, x, scales, nr, N, d, k, nchunks, chunk, scores,
-                                             nullptr, s)
-            : launch_chunks<Row, false, true>(qr, x, scales, nr, N, d, k, nchunks, chunk,
-                                              scores, nullptr, s);
+    err = vector_loads(qr, x, d)
+              ? launch_chunks<Row, true, true>(qr, x, scales, nr, N, d, k, nchunks, chunk, scores,
+                                               nullptr, s)
+              : launch_chunks<Row, false, true>(qr, x, scales, nr, N, d, k, nchunks, chunk,
+                                                scores, nullptr, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    mips_topk_select_kernel<<<nr, kSelThreads, 0, s>>>(scores, N, k,
-                                                       out_s + static_cast<size_t>(r0) * k,
-                                                       out_i + static_cast<size_t>(r0) * k);
-    const cudaError_t launched = cudaGetLastError();
-    if (launched != cudaSuccess) return static_cast<int>(launched);
+    err = cudaMemsetAsync(hist, 0, sizeof(int) * kBins * static_cast<size_t>(nr), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(nr, slices);
+    mips_topk_select_hist_kernel<<<grid, kScanThreads, 0, s>>>(scores, N, per, hist);
+    mips_topk_select_find_kernel<<<nr, kScanThreads, 0, s>>>(hist, k, thresh);
+    mips_topk_select_compact_kernel<<<grid, kScanThreads, 0, s>>>(scores, N, per, thresh,
+                                                                   counts + r0, cap, cands);
+    mips_topk_select_sort_kernel<<<nr, kSelThreads, 0, s>>>(
+        scores, N, cands, cap, counts + r0, k, out_s + static_cast<size_t>(r0) * k,
+        out_i + static_cast<size_t>(r0) * k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
@@ -613,16 +773,21 @@ extern "C" int mips_topk_i8(const float* q, const signed char* codes, const floa
 }
 
 extern "C" int mips_topk_select_f32(const float* q, const float* x, int B, int N, int d, int k,
-                                    int rows, int nchunks, int chunk, float* scores,
-                                    float* out_s, int* out_i, void* stream) {
+                                    int rows, int nchunks, int chunk, int per, int cap,
+                                    float* scores, int* hist, int* thresh, int* counts,
+                                    unsigned long long* cands, float* out_s, int* out_i,
+                                    void* stream) {
   return launch_select(q, x, static_cast<const float*>(nullptr), B, N, d, k, rows, nchunks,
-                       chunk, scores, out_s, out_i, stream);
+                       chunk, per, cap, scores, hist, thresh, counts, cands, out_s, out_i,
+                       stream);
 }
 
 extern "C" int mips_topk_select_i8(const float* q, const signed char* codes,
                                    const float* scales, int B, int N, int d, int k, int rows,
-                                   int nchunks, int chunk, float* scores, float* out_s,
-                                   int* out_i, void* stream) {
-  return launch_select(q, codes, scales, B, N, d, k, rows, nchunks, chunk, scores, out_s, out_i,
-                       stream);
+                                   int nchunks, int chunk, int per, int cap, float* scores,
+                                   int* hist, int* thresh, int* counts,
+                                   unsigned long long* cands, float* out_s, int* out_i,
+                                   void* stream) {
+  return launch_select(q, codes, scales, B, N, d, k, rows, nchunks, chunk, per, cap, scores,
+                       hist, thresh, counts, cands, out_s, out_i, stream);
 }

@@ -14,8 +14,9 @@ defines the semantics.
     id; a valid -inf edge outranks an empty slot; empty slots are -1.
 
 ``commit_rows_ref`` is the plain version of the CUDA kernel: the same merge
-over the CSR layout the wrapper's pre-pass (``ops.csr_proposals``) builds.
-On the CPU ``ops.commit_merge`` runs the pre-pass and this function.
+over the kernel's own inputs, the proposals as the wrapper's pre-pass
+(``ops.sort_proposals``) sorts them.  On the CPU ``ops.commit_merge`` runs
+the pre-pass and this function.
 """
 from __future__ import annotations
 
@@ -94,29 +95,36 @@ def commit_merge_ref(
 
 
 def commit_rows_ref(
-    adj: torch.Tensor,          # [N, M] int32
-    items: torch.Tensor,        # [N, d] fp32
-    utgt: torch.Tensor,         # [U] int32 unique targets
-    offsets: torch.Tensor,      # [U+1] int32 segment offsets
-    cand_ids: torch.Tensor,     # [P] int32 cand ids, ascending within a segment
-    cand_scores: torch.Tensor,  # [P] fp32
-) -> torch.Tensor:
-    """The rewritten ``[U, M]`` rows of the unique targets, from the CSR
-    proposals: the plain version of the CUDA kernel."""
+    adj: torch.Tensor,      # [N, M] int32
+    items: torch.Tensor,    # [N, d] fp32
+    targets: torch.Tensor,  # [E] int32 sorted ascending, invalid (-1) last
+    cands: torch.Tensor,    # [E] int32 ascending within a target's run, -1 invalid
+    scores: torch.Tensor,   # [E] fp32
+):
+    """The rewritten rows from the sorted proposals, as the kernel merges
+    them: (targets [U] int64, rows [U, M] int32), one row per target's run.
+    A run's repeated (target, cand) pair counts once, the first winning."""
     m = adj.shape[1]
     dev = adj.device
-    u = utgt.shape[0]
-    counts = (offsets[1:] - offsets[:-1]).long()
+    t, c = targets.long(), cands.long()
+    valid_t = t >= 0
+    head = valid_t & torch.cat([torch.ones(1, dtype=torch.bool, device=dev), t[1:] != t[:-1]])
+    repeat = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                        (t[1:] == t[:-1]) & (c[1:] == c[:-1])])
+    proposal = valid_t & (c >= 0) & ~repeat
+    tgt = t[head]
+    u = tgt.shape[0]
+    seg = (torch.cumsum(head, dim=0) - 1)[valid_t]
+    counts = torch.bincount(seg, minlength=u)
+    offsets = torch.cumsum(counts, dim=0) - counts
     k = int(counts.max()) if u else 0
-    seg = torch.repeat_interleave(torch.arange(u, device=dev), counts)
-    pos = torch.arange(seg.shape[0], device=dev) - offsets[:-1].long()[seg]
+    pos = torch.arange(seg.shape[0], device=dev) - offsets[seg]
     new_ids = torch.full((u, k), -1, dtype=torch.long, device=dev)
-    new_ids[seg, pos] = cand_ids.long()
+    new_ids[seg, pos] = torch.where(proposal, c, -1)[valid_t]
     new_s = torch.full((u, k), NEG_INF, dtype=torch.float32, device=dev)
-    new_s[seg, pos] = cand_scores.float()
+    new_s[seg, pos] = scores.float()[valid_t]
     new_valid = new_ids >= 0
 
-    tgt = utgt.long()
     ex = adj[tgt].long()                                             # [U, M]
     in_new = ((ex[:, :, None] == new_ids[:, None, :]) & new_valid[:, None, :]).any(-1)
     earlier = torch.ones(m, m, dtype=torch.bool, device=dev).tril(-1)
@@ -135,4 +143,4 @@ def commit_rows_ref(
     ids = torch.where(cand_v.gather(1, order), cand_i.gather(1, order), -1)[:, :m]
     if ids.shape[1] < m:
         ids = torch.cat([ids, ids.new_full((u, m - ids.shape[1]), -1)], dim=1)
-    return ids.to(torch.int32)
+    return tgt, ids.to(torch.int32)

@@ -39,7 +39,7 @@ from repro_torch.kernels.commit_merge import (
     commit_merge,
     commit_merge_ref,
     commit_rows_ref,
-    csr_proposals,
+    sort_proposals,
 )
 from repro_torch.kernels.flash_attn import (
     flash_attention,
@@ -47,15 +47,24 @@ from repro_torch.kernels.flash_attn import (
     flash_attention_head_ref,
 )
 from repro_torch.kernels.flash_attn.ops import check_kernel_inputs
-from repro_torch.kernels.mips_topk import mips_topk
+from repro_torch.kernels.mips_topk import (
+    mips_topk,
+    mips_topk_ref,
+    mips_topk_select,
+    select_candidates_ref,
+    select_top_k_ref,
+)
 from repro_torch.kernels.mips_topk.ops import (
     ITEM_TILE,
     MAX_CANDIDATES,
     MAX_K,
     SCRATCH_FLOATS,
+    SELECT_SLICE,
     chunking,
+    select_plan,
     select_rows,
 )
+from repro_torch.kernels.mips_topk.ref import BIN_BITS, SORT_MAX
 from repro_torch.kernels.mips_topk.ops import check_kernel_inputs as check_mips_inputs
 from repro_torch.kernels.topk_merge import topk_merge
 from repro_torch.testing import assert_topk_match, scores_close
@@ -406,7 +415,12 @@ def test_beam_step_ranks_signed_zero_neighbours_as_jax():
 # --------------------------------------------------------------- commit_merge
 
 
+# (n, d, m, e) of the cases that need more than the default sizes
+COMMIT_SIZES = {"long_run": (40_000, 8, 8, 30_000)}
+
+
 def _commit_case(case, seed=0, n=200, d=24, m=8, e=96):
+    n, d, m, e = COMMIT_SIZES.get(case, (n, d, m, e))
     rng = np.random.default_rng(seed)
     integer = case == "integer_ties"
     items = _vectors(rng, (n, d), integer)
@@ -428,6 +442,17 @@ def _commit_case(case, seed=0, n=200, d=24, m=8, e=96):
         targets[:] = -1
     elif case == "cands_invalid":
         cands[:] = -1                              # rows are still rewritten
+    elif case == "rounds":
+        targets[:80] = 7                           # 80 proposals, over two rounds of 32
+        cands[:80] = rng.permutation(n)[:80]
+    elif case == "long_run":
+        targets[:] = 7                             # 30,000 proposals of one target: past
+        cands[:] = rng.permutation(n)[:e]          # what a segment in shared memory held
+        cands[rng.random(e) < 0.05] = -1
+    elif case == "all_repeat":
+        adj = np.stack([rng.permutation(n)[:m] for _ in range(n)]).astype(np.int32)
+        targets = rng.integers(0, n, e).astype(np.int32)
+        cands = adj[targets, rng.integers(0, m, e)]  # every proposal repeats an existing edge
     if integer:
         scores = np.einsum("ed,ed->e", items[np.maximum(targets, 0)],
                            items[np.maximum(cands, 0)]).astype(np.float32)
@@ -437,7 +462,7 @@ def _commit_case(case, seed=0, n=200, d=24, m=8, e=96):
 
 
 COMMIT_CASES = ["random", "duplicates", "replace", "hub", "all_invalid", "cands_invalid",
-                "integer_ties"]
+                "integer_ties", "rounds", "long_run", "all_repeat"]
 
 
 @pytest.mark.parametrize("case", COMMIT_CASES)
@@ -449,18 +474,49 @@ def test_commit_merge_matches_jax(case):
     assert np.array_equal(got.numpy(), want)
     if case == "all_invalid":
         assert np.array_equal(got.numpy(), adj)
+    touched = np.unique(targets[targets >= 0])
+    if case == "cands_invalid":  # every touched row rewritten: its -1 holes moved last
+        rows = got.numpy()[touched]
+        assert (rows != adj[touched]).any()
+        assert ((rows >= 0) | (np.cumsum(rows < 0, axis=1) > 0)).all()
+    if case == "all_repeat":     # the proposals replaced the edges they repeat
+        for t in touched[:20]:
+            assert set(got.numpy()[t]) <= set(adj[t]) | set(cands[targets == t])
 
 
 @pytest.mark.parametrize("case", COMMIT_CASES)
 def test_commit_merge_two_sort_ref_equals_csr_path(case):
+    """The kernel's plain version on the pre-pass's sorted proposals (one
+    run per target) equals the two-sort oracle."""
     args = [torch.from_numpy(a) for a in _commit_case(case, seed=5)]
     adj = args[0]
-    csr = csr_proposals(adj.shape[0], *args[2:])
-    assert bool((csr.offsets[1:] >= csr.offsets[:-1]).all())
-    rows = commit_rows_ref(adj, args[1], *csr[:4])
+    props = sort_proposals(adj.shape[0], *args[2:])
+    t = props.targets.long()
+    valid = t >= 0
+    assert bool((t[valid][1:] >= t[valid][:-1]).all()) and not bool(valid[int(valid.sum()):].any())
+    tgt, rows = commit_rows_ref(adj, args[1], *props)
+    assert torch.equal(tgt, torch.unique(args[2][args[2] >= 0].long()))
     merged = adj.clone()
-    merged[csr.utgt.long()] = rows
+    merged[tgt] = rows
     assert torch.equal(merged, commit_merge_ref(*args))
+
+
+def test_commit_merge_prepass_has_static_shapes_on_meta():
+    """The pre-pass runs on meta tensors (no data, no device), so it has no
+    data-dependent shape and reads nothing back: on the card a commit never
+    waits for the host.  A boolean-mask compaction or ``.item()`` raises
+    there."""
+    e, n = 8192, 136_736
+    targets = torch.zeros(e, dtype=torch.int32, device="meta")
+    cands = torch.zeros(e, dtype=torch.int32, device="meta")
+    scores = torch.zeros(e, device="meta")
+    props = sort_proposals(n, targets, cands, scores)
+    for x, dtype in zip(props, (torch.int32, torch.int32, torch.float32)):
+        assert x.device.type == "meta" and x.shape == (e,) and x.dtype == dtype
+    with pytest.raises((NotImplementedError, RuntimeError)):
+        targets[targets >= 0]
+    with pytest.raises((NotImplementedError, RuntimeError)):
+        int(targets.max())
 
 
 # ------------------------------------------------------------------ mips_topk
@@ -558,6 +614,88 @@ def test_mips_topk_select_chunking_covers_every_query_and_item_once(b, n, k):
     assert (seen == 1).all()
     chunks, per = chunking(rows, n, 1, sms=132)
     assert per % ITEM_TILE == 0 and (chunks - 1) * per < n <= chunks * per
+
+
+def _select_scores(case, rng):
+    """[R, N] score rows for the select's model: random, integer ties, +-0
+    pairs, -inf rows, and a narrow band whose top bins hold most of a row."""
+    if case == "ties":
+        return rng.integers(-4, 5, (6, 3000)).astype(np.float32)
+    if case == "signed_zeros":
+        s = rng.integers(-1, 2, (6, 3000)).astype(np.float32)
+        s[s == 0] = np.where(rng.random(int((s == 0).sum())) < 0.5, -0.0, 0.0)
+        return s
+    if case == "neg_inf":
+        s = rng.normal(size=(6, 3000)).astype(np.float32)
+        s[0] = -np.inf
+        s[1, rng.random(3000) < 0.9] = -np.inf
+        return s
+    if case == "narrow":
+        return (10.0 + rng.random((6, 3000)) * 1e-3).astype(np.float32)
+    return rng.normal(size=(6, 6000) if case == "two_rounds" else (6, 3000)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case,k", [("random", 33), ("random", 1000), ("ties", 33),
+                                    ("ties", 500), ("signed_zeros", 100), ("neg_inf", 33),
+                                    ("neg_inf", 3000), ("narrow", 40), ("random", "N"),
+                                    ("two_rounds", 5000)])
+def test_select_candidates_hold_the_exact_top_k(case, k):
+    """The select route's threshold and candidate step (the model of its
+    histogram, find and compaction kernels): the threshold bin is the
+    highest bin whose count from the top reaches k, the candidates at or
+    above it always hold the exact top k, and sorting them in rounds of
+    SORT_MAX keys (``select_top_k_ref``; k = 5,000 takes two) gives top_l's
+    ids and score bits -- ties to the lower id, +0.0 above -0.0, -inf rows,
+    k = N."""
+    scores = torch.from_numpy(_select_scores(case, np.random.default_rng(13)))
+    k = scores.shape[1] if k == "N" else k
+    thresh, counts, take = select_candidates_ref(None, None, k=k, scores=scores)
+    want_s, want_i = top_l(scores, k)
+    bins = (torch.where(scores.view(torch.int32) < 0, scores.view(torch.int32) ^ 0x7FFFFFFF,
+                        scores.view(torch.int32)).long() & 0xFFFFFFFF) ^ 0x80000000
+    bins = bins >> (32 - BIN_BITS)
+    for r in range(scores.shape[0]):
+        assert int((bins[r] > thresh[r]).sum()) < k <= int((bins[r] >= thresh[r]).sum())
+        assert int(counts[r]) == int(take[r].sum()) >= k
+        assert bool(take[r, want_i[r]].all()), "a key of the top k is not a candidate"
+        s, i = select_top_k_ref(scores[r], take[r], k)
+        assert torch.equal(i.long(), want_i[r])
+        assert torch.equal(s.view(torch.int32), want_s[r].view(torch.int32))
+    if case == "two_rounds":
+        assert k > SORT_MAX
+
+
+@pytest.mark.parametrize("k", [33, 300])
+def test_mips_topk_select_on_cpu_is_the_plain_version_and_the_model(k):
+    """On CPU tensors the select entry point answers with the plain version
+    and counts each row's candidates as the model does."""
+    rng = np.random.default_rng(14)
+    q, x = (torch.from_numpy(_vectors(rng, shape, True)) for shape in ((7, 16), (900, 16)))
+    s, i, counts = mips_topk_select(q, x, k=k)
+    ws, wi = mips_topk_ref(q, x, k=k)
+    assert torch.equal(i, wi) and torch.equal(s, ws)
+    assert torch.equal(counts, select_candidates_ref(q, x, k=k)[1])
+    assert bool((counts >= k).all())
+
+
+@pytest.mark.parametrize("n,k", [(136_736, 33), (136_736, 1000), (136_736, 136_736),
+                                 (5000, 5000), (20_000, 33), (40, 40), (8193, 100)])
+def test_select_plan_covers_every_item_once(n, k):
+    """The select's streaming passes cut a row into ceil(n / per) slices,
+    each item in exactly one, none empty; a row's candidate buffer holds at
+    least k keys and at most the row, so with the scratch's rows it stays
+    within twice the scratch's bytes."""
+    per, cap = select_plan(n, k)
+    assert 1 <= per <= SELECT_SLICE
+    hits = np.zeros(n, np.int64)
+    for sl in range(-(-n // per)):
+        lo, hi = sl * per, min(n, (sl + 1) * per)
+        assert lo < hi
+        hits[lo:hi] += 1
+    assert (hits == 1).all()
+    assert k <= cap <= n
+    rows = select_rows(4096, n)
+    assert rows * cap * 2 <= max(2 * SCRATCH_FLOATS, 2 * n)
 
 
 @pytest.mark.parametrize("case", ["ok", "k_zero", "k_past_n", "items_dtype", "codes_scales",
