@@ -3,7 +3,8 @@
 
   python3 chip_compare.py --variants no_epilogue,flash_one_block
   python3 chip_compare.py --walk --variants walk_prefetch_rows,walk_prefetch_adj
-  python3 chip_compare.py --faults
+  python3 chip_compare.py --scorers --variants score_rows_2,score_rows_8,gather_bulk_copy
+  python3 chip_compare.py --faults [score_skips_last_row,quant_scale_before_sum]
 
 Each variant or fault is a named edit of a source (EDITS below), applied
 to a copy of ``src/`` under ``build/compare/<name>``, which builds its own
@@ -14,7 +15,10 @@ checkout and of each variant, one process per tree, in turns (checkout,
 variants, variants reversed, checkout), at the shapes of ``chip_smoke.py``'s
 phase 3; with ``--walk`` it times
 ``beam_walk`` instead: at phase 3's search IP walk (random graph, f32 and
-int8) and in an IpNSW search of 256 queries at Yahoo!Music's size.  ``--faults`` runs each planted fault
+int8) and in an IpNSW search of 256 queries at Yahoo!Music's size; with
+``--scorers`` it times ``gather_score`` and ``quant_score`` at phase 3's
+cells (float inputs) beside their witness, the previous one-warp-a-row
+kernel, in the same process.  ``--faults`` runs each planted fault
 through the check that must catch it (``chip_smoke.py``'s limits) and exits
 1 if one passes.  It needs the card; no edit is ever made in ``src/``.
 """
@@ -251,8 +255,179 @@ EDITS.update({
           "      if (!__any_sync(repro::kFullMask, enters)) continue;\n",
           "      if (u == 1 || !__any_sync(repro::kFullMask, enters)) continue;\n")]),
 })
+# the gathered scorers: rows a warp keeps in flight, warps a block, registers,
+# the int8 codes' cast, and the f32 rows staged by Hopper's bulk copy into
+# shared memory instead of registers
+GATHER, QUANT, SELECT = (f"{CSRC}/gather_score.cu", f"{CSRC}/quant_score.cu",
+                         f"{CSRC}/select.cuh")
+for _r in (2, 8):
+    EDITS[f"score_rows_{_r}"] = (
+        f"gather_score and quant_score with {_r} rows a warp in flight (4 in the checkout)",
+        [(src, "constexpr int kRows = 4;", f"constexpr int kRows = {_r};") for src in (GATHER, QUANT)])
+EDITS["score_warps_8"] = (
+    "gather_score and quant_score with 8 warps a block (4 in the checkout)",
+    [(src, "constexpr int kWarps = 4;", "constexpr int kWarps = 8;") for src in (GATHER, QUANT)])
+
+
+def _min_blocks(src: str, blocks: int) -> list:
+    """Registers budgeted for ``blocks`` blocks (4 ``blocks`` warps) an SM."""
+    code = (ROOT / src).read_text()
+    now = code[code.index("constexpr int kMinBlocks = "):].split(";")[0]
+    return [(src, now + ";", f"constexpr int kMinBlocks = {blocks};")]
+
+
+for _src, _kernel, _blocks in ((QUANT, "quant", 6), (QUANT, "quant", 8), (QUANT, "quant", 12),
+                               (GATHER, "gather", 8)):
+    EDITS[f"{_kernel}_min_blocks_{_blocks}"] = (
+        f"{_kernel}_score built for {_blocks} blocks an SM: at most "
+        f"{65536 // (128 * _blocks)} registers a thread", _min_blocks(_src, _blocks))
+EDITS["score_rows_chunk_major"] = (
+    "score_rows FMAs chunk u of every row before chunk u + 1 (the earlier order; same bits)",
+    [(SELECT,
+      "    // a row's chunks before the next row's: its codes are cast and used\n"
+      "    // together, which frees their registers sooner\n"
+      "#pragma unroll\n    for (int r = 0; r < R; ++r) {\n#pragma unroll\n"
+      "      for (int u = 0; u < V; ++u) {\n"
+      "        if (ok[r] && c0 + lane + 32 * u < d4) {\n"
+      "          acc[r] = fma_chunk(v[r][u], b[u], acc[r]);\n"
+      "        }\n      }\n    }\n",
+      "#pragma unroll\n    for (int u = 0; u < V; ++u) {\n"
+      "      if (c0 + lane + 32 * u < d4) {\n#pragma unroll\n"
+      "        for (int r = 0; r < R; ++r) {\n"
+      "          if (ok[r]) acc[r] = fma_chunk(v[r][u], b[u], acc[r]);\n"
+      "        }\n      }\n    }\n")])
+EDITS["rounds_unroll_1"] = (
+    "score_rows' loop over rounds of loads kept rolled (#pragma unroll 1)",
+    [(SELECT, "  for (int c0 = 0; c0 < d4; c0 += 32 * V) {\n",
+      "#pragma unroll 1\n  for (int c0 = 0; c0 < d4; c0 += 32 * V) {\n")])
+# the codes cast to float by the integer and FMA pipes instead of the
+# conversion unit: byte + 128 in the mantissa of 2^23, then 2^23 + 128
+# subtracted -- the same floats, exactly
+EDITS["quant_fast_codes"] = (
+    "score_rows casts int8 codes by byte permutes and a subtraction (no I2F)",
+    [(SELECT,
+      "__device__ __forceinline__ float fma_chunk(char4 a, float4 b, float acc) {\n"
+      "  acc = fmaf(static_cast<float>(a.x), b.x, acc);\n"
+      "  acc = fmaf(static_cast<float>(a.y), b.y, acc);\n"
+      "  acc = fmaf(static_cast<float>(a.z), b.z, acc);\n"
+      "  return fmaf(static_cast<float>(a.w), b.w, acc);\n}\n",
+      "__device__ __forceinline__ float code_at(unsigned biased, unsigned sel) {\n"
+      "  return __int_as_float(static_cast<int>(__byte_perm(biased, 0x4B000000u, sel)))"
+      " - 8388736.f;\n}\n"
+      "__device__ __forceinline__ float fma_chunk(char4 a, float4 b, float acc) {\n"
+      "  const unsigned u = *reinterpret_cast<const unsigned*>(&a) ^ 0x80808080u;\n"
+      "  acc = fmaf(code_at(u, 0x7440), b.x, acc);\n"
+      "  acc = fmaf(code_at(u, 0x7441), b.y, acc);\n"
+      "  acc = fmaf(code_at(u, 0x7442), b.z, acc);\n"
+      "  return fmaf(code_at(u, 0x7443), b.w, acc);\n}\n")])
+BULK_KERNEL = r"""// (variant) one tile a warp, its rows staged by cp.async.bulk into the
+// warp's slice of shared memory (lane 0 issues the copies against an
+// mbarrier); d % 4 == 0 and d <= 128 * kVec; the FMAs in warp_dot's order.
+__global__ void __launch_bounds__(kThreads) gather_score_bulk_kernel(
+    const float* __restrict__ queries, const float* __restrict__ items,
+    const int* __restrict__ ids, int B, int W, int d, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  __shared__ __align__(8) unsigned long long bar[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_query = (W + kRows - 1) / kRows;
+  const int t = blockIdx.x * kWarps + warp;
+  if (t >= B * per_query) return;
+  const int b = t / per_query, w0 = (t - b * per_query) * kRows, n = min(kRows, W - w0);
+  const int mine = lane < n ? ids[static_cast<size_t>(b) * W + w0 + lane] : 0;
+  const int d4 = d >> 2;
+  float4* rows_sh = smem4 + warp * kRows * d4;
+  const unsigned mbar = static_cast<unsigned>(__cvta_generic_to_shared(&bar[warp]));
+  if (lane == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mbar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  const float4* q4 = reinterpret_cast<const float4*>(queries + static_cast<size_t>(b) * d);
+  float4 qv[kVec];
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) {
+    if (lane + 32 * u < d4) qv[u] = __ldg(q4 + lane + 32 * u);
+  }
+  if (lane == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(mbar), "r"(static_cast<unsigned>(n * d * 4)) : "memory");
+  }
+  for (int r = 0; r < n; ++r) {
+    const int id = max(__shfl_sync(repro::kFullMask, mine, r), 0);
+    if (lane == 0) {
+      const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(rows_sh + r * d4));
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+          ::"r"(dst), "l"(items + static_cast<size_t>(id) * d), "r"(d * 4), "r"(mbar)
+          : "memory");
+    }
+  }
+  unsigned ready = 0;
+  while (!ready) {
+    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n" : "=r"(ready) : "r"(mbar) : "memory");
+  }
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) {
+    const int c = lane + 32 * u;
+    if (c < d4) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < n) acc[r] = repro::fma_chunk(rows_sh[r * d4 + c], qv[u], acc[r]);
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] += __shfl_xor_sync(repro::kFullMask, acc[r], o);
+  }
+  float mine_s = acc[0];
+#pragma unroll
+  for (int r = 1; r < kRows; ++r) mine_s = lane == r ? acc[r] : mine_s;
+  if (lane < n) out[static_cast<size_t>(b) * W + w0 + lane] = mine_s;
+}
+
+"""
+EDITS["gather_bulk_copy"] = (
+    "gather_score with one tile a warp, its rows staged by cp.async.bulk into shared memory "
+    "(an mbarrier a warp, no row registers), d % 4 == 0 and d <= 384",
+    [(GATHER, "constexpr int kRowwiseThreads = 256;\n",
+      BULK_KERNEL + "constexpr int kRowwiseThreads = 256;\n"),
+     (GATHER, "  if ((d & 3) == 0) {\n    gather_score_kernel<true>",
+      "  if ((d & 3) == 0 && d <= 128 * kVec) {\n"
+      "    const int blocks = (B * ((W + kRows - 1) / kRows) + kWarps - 1) / kWarps;\n"
+      "    gather_score_bulk_kernel<<<blocks, kThreads, sizeof(float) * kWarps * kRows * d, s>>>(\n"
+      "        queries, items, ids, B, W, d, out);\n"
+      "  } else if ((d & 3) == 0) {\n    gather_score_kernel<true>")])
+EDITS.update({
+    "score_skips_last_row": (
+        "fault: the scorers do not write the last slot of each tile",
+        [(src, "  if (lane < n) out[base + lane] = mine_s;\n",
+          "  if (lane < n - 1) out[base + lane] = mine_s;\n") for src in (GATHER, QUANT)]),
+    "quant_scale_before_sum": (
+        "fault: quant_score multiplies each lane's partial sum by the scale before the "
+        "shuffle tree",
+        [(SELECT,
+          "  for (int o = 16; o > 0; o >>= 1) {\n#pragma unroll\n"
+          "    for (int r = 0; r < R; ++r) acc[r] += __shfl_xor_sync(kFullMask, acc[r], o);\n  }\n"
+          "#pragma unroll\n"
+          "  for (int r = 0; r < R; ++r) s[r] = ok[r] ? scaled(acc[r], sc[r], rows) : -INFINITY;\n",
+          "#pragma unroll\n  for (int r = 0; r < R; ++r) acc[r] = scaled(acc[r], sc[r], rows);\n"
+          "  for (int o = 16; o > 0; o >>= 1) {\n#pragma unroll\n"
+          "    for (int r = 0; r < R; ++r) acc[r] += __shfl_xor_sync(kFullMask, acc[r], o);\n  }\n"
+          "#pragma unroll\n"
+          "  for (int r = 0; r < R; ++r) s[r] = ok[r] ? acc[r] : -INFINITY;\n")]),
+    "quant_scores_minus_one": (
+        "fault: quant_score scores row 0 for a -1 id instead of writing -inf",
+        [(QUANT, "    id[r] = __shfl_sync(repro::kFullMask, mine, r);\n",
+          "    id[r] = max(__shfl_sync(repro::kFullMask, mine, r), 0);\n")]),
+})
 FAULTS = ("dropped_kv_tile", "ragged_depth", "select_drops_bin_key", "commit_keeps_repeated_slot",
-          "commit_skips_round_2")
+          "commit_skips_round_2", "score_skips_last_row", "quant_scale_before_sum",
+          "quant_scores_minus_one")
 
 TIMING = r'''
 import torch, repro_torch, chip_smoke as cs
@@ -323,6 +498,33 @@ for storage in ("f32", "int8"):
 print("RESULT", " ".join(out), flush=True)
 '''
 
+SCORER_TIMING = r'''
+import torch, repro_torch, chip_smoke as cs
+from repro_torch.kernels.gather_score import gather_score
+from repro_torch.kernels.quant_score import quant_score
+cs.warm_up_profiler()
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+items = cs._int_or_float((cs.N_FULL, cs.D_FULL), False, g)
+codes, scales = cs._int8_store(items, False, g)
+out = []
+for name, shapes in (("gather_score", cs.GATHER_SHAPES), ("quant_score", cs.QUANT_SHAPES)):
+    for cell, (b, w) in shapes.items():
+        q = cs._int_or_float((b, cs.D_FULL), False, g)
+        ids = cs._score_ids(b, w, cs.N_FULL, g)
+        if name == "gather_score":
+            run = lambda: gather_score(q, items, ids)
+            wit = lambda: cs._scorer_witness(name, q, items, None, ids)
+        else:
+            run = lambda: quant_score(q, codes, scales, ids)
+            wit = lambda: cs._scorer_witness(name, q, codes, scales, ids)
+        same = torch.equal(run().view(torch.int32), wit().view(torch.int32))
+        cold = [cs.device_ms(cs._cold(f), only=f"{name}_{k}kernel") for f, k in ((run, ""), (wit, "rowwise_"))]
+        out.append(f"{name}/{cell}={cs.device_ms(run):.4f}(witness={cs.device_ms(wit):.4f},"
+                   f"cold={cold[0]:.4f},witness_cold={cold[1]:.4f}"
+                   f"{'' if same else ',NOT_BIT_IDENTICAL'})")
+print("RESULT", " ".join(out), flush=True)
+'''
+
 FAULT_CHECKS = {
     "dropped_kv_tile": r'''
 import torch, repro_torch, chip_smoke as cs
@@ -380,6 +582,20 @@ except AssertionError as e:
 }
 FAULT_CHECKS["commit_keeps_repeated_slot"] = FAULT_CHECKS["commit_merge"]
 FAULT_CHECKS["commit_skips_round_2"] = FAULT_CHECKS.pop("commit_merge")
+FAULT_CHECKS["score_skips_last_row"] = r'''
+import torch, repro_torch, chip_smoke as cs
+cs.warm_up_profiler()
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+items = {kind: cs._int_or_float((cs.N_FULL, cs.D_FULL), kind == "int", g) for kind in ("int", "float")}
+stores = {kind: cs._int8_store(x, kind == "int", g) for kind, x in items.items()}
+try:
+    cs.phase_scorers(items, stores, g)
+    print("RESULT not caught", flush=True)
+except AssertionError as e:
+    print("RESULT caught", str(e)[:200], flush=True)
+'''
+FAULT_CHECKS["quant_scale_before_sum"] = FAULT_CHECKS["score_skips_last_row"]
+FAULT_CHECKS["quant_scores_minus_one"] = FAULT_CHECKS["score_skips_last_row"]
 
 
 def tree(name: str) -> Path:
@@ -415,8 +631,11 @@ def run(src: Path, code: str) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default="", help="comma-separated names of EDITS")
-    ap.add_argument("--faults", action="store_true", help="run the planted faults")
+    ap.add_argument("--faults", nargs="?", const=",".join(FAULTS), default="",
+                    help="run the planted faults (all, or the comma-separated names given)")
     ap.add_argument("--walk", action="store_true", help="time beam_walk, not the scans")
+    ap.add_argument("--scorers", action="store_true",
+                    help="time gather_score and quant_score (and their witness), not the scans")
     args = ap.parse_args()
     import torch
 
@@ -430,13 +649,14 @@ def main() -> int:
         names = args.variants.split(",")
         trees = [("checkout", ROOT / "src")] + [(n, tree(n)) for n in names]
         for label, src in trees + trees[::-1]:
-            lines = run(src, WALK_TIMING if args.walk else TIMING)
+            lines = run(src, WALK_TIMING if args.walk else SCORER_TIMING if args.scorers
+                        else TIMING)
             phases = [ln for ln in lines if ln.startswith("phases")]
             print(f"{label}: {[ln for ln in lines if ln not in phases][-1]}", flush=True)
             if phases:  # an instrumented variant: its last few walks
                 print("\n".join(f"{label}: {ln}" for ln in phases[-12:]), flush=True)
     if args.faults:
-        for name in FAULTS:
+        for name in args.faults.split(","):
             for line in run(tree(name), FAULT_CHECKS[name]):
                 print(f"{name}: {line}", flush=True)
                 status |= line.startswith("not caught")

@@ -18,7 +18,11 @@ Phases (each one that fails ends the run with a non-zero exit):
      ``call_ms`` is the time a caller waits per back-to-back wrapper call
      (CUDA events).  beam_step also runs with a tombstone mask over about
      half the items (its live variants): n_dead must equal the plain
-     version's exactly.  topk_merge runs at the walk's merge shapes (a pure
+     version's exactly.  quant_score and gather_score are also held bit for
+     bit, on every input, to the witness (the previous one-warp-a-row
+     kernel of each, launched only here), at their shapes and at their
+     edges (SCORER_EDGES: B 1, W 1, a ragged W 33 with a row all -1, d 37
+     and d 512), and timed in turns with it.  topk_merge runs at the walk's merge shapes (a pure
      selection: bit-identical on integer and float inputs, +-0 pairs and
      -inf / -1 slots included); flash_attn at granite-3-2b's attention and
      gemma3-12b's local layer (S = T = 4096, and one q_offset case), fp32
@@ -180,7 +184,14 @@ WALK_LARGE_V = (64, 400, 16, 160, 800)
 COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
 # gathered scorers: (B, W) on the main path, d = 300
 QUANT_SHAPES = {"seed_ip": (256, 160), "seed_angular": (256, 1)}
-GATHER_SHAPES = {"seed_ip": (256, 160), "build_seed_ip": (512, 161), "rerank_ip": (256, 40)}
+GATHER_SHAPES = {"seed_ip": (256, 160), "build_seed_ip": (512, 161), "rerank_ip": (256, 40),
+                 "rerank_angular": (256, 10), "build_seed_angular": (512, 1)}
+# the scorers' edges, checked only: (B, W, d, row 0 all -1) -- one query, one
+# slot a query, a ragged last tile with a dead row, the scalar loads (d 37)
+# and two rounds of loads (d 512)
+SCORER_EDGES = {"b1": (1, 160, D_FULL, False), "w1": (256, 1, D_FULL, False),
+                "w33_dead_row": (256, 33, D_FULL, True), "d37": (256, 160, 37, False),
+                "d512": (64, 160, 512, True)}
 MIPS_SHAPES = {"full": (256, N_FULL, D_FULL, 10), "serve_default": (256, 20_000, 64, 10),
                # the full-size loop's ground truth: 4,096 queries in one call
                "loop_ground_truth": (LOOP_FULL_REQUESTS, N_FULL, D_FULL, 10)}
@@ -796,51 +807,143 @@ def _check_scores(name, got, want, integer: bool) -> float:
     return _max_abs_err(got, want)
 
 
+def _scorer_witness(name: str, q, rows, scales, ids):
+    """The previous one-warp-a-row kernel on the same inputs
+    (gather_score_rowwise_f32 / quant_score_rowwise_i8): the yardstick the
+    redesigned scorer is held to bit for bit and timed against.  Launched
+    here only, through no wrapper, so it counts in no launch counter."""
+    import torch
+
+    from repro_torch.kernels import _lib
+
+    (b, d), w = q.shape, ids.shape[1]
+    out = torch.empty((b, w), dtype=torch.float32, device=q.device)
+    stream = _lib.stream(q.device)
+    if name == "quant_score":
+        rc = _lib.lib().quant_score_rowwise_i8(q.data_ptr(), rows.data_ptr(), scales.data_ptr(),
+                                               ids.data_ptr(), b, w, d, out.data_ptr(), stream)
+    else:
+        rc = _lib.lib().gather_score_rowwise_f32(q.data_ptr(), rows.data_ptr(), ids.data_ptr(),
+                                                 b, w, d, out.data_ptr(), stream)
+    _lib.check(rc, f"{name} witness")
+    return out
+
+
+def _poisoned(fn, shape):
+    """``fn()`` right after a NaN-filled block of ``shape`` was freed: the
+    output the wrapper allocates is that block, so a slot the kernel does
+    not write reads NaN, not an earlier run's score."""
+    import torch
+
+    torch.full(shape, float("nan"), device="cuda")
+    return fn()
+
+
+_L2_FLUSH = []  # a 128 MB buffer, written before each cold launch (the L2 holds 50 MB)
+
+
+def _cold(fn):
+    """``fn`` with 128 MB written before each call: the rows it gathers come
+    from device memory, as for a caller that has not just touched them.
+    Time it with ``device_ms(..., only=<its kernel>)``, which leaves the
+    fill out."""
+    import torch
+
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(1 << 25, device="cuda"))
+    return lambda: (_L2_FLUSH[0].zero_(), fn())[1]
+
+
+def _scorer_bound(name: str, ids, d: int):
+    """(ms, by): each distinct row read once -- a -1 id reads no row of the
+    int8 store (quant_score) or row 0 (gather_score clamps) -- plus ids,
+    scores and queries; 2 d flops a scored slot."""
+    import torch
+
+    b, w = ids.shape
+    distinct = torch.unique(ids[ids >= 0] if name == "quant_score" else ids.clamp_min(0))
+    row_bytes = d + 4 if name == "quant_score" else d * 4
+    n_scored = int((ids >= 0).sum()) if name == "quant_score" else b * w
+    return bound(b * w * 8 + distinct.numel() * row_bytes + b * d * 4, 2.0 * d * n_scored)
+
+
 def phase_scorers(items_by_kind, stores_by_kind, g) -> dict:
     """quant_score at the int8 seed shapes and gather_score at the f32 seed
-    and rerank shapes; returns the timings at the IP seed shape, float."""
+    and rerank shapes, and both at their edges (SCORER_EDGES): on every
+    input bit-identical to the witness, the previous one-warp-a-row kernel
+    (``_scorer_witness``), and held to the plain version (integer inputs
+    bit-identical, float inputs the tolerance contract, -inf slots equal).
+    At the main shapes, float inputs, the kernel and the witness are timed
+    in turns (kernel, witness, witness, kernel), back to back as the other
+    kernels are (rows that fit the L2 stay there between calls), and again
+    with the L2 flushed before each call (``_cold``: cold_ms).  Returns the
+    timings at the IP seed shape, float."""
     import torch
 
     from repro_torch.kernels.gather_score import gather_score, gather_score_ref
     from repro_torch.kernels.quant_score import quant_score, quant_score_ref
 
     out = {}
-    cases = [("quant_score", cell, shape) for cell, shape in QUANT_SHAPES.items()]
-    cases += [("gather_score", cell, shape) for cell, shape in GATHER_SHAPES.items()]
-    for name, cell, (b, w) in cases:
-        for kind, items in items_by_kind.items():
-            n, d = items.shape
+    # d = 37 (scalar loads) and d = 512 (two rounds of loads) over their own rows
+    other_d = {dd: {kind: _int_or_float((20_000, dd), kind == "int", g) for kind in items_by_kind}
+               for dd in {d for _, _, d, _ in SCORER_EDGES.values()} - {D_FULL}}
+    cases = [("quant_score", cell, (b, w, D_FULL, False), True)
+             for cell, (b, w) in QUANT_SHAPES.items()]
+    cases += [("gather_score", cell, (b, w, D_FULL, False), True)
+              for cell, (b, w) in GATHER_SHAPES.items()]
+    cases += [(name, cell, shape, False) for name in ("quant_score", "gather_score")
+              for cell, shape in SCORER_EDGES.items()]
+    for name, cell, (b, w, d, dead_row), timed in cases:
+        for kind in items_by_kind:
+            items = items_by_kind[kind] if d == D_FULL else other_d[d][kind]
+            codes, scales = (stores_by_kind[kind] if d == D_FULL
+                             else _int8_store(items, kind == "int", g))
             q = _int_or_float((b, d), kind == "int", g)
-            ids = _score_ids(b, w, n, g)
+            ids = _score_ids(b, w, items.shape[0], g)
+            if dead_row:
+                ids[0] = -1
             if name == "quant_score":
-                codes, scales = stores_by_kind[kind]
                 run = lambda: quant_score(q, codes, scales, ids)  # noqa: E731
                 plain = lambda: quant_score_ref(q, codes, scales, ids)  # noqa: E731
+                witness = lambda: _scorer_witness(name, q, codes, scales, ids)  # noqa: E731
                 fn = quant_score
             else:
                 run = lambda: gather_score(q, items, ids)  # noqa: E731
                 plain = lambda: gather_score_ref(q, items, ids)  # noqa: E731
+                witness = lambda: _scorer_witness(name, q, items, None, ids)  # noqa: E731
                 fn = gather_score
-            got, want = run(), plain()
+            got = _poisoned(run, (b, w))
+            wit, want = witness(), plain()
             torch.cuda.synchronize()
-            err = _check_scores(f"{name} {cell}/{kind}", got, want, kind == "int")
-            ms = device_ms(run)
-            plain_ms = device_ms(plain)
-            call_ms = cuda_ms(run)
-            # each distinct row read once; a -1 id reads no row of the store
-            # (quant_score) or row 0 (gather_score clamps)
-            distinct = torch.unique(ids[ids >= 0] if name == "quant_score" else ids.clamp_min(0))
-            row_bytes = d + 4 if name == "quant_score" else d * 4
-            n_scored = int((ids >= 0).sum()) if name == "quant_score" else b * w
-            bound_ms, by = bound(b * w * 8 + distinct.numel() * row_bytes + b * d * 4,
-                                 2.0 * d * n_scored)
-            log(f"kernel={name} cell={cell} inputs={kind} B={b} W={w} d={d} ms={ms:.4f} "
-                f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
-                f"bound_ms={bound_ms:.5f} bound_by={by} max_abs_err={err:.3g} "
-                f"launches={fn.launches}")
-            if cell == "seed_ip" and kind == "float":
-                out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                                 library_ms=None, max_abs_err=err)
+            tag = f"{name} {cell}/{kind} B={b} W={w} d={d}"
+            assert torch.equal(got.view(torch.int32), wit.view(torch.int32)), \
+                f"{tag}: {int((got.view(torch.int32) != wit.view(torch.int32)).sum())} " \
+                f"scores differ from the witness's bits"
+            err = _check_scores(tag, got, want, kind == "int")
+            line = (f"kernel={name} cell={cell} inputs={kind} B={b} W={w} d={d} "
+                    f"witness_bit_identical=True max_abs_err={err:.3g}")
+            if timed and kind == "float":
+                turns = [device_ms(f) for f in (run, witness, witness, run)]
+                ms, witness_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                cold = [device_ms(_cold(f), only=f"{name}_{k}kernel")
+                        for f, k in ((run, ""), (witness, "rowwise_"), (witness, "rowwise_"),
+                                     (run, ""))]
+                cold_ms, witness_cold_ms = (cold[0] + cold[3]) / 2, (cold[1] + cold[2]) / 2
+                plain_ms = device_ms(plain)
+                call_ms = cuda_ms(run)
+                bound_ms, by = _scorer_bound(name, ids, d)
+                line += (f" ms={ms:.4f} witness_ms={witness_ms:.4f} turns={turns[0]:.4f}/"
+                         f"{turns[1]:.4f}/{turns[2]:.4f}/{turns[3]:.4f} call_ms={call_ms:.4f} "
+                         f"plain_ms={plain_ms:.4f} library_ms=None bound_ms={bound_ms:.5f} "
+                         f"bound_by={by} share_of_bound={bound_ms / ms:.3f} "
+                         f"over_witness={witness_ms / ms:.3f} cold_ms={cold_ms:.4f} "
+                         f"witness_cold_ms={witness_cold_ms:.4f} cold_turns="
+                         f"{'/'.join(f'{t:.4f}' for t in cold)} "
+                         f"cold_share_of_bound={bound_ms / cold_ms:.3f}")
+                if cell == "seed_ip":
+                    out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                                     library_ms=None, max_abs_err=err)
+            log(line + f" launches={fn.launches}")
     return out
 
 
@@ -1467,6 +1570,17 @@ def _zero_counts() -> None:
     for fn, attr in _kernel_counters().values():
         setattr(fn, attr, 0)
     beam_walk.steps = 0
+    for by_width in _widths().values():
+        by_width.clear()
+
+
+def _widths() -> dict:
+    """The gathered scorers' launches by W, the ids' width (plain dicts)."""
+    from repro_torch.kernels.gather_score import gather_score
+    from repro_torch.kernels.quant_score import quant_score
+
+    return {"gather_score": gather_score.launches_by_width,
+            "quant_score": quant_score.launches_by_width}
 
 
 def _read_counts() -> dict:
@@ -1585,6 +1699,8 @@ def phase_full_size() -> dict:
     assert scan_recall > 0.5, f"quantized scan recall@10 {scan_recall}"
     counts = _read_counts()
     log(f"full size peak_memory_bytes={torch.cuda.max_memory_allocated()} launches={counts}")
+    log("full size launches by width: " + " ".join(
+        f"{name}={dict(sorted(by_width.items()))}" for name, by_width in _widths().items()))
     live = [name for name in counts if name.endswith("_live")]
     _assert_path("full size", counts, [name for name in counts
                                        if name not in live + list(ENTRY_ONLY) + list(K33_PATH)])

@@ -132,4 +132,98 @@ __device__ __forceinline__ float row_score(const float* __restrict__ q_sh,
   return warp_dot_i8(q_sh, codes + static_cast<size_t>(id) * d, d, lane) * __ldg(scales + id);
 }
 
+// Chunk c of a row (4 values: a float4, or a char4 of codes), its four FMAs
+// in warp_dot's order, and the row's scale (1 for fp32 rows).
+__device__ __forceinline__ float4 row_chunk(const float* __restrict__ row, int c) {
+  return __ldg(reinterpret_cast<const float4*>(row) + c);
+}
+__device__ __forceinline__ char4 row_chunk(const signed char* __restrict__ row, int c) {
+  return __ldg(reinterpret_cast<const char4*>(row) + c);
+}
+__device__ __forceinline__ float fma_chunk(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+__device__ __forceinline__ float fma_chunk(char4 a, float4 b, float acc) {
+  acc = fmaf(static_cast<float>(a.x), b.x, acc);
+  acc = fmaf(static_cast<float>(a.y), b.y, acc);
+  acc = fmaf(static_cast<float>(a.z), b.z, acc);
+  return fmaf(static_cast<float>(a.w), b.w, acc);
+}
+__device__ __forceinline__ float row_scale(const float* /*scales*/, const float* /*rows*/,
+                                           int /*id*/) {
+  return 1.f;
+}
+__device__ __forceinline__ float row_scale(const float* __restrict__ scales,
+                                           const signed char* /*rows*/, int id) {
+  return __ldg(scales + id);
+}
+__device__ __forceinline__ float scaled(float sum, float /*scale*/, const float* /*rows*/) {
+  return sum;
+}
+__device__ __forceinline__ float scaled(float sum, float scale, const signed char* /*rows*/) {
+  return sum * scale;
+}
+
+// row_score of R rows by one warp (d % 4 == 0), with every load of the R
+// rows, their scales and the query's chunks issued before the first FMA:
+// s[r] = row_score(q, rows, scales, id[r], d, lane) bit for bit where ok[r],
+// -inf elsewhere (a row not ok loads nothing).  Each lane FMAs its chunks
+// c = lane, lane + 32, ... of a row in order, the R xor trees run
+// interleaved, and an int8 sum is multiplied by its scale once.  A round
+// keeps V chunks a lane a row in flight (d <= 128 V in one round); ``q``
+// is 16-byte aligned, in shared or global memory.
+template <int R, int V, typename Row>
+__device__ __forceinline__ void score_rows(const float* __restrict__ q,
+                                           const Row* __restrict__ rows,
+                                           const float* __restrict__ scales, int d, int lane,
+                                           const int (&id)[R], const bool (&ok)[R],
+                                           float (&s)[R]) {
+  using Chunk = decltype(row_chunk(rows, 0));
+  const int d4 = d >> 2;
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  const Row* row[R];
+  float sc[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = rows + static_cast<size_t>(max(id[r], 0)) * d;
+    sc[r] = ok[r] ? row_scale(scales, rows, id[r]) : 1.f;
+    acc[r] = 0.f;
+  }
+  for (int c0 = 0; c0 < d4; c0 += 32 * V) {
+    Chunk v[R][V];
+    float4 b[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int c = c0 + lane + 32 * u;
+      if (c < d4) {
+        b[u] = q4[c];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (ok[r]) v[r][u] = row_chunk(row[r], c);
+        }
+      }
+    }
+    // a row's chunks before the next row's: its codes are cast and used
+    // together, which frees their registers sooner
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        if (ok[r] && c0 + lane + 32 * u < d4) {
+          acc[r] = fma_chunk(v[r][u], b[u], acc[r]);
+        }
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] += __shfl_xor_sync(kFullMask, acc[r], o);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) s[r] = ok[r] ? scaled(acc[r], sc[r], rows) : -INFINITY;
+}
+
 }  // namespace repro

@@ -43,11 +43,13 @@ SIGNATURES = {
     "flash_attn_f32": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
     "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
     "gather_score_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],
+    "gather_score_rowwise_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "mips_topk_f32": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_P],
     "mips_topk_i8": [_P] * 3 + [_I] * 6 + [_P] * 4 + [_P],
     "mips_topk_select_f32": [_P] * 2 + [_I] * 9 + [_P] * 7 + [_P],
     "mips_topk_select_i8": [_P] * 3 + [_I] * 9 + [_P] * 7 + [_P],
     "quant_score_i8": [_P] * 4 + [_I] * 3 + [_P] + [_P],
+    "quant_score_rowwise_i8": [_P] * 4 + [_I] * 3 + [_P] + [_P],
     "topk_merge_f32": [_P] * 6 + [_I] * 3 + [_P] * 3 + [_P],
 }
 

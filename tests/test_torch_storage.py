@@ -50,8 +50,10 @@ from repro_torch.core.storage import (
 )
 from repro_torch.kernels.beam_step import beam_step, beam_walk
 from repro_torch.kernels.gather_score import gather_score, gather_score_ref
+from repro_torch.kernels.gather_score.ops import check_gather_inputs
 from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
 from repro_torch.kernels.quant_score import quant_score, quant_score_ref
+from repro_torch.kernels.quant_score.ops import check_quant_inputs
 from repro_torch.obs.recall import recall_at_k
 from repro_torch.testing import RECALL_MARGIN, assert_topk_match, near_tie_rows, scores_close
 
@@ -155,14 +157,37 @@ def test_make_store_resolves_the_knob():
 # ------------------------------------------------------------------- scorers
 
 
-@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
-@pytest.mark.parametrize("d", [37, 300])
-def test_quant_score_matches_jax(d, integer):
+# the scorers' edges beside each test's first shape: (B, W, row 0 all -1) --
+# one slot a query, a ragged W, a row whose ids are all -1
+SCORER_EDGES = {"w1": (7, 1, False), "w33_ragged": (7, 33, False), "dead_row": (7, 21, True)}
+
+
+def _scorer_params(first, prefix=""):
+    """(integer, (B, W, dead row)) cases: ``first`` under the test's original
+    ids, then each of SCORER_EDGES on float and integer inputs."""
+    kinds = ((False, "float"), (True, "integer"))
+    return ([pytest.param(integer, first, id=f"{prefix}{kind}") for integer, kind in kinds]
+            + [pytest.param(integer, shape, id=f"{prefix}{name}-{kind}")
+               for name, shape in SCORER_EDGES.items() for integer, kind in kinds])
+
+
+def _scorer_ids(rng, shape, n):
+    b, w, dead_row = shape
+    ids = _ids(rng, b, w, n)
+    if dead_row:
+        ids[0] = -1
+    return ids
+
+
+@pytest.mark.parametrize("d,integer,shape",
+                         [pytest.param(d, *p.values, id=p.id) for d in (37, 300)
+                          for p in _scorer_params((9, 33, False), prefix=f"{d}-")])
+def test_quant_score_matches_jax(d, integer, shape):
     rng = np.random.default_rng(d)
     items = _vectors(rng, (400, d), integer)
     codes, scales = _store_arrays(rng, items, integer)
-    q = _vectors(rng, (9, d), integer)
-    ids = _ids(rng, 9, 33, 400)
+    q = _vectors(rng, (shape[0], d), integer)
+    ids = _scorer_ids(rng, shape, 400)
     want = np.asarray(jax_quant_score_ref(*map(jnp.asarray, (q, codes, scales, ids))))
     t = [torch.from_numpy(a) for a in (q, codes, scales, ids)]
     for got in (quant_score(*t), quant_score_ref(*t),
@@ -179,12 +204,12 @@ def test_quant_score_matches_jax(d, integer):
     assert np.array_equal(js, want)
 
 
-@pytest.mark.parametrize("integer", [False, True], ids=["float", "integer"])
-def test_gather_score_matches_jax(integer):
+@pytest.mark.parametrize("integer,shape", _scorer_params((7, 21, False)))
+def test_gather_score_matches_jax(integer, shape):
     rng = np.random.default_rng(8)
     items = _vectors(rng, (300, 29), integer)
-    q = _vectors(rng, (7, 29), integer)
-    ids = _ids(rng, 7, 21, 300)
+    q = _vectors(rng, (shape[0], 29), integer)
+    ids = _scorer_ids(rng, shape, 300)
     want = np.asarray(jax_gather_score_ref(jnp.asarray(q), jnp.asarray(items),
                                            jnp.asarray(np.maximum(ids, 0))))
     t = [torch.from_numpy(a) for a in (q, items, ids)]
@@ -194,6 +219,84 @@ def test_gather_score_matches_jax(integer):
         else:
             assert scores_close(got.numpy(), want).all()
     assert gather_score_ref is gather_scores
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.zeros(*shape, dtype=dtype, device="meta")
+
+
+def _misaligned(n, d, dtype):
+    """A contiguous [n, d] view that starts one element past a 16-byte
+    boundary."""
+    return torch.zeros(n * d + 1, dtype=dtype)[1:].view(n, d)
+
+
+def _assert_no_launch(fn, args, check):
+    """``check(*args)`` and ``fn(*args)`` raise; no launch was counted."""
+    fn.launches, fn.launches_by_width = 0, {}
+    with pytest.raises((TypeError, ValueError)):
+        check(*args)
+    with pytest.raises((TypeError, ValueError)):
+        fn(*args)
+    assert fn.launches == 0 and fn.launches_by_width == {}
+
+
+@pytest.mark.parametrize("case", ["ok", "queries_dtype", "items_dtype", "ids_dtype", "ids_rows",
+                                  "items_width", "device", "contiguity", "items_misaligned"])
+def test_gather_score_kernel_inputs_rejected_on_meta(case):
+    """What the kernel does not take raises before any launch (on meta
+    tensors, and a CPU view for the alignment), and no counter moves."""
+    q, x, ids = _meta(5, 16), _meta(70, 16), _meta(5, 9, dtype=torch.int32)
+    if case == "ok":
+        check_gather_inputs(q, x, ids)
+        check_gather_inputs(_meta(5, 37), _meta(70, 37), ids)
+        check_gather_inputs(torch.zeros(5, 37), _misaligned(70, 37, torch.float32),
+                            torch.zeros(5, 9, dtype=torch.int32))  # scalar loads: any start
+        return
+    bad = {"queries_dtype": (_meta(5, 16, dtype=torch.float64), x, ids),
+           "items_dtype": (q, _meta(70, 16, dtype=torch.int8), ids),
+           "ids_dtype": (q, x, _meta(5, 9, dtype=torch.int64)),
+           "ids_rows": (q, x, _meta(4, 9, dtype=torch.int32)),
+           "items_width": (q, _meta(70, 15), ids),
+           "device": (q, torch.zeros(70, 16), ids),
+           "contiguity": (q, _meta(16, 70).t(), ids),
+           "items_misaligned": (torch.zeros(5, 16), _misaligned(70, 16, torch.float32),
+                                torch.zeros(5, 9, dtype=torch.int32))}[case]
+    if case == "items_misaligned":  # a CPU tensor runs the plain version: the check alone
+        with pytest.raises(ValueError):
+            check_gather_inputs(*bad)
+        return
+    _assert_no_launch(gather_score, bad, check_gather_inputs)
+
+
+@pytest.mark.parametrize("case", ["ok", "queries_dtype", "codes_dtype", "scales_dtype",
+                                  "scales_rows", "ids_dtype", "ids_rows", "codes_width",
+                                  "device", "contiguity", "codes_misaligned"])
+def test_quant_score_kernel_inputs_rejected_on_meta(case):
+    """What the kernel does not take raises before any launch (on meta
+    tensors, and a CPU view for the alignment), and no counter moves."""
+    q, c, sc = _meta(5, 16), _meta(70, 16, dtype=torch.int8), _meta(70)
+    ids = _meta(5, 9, dtype=torch.int32)
+    if case == "ok":
+        check_quant_inputs(q, c, sc, ids)
+        check_quant_inputs(_meta(5, 37), _meta(70, 37, dtype=torch.int8), sc, ids)
+        return
+    bad = {"queries_dtype": (_meta(5, 16, dtype=torch.float16), c, sc, ids),
+           "codes_dtype": (q, _meta(70, 16), sc, ids),
+           "scales_dtype": (q, c, _meta(70, dtype=torch.float64), ids),
+           "scales_rows": (q, c, _meta(69), ids),
+           "ids_dtype": (q, c, sc, _meta(5, 9)),
+           "ids_rows": (q, c, sc, _meta(6, 9, dtype=torch.int32)),
+           "codes_width": (q, _meta(70, 12, dtype=torch.int8), sc, ids),
+           "device": (q, c, torch.zeros(70), ids),
+           "contiguity": (q, c, sc, _meta(9, 5, dtype=torch.int32).t()),
+           "codes_misaligned": (torch.zeros(5, 16), _misaligned(70, 16, torch.int8),
+                                torch.zeros(70), torch.zeros(5, 9, dtype=torch.int32))}[case]
+    if case == "codes_misaligned":  # a CPU tensor runs the plain version: the check alone
+        with pytest.raises(ValueError):
+            check_quant_inputs(*bad)
+        return
+    _assert_no_launch(quant_score, bad, check_quant_inputs)
 
 
 # ---------------------------------------------------------------------- step
@@ -460,8 +563,8 @@ def test_cpu_int8_wrappers_never_launch():
     for fn, attr in counters:
         setattr(fn, attr, 0)
     test_beam_step_int8_matches_jax(0, False)
-    test_quant_score_matches_jax(37, False)
-    test_gather_score_matches_jax(False)
+    test_quant_score_matches_jax(37, False, (9, 33, False))
+    test_gather_score_matches_jax(False, (7, 21, False))
     test_quantized_mips_topk_matches_jax(False)
     test_beam_search_int8_bit_identical_to_jax_on_integer_inputs()
     assert all(getattr(fn, attr) == 0 for fn, attr in counters)
