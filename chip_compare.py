@@ -4,6 +4,7 @@
   python3 chip_compare.py --variants no_epilogue,flash_one_block
   python3 chip_compare.py --walk --variants walk_prefetch_rows,walk_prefetch_adj
   python3 chip_compare.py --scorers --variants score_rows_2,score_rows_8,gather_bulk_copy
+  python3 chip_compare.py --attn-merge --parent build/parent/src --variants f32_stages_2
   python3 chip_compare.py --faults [score_skips_last_row,quant_scale_before_sum]
 
 Each variant or fault is a named edit of a source (EDITS below), applied
@@ -18,7 +19,12 @@ phase 3; with ``--walk`` it times
 int8) and in an IpNSW search of 256 queries at Yahoo!Music's size; with
 ``--scorers`` it times ``gather_score`` and ``quant_score`` at phase 3's
 cells (float inputs) beside their witness, the previous one-warp-a-row
-kernel, in the same process.  ``--faults`` runs each planted fault
+kernel, in the same process; with ``--attn-merge`` it times the fp32
+``flash_attention`` at phase 3's three model cells and ``topk_merge`` at
+its walk, throughput and ef-400 cells.  ``--parent`` adds the ``src/`` of
+another commit, unpacked where the build ignores it (``git archive <commit>
+src | tar -x -C build/parent``), to the turns as ``parent``: how a kernel
+compares with its previous design on the same card.  ``--faults`` runs each planted fault
 through the check that must catch it (``chip_smoke.py``'s limits) and exits
 1 if one passes.  It needs the card; no edit is ever made in ``src/``.
 """
@@ -425,9 +431,179 @@ EDITS.update({
         [(QUANT, "    id[r] = __shfl_sync(repro::kFullMask, mine, r);\n",
           "    id[r] = max(__shfl_sync(repro::kFullMask, mine, r), 0);\n")]),
 })
+# the fp32 attention kernel and topk_merge's warp route: tile and ring sizes,
+# and planted faults
+MERGE_ONE_ROW = """  const int row0 = blockIdx.x * kRowWarps * RW;
+  if (row0 + (threadIdx.x >> 5) * RW >= B) return;  // every row of this warp is past B
+  const int row = row0 + slot;
+  const bool live = row < B;
+  const int C = L + M;
+  const size_t pool_at = static_cast<size_t>(row) * L, new_at = static_cast<size_t>(row) * M;
+  unsigned long long key[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int pos = sub * E + e;
+    key[e] = repro::kTopkPad;
+    if (live && pos < C) {
+      const bool pool = pos < L;
+      const size_t at = pool ? pool_at + pos : new_at + pos - L;
+      key[e] = repro::topk_key(pool ? pool_s[at] : new_s[at], pos);
+      payload[slot][pos] = make_int2(pool ? pool_i[at] : new_i[at], pool ? pool_c[at] : new_c[at]);
+    }
+  }
+  __syncwarp();
+  repro::row_sort_keys<NL, E>(key, sub);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int r = sub * E + e;
+    if (live && r < L) {
+"""
+MERGE_ROW_LOOP = """  const int C = L + M;
+  const int stride = gridDim.x * kRowWarps * RW;
+  const int warp_row0 = blockIdx.x * kRowWarps * RW + (threadIdx.x >> 5) * RW;
+  float next_s[E];
+  int2 next_p[E];
+  auto fetch = [&](int r) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int pos = sub * E + e;
+      next_s[e] = 0.f;
+      next_p[e] = make_int2(0, 0);
+      if (r < B && pos < C) {
+        const bool pool = pos < L;
+        const size_t at = pool ? static_cast<size_t>(r) * L + pos
+                               : static_cast<size_t>(r) * M + pos - L;
+        next_s[e] = pool ? pool_s[at] : new_s[at];
+        next_p[e] = make_int2(pool ? pool_i[at] : new_i[at], pool ? pool_c[at] : new_c[at]);
+      }
+    }
+  };
+  fetch(warp_row0 + lane / NL);
+  for (int w0 = warp_row0; w0 < B; w0 += stride) {
+  const int row = w0 + lane / NL;
+  const bool live = row < B;
+  const size_t pool_at = static_cast<size_t>(row) * L;
+  unsigned long long key[E];
+  __syncwarp();  // the previous row's payload reads are done
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int pos = sub * E + e;
+    key[e] = live && pos < C ? repro::topk_key(next_s[e], pos) : repro::kTopkPad;
+    if (live && pos < C) payload[slot][pos] = next_p[e];
+  }
+  __syncwarp();
+  fetch(w0 + stride + lane / NL);
+  repro::row_sort_keys<NL, E>(key, sub);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int r = sub * E + e;
+    if (live && r < L) {
+"""
+FLASH = f"{CSRC}/flash_attn.cu"
+EDITS.update({
+    "f32_stages_2": (
+        "flash_attn fp32 with a ring of 2 kv stages at every hd (3 at hd <= 128 in the checkout)",
+        [(FLASH, "static constexpr int kStages = HD <= 128 ? 3 : 2;",
+          "static constexpr int kStages = 2;")]),
+    "f32_groups_8": (
+        "flash_attn fp32 with row groups of 8 lanes (4 a warp) and half the rows a thread",
+        [(FLASH, "static constexpr int kG = 16;", "static constexpr int kG = 8;"),
+         (FLASH, "static constexpr int kTR = HD <= 128 ? 8 : 4;",
+          "static constexpr int kTR = HD <= 128 ? 4 : 2;")]),
+    "merge_lanes_16": (
+        "topk_merge's sort route with 4 keys a lane: 8 lanes a row at C <= 32, 16 at C <= 64",
+        [(f"{CSRC}/topk_merge.cu", "constexpr int kSmallLanes = 32, kSmallKeys = 1;",
+          "constexpr int kSmallLanes = 8, kSmallKeys = 4;"),
+         (f"{CSRC}/topk_merge.cu", "constexpr int kLargeLanes = 32, kLargeKeys = 2;",
+          "constexpr int kLargeLanes = 16, kLargeKeys = 4;")]),
+    "merge_keys_8": (
+        "topk_merge's sort route with 8 keys a lane: 4 lanes a row at C <= 32, 8 at C <= 64",
+        [(f"{CSRC}/topk_merge.cu", "constexpr int kSmallLanes = 32, kSmallKeys = 1;",
+          "constexpr int kSmallLanes = 4, kSmallKeys = 8;"),
+         (f"{CSRC}/topk_merge.cu", "constexpr int kLargeLanes = 32, kLargeKeys = 2;",
+          "constexpr int kLargeLanes = 8, kLargeKeys = 8;")]),
+    "merge_prefetch": (
+        "topk_merge's sort route on a grid of at most the blocks the card holds, each warp "
+        "looping over rows and loading its next row while it sorts this one",
+        [(f"{CSRC}/topk_merge.cu", MERGE_ONE_ROW, MERGE_ROW_LOOP),
+         (f"{CSRC}/topk_merge.cu",
+          "  topk_merge_sort_kernel<NL, E><<<(B + rows - 1) / rows, kRowWarps * 32, 0, st>>>(",
+          "  static int per_sm = 0, sms = 0;\n"
+          "  if (per_sm == 0) {\n"
+          "    int dev = 0;\n"
+          "    cudaGetDevice(&dev);\n"
+          "    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+          "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_merge_sort_kernel<NL, E>,\n"
+          "                                                  kRowWarps * 32, 0);\n"
+          "  }\n"
+          "  const int blocks = (B + rows - 1) / rows < per_sm * sms ? (B + rows - 1) / rows\n"
+          "                                                          : per_sm * sms;\n"
+          "  topk_merge_sort_kernel<NL, E><<<blocks, kRowWarps * 32, 0, st>>>("),
+         (f"{CSRC}/topk_merge.cu",
+          "      out_c[pool_at + r] = p.y;\n    }\n  }\n}\n",
+          "      out_c[pool_at + r] = p.y;\n    }\n  }\n  }\n}\n")]),
+    "merge_no_sort": (
+        "topk_merge's sort route without its sort (answers wrong; timing only: the loads, the "
+        "payload staging and the stores alone)",
+        [(f"{CSRC}/topk_merge.cu", "  repro::row_sort_keys<NL, E>(key, sub);\n", "")]),
+    "f32_two_chains": (
+        "flash_attn fp32 with two accumulators a score (depths x, z and y, w), added after the "
+        "loop: twice the independent FMA chains",
+        [(FLASH, "  float s[TR][TK];\n", "  float s[TR][TK], s2[TR][TK];\n"),
+         (FLASH, "    for (int u = 0; u < TK; ++u) s[i][u] = 0.f;\n",
+          "    for (int u = 0; u < TK; ++u) s[i][u] = s2[i][u] = 0.f;\n"),
+         (FLASH, "        s[i][u] = fmaf(qq.y, kk[u].y, s[i][u]);\n",
+          "        s2[i][u] = fmaf(qq.y, kk[u].y, s2[i][u]);\n"),
+         (FLASH, "        s[i][u] = fmaf(qq.w, kk[u].w, s[i][u]);\n",
+          "        s2[i][u] = fmaf(qq.w, kk[u].w, s2[i][u]);\n"),
+         (FLASH, "  // online softmax: the row max over the group's G lanes, p, corr\n",
+          "#pragma unroll\n  for (int i = 0; i < TR; ++i) {\n#pragma unroll\n"
+          "    for (int u = 0; u < TK; ++u) s[i][u] += s2[i][u];\n  }\n"
+          "  // online softmax: the row max over the group's G lanes, p, corr\n")]),
+    "f32_unroll_full": (
+        "flash_attn fp32 with the score loop over the depth unrolled whole at every hd",
+        [(FLASH, "#pragma unroll (HD <= 64 ? HD / 4 : 8)\n", "#pragma unroll\n")]),
+    "f32_unroll_16": (
+        "flash_attn fp32 with the score loop unrolled 16 depth steps at hd >= 128 (8)",
+        [(FLASH, "#pragma unroll (HD <= 64 ? HD / 4 : 8)\n", "#pragma unroll (HD <= 64 ? HD / 4 : 16)\n")]),
+    "f32_pv_unroll_16": (
+        "flash_attn fp32 with the p.v loop unrolled 16 keys (8)",
+        [(FLASH, "#pragma unroll 8\n  for (int key = 0; key < C::kBK; ++key) {",
+          "#pragma unroll 16\n  for (int key = 0; key < C::kBK; ++key) {")]),
+    "f32_pv_unroll_4": (
+        "flash_attn fp32 with the p.v loop unrolled 4 keys (8)",
+        [(FLASH, "#pragma unroll 8\n  for (int key = 0; key < C::kBK; ++key) {",
+          "#pragma unroll 4\n  for (int key = 0; key < C::kBK; ++key) {")]),
+    "f32_dropped_kv_tile": (
+        "fault: the fp32 attention skips the last kv tile of the sequence",
+        [(FLASH, "  const int ntiles = t_hi >= t_lo ? t_hi / BK - first + 1 : 0;\n",
+          "  const int ntiles = (t_hi >= t_lo ? t_hi / BK - first + 1 : 0) -\n"
+          "                     (t_hi >= t_lo && (t_hi / BK + 1) * BK >= T_);\n")]),
+    "f32_skips_corr": (
+        "fault: the fp32 attention does not rescale its accumulators by corr",
+        [(FLASH, "    for (int c = 0; c < TC; ++c) acc[i][c] *= corr;\n", "")]),
+    "f32_unmasked_diagonal": (
+        "fault: the fp32 attention takes a tile that crosses the causal diagonal as unmasked",
+        [(FLASH, "const bool edge = t0 + BK - 1 > pmin || t0 + BK > T_ ||",
+          "const bool edge = t0 + BK > T_ ||")]),
+    "merge_last_occurrence": (
+        "fault: topk_merge's warp route lets the last occurrence win an exact tie",
+        [(SELECT, "| static_cast<unsigned>(pos);", "| static_cast<unsigned>(0xffff - pos);"),
+         (SELECT, "  return static_cast<int>(static_cast<unsigned>(key));",
+          "  return static_cast<int>(0xffffu - static_cast<unsigned>(key));")]),
+    "merge_neg_zero_first": (
+        "fault: topk_merge's warp route ranks -0.0 above +0.0 (each slot's score still its own)",
+        [(SELECT, "  return b >> 31 ? b : b ^ 0x7fffffffu;",
+          "  return b == 0x80000000u ? 0x7fffffffu : b == 0u ? 0x80000000u\n"
+          "         : b >> 31 ? b : b ^ 0x7fffffffu;"),
+         (SELECT, "  return __uint_as_float(w >> 31 ? w : w ^ 0x7fffffffu);",
+          "  return __uint_as_float(w == 0x7fffffffu ? 0x80000000u : w == 0x80000000u ? 0u\n"
+          "                         : w >> 31 ? w : w ^ 0x7fffffffu);")]),
+})
 FAULTS = ("dropped_kv_tile", "ragged_depth", "select_drops_bin_key", "commit_keeps_repeated_slot",
           "commit_skips_round_2", "score_skips_last_row", "quant_scale_before_sum",
-          "quant_scores_minus_one")
+          "quant_scores_minus_one", "f32_dropped_kv_tile", "f32_skips_corr",
+          "f32_unmasked_diagonal", "merge_last_occurrence", "merge_neg_zero_first")
 
 TIMING = r'''
 import torch, repro_torch, chip_smoke as cs
@@ -525,6 +701,29 @@ for name, shapes in (("gather_score", cs.GATHER_SHAPES), ("quant_score", cs.QUAN
 print("RESULT", " ".join(out), flush=True)
 '''
 
+ATTN_MERGE_TIMING = r'''
+import torch, repro_torch, chip_smoke as cs
+from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.topk_merge import topk_merge, topk_merge_ref
+cs.warm_up_profiler()
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+out = []
+for cell, shape in cs.FLASH_SHAPES.items():
+    b, s, t, h, kv, hd, off, win = shape
+    q, k, v = cs._flash_inputs(shape, torch.float32, g)
+    ms = cs.device_ms(lambda: flash_attention(q, k, v, q_offset=off, window=win), reps=5)
+    out.append(f"flash_attn[f32]/{cell}={ms:.4f}")
+    del q, k, v
+for cell, shape in {**cs.MERGE_SHAPES, **cs.MERGE_WIDE_SHAPES}.items():
+    args = cs._merge_inputs(shape, True, g)
+    same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(topk_merge(*args), topk_merge_ref(*args)))
+    args = cs._merge_inputs(shape, False, g)
+    out.append(f"topk_merge/{cell}={cs.device_ms(lambda: topk_merge(*args)):.4f}"
+               f"{'' if same else '(NOT_BIT_IDENTICAL)'}")
+print("RESULT", " ".join(out), flush=True)
+'''
+
 FAULT_CHECKS = {
     "dropped_kv_tile": r'''
 import torch, repro_torch, chip_smoke as cs
@@ -596,6 +795,34 @@ except AssertionError as e:
 '''
 FAULT_CHECKS["quant_scale_before_sum"] = FAULT_CHECKS["score_skips_last_row"]
 FAULT_CHECKS["quant_scores_minus_one"] = FAULT_CHECKS["score_skips_last_row"]
+# the fp32 attention: caught where any fp32 cell of phase 3 (model cells and
+# edges) fails its check
+FAULT_CHECKS["f32_dropped_kv_tile"] = r'''
+import torch, repro_torch, chip_smoke as cs
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+caught = []
+for cell, shape in {**cs.FLASH_SHAPES, **cs.FLASH_EDGE_SHAPES}.items():
+    try:
+        cs.check_flash_cell(cell, shape, torch.float32, g)
+    except AssertionError as e:
+        caught.append(cell)
+        print("RESULT", "failed", cell, str(e)[:160], flush=True)
+    torch.cuda.empty_cache()
+print("RESULT", f"caught in {caught}" if caught else "not caught", flush=True)
+'''
+FAULT_CHECKS["f32_skips_corr"] = FAULT_CHECKS["f32_dropped_kv_tile"]
+FAULT_CHECKS["f32_unmasked_diagonal"] = FAULT_CHECKS["f32_dropped_kv_tile"]
+FAULT_CHECKS["merge_last_occurrence"] = r'''
+import torch, repro_torch, chip_smoke as cs
+cs.warm_up_profiler()
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+try:
+    cs.phase_topk_merge(g)
+    print("RESULT not caught", flush=True)
+except AssertionError as e:
+    print("RESULT caught", str(e)[:200], flush=True)
+'''
+FAULT_CHECKS["merge_neg_zero_first"] = FAULT_CHECKS["merge_last_occurrence"]
 
 
 def tree(name: str) -> Path:
@@ -636,6 +863,10 @@ def main() -> int:
     ap.add_argument("--walk", action="store_true", help="time beam_walk, not the scans")
     ap.add_argument("--scorers", action="store_true",
                     help="time gather_score and quant_score (and their witness), not the scans")
+    ap.add_argument("--attn-merge", action="store_true",
+                    help="time flash_attn fp32 and topk_merge, not the scans")
+    ap.add_argument("--parent", default="",
+                    help="a src/ tree of another commit (git archive), timed in turns as 'parent'")
     args = ap.parse_args()
     import torch
 
@@ -645,12 +876,15 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     status = 0
-    if args.variants:
-        names = args.variants.split(",")
-        trees = [("checkout", ROOT / "src")] + [(n, tree(n)) for n in names]
+    if args.variants or args.parent:
+        names = args.variants.split(",") if args.variants else []
+        trees = ([("checkout", ROOT / "src")]
+                 + ([("parent", (ROOT / args.parent).resolve())] if args.parent else [])
+                 + [(n, tree(n)) for n in names])
+        code = (WALK_TIMING if args.walk else SCORER_TIMING if args.scorers
+                else ATTN_MERGE_TIMING if args.attn_merge else TIMING)
         for label, src in trees + trees[::-1]:
-            lines = run(src, WALK_TIMING if args.walk else SCORER_TIMING if args.scorers
-                        else TIMING)
+            lines = run(src, code)
             phases = [ln for ln in lines if ln.startswith("phases")]
             print(f"{label}: {[ln for ln in lines if ln not in phases][-1]}", flush=True)
             if phases:  # an instrumented variant: its last few walks

@@ -25,17 +25,35 @@
 // S = T = 4096, hd 64: 6.9e10 flops against 84 MB in fp32).
 //
 // fp32: the CUDA cores' fp32 FMAs (67 TFLOP/s); TF32 tensor cores would
-// break the fp32 contract (2e-5).  One block of 8 warps per (q tile of 64
-// rows, head, batch).  The q tile sits in shared memory as fp32; each warp
-// owns 8 of its rows and keeps, per row, the running max, the denominator and
-// hd/32 accumulators per lane (columns lane + 32 t) in registers.  The kv
-// range is walked in tiles of 32 keys, staged in shared memory as fp32 (k
-// rows padded to hd + 4 floats, so the lanes' float4 reads of 32 different
-// rows hit distinct banks).  Scores: lane j computes key j's score for the
-// warp's 8 rows, each k float4 read from shared memory serving all 8.  p.v:
-// the warp's p values go through shared memory and are read back as
-// broadcast float4s; each v value a lane reads serves 8 rows.  Shared memory,
-// hd 256: 136.5 KiB of the 227 KiB a block may opt into.
+// break the fp32 contract (2e-5).  Both products are register-tiled, so the
+// FMAs and not shared memory set the pace.  One block of 8 warps per (q tile,
+// head, batch), the q tiles with the most keys launched first.  A warp holds
+// two row groups of 16 lanes; a thread owns kTR query rows of its group
+// (rows 2i + g of the warp's 2 kTR) and keeps their running max, its own
+// partial denominator and kTR x hd/16 accumulators in registers:
+//   s = q . k^T: lane j of a group scores keys j, j + 16, ... of the kv tile
+//     for its kTR rows, from float4s of q (its rows: the 16 lanes of a group
+//     read the same address) and k (16 rows a group), kTR x kBK/16 x 4 FMAs
+//     per depth step for kTR + 2 kBK/16 shared-memory wavefronts;
+//   the row max takes 4 shuffles (the group is one half-warp); the
+//     denominator stays a partial sum per lane, added across the group once
+//     at the end (only the order of the sums changes);
+//   p goes through shared memory transposed, [key][row], so a lane reads its
+//     kTR rows' p for one key as kTR / 4 float4s; o += p . v takes
+//     kTR x hd/16 FMAs per key for kTR / 4 + hd/32 wavefronts (lane j's
+//     columns are 4-float chunks j, j + 16, ...: a group reads 256
+//     consecutive bytes of v).
+// q, k and p rows are padded by 4 floats (p: 2 kTR + 4), so the float4 reads
+// and the transposed p writes are free of bank conflicts.  k and v tiles are
+// copied by cp.async (16 bytes, .cg, zero-filled past T) into a ring of
+// kStages stages: tile t + kStages - 1 is in flight while tile t is
+// computed, one barrier a tile.  The mask is evaluated only on the tiles
+// that cross a row's causal or window edge, or the end of the keys; a warp
+// skips a tile wholly outside its rows' windows.  Scores are scaled by
+// log2(e) / sqrt(hd) and exponentiated by exp2f: p = exp(s - m') up to
+// rounding.  Tiles and shared memory by hd (F32Cfg): 128 rows x 64 keys at
+// hd <= 64 (173 KiB at hd 64), 128 x 32 at hd 128 (184 KiB), 64 x 32 at hd
+// 256 (206 KiB): at most 64 accumulators a thread.
 //
 // bf16: the tensor cores (989 TFLOP/s dense bf16), where a product of two
 // bf16 values is exact and sums are kept in fp32, so the result differs from
@@ -62,190 +80,297 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kQTile = kWarps * kRowsPerWarp;  // 64 query rows per block
-constexpr int kKTile = 32;                     // keys per kv tile, one per lane
+constexpr int kF32Warps = 8;
+constexpr int kF32Threads = kF32Warps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+// Tiles of the fp32 kernel by head dim: kG lanes a row group (a warp holds
+// 32 / kG groups), kTR query rows a thread (a block holds kF32Warps * 32 /
+// kG * kTR rows), kBK keys a kv tile, kStages tiles in the copy ring.
+template <int HD>
+struct F32Cfg {
+  static constexpr int kG = 16;
+  static constexpr int kTR = HD <= 128 ? 8 : 4;
+  static constexpr int kBK = HD <= 64 ? 64 : 32;
+  static constexpr int kStages = HD <= 128 ? 3 : 2;
+  static constexpr int kGroups = 32 / kG;                // row groups a warp
+  static constexpr int kBQ = kF32Warps * kGroups * kTR;  // query rows a block
+  static constexpr int kTK = kBK / kG;                   // keys a thread
+  static constexpr int kTC = HD / kG;                    // output columns a thread
+  static constexpr int kCW = kTC < 4 ? kTC : 4;          // columns of one chunk
+  static constexpr int kNCH = kTC / kCW;                 // chunks a thread
+  static constexpr int kPW = kTR < 4 ? kTR : 4;          // p values of one chunk
+  static constexpr int kQS = HD + 4, kKS = HD + 4, kVS = HD;  // row strides (floats)
+  static constexpr int kPS = kGroups * kTR + 4;
+  static constexpr size_t kSmem =
+      sizeof(float) * (static_cast<size_t>(kBQ) * kQS + kStages * kBK * (kKS + kVS) +
+                       kF32Warps * kBK * kPS);
+};
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool in) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(in ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// DPL = hd / 32: the columns each lane accumulates.
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kThreads) flash_attn_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int S, int T_,
-    int H, int KV, float scale, int q_offset, int window, T* __restrict__ out) {
-  constexpr int HD = DPL * 32;
-  constexpr int KS = HD + 4;  // padded k row stride (floats)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// N = 4 or 2 consecutive floats of shared memory (16- or 8-byte aligned).
+template <int N>
+__device__ __forceinline__ void load_chunk(const float* p, float* out) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    out[0] = x.x, out[1] = x.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_chunk(float* p, const float* in) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
+  }
+}
+
+// One kv tile against one thread's rows (ks, vs: the tile's stage; pw: the
+// warp's p buffer).  pos0 is the position of the thread's row 0 (row i sits at
+// pos0 + kGroups i); t0 the tile's first key.  MASK: some (row, key) of the
+// warp is masked, so every score is tested.
+template <int HD, bool MASK>
+__device__ __forceinline__ void f32_tile(const float* __restrict__ q_rows,
+                                         const float* __restrict__ ks,
+                                         const float* __restrict__ vs, float* __restrict__ pw,
+                                         int g, int j, int pos0, int t0, int T_, int window,
+                                         float scale_log2, float (&m)[F32Cfg<HD>::kTR],
+                                         float (&l)[F32Cfg<HD>::kTR],
+                                         float (&acc)[F32Cfg<HD>::kTR][F32Cfg<HD>::kTC]) {
+  using C = F32Cfg<HD>;
+  constexpr int TR = C::kTR, TK = C::kTK, TC = C::kTC, CW = C::kCW, PW = C::kPW, G = C::kG;
+  float s[TR][TK];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int u = 0; u < TK; ++u) s[i][u] = 0.f;
+  }
+  // s = q . k^T, 4 depths a step
+  const float4* q4 = reinterpret_cast<const float4*>(q_rows);
+  const float4* k4 = reinterpret_cast<const float4*>(ks + j * C::kKS);
+#pragma unroll (HD <= 64 ? HD / 4 : 8)
+  for (int c = 0; c < HD / 4; ++c) {
+    float4 kk[TK];
+#pragma unroll
+    for (int u = 0; u < TK; ++u) kk[u] = k4[u * G * (C::kKS / 4) + c];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float4 qq = q4[i * C::kGroups * (C::kQS / 4) + c];
+#pragma unroll
+      for (int u = 0; u < TK; ++u) {
+        s[i][u] = fmaf(qq.x, kk[u].x, s[i][u]);
+        s[i][u] = fmaf(qq.y, kk[u].y, s[i][u]);
+        s[i][u] = fmaf(qq.z, kk[u].z, s[i][u]);
+        s[i][u] = fmaf(qq.w, kk[u].w, s[i][u]);
+      }
+    }
+  }
+  // online softmax: the row max over the group's G lanes, p, corr
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < TK; ++u) {
+      float x = s[i][u] * scale_log2;
+      if (MASK) {
+        const int t = t0 + j + G * u, pos = pos0 + C::kGroups * i;
+        const bool ok = t <= pos && t < T_ && (window <= 0 || t > pos - window);
+        x = ok ? x : -INFINITY;
+      }
+      s[i][u] = x;
+      mx = fmaxf(mx, x);
+    }
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m[i], mx);
+    // a row with no key yet: every p and corr is 0 (exp2(-inf)), no NaN
+    const float m_use = MASK && m_new == -INFINITY ? 0.f : m_new;
+    const float corr = exp2f(m[i] - m_use);
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < TK; ++u) {
+      s[i][u] = exp2f(s[i][u] - m_use);
+      sum += s[i][u];
+    }
+    l[i] = l[i] * corr + sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[i][c] *= corr;
+  }
+  // p to shared memory, [key][row]: the group's rows of one key in one line
+#pragma unroll
+  for (int u = 0; u < TK; ++u) {
+#pragma unroll
+    for (int i0 = 0; i0 < TR; i0 += PW) {
+      float chunk[PW];
+#pragma unroll
+      for (int i = 0; i < PW; ++i) chunk[i] = s[i0 + i][u];
+      store_chunk<PW>(pw + (j + G * u) * C::kPS + g * TR + i0, chunk);
+    }
+  }
+  __syncwarp();
+  // o += p . v, one key a step
+  const float* pr = pw + g * TR;
+#pragma unroll 8
+  for (int key = 0; key < C::kBK; ++key) {
+    float p[TR], vv[TC];
+#pragma unroll
+    for (int i0 = 0; i0 < TR; i0 += PW) load_chunk<PW>(pr + key * C::kPS + i0, p + i0);
+#pragma unroll
+    for (int ch = 0; ch < C::kNCH; ++ch) {
+      load_chunk<CW>(vs + key * C::kVS + (j + G * ch) * CW, vv + ch * CW);
+    }
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+#pragma unroll
+      for (int c = 0; c < TC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, 1) flash_attn_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, int S,
+    int T_, int H, int KV, float scale_log2, int q_offset, int window, float* __restrict__ out) {
+  using C = F32Cfg<HD>;
+  constexpr int TR = C::kTR, TC = C::kTC, CW = C::kCW, BK = C::kBK, ST = C::kStages, G = C::kG;
+  constexpr int BQ = C::kBQ, C4 = HD / 4;  // 16-byte chunks of a row
   extern __shared__ float4 smem4[];
-  float* q_sh = reinterpret_cast<float*>(smem4);   // [kQTile][HD]
-  float* k_sh = q_sh + kQTile * HD;                // [kKTile][KS]
-  float* v_sh = k_sh + kKTile * KS;                // [kKTile][HD]
-  float* p_sh = v_sh + kKTile * HD;                // [kWarps][kRowsPerWarp][kKTile]
+  float* q_sh = reinterpret_cast<float*>(smem4);  // [BQ][kQS]
+  float* k_sh = q_sh + BQ * C::kQS;               // [ST][BK][kKS]
+  float* v_sh = k_sh + ST * BK * C::kKS;          // [ST][BK][kVS]
+  float* p_sh = v_sh + ST * BK * C::kVS;          // [warps][BK][kPS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * kQTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / KV);
-  const size_t q_stride = static_cast<size_t>(H) * HD;   // between sequence positions
+  const int g = lane / G, j = lane % G;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the q tiles with most keys first
+  const int grp = h / (H / KV);
+  const size_t q_stride = static_cast<size_t>(H) * HD;  // between sequence positions
   const size_t kv_stride = static_cast<size_t>(KV) * HD;
-  const T* qb = q + static_cast<size_t>(b) * S * q_stride + static_cast<size_t>(h) * HD;
-  const T* kb = k + static_cast<size_t>(b) * T_ * kv_stride + static_cast<size_t>(g) * HD;
-  const T* vb = v + static_cast<size_t>(b) * T_ * kv_stride + static_cast<size_t>(g) * HD;
-  T* ob = out + static_cast<size_t>(b) * S * q_stride + static_cast<size_t>(h) * HD;
+  const float* qb = q + static_cast<size_t>(b) * S * q_stride + static_cast<size_t>(h) * HD;
+  const float* kb = k + static_cast<size_t>(b) * T_ * kv_stride + static_cast<size_t>(grp) * HD;
+  const float* vb = v + static_cast<size_t>(b) * T_ * kv_stride + static_cast<size_t>(grp) * HD;
+  float* ob = out + static_cast<size_t>(b) * S * q_stride + static_cast<size_t>(h) * HD;
 
-  for (int idx = tid; idx < kQTile * HD; idx += kThreads) {
-    const int r = idx / HD, c = idx % HD;
-    const int row = row0 + r;
-    q_sh[idx] = row < S ? to_f32(qb[static_cast<size_t>(row) * q_stride + c]) : 0.f;
-  }
-
-  // the keys some row of this tile may see: [t_lo, t_hi]
-  const int last_row = min(row0 + kQTile, S) - 1;
+  // the keys some row of this tile may see: [t_lo, t_hi], in whole kv tiles
+  const int last_row = min(row0 + BQ, S) - 1;
   const int t_hi = min(T_ - 1, q_offset + last_row);
   const int t_lo = window > 0 ? max(0, q_offset + row0 - window + 1) : 0;
+  const int first = t_lo / BK;
+  const int ntiles = t_hi >= t_lo ? t_hi / BK - first + 1 : 0;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[r][t] = 0.f;
+  auto load_tile = [&](int tile, int stage) {
+    float* ks = k_sh + stage * BK * C::kKS;
+    float* vs = v_sh + stage * BK * C::kVS;
+    for (int idx = tid; idx < BK * C4; idx += kF32Threads) {
+      const int r = idx / C4, c = (idx % C4) * 4;
+      const int t = tile * BK + r;
+      const size_t at = static_cast<size_t>(t < T_ ? t : 0) * kv_stride + c;
+      cp_async16(ks + r * C::kKS + c, kb + at, t < T_);
+      cp_async16(vs + r * C::kVS + c, vb + at, t < T_);
+    }
+  };
+  // q joins the first copy group
+  for (int idx = tid; idx < BQ * C4; idx += kF32Threads) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    const int row = row0 + r;
+    cp_async16(q_sh + r * C::kQS + c, qb + static_cast<size_t>(row < S ? row : 0) * q_stride + c,
+               row < S);
   }
-  const int wrow0 = row0 + warp * kRowsPerWarp;  // this warp's first row
-  float* pw = p_sh + warp * kRowsPerWarp * kKTile;
-
-  for (int t0 = (t_lo / kKTile) * kKTile; t0 <= t_hi; t0 += kKTile) {
-    __syncthreads();  // the previous tile's readers are done (and q is staged)
-    for (int idx = tid; idx < kKTile * HD; idx += kThreads) {
-      const int j = idx / HD, c = idx % HD;
-      const int t = t0 + j;
-      const bool in = t < T_;
-      k_sh[j * KS + c] = in ? to_f32(kb[static_cast<size_t>(t) * kv_stride + c]) : 0.f;
-      v_sh[idx] = in ? to_f32(vb[static_cast<size_t>(t) * kv_stride + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores: lane = key
-    float s[kRowsPerWarp];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-    const float4* k4 = reinterpret_cast<const float4*>(k_sh + lane * KS);
-#pragma unroll 4
-    for (int c4 = 0; c4 < HD / 4; ++c4) {
-      const float4 kk = k4[c4];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qq =
-            reinterpret_cast<const float4*>(q_sh + (warp * kRowsPerWarp + r) * HD)[c4];
-        s[r] = fmaf(qq.x, kk.x, s[r]);
-        s[r] = fmaf(qq.y, kk.y, s[r]);
-        s[r] = fmaf(qq.z, kk.z, s[r]);
-        s[r] = fmaf(qq.w, kk.w, s[r]);
-      }
-    }
-
-    // online softmax, one row at a time across the warp
-    const int t = t0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qpos = q_offset + wrow0 + r;
-      const bool ok = wrow0 + r < S && t < T_ && t <= qpos && (window <= 0 || t > qpos - window);
-      const float sr = ok ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float p = sr == -INFINITY ? 0.f : expf(sr - m_new);
-      const float corr = m_new == -INFINITY ? 1.f : expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
-      pw[r * kKTile + lane] = to_f32(from_f32<T>(p));
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] *= corr;
-    }
-    __syncwarp();
-
-    // acc += p . v: each v value serves the warp's rows
-#pragma unroll 2
-    for (int j4 = 0; j4 < kKTile / 4; ++j4) {
-      float4 p4[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        p4[r] = reinterpret_cast<const float4*>(pw + r * kKTile)[j4];
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vr = v_sh + (4 * j4 + jj) * HD + lane;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const float vv = vr[32 * c];
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            const float pj = jj == 0 ? p4[r].x : jj == 1 ? p4[r].y : jj == 2 ? p4[r].z : p4[r].w;
-            acc[r][c] = fmaf(pj, vv, acc[r][c]);
-          }
-        }
-      }
-    }
-    __syncwarp();
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < ntiles) load_tile(first + s, s);
+    cp_async_commit();
   }
 
+  float m[TR], l[TR], acc[TR][TC];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = wrow0 + r;
+  for (int i = 0; i < TR; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
+  }
+  const int wrow0 = warp * C::kGroups * TR;  // the warp's first row in the tile
+  const int pmin = q_offset + row0 + wrow0;   // positions of the warp's rows: [pmin, pmax]
+  const int pmax = pmin + C::kGroups * TR - 1;
+  const float* q_rows = q_sh + (wrow0 + g) * C::kQS;  // this thread's row 0
+  float* pw = p_sh + warp * BK * C::kPS;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<ST - 2>();  // this thread's copies of tile it have landed
+    __syncthreads();          // everyone's have, and tile it - 1's stage is free
+    if (it + ST - 1 < ntiles) load_tile(first + it + ST - 1, (it + ST - 1) % ST);
+    cp_async_commit();
+    const int t0 = (first + it) * BK;
+    // a tile wholly outside the warp's rows' windows changes nothing
+    if (t0 > pmax || (window > 0 && t0 + BK - 1 <= pmin - window)) continue;
+    const float* ks = k_sh + (it % ST) * BK * C::kKS;
+    const float* vs = v_sh + (it % ST) * BK * C::kVS;
+    const bool edge = t0 + BK - 1 > pmin || t0 + BK > T_ || (window > 0 && t0 <= pmax - window);
+    if (edge) {
+      f32_tile<HD, true>(q_rows, ks, vs, pw, g, j, pmin + g, t0, T_, window, scale_log2, m, l,
+                         acc);
+    } else {
+      f32_tile<HD, false>(q_rows, ks, vs, pw, g, j, pmin + g, t0, T_, window, scale_log2, m, l,
+                          acc);
+    }
+  }
+
+  // the denominators: each lane's partial sums, added across the group
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], o);
+  }
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int row = row0 + wrow0 + C::kGroups * i + g;
     if (row >= S) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* orow = ob + static_cast<size_t>(row) * q_stride;
+    const float den = fmaxf(l[i], 1e-30f);
+    float* orow = ob + static_cast<size_t>(row) * q_stride;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) orow[lane + 32 * c] = from_f32<T>(acc[r][c] * inv);
+    for (int ch = 0; ch < C::kNCH; ++ch) {
+      float o[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) o[c] = acc[i][ch * CW + c] / den;
+      store_chunk<CW>(orow + (j + G * ch) * CW, o);
+    }
   }
 }
 
-template <typename T, int DPL>
-int launch_hd(const T* q, const T* k, const T* v, int B, int S, int T_, int H, int KV,
-              float scale, int q_offset, int window, T* out, cudaStream_t stream) {
-  constexpr int HD = DPL * 32;
-  const size_t smem = sizeof(float) * (kQTile * HD + kKTile * (HD + 4) + kKTile * HD +
-                                       kWarps * kRowsPerWarp * kKTile);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(flash_attn_kernel<T, DPL>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  }
-  const dim3 grid((S + kQTile - 1) / kQTile, H, B);
-  flash_attn_kernel<T, DPL><<<grid, kThreads, smem, stream>>>(q, k, v, S, T_, H, KV, scale,
-                                                              q_offset, window, out);
+template <int HD>
+int launch_f32(const float* q, const float* k, const float* v, int B, int S, int T_, int H,
+               int KV, float scale, int q_offset, int window, float* out, cudaStream_t stream) {
+  using C = F32Cfg<HD>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(flash_attn_f32_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(H, B, (S + C::kBQ - 1) / C::kBQ);
+  flash_attn_f32_kernel<HD><<<grid, kF32Threads, C::kSmem, stream>>>(
+      q, k, v, S, T_, H, KV, scale * kLog2e, q_offset, window, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, int B, int S, int T_, int H, int KV,
-           int hd, float scale, int q_offset, int window, void* out, void* stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32: return launch_hd<T, 1>(qt, kt, vt, B, S, T_, H, KV, scale, q_offset, window, ot, st);
-    case 64: return launch_hd<T, 2>(qt, kt, vt, B, S, T_, H, KV, scale, q_offset, window, ot, st);
-    case 128: return launch_hd<T, 4>(qt, kt, vt, B, S, T_, H, KV, scale, q_offset, window, ot, st);
-    case 256: return launch_hd<T, 8>(qt, kt, vt, B, S, T_, H, KV, scale, q_offset, window, ot, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -768,11 +893,23 @@ int launch(const void* q, const void* k, const void* v, int B, int S, int T_, in
 }  // namespace tc
 }  // namespace
 
-// q, out: [B, S, H, hd]; k, v: [B, T, KV, hd]; window <= 0: causal only.
+// q, out: [B, S, H, hd]; k, v: [B, T, KV, hd] (16-byte aligned: cp.async
+// copies them); window <= 0: causal only.
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v, int B, int S, int T,
                               int H, int KV, int hd, float scale, int q_offset, int window,
                               void* out, void* stream) {
-  return launch<float>(q, k, v, B, S, T, H, KV, hd, scale, q_offset, window, out, stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32: return launch_f32<32>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
+    case 64: return launch_f32<64>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
+    case 128: return launch_f32<128>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
+    case 256: return launch_f32<256>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The same for bf16 q, k, v (16-byte aligned: TMA reads them) and out.

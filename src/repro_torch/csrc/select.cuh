@@ -46,6 +46,70 @@ __device__ __forceinline__ int rank_first_occurrence(const float* s, int n, int 
   return r;
 }
 
+// lax.top_k's order as one 64-bit key that sorts ascending: the score's
+// order_key descending in the high word (+0.0 above -0.0), the candidate's
+// position ascending in the low word (the first occurrence wins an exact tie).
+// Distinct positions make the order strict, the order of
+// rank_first_occurrence; score and position come back out of the key
+// exactly.  kTopkPad sorts after every key.
+constexpr unsigned long long kTopkPad = ~0ull;
+
+// order_key(s) ^ 0x7fffffff as an unsigned word: the larger the key, the
+// smaller the word
+__device__ __forceinline__ unsigned topk_rank_word(float s) {
+  const unsigned b = __float_as_uint(s);
+  return b >> 31 ? b : b ^ 0x7fffffffu;
+}
+
+__device__ __forceinline__ float topk_word_score(unsigned w) {
+  return __uint_as_float(w >> 31 ? w : w ^ 0x7fffffffu);
+}
+
+__device__ __forceinline__ unsigned long long topk_key(float s, int pos) {
+  return (static_cast<unsigned long long>(topk_rank_word(s)) << 32) | static_cast<unsigned>(pos);
+}
+
+__device__ __forceinline__ int topk_key_pos(unsigned long long key) {
+  return static_cast<int>(static_cast<unsigned>(key));
+}
+
+__device__ __forceinline__ float topk_key_score(unsigned long long key) {
+  return topk_word_score(static_cast<unsigned>(key >> 32));
+}
+
+// Sorts the NL * E keys of a row ascending, where NL lanes (an aligned
+// group of the warp) hold E keys each: key e of the group's lane ``sub`` sits
+// at position sub * E + e.  A bitonic network: the exchanges across a
+// distance below E stay in the lane, the others are shuffles within the group.
+template <int NL, int E>
+__device__ __forceinline__ void row_sort_keys(unsigned long long (&key)[E], int sub) {
+#pragma unroll
+  for (int k = 2; k <= NL * E; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j < E) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (e & j) continue;
+          const bool up = ((sub * E + e) & k) == 0;  // this block of k sorts ascending
+          const unsigned long long a = key[e], b = key[e | j];
+          const bool swap = (a > b) == up;
+          key[e] = swap ? b : a;
+          key[e | j] = swap ? a : b;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const unsigned long long other = __shfl_xor_sync(kFullMask, key[e], j / E);
+        const int x = sub * E + e;
+        const bool keep_min = ((x & k) == 0) == ((x & j) == 0);
+        key[e] = (key[e] < other) == keep_min ? key[e] : other;
+      }
+    }
+  }
+}
+
 // ranked_top_m order (src/repro/kernels/commit_merge/kernel.py:52): rank of
 // valid candidate i among the valid candidates by score descending, then id
 // ascending.  Valid ids are unique; a valid -inf score still ranks.

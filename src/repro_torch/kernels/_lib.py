@@ -40,6 +40,7 @@ SIGNATURES = {
     "beam_walk_f32": [_P] * 10 + [_I] * 8 + [_P] * 7 + [_P],
     "beam_walk_i8": [_P] * 11 + [_I] * 8 + [_P] * 7 + [_P],
     "commit_merge_f32": [_P] * 5 + [_I] * 3 + [_P],
+    "empty_launch": [_I] * 2 + [_P],
     "flash_attn_f32": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
     "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
     "gather_score_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],

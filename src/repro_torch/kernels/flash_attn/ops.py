@@ -58,8 +58,9 @@ def flash_attention(
     if out.numel() == 0:
         return out
     bf16 = q.dtype == torch.bfloat16
-    if bf16:  # TMA reads from 16-byte aligned addresses; a view may start elsewhere
-        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+    # TMA (bf16) and cp.async (fp32) copy from 16-byte aligned addresses; a
+    # view may start elsewhere
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     entry = _lib.lib().flash_attn_bf16 if bf16 else _lib.lib().flash_attn_f32
     rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, t, h, kvh, hd,
                1.0 / hd ** 0.5, q_offset, window or 0, out.data_ptr(), _lib.stream(q.device))

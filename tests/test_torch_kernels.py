@@ -762,12 +762,16 @@ def test_topk_merge_matches_jax_ref_and_pallas(b, l, m, padded):
     _assert_merge_equal([t.numpy() for t in got], jax_topk_merge(*map(jnp.asarray, args)))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_topk_merge_integer_ties_and_signed_zeros_match_jax_ref(seed):
+@pytest.mark.parametrize("seed,b,l,m", [
+    pytest.param(0, 64, 40, 16, id="0"), pytest.param(1, 64, 40, 16, id="1"),
+    # C = 64 exactly, the most the kernel's warp route sorts; C = 416, the
+    # ef-400 pool, its rank route
+    pytest.param(2, 64, 48, 16, id="c64"), pytest.param(3, 16, 400, 16, id="c416")])
+def test_topk_merge_integer_ties_and_signed_zeros_match_jax_ref(seed, b, l, m):
     """Integer scores with exact ties, -inf / -1 slots and +-0 pairs: the
     port equals ``topk_merge_ref`` bit for bit."""
     rng = np.random.default_rng(seed)
-    args = list(_merge_inputs(rng, 64, 40, 16, padded=True, integer=True))
+    args = list(_merge_inputs(rng, b, l, m, padded=True, integer=True))
     for s in (args[0], args[3]):
         zero = s == 0
         s[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
@@ -866,6 +870,27 @@ def test_flash_attention_gqa_matches_jax(q_offset, window):
             np.testing.assert_allclose(got.numpy()[b, :, h], np.asarray(ref), **FLASH_TOL)
 
 
+@pytest.mark.parametrize("b,s,t,h,kv,hd,off,win", [
+    (1, 100, 227, 4, 2, 128, 127, 50), (2, 130, 130, 2, 1, 128, 0, None),
+    (1, 77, 150, 2, 1, 256, 73, 40), (1, 70, 200, 2, 2, 256, 130, None)])
+def test_flash_attention_wide_heads_ragged_match_jax_ref(b, s, t, h, kv, hd, off, win):
+    """fp32 at hd 128 and 256 (the fp32 kernel's smaller tiles), with S and T
+    that are no multiple of a tile, q_offset and a window: the port against
+    ``flash_attention_head_ref`` head by head (the Pallas kernel takes only
+    whole tiles)."""
+    q, k, v = _qkv(np.random.default_rng(s * t + hd), (b, s, h, hd), (b, t, kv, hd),
+                   (b, t, kv, hd))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), q_offset=off, window=win).numpy()
+    assert got.shape == q.shape
+    for bi in range(b):
+        for hi in range(h):
+            g = hi // (h // kv)
+            ref = jax_flash_attention_head_ref(*map(jnp.asarray, (q[bi, :, hi], k[bi, :, g],
+                                                                  v[bi, :, g])),
+                                               q_offset=off, window=win)
+            np.testing.assert_allclose(got[bi, :, hi], np.asarray(ref), **FLASH_TOL)
+
+
 def test_flash_attention_bf16_matches_jax_ref():
     """bf16 inputs (the models' dtype): the port's plain version and JAX's
     reference both score, round p and multiply in bf16."""
@@ -911,7 +936,7 @@ def test_flash_attention_kernel_inputs_rejected_on_meta(case):
 
 def test_cpu_topk_merge_and_flash_attn_never_launch():
     topk_merge.launches = flash_attention.launches = flash_attention.launches_bf16 = 0
-    test_topk_merge_integer_ties_and_signed_zeros_match_jax_ref(0)
+    test_topk_merge_integer_ties_and_signed_zeros_match_jax_ref(0, 64, 40, 16)
     test_flash_attention_gqa_matches_jax(0, None)
     test_flash_attention_bf16_matches_jax_ref()
     assert topk_merge.launches == flash_attention.launches == flash_attention.launches_bf16 == 0
