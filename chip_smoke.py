@@ -91,7 +91,19 @@ Phases (each one that fails ends the run with a non-zero exit):
      int8 searches timed both ways in turns; then a profiled IpNSW build,
      f32 search and int8 search, each with per-step walks and with
      beam_walk: device busy time, idle share, walk steps, host time per
-     step.
+     step; and IpNSW's and IpNSWPlus's builds profiled with the host and
+     the scan driver (host time per batch; each graph's walk kernel must
+     show once a batch in the trace, replayed or not).
+  5c. scan build driver (build_backend="scan"), inside phase 5: IpNSWPlus
+     and IpNSW built again at full size with one insertion batch captured
+     as a CUDA graph and replayed over the schedule (266 replays, each
+     counted through CUDAGraph.replay and run under
+     set_sync_debug_mode("error"), so no sync in the replay loop); every
+     graph's adjacency, size, entry and entry_norm bit-identical to the
+     host driver's, each search's ids equal; both drivers timed in turns
+     (build s; capture ms, host ms per replay and the replay loop's device
+     ms by CUDA events).  Phase 4 also serves with --build-backend scan
+     (f32 and int8): recall equal to the host driver's run.
   5b. full-size serving loop: an IpNSWPlus at Yahoo!Music's size serves
      4,096 Poisson requests at 2,000 QPS in three deadline classes on the
      ladder (64, 256) x (10, 20, 40), under the wall clock with the f32 and
@@ -643,11 +655,16 @@ def _fresh(args):
 
 
 def per_step_walk(pool_ids, pool_scores, pool_checked, visited, done, evals, queries, adj,
-                  items, scales=None, live=None, dead_evals=None, *, max_steps):
+                  items, scales=None, live=None, dead_evals=None, *, max_steps,
+                  capturable=False):
     """The yardstick: beam_walk as a host loop of the beam_step kernel (one
     launch and one done.all() read a step), the walk the port ran before
-    beam_walk.  Same arguments and result."""
+    beam_walk.  Same arguments and result; it reads back every step, so a
+    capturable walk cannot take it."""
     from repro_torch.kernels.beam_step import beam_step, host_walk
+
+    if capturable:
+        raise ValueError("the per-step loop reads back every step: it cannot be captured")
 
     def step(ids, scores, checked, vis, dn):
         return beam_step(ids, scores, checked, vis, dn, queries, adj, items, scales, live)
@@ -1715,18 +1732,32 @@ SERVE_PATHS = {
                                          "mips_topk", "quant_score", "gather_score")),
     "f32_k33": (None, ["--k", "33"], ("beam_walk", "commit_merge", "mips_topk_select",
                                       "gather_score")),
+    # the scan build driver: the graph is the host driver's, so the recall
+    # must be the host run's exactly
+    "f32_scan": (JAX_SERVE_RECALL, ["--build-backend", "scan"],
+                 ("beam_walk", "commit_merge", "mips_topk", "gather_score")),
+    "int8_scan": (JAX_SERVE_RECALL_INT8, ["--build-backend", "scan"],
+                  ("beam_walk", "beam_walk_int8", "commit_merge", "mips_topk", "quant_score",
+                   "gather_score")),
 }
 
 
 def phase_serve_default() -> dict:
-    """The serve one-shots; returns the launches of the --k 33 run."""
+    """The serve one-shots; returns the launches of the --k 33 run.  A
+    ``_scan`` run (``--build-backend scan``) must give its host run's
+    recall exactly."""
     from repro_torch.launch import serve
 
+    recalls, launches = {}, {}
     for name, (jax_recall, flags, path) in SERVE_PATHS.items():
         storage = name.split("_")[0]
         _zero_counts()
         res = serve.main(["--index", "ipnsw_plus", "--storage", storage, *flags])
-        counts = _read_counts()
+        counts = launches[name] = _read_counts()
+        recalls[name] = res["recall"]
+        if name.endswith("_scan"):
+            assert res["recall"] == recalls[storage], \
+                f"serve {name}: recall {res['recall']} != the host driver's {recalls[storage]}"
         log(f"serve default {name}: recall@k={res['recall']:.4f} "
             f"(JAX {jax_recall}) evals/q={res['evals_per_query']:.1f} "
             f"search_ms={res['search_seconds'] * 1e3:.3f} launches={counts}")
@@ -1736,7 +1767,7 @@ def phase_serve_default() -> dict:
         else:
             assert res["recall"] > 0.5, f"serve {name}: recall {res['recall']}"
         _assert_path(f"serve {name}", counts, path)
-    return counts
+    return launches["f32_k33"]
 
 
 def phase_full_size() -> dict:
@@ -1803,6 +1834,7 @@ def phase_full_size() -> dict:
                                        if name not in live + list(ENTRY_ONLY) + list(K33_PATH)])
     assert not any(counts[name] for name in live), f"a frozen index launched a live kernel: {counts}"
     phase_walk_before_after(searched, queries, gt)
+    phase_scan_build(items, queries, searched)
     phase_profile(items, queries, index)
     return counts
 
@@ -1854,6 +1886,99 @@ def phase_walk_before_after(searched, queries, gt) -> None:
             f"{mode}_median={np.median(t):.4f} {mode}={['%.4f' % x for x in t]}"
             for mode, t in times.items())
             + f" speedup={np.median(times['per_step']) / np.median(times['fused']):.2f}")
+
+
+@contextlib.contextmanager
+def watch_replays():
+    """Inside, every ``torch.cuda.CUDAGraph.replay`` is counted, with the
+    sync debug mode it ran under (2: "error")."""
+    import torch
+
+    seen = {"replays": 0, "modes": set()}
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        seen["replays"] += 1
+        seen["modes"].add(torch.cuda.get_sync_debug_mode())
+        replay(graph)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        yield seen
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+
+
+def phase_scan_build(items, queries, searched) -> None:
+    """Phase 5c: the scan build driver at full size, for IpNSWPlus and
+    IpNSW.  One insertion batch is captured as a CUDA graph and replayed for
+    rows 1 .. T-1 of the schedule (row 0 is the eager warm-up), every
+    replay under set_sync_debug_mode("error"); adjacency, size, entry and
+    entry_norm of every graph equal to the host driver's bit for bit (phase
+    5's indexes), and so every search's ids and recall@10; then both drivers
+    timed in turns (host, scan, scan, host): build wall s, and for the scan
+    its capture ms, host ms per replay and the replay loop's device ms (CUDA
+    events)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.build import batch_schedule, replay_schedule
+    from repro_torch.core.ipnsw import IpNSW
+    from repro_torch.core.ipnsw_plus import IpNSWPlus
+
+    rows = batch_schedule(N_FULL, 512)[1].shape[0]
+    for name, cls in (("ipnsw_plus", IpNSWPlus), ("ipnsw", IpNSW)):
+        def build(driver):
+            return cls(max_degree=16, ef_construction=32, insert_batch=512,
+                       build_backend=driver).build(items)
+
+        host = searched[name, "f32"][0]
+        _zero_counts()
+        with watch_replays() as seen:
+            scan = build("scan")
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        n_graphs = 2 if name == "ipnsw_plus" else 1
+        assert seen == {"replays": rows - 1, "modes": {2}}, \
+            f"scan build {name}: replays {seen}, expected {rows - 1} under sync debug mode 2"
+        assert replay_schedule.last.replays == rows - 1
+        _assert_path(f"scan build {name}", counts, ("beam_walk", "commit_merge", "gather_score"))
+        # the eager warm-up and the capture launch each kernel once a graph
+        assert counts["beam_walk"] == 2 * n_graphs, counts
+        gnames = ("ang_graph", "ip_graph") if name == "ipnsw_plus" else ("graph",)
+        for gname in gnames:
+            for field in ("adj", "size", "entry", "entry_norm"):
+                assert torch.equal(getattr(getattr(host, gname), field),
+                                   getattr(getattr(scan, gname), field)), \
+                    f"scan build {name}: {gname}.{field} differs from the host driver's"
+        for storage in ("f32", "int8"):
+            _, host_res, host_recall = searched[name, storage]
+            res = scan.search(queries, k=10, ef=40, storage=storage)
+            assert torch.equal(res.ids, host_res.ids), f"scan build {name} {storage}: ids differ"
+            log(f"scan build {name}: storage={storage} recall@10={host_recall:.4f}, ids equal to "
+                f"the host driver's index")
+        log(f"scan build {name}: {rows} batches of 512, {seen['replays']} graph replays, all "
+            f"under sync debug mode error (0 syncs in the replay loop); {', '.join(gnames)} "
+            f"adj, size, entry, entry_norm bit-identical to the host driver's; launches={counts}")
+        walls = {"host": [], "scan": []}
+        runs = []
+        for driver in ("host", "scan", "scan", "host"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build(driver)
+            torch.cuda.synchronize()
+            walls[driver].append(time.perf_counter() - t0)
+            if driver == "scan":
+                run = replay_schedule.last
+                runs.append((run.capture_ms, run.loop_host_ms / run.replays,
+                             run.loop_events[0].elapsed_time(run.loop_events[1])))
+        log(f"scan build {name} timings (turns host, scan, scan, host): "
+            f"host_build_s={['%.4f' % x for x in walls['host']]} "
+            f"scan_build_s={['%.4f' % x for x in walls['scan']]} "
+            f"capture_ms={['%.2f' % r[0] for r in runs]} "
+            f"host_ms_per_replay={['%.4f' % r[1] for r in runs]} "
+            f"replay_loop_device_ms={['%.2f' % r[2] for r in runs]} "
+            f"speedup={np.median(walls['host']) / np.median(walls['scan']):.2f}")
 
 
 def _loop_report(label: str, stats, gt) -> dict:
@@ -2183,10 +2308,11 @@ def phase_churn_full() -> dict:
     return counts
 
 
-def _profiled(label: str, fn) -> None:
+def _profiled(label: str, fn, batches: int = 0) -> list:
     """Run ``fn`` under torch.profiler; print wall time, the device time
     its kernels took (one stream, so they do not overlap), the idle share,
-    the walk steps and the host time per step, and the top device ops."""
+    the walk steps and the host time per step (per insertion batch, given
+    ``batches``), and the top device ops; return the device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2204,12 +2330,17 @@ def _profiled(label: str, fn) -> None:
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_s = sum(e.self_device_time_total for e in events) * 1e-6
+    # a captured walk keeps its steps on the card: none is counted here
+    per_step = (f"walk_steps={steps} host_ms_per_step={(wall - device_s) / steps * 1e3:.4f}"
+                if steps else "walk_steps=not read back")
+    per_batch = (f" host_ms_per_batch={(wall - device_s) / batches * 1e3:.4f}" if batches
+                 else "")
     log(f"profile {label}: wall_s={wall:.3f} device_busy_s={device_s:.3f} "
-        f"idle_share={1 - device_s / wall:.3f} walk_steps={steps} "
-        f"host_ms_per_step={(wall - device_s) / max(steps, 1) * 1e3:.4f}")
+        f"idle_share={1 - device_s / wall:.3f} {per_step}{per_batch}")
     for e in events[:6]:
         log(f"profile {label}: {e.self_device_time_total * 1e-3:10.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    return events
 
 
 def _profiled_both(label: str, fn) -> None:
@@ -2238,11 +2369,32 @@ def per_step_walks():
 def phase_profile(items, queries, ipnsw) -> None:
     """Where the time goes at full size (profiler on: the walls here are
     longer than the unprofiled ones above), with per-step walks and with
-    the fused walk."""
+    the fused walk; the builds with the host and the scan driver.  A scan
+    build's walks keep their steps on the card (walk_steps counts none of
+    them), and its replayed kernels must show in the trace: each graph's
+    walk kernel once a batch."""
+    from repro_torch.core.build import batch_schedule, replay_schedule
     from repro_torch.core.ipnsw import IpNSW
+    from repro_torch.core.ipnsw_plus import IpNSWPlus
 
+    batches = 1 + batch_schedule(N_FULL, 512)[1].shape[0]
     _profiled_both("ipnsw build", lambda: IpNSW(max_degree=16, ef_construction=32,
                                                 insert_batch=512).build(items))
+    for name, cls in (("ipnsw", IpNSW), ("ipnsw_plus", IpNSWPlus)):
+        for driver in ("host", "scan"):
+            events = _profiled(
+                f"{name} build [{driver} driver]",
+                lambda: cls(max_degree=16, ef_construction=32, insert_batch=512,
+                            build_backend=driver).build(items), batches=batches)
+            walks = sum(e.count for e in events if "beam_walk_kernel" in e.key)
+            assert walks == (batches - 1) * (2 if name == "ipnsw_plus" else 1), \
+                f"profile {name} build [{driver}]: the trace shows {walks} walk kernels"
+            if driver == "scan":
+                run = replay_schedule.last
+                log(f"profile {name} build [scan driver]: capture_ms={run.capture_ms:.2f} "
+                    f"replay_loop_device_ms="
+                    f"{run.loop_events[0].elapsed_time(run.loop_events[1]):.2f} (CUDA events) "
+                    f"host_ms_per_replay={run.loop_host_ms / run.replays:.4f}")
     _profiled_both("ipnsw search", lambda: ipnsw.search(queries, k=10, ef=40))
     _profiled_both("ipnsw search int8",
                    lambda: ipnsw.search(queries, k=10, ef=40, storage="int8"))

@@ -15,6 +15,7 @@ _EXPORTS = {
     "Similarity": "similarity",
     "beam_search": "search",
     "SearchResult": "search",
+    "BUILD_BACKENDS": "build",
     "build_graph": "build",
     "IpNSW": "ipnsw",
     "IpNSWPlus": "ipnsw_plus",

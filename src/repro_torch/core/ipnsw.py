@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.build import build_graph
+from repro_torch.core.build import build_graph, validate_build_backend
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.search import SearchResult, beam_search
 from repro_torch.core.similarity import Similarity
@@ -21,20 +21,23 @@ class IpNSW:
     ``ef_construction`` the pool size l of insertion.  ``storage`` ("f32" |
     "int8", ``core/storage.py``) is the item representation search streams:
     the build always runs on fp32 items, and the int8 store is derived once
-    from them after it.  The index lives on ``device``; the default is the
-    card."""
+    from them after it.  ``build_backend`` is the insertion driver ("host" |
+    "scan", ``build.BUILD_BACKENDS``).  The index lives on ``device``; the
+    default is the card."""
 
     max_degree: int = 16
     ef_construction: int = 64
     insert_batch: int = 128
     reverse_links: bool = True
+    build_backend: str = "host"
     storage: str = "f32"
     device: str = "cuda"
     graph: Optional[GraphIndex] = None
     store: Optional[ItemStore] = None
 
-    def build(self, items) -> "IpNSW":
+    def build(self, items, progress: bool = False) -> "IpNSW":
         validate_storage(self.storage)
+        validate_build_backend(self.build_backend)
         self.graph = build_graph(
             torch.as_tensor(items, dtype=torch.float32, device=self.device),
             similarity=Similarity.INNER_PRODUCT,
@@ -42,6 +45,8 @@ class IpNSW:
             ef_construction=self.ef_construction,
             insert_batch=self.insert_batch,
             reverse_links=self.reverse_links,
+            build_backend=self.build_backend,
+            progress=progress,
         )
         self.store = make_store(self.graph.items, self.storage)
         return self

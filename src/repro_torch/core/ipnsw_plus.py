@@ -10,7 +10,9 @@ neighbor is likely a MIPS neighbor), then walk G_s.
 
 Build (§4.2): each batch is inserted into A_s first; its G_s neighbors are
 then found by the ip-NSW+ search itself, seeded from the angular neighbors
-just found.
+just found.  ``build_backend="scan"`` runs both inserts of a batch as one
+fixed-shape step (``scan_build_plus_arrays``; on the card one CUDA graph,
+replayed over the schedule, ``build.replay_schedule``).
 
 With ``storage="int8"`` both walks of a search stream quantized stores, one
 per graph (the angular one holds the normalized copy), and each ends with
@@ -28,6 +30,9 @@ from repro_torch.core.build import (
     batch_schedule,
     commit_batch,
     find_neighbors,
+    replay_schedule,
+    validate_build_backend,
+    write_carry,
 )
 from repro_torch.core.graph import GraphIndex, empty_graph
 from repro_torch.core.ipnsw import _as_mask
@@ -63,15 +68,19 @@ def _find_ip_neighbors_seeded(
     ef: int,
     max_steps: int,
     live: Optional[torch.Tensor] = None,
+    valid: Optional[torch.Tensor] = None,
+    capturable: bool = False,
 ):
     """§4.2 insertion: an item's G_s neighbors by the angular-seeded walk.
     The entry vertex joins the seeds so that the first, sparse batches still
-    have a valid start.  ``live`` is a mutable index's tombstone mask, as in
-    ``build.find_neighbors``: no new edge points at a dead slot."""
+    have a valid start.  ``live``, ``valid`` and ``capturable`` are
+    ``build.find_neighbors``'s: no new edge points at a dead slot, pad rows
+    are born done, nothing is read back."""
     seeds = _seed_from_angular(ip_graph.adj, ang_nbr_ids)
     entry = ip_graph.entry.expand(batch_items.shape[0], 1).to(seeds.dtype)
     res = beam_search(ip_graph, batch_items, torch.cat([seeds, entry], dim=-1),
-                      pool_size=ef, max_steps=max_steps, k=max_degree, live=live)
+                      pool_size=ef, max_steps=max_steps, k=max_degree, live=live,
+                      valid=valid, capturable=capturable)
     return torch.where(res.scores > NEG_INF, res.ids, -1), res.scores
 
 
@@ -132,6 +141,7 @@ class IpNSWPlus:
     k_angular: int = 10           # k': angular results whose G_s edges seed C
     insert_batch: int = 128
     reverse_links: bool = True
+    build_backend: str = "host"   # insertion driver (build.BUILD_BACKENDS)
     storage: str = "f32"
     device: str = "cuda"
     ang_graph: Optional[GraphIndex] = None
@@ -139,40 +149,38 @@ class IpNSWPlus:
     ang_store: Optional[ItemStore] = None
     ip_store: Optional[ItemStore] = None
 
-    def build(self, items) -> "IpNSWPlus":
+    def build(self, items, progress: bool = False) -> "IpNSWPlus":
         validate_storage(self.storage)
+        validate_build_backend(self.build_backend)
         items = torch.as_tensor(items, dtype=torch.float32, device=self.device).contiguous()
         n = items.shape[0]
         ang_items = normalize(items).contiguous()
         norms = torch.linalg.vector_norm(items, dim=-1)
         ang_norms = torch.ones(n, dtype=torch.float32, device=items.device)
-
-        first, batch_ids, batch_valid = batch_schedule(n, self.insert_batch)
-        ids0 = torch.arange(first, device=items.device)
-        a_nbr0, a_sc0 = _bootstrap_neighbors(ang_items[:first], self.ang_degree)
-        ang = commit_batch(empty_graph(ang_items, self.ang_degree), ids0, a_nbr0,
-                           a_sc0, ang_norms, reverse_links=self.reverse_links)
-        g_nbr0, g_sc0 = _bootstrap_neighbors(items[:first], self.max_degree)
-        ip = commit_batch(empty_graph(items, self.max_degree), ids0, g_nbr0, g_sc0,
-                          norms, reverse_links=self.reverse_links)
-
-        ang_ef = max(self.ang_ef, self.ang_degree)
-        for row, valid in zip(batch_ids, batch_valid):
-            bids = torch.as_tensor(row[valid], device=items.device)
-            # 1. insert into the angular graph (plain Algorithm 2)
-            a_nbr, a_sc = find_neighbors(ang, ang_items[bids], max_degree=self.ang_degree,
-                                         ef=ang_ef, max_steps=2 * ang_ef)
-            ang = commit_batch(ang, bids, a_nbr, a_sc, ang_norms,
-                               reverse_links=self.reverse_links)
-            # 2. insert into the ip graph with the ip-NSW+ search itself
-            g_nbr, g_sc = _find_ip_neighbors_seeded(
-                ip, items[bids], a_nbr[:, : self.k_angular],
-                max_degree=self.max_degree, ef=self.ef_construction,
-                max_steps=2 * self.ef_construction,
-            )
-            ip = commit_batch(ip, bids, g_nbr, g_sc, norms,
-                              reverse_links=self.reverse_links)
-        self.ang_graph, self.ip_graph = ang, ip
+        _, batch_ids, batch_valid = batch_schedule(n, self.insert_batch)
+        knobs = dict(max_degree=self.max_degree, ef_construction=self.ef_construction,
+                     ang_degree=self.ang_degree, ang_ef=self.ang_ef,
+                     k_angular=self.k_angular, reverse_links=self.reverse_links)
+        if self.build_backend == "scan":
+            a_adj, a_size, a_entry, a_enorm, i_adj, i_size, i_entry, i_enorm = (
+                scan_build_plus_arrays(
+                    items, ang_items, norms, ang_norms,
+                    torch.as_tensor(batch_ids, device=items.device),
+                    torch.as_tensor(batch_valid, device=items.device),
+                    insert_batch=self.insert_batch, **knobs))
+            self.ang_graph = GraphIndex(a_adj, ang_items, a_size, a_entry, a_enorm)
+            self.ip_graph = GraphIndex(i_adj, items, i_size, i_entry, i_enorm)
+        else:
+            ang, ip = _bootstrap_plus(items, ang_items, norms, ang_norms,
+                                      max_degree=self.max_degree, ang_degree=self.ang_degree,
+                                      insert_batch=self.insert_batch,
+                                      reverse_links=self.reverse_links)
+            step = _insert_plus_step(ang, ip, norms, ang_norms, capturable=False, **knobs)
+            for row, valid in zip(batch_ids, batch_valid):
+                step(torch.as_tensor(row[valid], device=items.device), None)
+                if progress and (int(row[0]) // self.insert_batch) % 20 == 0:
+                    print(f"  inserted {int(row[valid][-1]) + 1}/{n}")
+            self.ang_graph, self.ip_graph = ang, ip
         self._make_stores(self.storage)
         return self
 
@@ -212,3 +220,79 @@ class IpNSWPlus:
             live=live,
             valid=_as_mask(valid, self.device),
         )
+
+
+def _bootstrap_plus(items, ang_items, norms, ang_norms, *, max_degree: int, ang_degree: int,
+                    insert_batch: int, reverse_links: bool):
+    """Both graphs with the sequential-prefix first batch committed."""
+    first = min(insert_batch, items.shape[0])
+    ids0 = torch.arange(first, device=items.device)
+    a_nbr0, a_sc0 = _bootstrap_neighbors(ang_items[:first], ang_degree)
+    ang = commit_batch(empty_graph(ang_items, ang_degree), ids0, a_nbr0, a_sc0, ang_norms,
+                       reverse_links=reverse_links)
+    g_nbr0, g_sc0 = _bootstrap_neighbors(items[:first], max_degree)
+    ip = commit_batch(empty_graph(items, max_degree), ids0, g_nbr0, g_sc0, norms,
+                      reverse_links=reverse_links)
+    return ang, ip
+
+
+def _insert_plus_step(ang: GraphIndex, ip: GraphIndex, norms, ang_norms, *, max_degree: int,
+                      ef_construction: int, ang_degree: int, ang_ef: int, k_angular: int,
+                      reverse_links: bool, capturable: bool):
+    """One §4.2 batch of both drivers, ``step(bids, valid)``: the angular
+    insert and its commit, then the angular-seeded ip insert against the ip
+    graph as it stood before its commit, then that commit.  Both graphs are
+    written in place (``build.write_carry``).  The host driver passes a
+    ragged batch and ``valid=None``; the scan driver a fixed-shape one with
+    its mask, ``capturable``."""
+    ang_ef = max(ang_ef, ang_degree)
+
+    def step(bids: torch.Tensor, valid: Optional[torch.Tensor]) -> None:
+        # 1. insert into the angular graph (plain Algorithm 2)
+        a_nbr, a_sc = find_neighbors(ang, ang.items[bids], max_degree=ang_degree, ef=ang_ef,
+                                     max_steps=2 * ang_ef, valid=valid, capturable=capturable)
+        write_carry(ang, commit_batch(ang, bids, a_nbr, a_sc, ang_norms, valid=valid,
+                                      reverse_links=reverse_links))
+        # 2. insert into the ip graph with the ip-NSW+ search itself
+        g_nbr, g_sc = _find_ip_neighbors_seeded(
+            ip, ip.items[bids], a_nbr[:, :k_angular], max_degree=max_degree,
+            ef=ef_construction, max_steps=2 * ef_construction, valid=valid,
+            capturable=capturable)
+        write_carry(ip, commit_batch(ip, bids, g_nbr, g_sc, norms, valid=valid,
+                                     reverse_links=reverse_links))
+
+    return step
+
+
+def scan_build_plus_arrays(
+    items: torch.Tensor,
+    ang_items: torch.Tensor,
+    norms: torch.Tensor,
+    ang_norms: torch.Tensor,
+    batch_ids: torch.Tensor,    # [T, B] int64 (tail clamped)
+    batch_valid: torch.Tensor,  # [T, B] bool
+    *,
+    max_degree: int,
+    ef_construction: int,
+    ang_degree: int,
+    ang_ef: int,
+    k_angular: int,
+    insert_batch: int,
+    reverse_links: bool,
+):
+    """The ip-NSW+ scan build: both graphs bootstrapped, then one
+    fixed-shape step holding both inserts of a batch, replayed over the
+    schedule (``build.replay_schedule``), each graph with its own in-place
+    carry.  Returns ``(ang_adj, ang_size, ang_entry, ang_entry_norm, ip_adj,
+    ip_size, ip_entry, ip_entry_norm)``."""
+    ang, ip = _bootstrap_plus(items, ang_items, norms, ang_norms, max_degree=max_degree,
+                              ang_degree=ang_degree, insert_batch=insert_batch,
+                              reverse_links=reverse_links)
+    replay_schedule(
+        _insert_plus_step(ang, ip, norms, ang_norms, max_degree=max_degree,
+                          ef_construction=ef_construction, ang_degree=ang_degree,
+                          ang_ef=ang_ef, k_angular=k_angular, reverse_links=reverse_links,
+                          capturable=True),
+        batch_ids, batch_valid)
+    return (ang.adj, ang.size, ang.entry, ang.entry_norm,
+            ip.adj, ip.size, ip.entry, ip.entry_norm)

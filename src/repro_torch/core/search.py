@@ -28,10 +28,14 @@ cut never returns one.
 Bucket padding (``valid=``, ``launch/serve_loop.py``): pad rows lose their
 seeds and are born done, so they take no step, spend no evaluation and come
 back as ids -1 / scores -inf; the walk ends once every valid row is done.
+
+Capture (``capturable=True``, the scan build driver of ``core/build.py``):
+nothing is read back and no shape depends on the data, so the search can be
+recorded into a CUDA graph and replayed; ``steps`` stays on the device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -46,7 +50,8 @@ class SearchResult(NamedTuple):
     ids: torch.Tensor      # [B, k] int32, -1 padded
     scores: torch.Tensor   # [B, k] fp32
     evals: torch.Tensor    # [B] int32 similarity evaluations
-    steps: int             # loop iterations executed
+    steps: Union[int, torch.Tensor]  # loop iterations executed (a 0-dim device
+    #   tensor from a capturable search)
     visited: torch.Tensor  # [B, V] int32 every scored id (-1 padded)
     dead_evals: Optional[torch.Tensor] = None  # [B] int32 evals on tombstones
     #   (None without a live mask)
@@ -72,6 +77,7 @@ def beam_search(
     store: Optional[ItemStore] = None,
     live: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
+    capturable: bool = False,
 ) -> SearchResult:
     """Run the batched walk.
 
@@ -96,6 +102,8 @@ def beam_search(
               row-wise and done rows are frozen, so a valid row's result is
               bit-identical to the same query searched without padding.  Pad
               query rows are ignored but must hold finite values.
+    capturable: read nothing back (``ops.beam_walk``): ``steps`` is a 0-dim
+              device tensor.  Everything else is unchanged.
     """
     validate_storage(storage)
     adj, items = graph.adj, graph.items
@@ -145,7 +153,8 @@ def beam_search(
 
     rows, scales = (items, None) if store is None else store
     walk = beam_walk(pool_ids, pool_scores, pool_checked, visited, done, evals, queries,
-                     adj, rows, scales, live, dead_evals, max_steps=max_steps)
+                     adj, rows, scales, live, dead_evals, max_steps=max_steps,
+                     capturable=capturable)
     pool_ids, pool_scores, evals, dead_evals, step = (
         walk.pool_ids, walk.pool_scores, walk.evals, walk.dead_evals, walk.steps)
 

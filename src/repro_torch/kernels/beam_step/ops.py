@@ -14,7 +14,10 @@ Launch counts (plain runs count in none): ``beam_step.launches`` and
 ``beam_step.launches_int8`` count the fp32 and int8 kernels without a live
 mask, ``beam_step.launches_live`` and ``beam_step.launches_int8_live`` the
 same kernels with one; ``beam_walk`` has the same four counters and
-``beam_walk.steps``, the sum of its walks' step counts."""
+``beam_walk.steps``, the sum of its walks' step counts.  A walk captured in
+a CUDA graph (``capturable=True``) counts its launch once, at the capture;
+its replays launch it again uncounted (``core/build.replay_schedule``
+records how many), and its steps stay on the device."""
 from __future__ import annotations
 
 import torch
@@ -157,18 +160,24 @@ def beam_walk(
     dead_evals: "torch.Tensor | None" = None,  # [B] int32 seed dead evaluations, with live
     *,
     max_steps: int,
+    capturable: bool = False,
 ) -> WalkResult:
     """A whole Algorithm-1 walk: ``beam_step`` until every row is done or
     ``max_steps`` steps ran; ``visited`` is written in place, ``S = V -
     max_steps * M`` seed columns first.  The result equals ``beam_walk_ref``
     (the host loop of the step), and on the card the host loop of the
-    ``beam_step`` kernel bit for bit; ``steps`` is the one value read back."""
+    ``beam_step`` kernel bit for bit; ``steps`` is the one value read back.
+
+    ``capturable=True`` reads nothing back, so the call can be captured in
+    a CUDA graph: ``steps`` is then a 0-dim int32 tensor on the walk's
+    device (the largest row count) and ``beam_walk.steps`` does not move."""
     if not _lib.on_cuda(pool_ids):
         kw = {} if scales is None else {
             "score_fn": lambda q, c, ids: quant_score_ref(q, c, scales, ids)}
-        return beam_walk_ref(pool_ids, pool_scores, pool_checked, visited, done, evals,
-                             queries, adj, items, max_steps=max_steps, live=live,
-                             dead_evals=dead_evals, **kw)
+        res = beam_walk_ref(pool_ids, pool_scores, pool_checked, visited, done, evals,
+                            queries, adj, items, max_steps=max_steps, live=live,
+                            dead_evals=dead_evals, **kw)
+        return res._replace(steps=device_steps(res.row_steps)) if capturable else res
     S = check_walk_inputs(pool_ids, pool_scores, pool_checked, visited, done, evals, queries,
                           adj, items, scales, live, dead_evals, max_steps=max_steps)
     dev = pool_ids.device
@@ -183,7 +192,8 @@ def beam_walk(
     dead_out = None if live is None else torch.empty((B,), dtype=torch.int32, device=dev)
     row_steps = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
-        return WalkResult(ids, scores, checked, visited, evals_out, dead_out, row_steps, 0)
+        return WalkResult(ids, scores, checked, visited, evals_out, dead_out, row_steps,
+                          device_steps(row_steps) if capturable else 0)
     # a null live pointer turns the tombstone count off
     mask = (0, 0) if live is None else (dead_evals.data_ptr(), dead_out.data_ptr())
     head = (pool_ids.data_ptr(), pool_scores.data_ptr(), pool_checked.data_ptr(),
@@ -201,9 +211,19 @@ def beam_walk(
         _lib.check(rc, "beam_walk (int8)")
         counter = "launches_int8" if live is None else "launches_int8_live"
     setattr(beam_walk, counter, getattr(beam_walk, counter) + 1)
+    if capturable:
+        return WalkResult(ids, scores, checked, visited, evals_out, dead_out, row_steps,
+                          device_steps(row_steps))
     steps = int(row_steps.max())  # the walk's one read-back
     beam_walk.steps += steps
     return WalkResult(ids, scores, checked, visited, evals_out, dead_out, row_steps, steps)
+
+
+def device_steps(row_steps: torch.Tensor) -> torch.Tensor:
+    """A walk's step count without a read-back: the largest of its rows'
+    counts (a row not done runs every step), 0 for no row; a 0-dim int32
+    tensor on their device."""
+    return row_steps.max() if row_steps.numel() else row_steps.new_zeros(())
 
 
 beam_walk.launches = 0

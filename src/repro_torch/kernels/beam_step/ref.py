@@ -6,7 +6,7 @@ CUDA kernels (``csrc/beam_step.cu``) are held to, and run every walk on the
 CPU."""
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -103,7 +103,8 @@ class WalkResult(NamedTuple):
     evals: torch.Tensor         # [B] int32
     dead_evals: Optional[torch.Tensor]  # [B] int32, None without a live mask
     row_steps: torch.Tensor     # [B] int32 steps each row ran
-    steps: int                  # loop iterations: the largest row count
+    steps: Union[int, torch.Tensor]  # loop iterations: the largest row count
+    #   (a 0-dim device tensor from a capturable walk, ``ops.beam_walk``)
 
 
 def host_walk(

@@ -12,7 +12,10 @@ The defaults are the JAX package's (``python -m repro.launch.serve``); the
 index is ``IpNSW`` / ``IpNSWPlus(max_degree=16, ef_construction=32,
 insert_batch=512)`` or the exact scan.  ``--storage int8`` searches the int8
 store (quantized walk, exact fp32 rerank; the build stays fp32); the exact
-scan ignores it, as the JAX CLI does.  ``--device`` defaults to the card.
+scan ignores it, as the JAX CLI does.  ``--build-backend scan`` builds every
+index with the scan driver (``core/build.py``: on the card one insertion
+batch captured as a CUDA graph and replayed).  ``--device`` defaults to the
+card.
 
 ``--loop`` schedules ``--requests`` queries arriving at ``--rate`` QPS in
 three deadline classes through ``launch/serve_loop.py`` on the ladder
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.brute_force import exact_topk
+from repro_torch.core.build import BUILD_BACKENDS
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
 from repro_torch.core.storage import STORAGE_BACKENDS
@@ -59,6 +63,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--storage", default="f32", choices=STORAGE_BACKENDS,
                     help="item store the search streams (int8 = quantized walk "
                          "+ exact fp32 rerank)")
+    ap.add_argument("--build-backend", default="host", choices=BUILD_BACKENDS,
+                    help="insertion driver (build.BUILD_BACKENDS)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--loop", action="store_true",
                     help="continuous-batching serving loop instead of the one-shot "
@@ -96,7 +102,8 @@ def main(argv=None) -> dict:
     else:
         cls = IpNSWPlus if args.index == "ipnsw_plus" else IpNSW
         index = cls(max_degree=16, ef_construction=32, insert_batch=512,
-                    storage=args.storage, device=args.device).build(items)
+                    build_backend=args.build_backend, storage=args.storage,
+                    device=args.device).build(items)
         index.search(queries, k=args.k, ef=args.ef)  # warm-up
         _sync(device)
         t0 = time.perf_counter()
@@ -124,7 +131,8 @@ def _build_ladder(batch: int, ef: int) -> sl.BucketLadder:
 def _run_loop(args, items: torch.Tensor) -> dict:
     cls = IpNSWPlus if args.index == "ipnsw_plus" else IpNSW
     index = cls(max_degree=16, ef_construction=32, insert_batch=512,
-                storage=args.storage, device=args.device).build(items)
+                build_backend=args.build_backend, storage=args.storage,
+                device=args.device).build(items)
 
     queries = mips_queries(args.requests, args.dim, seed=1)
     _, gt = exact_topk(torch.as_tensor(queries, device=items.device), items, k=args.k)

@@ -11,7 +11,8 @@ kernel is held against its plain PyTorch version:
     ids, scores and flags must be bit-identical, ties included;
   * whole builds are compared by graph invariants and recall, not by
     bit-identical adjacency: a one-ulp difference early in a build cascades
-    through every batch after it.
+    through every batch after it.  Where every score is exact (an IpNSW
+    build on integer items) the adjacency is compared bit for bit.
 """
 from __future__ import annotations
 
