@@ -75,12 +75,23 @@ Phases (each one that fails ends the run with a non-zero exit):
      relink passes of 64), with a search between events; I1-I6 hold, no
      tombstone surfaces (f32 and int8), recall@10 within 0.02 of the JAX
      package's on the same trace and, after relinking to zero debt, at
-     least a fresh rebuild's - 0.02.
+     least a fresh rebuild's - 0.02.  The first upsert chunk is captured as
+     a CUDA graph and every later one replays it, each under
+     set_sync_debug_mode("error"); the first int8 search makes the int8
+     stores, and the next upsert captures its chunk again over them (123
+     replays of 125 chunks).
   4c. serve default through the serving loop: serve --loop (virtual clock),
      with --storage int8 and with --churn-trace 0.2; the batch schedule's
      digest, p50 / p99 / QPS / occupancy / miss fraction (the service
      model's) and the churn events and health equal to the JAX package's,
      recall@10 within 0.02 of it, no steady-state build, no rejection.
+     Every dispatch after warmup is a replay of its bucket's CUDA graph
+     (16), and under churn every upsert chunk after the first (124 more),
+     each under sync debug mode "error".
+
+From phase 4b on, a kernel's launches count each replay of a CUDA graph
+that holds it (the wrapper calls made while a graph was captured launch
+nothing then, and are not counted): ``count_graph_launches``.
   5. full size: IpNSWPlus and IpNSW at Yahoo!Music's size (136,736 x 300,
      seeded synthetic lognormal items), ground truth from the mips_topk
      kernel; each index searched with the f32 items and the int8 store, and
@@ -93,7 +104,9 @@ Phases (each one that fails ends the run with a non-zero exit):
      beam_walk: device busy time, idle share, walk steps, host time per
      step; and IpNSW's and IpNSWPlus's builds profiled with the host and
      the scan driver (host time per batch; each graph's walk kernel must
-     show once a batch in the trace, replayed or not).
+     show once a batch in the trace, replayed or not); and IpNSW's search
+     of 256 at ef 40 (f32 and int8) as a captured 256 x 40 bucket, its ids
+     equal to the search's, profiled.
   5c. scan build driver (build_backend="scan"), inside phase 5: IpNSWPlus
      and IpNSW built again at full size with one insertion batch captured
      as a CUDA graph and replayed over the schedule (266 replays, each
@@ -110,20 +123,36 @@ Phases (each one that fails ends the run with a non-zero exit):
      the int8 store and under the virtual clock: p50 / p99 latency, QPS,
      occupancy, miss fraction, degraded share, recall@10, steady builds (0),
      peak memory, launches; a request served at the same ef in the wall and
-     the virtual run gets the same ids; a profiled dispatch both ways.
+     the virtual run gets the same ids.  Each bucket is one CUDA graph,
+     captured at warmup (capture ms a bucket): every dispatch of a run is a
+     replay, under sync debug mode "error", and a replay's ids, score bits
+     and evals equal the eager program's (the module-level _plus_bucket on
+     the same buffers) bit for bit, in every bucket, f32 and int8, with pad
+     rows; peak memory with the graphs and with eager dispatches; a
+     profiled 256 x 40 dispatch three ways: eager with per-step walks,
+     eager, captured.
   6. full size + churn: a mutable IpNSWPlus at Yahoo!Music's size
      (capacity 170,920) takes a churn trace of turnover 0.1 (427 upsert and
      427 delete batches of 32, one hub kill, four relink passes); ms per
      upsert batch, delete batch and relink pass, search ms with and without
      the tombstone mask on the same index, dead evals per query, recall@10
      before and after the trace and after relinking, health counters, peak
-     memory, launches, and one profiled upsert batch both ways.
+     memory, launches, and one profiled upsert batch eager and captured.
+     Every upsert chunk after the first replays its CUDA graph (426
+     replays, under sync debug mode "error").  Before the trace, two copies
+     of the index (with int8 stores) take the trace's first 64 events, one
+     with captured upserts and one eager (``eager_upserts``): both graphs,
+     both stores, the live mask, the norms and every entry bit-identical;
+     ms per upsert batch both ways.  After it, a bucket ladder over the
+     mutable index: a replayed dispatch with the tombstone mask equal to
+     the eager program's bit for bit.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -1686,6 +1715,8 @@ def _zero_counts() -> None:
     beam_walk.steps = 0
     for by_width in _widths().values():
         by_width.clear()
+    for tally in _IN_GRAPHS.values():
+        tally.clear()
 
 
 def _widths() -> dict:
@@ -1697,8 +1728,59 @@ def _widths() -> dict:
             "quant_score": quant_score.launches_by_width}
 
 
-def _read_counts() -> dict:
+def _wrapper_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _kernel_counters().items()}
+
+
+# A wrapper called while a CUDA graph is captured records its kernel into the
+# graph, which launches it at every replay.  So a kernel's launches are its
+# wrapper's calls outside captures, plus its calls inside each capture times
+# that graph's replays.
+_GRAPH_KERNELS: dict = {}  # id(graph) -> {kernel: wrapper calls inside its capture}
+_IN_GRAPHS = {"recorded": {}, "replayed": {}}  # since the last _zero_counts
+
+
+def _tally(into: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        into[name] = into.get(name, 0) + n
+
+
+def count_graph_launches() -> None:
+    """Patch torch.cuda.CUDAGraph so that each capture records the wrapper
+    calls made inside it and each replay adds them to the launch counts."""
+    import torch
+
+    cls = torch.cuda.CUDAGraph
+    begin, end, replay = cls.capture_begin, cls.capture_end, cls.replay
+
+    def capture_begin(graph, *args, **kwargs):
+        _GRAPH_KERNELS[id(graph)] = _wrapper_counts()
+        begin(graph, *args, **kwargs)
+
+    def capture_end(graph):
+        end(graph)
+        before, after = _GRAPH_KERNELS[id(graph)], _wrapper_counts()
+        inside = {name: after[name] - before[name] for name in after
+                  if after[name] != before[name]}
+        _GRAPH_KERNELS[id(graph)] = inside
+        _tally(_IN_GRAPHS["recorded"], inside)
+
+    def counted_replay(graph):
+        replay(graph)
+        _tally(_IN_GRAPHS["replayed"], _GRAPH_KERNELS.get(id(graph), {}))
+
+    cls.capture_begin, cls.capture_end, cls.replay = capture_begin, capture_end, counted_replay
+
+
+def _read_counts() -> dict:
+    """Each kernel's launches since the last ``_zero_counts``: its
+    wrapper's calls, less those made while a graph was captured (they
+    launched nothing), plus the launches of every graph replay."""
+    counts = _wrapper_counts()
+    for name in counts:
+        counts[name] += (_IN_GRAPHS["replayed"].get(name, 0)
+                         - _IN_GRAPHS["recorded"].get(name, 0))
+    return counts
 
 
 # the per-step kernels: the walks launch beam_walk, these only their entry
@@ -1943,8 +2025,8 @@ def phase_scan_build(items, queries, searched) -> None:
             f"scan build {name}: replays {seen}, expected {rows - 1} under sync debug mode 2"
         assert replay_schedule.last.replays == rows - 1
         _assert_path(f"scan build {name}", counts, ("beam_walk", "commit_merge", "gather_score"))
-        # the eager warm-up and the capture launch each kernel once a graph
-        assert counts["beam_walk"] == 2 * n_graphs, counts
+        # row 0's eager warm-up and the replays launch a walk a graph each
+        assert counts["beam_walk"] == rows * n_graphs, counts
         gnames = ("ang_graph", "ip_graph") if name == "ipnsw_plus" else ("graph",)
         for gname in gnames:
             for field in ("adj", "size", "entry", "entry_norm"):
@@ -1981,6 +2063,43 @@ def phase_scan_build(items, queries, searched) -> None:
             f"speedup={np.median(walls['host']) / np.median(walls['scan']):.2f}")
 
 
+class _WatchedClock:
+    """A loop clock that records how far each sleep overshot its target
+    (the host's scheduling, not the loop's work)."""
+
+    def __init__(self, clock):
+        self.clock, self.virtual = clock, clock.virtual
+        self.sleeps, self.overshoot_ms, self.overshoot_at = 0, 0.0, 0.0
+
+    def now(self) -> float:
+        return self.clock.now()
+
+    def sleep_until(self, t: float) -> None:
+        self.clock.sleep_until(t)
+        self.sleeps += 1
+        late = (self.clock.now() - t) * 1e3
+        if late > self.overshoot_ms:
+            self.overshoot_ms, self.overshoot_at = late, t
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Inside, every garbage collection is recorded: (generation, ms)."""
+    pauses, t0 = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], round((time.perf_counter() - t0[0]) * 1e3, 4)))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 def _loop_report(label: str, stats, gt) -> dict:
     """Print and return a loop run's metrics: latency percentiles, QPS,
     occupancy, misses, degraded share and recall@10, by request id."""
@@ -2000,6 +2119,26 @@ def _loop_report(label: str, stats, gt) -> dict:
                ef_served={e: sum(r.ef_served == e for r in by_rid)
                           for e in sorted({r.ef_served for r in by_rid})})
     log(f"loop full {label}: " + " ".join(f"{k}={v!r}" for k, v in out.items()))
+    # each dispatch's duration on the loop's clock, and where the longest was
+    took = np.asarray([(b.finish_t - b.dispatch_t) * 1e3 for b in stats.batches])
+    worst = int(np.argmax(took))
+    first = {}
+    for b, t in zip(stats.batches, took):
+        first.setdefault(f"{b.bucket.batch}x{b.bucket.ef}", (b.seq, round(float(t), 4)))
+    log(f"loop full {label}: dispatch_ms median={np.median(took):.4f} p99="
+        f"{np.percentile(took, 99):.4f} max={took[worst]:.4f} at seq {worst} "
+        f"({stats.batches[worst].bucket}); each bucket's first dispatch (seq, ms)={first}")
+    # the longest a batch's first request waited while the loop did not
+    # dispatch: after the previous batch finished and after it arrived
+    arrival = {r.rid: r.arrival_t for r in by_rid}
+    held = [(b.dispatch_t - max(prev.finish_t, min(arrival[i] for i in b.rids))) * 1e3
+            for prev, b in zip(stats.batches, stats.batches[1:])]
+    if held:
+        i = int(np.argmax(held))
+        b = stats.batches[i + 1]
+        log(f"loop full {label}: longest wait before a dispatch {held[i]:.4f} ms, before seq "
+            f"{i + 1} ({len(b.rids)} requests, dispatched at {b.dispatch_t:.4f} s); the first "
+            f"dispatch at {stats.batches[0].dispatch_t:.4f} s")
     return out
 
 
@@ -2007,7 +2146,10 @@ def phase_loop_full() -> dict:
     """The serving loop at Yahoo!Music's size: an IpNSWPlus over 136,736 x
     300 items, 4,096 Poisson requests at 2,000 QPS in three deadline
     classes, _build_ladder(256, 40); wall clock with the f32 and the int8
-    store, and the virtual clock with f32."""
+    store, and the virtual clock with f32.  Every bucket is a CUDA graph:
+    each dispatch of a run replays one."""
+    import functools
+
     import numpy as np
     import torch
 
@@ -2028,24 +2170,56 @@ def phase_loop_full() -> dict:
     ladder = _build_ladder(256, 40)
     trace = sl.poisson_trace(queries, rate_qps=LOOP_FULL_RATE, seed=2, ef=40,
                              classes=("interactive", "standard", "relaxed"))
-    runs, stats_by = {}, {}
+    runs, stats_by, executors, peaks = {}, {}, {}, {}
     for label, storage, clock in (("wall_f32", "f32", sl.WallClock),
                                   ("wall_int8", "int8", sl.WallClock),
                                   ("virtual_f32", "f32", sl.VirtualClock)):
         index.storage = storage
         executor = sl.BucketExecutor(index, ladder, k=10)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
         executor.warmup()  # before the clock starts: the trace meets a warm server
-        loop = sl.ServeLoop(index, ladder=ladder, clock=clock(), executor=executor,
-                            service_model=sl.LinearServiceModel())
-        stats = loop.run(trace)
-        stats_by[label] = stats
+        torch.cuda.synchronize()
+        graphs_bytes = torch.cuda.memory_allocated() - held
+        # set-up, before the clock starts: the earlier phases' garbage (the
+        # profiler's events hold one another in cycles) is collected here,
+        # not inside the timed run
+        t0 = time.perf_counter()
+        freed = gc.collect()
+        log(f"loop full {label}: before the run, {freed} objects of garbage collected in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        loop = sl.ServeLoop(index, ladder=ladder, clock=_WatchedClock(clock()),
+                            executor=executor, service_model=sl.LinearServiceModel())
+        with watch_replays() as seen, gc_pauses() as pauses:
+            stats = loop.run(trace)
+        log(f"loop full {label}: clock sleeps {loop.clock.sleeps}, longest overshoot "
+            f"{loop.clock.overshoot_ms:.4f} ms waking at {loop.clock.overshoot_at:.4f} s")
+        log(f"loop full {label}: garbage collections in the run {len(pauses)}, ms "
+            f"total={sum(ms for _, ms in pauses):.4f} longest={max(pauses, key=lambda x: x[1])}"
+            if pauses else f"loop full {label}: no garbage collection in the run")
+        stats_by[label], executors[label] = stats, executor
         runs[label] = _loop_report(label, stats, gt)
         assert runs[label]["served"] == LOOP_FULL_REQUESTS, f"{label}: a request was not answered"
         assert runs[label]["recompiles_steady"] == 0, f"{label}: a steady-state build"
         assert runs[label]["recall"] > 0.5, f"{label}: recall {runs[label]['recall']}"
-    index.storage = "f32"
+        _assert_replays(f"loop full {label}", seen, runs[label]["batches"])
+        peaks[label] = torch.cuda.max_memory_allocated()
+        log(f"loop full {label}: the six bucket graphs hold {graphs_bytes} bytes")
     counts = _read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peaks.values())
+    # the same buckets dispatched eagerly, in a fresh peak window
+    for label in ("wall_f32", "wall_int8"):
+        index.storage = label.split("_")[1]
+        _check_replays_equal_eager(f"loop full {label}", executors[label], queries)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for bucket in ladder.buckets():
+        _eager_bucket(executors["wall_int8"], bucket)
+    index.storage = "f32"
+    for bucket in ladder.buckets():
+        _eager_bucket(executors["wall_f32"], bucket)
+    log(f"loop full: peak_memory_bytes with captured buckets {peaks}; eager dispatches of "
+        f"every bucket, f32 and int8: {torch.cuda.max_memory_allocated()}")
     # A response depends only on its query and its served ef (padding and
     # batch composition do not change a row), so the virtual and the wall
     # f32 runs must agree on every request served at the same ef.
@@ -2060,8 +2234,15 @@ def phase_loop_full() -> dict:
     _assert_path("loop full", counts, ("beam_walk", "beam_walk_int8", "mips_topk", "quant_score",
                                        "gather_score"))
     full = sl.Bucket(256, 40)
-    _profiled_both("loop dispatch of a full 256x40 bucket, f32",
-                   lambda: executor.run(full, queries[:256], np.ones(256, bool)))
+    executor = executors["wall_f32"]
+    dispatch = functools.partial(executor.run, full, queries[:256], np.ones(256, bool))
+    dispatch()  # the program's buffers now hold what the eager runs search
+    label = "loop dispatch of a full 256x40 bucket, f32"
+    with per_step_walks():
+        _profiled(f"{label} [eager, per-step loop]",
+                  lambda: _eager_bucket(executor, full, capturable=False), batches=1, reps=20)
+    _profiled(f"{label} [eager]", lambda: _eager_bucket(executor, full), batches=1, reps=20)
+    _profiled(f"{label} [captured]", dispatch, batches=1, reps=20)
     return runs
 
 
@@ -2094,13 +2275,18 @@ def phase_serve_loop_default() -> None:
     for name, (flags, path) in LOOP_PATHS.items():
         _zero_counts()
         t0 = time.perf_counter()
-        res = serve.main(["--loop", *flags])
+        with watch_replays() as seen:
+            res = serve.main(["--loop", *flags])
         wall = time.perf_counter() - t0
         counts = _read_counts()
         s, digest = res["summary"], schedule_digest(res["batches"])
         log(f"serve --loop {name}: recall@10={res['recall']!r} (JAX "
             f"{JAX_LOOP_RECALL[name]!r}) schedule_sha256={digest} summary={s} "
             f"wall_s={wall:.2f} launches={counts}")
+        # every dispatch replays its bucket's graph (warmup captured them),
+        # and under churn every upsert chunk after the first replays its own
+        _assert_replays(f"loop {name}", seen, s["batches"] + (
+            LOOP_CHURN_UPSERTS - 1 if name == "churn" else 0))
         assert abs(res["recall"] - JAX_LOOP_RECALL[name]) <= RECALL_MARGIN, \
             f"loop {name} recall {res['recall']} not within {RECALL_MARGIN} of JAX"
         assert digest == JAX_LOOP_SCHEDULE_SHA256, f"loop {name}: the schedule differs from JAX's"
@@ -2114,6 +2300,82 @@ def phase_serve_loop_default() -> None:
         else:
             assert s["mutation_events"] == 0, s
         _assert_path(f"loop {name}", counts, path)
+
+
+# serve --loop --churn-trace 0.2: round(0.2 * 20,000 / 32) upsert events of
+# 32 rows, one chunk each at mutation_batch 32
+LOOP_CHURN_UPSERTS = 125
+
+
+def _upsert_chunks(events, mutation_batch: int) -> int:
+    return sum(-(-len(ev.items) // mutation_batch) for ev in events if ev.kind == "upsert")
+
+
+def _assert_replays(label: str, seen: dict, want: int) -> None:
+    """``want`` graph replays, every one under sync debug mode "error"."""
+    assert seen["replays"] == want and seen["modes"] <= {2}, \
+        f"{label}: {seen['replays']} replays under modes {seen['modes']}, expected {want} " \
+        f"under sync debug mode 2"
+    log(f"{label}: {want} CUDA graph replays, every one under sync debug mode error")
+
+
+@contextlib.contextmanager
+def eager_upserts():
+    """Inside, every upsert chunk of a MutableIndex runs eagerly on the card
+    (``upsert_step`` on the chunk), not as a replay of its captured graph."""
+    from repro_torch.core import mutation
+
+    captured = mutation.MutableIndex._upsert_chunk
+
+    def eager(m, slots, pay, valid):
+        mutation.upsert_step(m.index, m.norms, m.live)(slots, pay, valid)
+
+    mutation.MutableIndex._upsert_chunk = eager
+    try:
+        yield
+    finally:
+        mutation.MutableIndex._upsert_chunk = captured
+
+
+def _eager_bucket(executor, bucket, capturable: bool = True):
+    """A bucket's search run eagerly: the module-level ``_ipnsw_bucket`` /
+    ``_plus_bucket`` that its program captured, over the executor's
+    operands and on the buffers its program holds (the latest dispatch's
+    inputs); the host (ids, scores, evals)."""
+    import functools
+
+    import torch
+
+    from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.launch import serve_loop as sl
+
+    prog, idx = executor._programs[bucket][1], executor.index
+    fn = (functools.partial(sl._plus_bucket, ang_ef=idx.ang_ef, k_angular=idx.k_angular)
+          if isinstance(idx, IpNSWPlus) else sl._ipnsw_bucket)
+    ids, scores, evals = fn(*executor._consts(), prog.q_buf, prog.v_buf, k=executor.k,
+                            ef=bucket.ef, storage=idx.storage, capturable=capturable)
+    host = torch.cat([ids, scores.view(torch.int32), evals[:, None]], dim=1).cpu().numpy()
+    k = executor.k
+    return host[:, :k], host[:, k: 2 * k].view("float32"), host[:, 2 * k]
+
+
+def _check_replays_equal_eager(label: str, executor, queries) -> None:
+    """Each bucket of the executor's ladder dispatched (a replay) with three
+    pad rows, against the eager program on the same buffers: ids, score
+    bits and evals bit-identical."""
+    import numpy as np
+
+    for bucket in executor.ladder.buckets():
+        valid = np.arange(bucket.batch) < bucket.batch - 3
+        got = executor.run(bucket, queries[:bucket.batch], valid)
+        want = _eager_bucket(executor, bucket)
+        for field, g, w in zip(("ids", "scores", "evals"), got, want):
+            assert np.array_equal(np.asarray(g).view(np.int32), np.asarray(w).view(np.int32)), \
+                f"{label} {bucket}: the replay's {field} differ from the eager program's"
+    capture_ms = {f"{b.batch}x{b.ef}": round(executor._programs[b][1].captured.capture_ms, 2)
+                  for b in executor.ladder.buckets()}
+    log(f"{label}: every bucket's replay (3 pad rows) equals the eager program bit for bit "
+        f"(ids, score bits, evals); capture_ms={capture_ms}")
 
 
 # kernels each churn phase must launch: the live walks of upserts, relinks
@@ -2170,11 +2432,15 @@ def phase_churn_default() -> dict:
     trace = ChurnTrace.generate(n_items=n, dim=d, turnover=0.2, **CHURN)
     recall = {"before": recall_at_k(m.search(queries, k=10, ef=40).ids.cpu().numpy(),
                                     _live_ground_truth(queries, m))}
-    for i, ev in enumerate(trace.events):
-        apply_churn_event(m, ev)
-        storage = "int8" if i % 16 == 15 else "f32"
-        _assert_no_tombstone(m, m.search(queries, k=10, ef=40, storage=storage).ids,
-                             f"search after event {i} ({ev.kind}, {storage})")
+    with watch_replays() as seen:
+        for i, ev in enumerate(trace.events):
+            apply_churn_event(m, ev)
+            storage = "int8" if i % 16 == 15 else "f32"
+            _assert_no_tombstone(m, m.search(queries, k=10, ef=40, storage=storage).ids,
+                                 f"search after event {i} ({ev.kind}, {storage})")
+    # the first int8 search made the stores after the first upsert: the
+    # next upsert captured its chunk again, over them
+    _assert_replays("churn default", seen, _upsert_chunks(trace.events, 32) - 2)
     errs = m.check_invariants()
     assert not errs, "invariants I1-I6 after the trace:\n  " + "\n  ".join(errs)
     gt = _live_ground_truth(queries, m)
@@ -2217,6 +2483,8 @@ def phase_churn_full() -> dict:
 
     from repro_torch.core import ChurnTrace, IpNSWPlus, MutableIndex, apply_churn_event
     from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.launch.serve import _build_ladder
+    from repro_torch.launch.serve_loop import BucketExecutor
     from repro_torch.obs.recall import recall_at_k
 
     items = torch.as_tensor(mips_dataset(N_FULL, D_FULL, "lognormal", seed=0), device="cuda")
@@ -2225,24 +2493,29 @@ def phase_churn_full() -> dict:
     torch.cuda.reset_peak_memory_stats()
     index = IpNSWPlus(max_degree=16, ef_construction=32, insert_batch=512).build(items)
     del items
+    trace = ChurnTrace.generate(n_items=N_FULL, dim=D_FULL, turnover=0.1, **CHURN)
+    phase_upsert_twins(index, trace)
     _zero_counts()
     m = MutableIndex(index, capacity=int(N_FULL * 1.25), mutation_batch=32)
-    trace = ChurnTrace.generate(n_items=N_FULL, dim=D_FULL, turnover=0.1, **CHURN)
     recall = {}
     gt = _live_ground_truth(queries, m)
     recall["before"] = recall_at_k(m.search(queries, k=10, ef=40).ids.cpu().numpy(), gt)
     recall["before_int8"] = recall_at_k(
         m.search(queries, k=10, ef=40, storage="int8").ids.cpu().numpy(), gt)
     ms = {"upsert": [], "delete": [], "relink": [], "hub_kill": []}
-    for i, ev in enumerate(trace.events):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        apply_churn_event(m, ev)
-        torch.cuda.synchronize()
-        ms[ev.kind].append((time.perf_counter() - t0) * 1e3)
-        if i % 64 == 63:
-            _assert_no_tombstone(m, m.search(queries, k=10, ef=40).ids,
-                                 f"search after event {i}")
+    with watch_replays() as seen:
+        for i, ev in enumerate(trace.events):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply_churn_event(m, ev)
+            torch.cuda.synchronize()
+            ms[ev.kind].append((time.perf_counter() - t0) * 1e3)
+            if i % 64 == 63:
+                _assert_no_tombstone(m, m.search(queries, k=10, ef=40).ids,
+                                     f"search after event {i}")
+    # the int8 search above made the stores before the first upsert: one capture
+    _assert_replays("churn full upserts", seen, _upsert_chunks(trace.events, 32) - 1)
+    log(f"churn full: upsert chunk capture_ms={m.upsert_capture_ms:.2f}")
     errs = m.check_invariants()
     assert not errs, "invariants I1-I6 after the trace:\n  " + "\n  ".join(errs)
     for kind, t in ms.items():
@@ -2303,16 +2576,87 @@ def phase_churn_full() -> dict:
         f"launches={counts}")
     assert recall["after_relink"] > 0.5, f"churn full recall@10 {recall['after_relink']}"
     _assert_path("churn full", counts, CHURN_PATH)
+    executor = BucketExecutor(m, _build_ladder(256, 40), k=10)
+    executor.warmup()
+    _check_replays_equal_eager("churn full, the live mask", executor,
+                               mips_queries(256, D_FULL, seed=1))
     payload = mips_dataset(32, D_FULL, "lognormal", seed=4)
-    _profiled_both("churn upsert batch of 32", lambda: m.upsert(payload))
+    with eager_upserts():
+        _profiled("churn upsert batch of 32 [eager]", lambda: m.upsert(payload), batches=1,
+                  reps=20)
+    _profiled("churn upsert batch of 32 [captured]", lambda: m.upsert(payload), batches=1,
+              reps=20)
     return counts
 
 
-def _profiled(label: str, fn, batches: int = 0) -> list:
+# the churn prefix that the eager and the captured upsert both take
+TWIN_EVENTS = 64
+
+
+def phase_upsert_twins(index, trace) -> None:
+    """Two copies of a built IpNSWPlus (int8 stores made), each opened as a
+    MutableIndex, take the trace's first TWIN_EVENTS events: one with
+    captured upserts (every chunk after the first a replay under sync debug
+    mode "error"), one with eager upserts.  Both graphs, both stores, the
+    live mask, the norms and the carries are then bit-identical; ms per
+    upsert batch each way."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import MutableIndex, apply_churn_event
+
+    twins, ms = {}, {}
+    for mode in ("captured", "eager"):
+        m = MutableIndex(copy.deepcopy(index), capacity=int(N_FULL * 1.25), mutation_batch=32)
+        m.index._make_stores("int8")
+        ms[mode] = []
+        with eager_upserts() if mode == "eager" else watch_replays() as seen:
+            for ev in trace.events[:TWIN_EVENTS]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                apply_churn_event(m, ev)
+                torch.cuda.synchronize()
+                if ev.kind == "upsert":
+                    ms[mode].append((time.perf_counter() - t0) * 1e3)
+        if mode == "captured":
+            _assert_replays("upsert twins, captured", seen,
+                            _upsert_chunks(trace.events[:TWIN_EVENTS], 32) - 1)
+        twins[mode] = m
+    a, b = twins["captured"], twins["eager"]
+    fields = {"live": (a.live, b.live), "norms": (a.norms, b.norms)}
+    for gname in ("ang_graph", "ip_graph"):
+        for field in ("adj", "items", "size", "entry", "entry_norm"):
+            fields[f"{gname}.{field}"] = (getattr(getattr(a.index, gname), field),
+                                          getattr(getattr(b.index, gname), field))
+    for sname in ("ang_store", "ip_store"):
+        for field in ("codes", "scales"):
+            fields[f"{sname}.{field}"] = (getattr(getattr(a.index, sname), field),
+                                          getattr(getattr(b.index, sname), field))
+    for name, (x, y) in fields.items():
+        assert torch.equal(x, y), f"upsert twins: {name} differs between captured and eager"
+    assert a.operands() != b.operands() and a._free == b._free
+    log(f"upsert twins: {TWIN_EVENTS} churn events on two copies of the full-size IpNSWPlus "
+        f"(int8 stores): captured and eager upserts leave {len(fields)} tensors bit-identical "
+        f"(both graphs, both stores, live, norms, entries); capture_ms={a.upsert_capture_ms:.2f} "
+        f"ms per upsert batch of 32 captured median={np.median(ms['captured']):.3f} "
+        f"{['%.3f' % x for x in ms['captured']]} eager median={np.median(ms['eager']):.3f} "
+        f"{['%.3f' % x for x in ms['eager']]}")
+    del twins, a, b
+    torch.cuda.empty_cache()
+
+
+def _profiled(label: str, fn, batches: int = 0, reps: int = 0) -> list:
     """Run ``fn`` under torch.profiler; print wall time, the device time
     its kernels took (one stream, so they do not overlap), the idle share,
     the walk steps and the host time per step (per insertion batch, given
-    ``batches``), and the top device ops; return the device events."""
+    ``batches``), and the top device ops; return the device events.  With
+    ``reps``, ``fn`` then runs that many times unprofiled (the profiler
+    slows the host, most of all a graph replay, whose every kernel node it
+    traces): the median wall, and the idle share and host ms of that wall
+    beside the profiled device time."""
+    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2336,19 +2680,32 @@ def _profiled(label: str, fn, batches: int = 0) -> list:
     per_batch = (f" host_ms_per_batch={(wall - device_s) / batches * 1e3:.4f}" if batches
                  else "")
     log(f"profile {label}: wall_s={wall:.3f} device_busy_s={device_s:.3f} "
-        f"idle_share={1 - device_s / wall:.3f} {per_step}{per_batch}")
+        f"idle_share={1 - device_s / wall:.3f} {per_step}{per_batch} "
+        f"wall_ms={wall * 1e3:.4f} device_busy_ms={device_s * 1e3:.4f}")
+    if reps:
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(walls))
+        log(f"profile {label}: unprofiled wall_ms median={med:.4f} of {reps} "
+            f"[{min(walls):.4f}, {max(walls):.4f}] idle_share={1 - device_s * 1e3 / med:.3f} "
+            f"host_ms={med - device_s * 1e3:.4f}")
     for e in events[:6]:
         log(f"profile {label}: {e.self_device_time_total * 1e-3:10.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
     return events
 
 
-def _profiled_both(label: str, fn) -> None:
+def _profiled_both(label: str, fn, reps: int = 0) -> None:
     """``_profiled`` with per-step walks (before), then with the fused walk
     (after), in one run."""
     with per_step_walks():
-        _profiled(f"{label} [per-step loop]", fn)
-    _profiled(label, fn)
+        _profiled(f"{label} [per-step loop]", fn, reps=reps)
+    _profiled(label, fn, reps=reps)
 
 
 @contextlib.contextmanager
@@ -2372,10 +2729,14 @@ def phase_profile(items, queries, ipnsw) -> None:
     the fused walk; the builds with the host and the scan driver.  A scan
     build's walks keep their steps on the card (walk_steps counts none of
     them), and its replayed kernels must show in the trace: each graph's
-    walk kernel once a batch."""
+    walk kernel once a batch.  IpNSW's searches also run as a captured
+    256 x 40 bucket."""
+    import numpy as np
+
     from repro_torch.core.build import batch_schedule, replay_schedule
     from repro_torch.core.ipnsw import IpNSW
     from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.launch.serve_loop import Bucket, BucketExecutor, BucketLadder
 
     batches = 1 + batch_schedule(N_FULL, 512)[1].shape[0]
     _profiled_both("ipnsw build", lambda: IpNSW(max_degree=16, ef_construction=32,
@@ -2395,9 +2756,25 @@ def phase_profile(items, queries, ipnsw) -> None:
                     f"replay_loop_device_ms="
                     f"{run.loop_events[0].elapsed_time(run.loop_events[1]):.2f} (CUDA events) "
                     f"host_ms_per_replay={run.loop_host_ms / run.replays:.4f}")
-    _profiled_both("ipnsw search", lambda: ipnsw.search(queries, k=10, ef=40))
+    _profiled_both("ipnsw search", lambda: ipnsw.search(queries, k=10, ef=40), reps=20)
     _profiled_both("ipnsw search int8",
-                   lambda: ipnsw.search(queries, k=10, ef=40, storage="int8"))
+                   lambda: ipnsw.search(queries, k=10, ef=40, storage="int8"), reps=20)
+    # the same searches as a captured 256 x 40 bucket
+    bucket, host_q, ones = Bucket(256, 40), queries.cpu().numpy(), np.ones(256, bool)
+    for storage in ("f32", "int8"):
+        ipnsw.storage = storage
+        executor = BucketExecutor(ipnsw, BucketLadder(batches=(256,), efs=(40,)), k=10)
+        executor.warmup()
+        with watch_replays() as seen:
+            ids, scores, _ = executor.run(bucket, host_q, ones)
+        want = ipnsw.search(queries, k=10, ef=40)
+        assert seen["replays"] == 1 and np.array_equal(ids, want.ids.cpu().numpy()) and \
+            np.array_equal(scores, want.scores.cpu().numpy()), f"captured search {storage}"
+        log(f"ipnsw search {storage} as a captured bucket: ids and scores equal the search's; "
+            f"capture_ms={executor._programs[bucket][1].captured.capture_ms:.2f}")
+        _profiled(f"ipnsw search {storage} [captured bucket]",
+                  lambda: executor.run(bucket, host_q, ones), batches=1, reps=20)
+    ipnsw.storage = "f32"
 
 
 # kernel -> (its source, the TPU kernel it replaces)
@@ -2450,6 +2827,7 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401 -- fails here when run without the repository
 
+    count_graph_launches()
     card = phase_env()
     phase_build()
     timings, entry_counts = phase_kernels()

@@ -97,9 +97,9 @@ def mutable_from_arrays(index: Union[IpNSW, IpNSWPlus], *, norms: np.ndarray,
     ``_free`` in order, ``_next_fresh``, ``mutation_count``, and its
     ``mutation_batch`` and ``relink_threshold`` knobs."""
     m = MutableIndex(index, mutation_batch=mutation_batch, relink_threshold=relink_threshold)
-    m.norms = torch.tensor(np.asarray(norms, np.float32), device=m.device)
+    m.norms.copy_(torch.tensor(np.asarray(norms, np.float32)))
     m._live_host = np.asarray(live, bool).copy()
-    m.live = torch.tensor(m._live_host, device=m.device)
+    m.live.copy_(torch.tensor(m._live_host))
     m._free = deque(int(i) for i in free)
     m._next_fresh = int(next_fresh)
     m.mutation_count = int(mutation_count)

@@ -33,6 +33,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.capture import capture, no_sync
 from repro_torch.core.graph import GraphIndex, empty_graph
 from repro_torch.core.search import beam_search
 from repro_torch.core.similarity import NEG_INF, Similarity, pair_scores, prepare_items, top_l
@@ -208,52 +209,32 @@ def replay_schedule(
     """Run ``step(ids, valid)``, a fixed-shape batch that writes its carry
     in place, for every row of the schedule, in order.
 
-    On the CPU each row runs eagerly.  On the card row 0 runs eagerly on a
-    side stream (the warm-up a capture needs: it is a real batch and
-    inserts its ids), then ``step`` is captured once as a CUDA graph on two
-    static buffers, and every later row is copied into them on the device
-    and replayed.  The replay loop runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: a read-back in it raises.
-    A capture or replay that fails raises; nothing falls back to the eager
+    On the CPU each row runs eagerly.  On the card row 0 runs eagerly (the
+    warm-up of ``capture.capture``: it is a real batch and inserts its ids),
+    then ``step`` is captured once as a CUDA graph on two static buffers,
+    and every later row is copied into them on the device and replayed, the
+    replay loop under ``capture.no_sync()``: a read-back in it raises.  A
+    capture or replay that fails raises; nothing falls back to the eager
     loop.  ``replay_schedule.last`` is the ``ScanRun`` of the latest
     schedule replayed."""
     rows = batch_ids.shape[0]
-    if batch_ids.device.type != "cuda":
+    if batch_ids.device.type != "cuda" or rows < 2:
         for t in range(rows):
             step(batch_ids[t], batch_valid[t])
         return
-    if rows == 0:
-        return
-    dev = batch_ids.device
     ids, valid = batch_ids[0].clone(), batch_valid[0].clone()
-    main = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        step(ids, valid)
-    main.wait_stream(side)
-    if rows == 1:
-        return
-    graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
-        step(ids, valid)
-    capture_ms = (time.perf_counter() - t0) * 1e3
+    cap = capture(step, ids, valid)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_sync():
         t0 = time.perf_counter()
         start.record()
         for t in range(1, rows):
             ids.copy_(batch_ids[t])
             valid.copy_(batch_valid[t])
-            graph.replay()
+            cap.graph.replay()
         end.record()
         loop_host_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-    replay_schedule.last = ScanRun(rows - 1, capture_ms, loop_host_ms, (start, end))
+    replay_schedule.last = ScanRun(rows - 1, cap.capture_ms, loop_host_ms, (start, end))
 
 
 replay_schedule.last = None

@@ -66,13 +66,16 @@ class IpNSW:
                max_steps: Optional[int] = None,
                storage: Optional[str] = None,
                live: Optional[torch.Tensor] = None,
-               valid: Optional[torch.Tensor] = None) -> SearchResult:
+               valid: Optional[torch.Tensor] = None,
+               capturable: bool = False) -> SearchResult:
         """``storage`` overrides the index's own for this call.  ``live`` is
         the [N] tombstone mask of a mutable index (``core/mutation.py``):
         dead nodes route the walk but never appear in the results.
         ``valid`` is the [B] bucket-padding mask (``search.beam_search``):
         pad rows come back as ids -1 at no evaluation, valid rows as an
-        unpadded search gives them."""
+        unpadded search gives them.  ``capturable`` reads nothing back
+        (``steps`` stays on the device), so the search can be captured in a
+        CUDA graph."""
         if self.graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -83,6 +86,7 @@ class IpNSW:
             self.graph, q, init, pool_size=max(ef, k),
             max_steps=max_steps if max_steps is not None else 2 * ef, k=k,
             storage=st, store=store, live=live, valid=_as_mask(valid, self.device),
+            capturable=capturable,
         )
 
 

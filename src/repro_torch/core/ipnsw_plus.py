@@ -100,6 +100,7 @@ def _search_plus(
     ip_store: Optional[ItemStore] = None,
     live: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
+    capturable: bool = False,
 ) -> PlusResult:
     b = queries.shape[0]
     # Angular ranking is monotone in q . x_hat, so the raw query walks the
@@ -110,11 +111,12 @@ def _search_plus(
     # seed nothing.
     ang = beam_search(ang_graph, queries, ang_graph.entry.expand(b, 1),
                       pool_size=max(ang_ef, k_angular), max_steps=ang_max_steps,
-                      k=k_angular, storage=storage, store=ang_store, live=live, valid=valid)
+                      k=k_angular, storage=storage, store=ang_store, live=live, valid=valid,
+                      capturable=capturable)
     seeds = _seed_from_angular(ip_graph.adj, ang.ids)
     ip = beam_search(ip_graph, queries, seeds, pool_size=max(ef, k),
                      max_steps=max_steps, k=k, storage=storage, store=ip_store, live=live,
-                     valid=valid)
+                     valid=valid, capturable=capturable)
     return PlusResult(
         ids=ip.ids,
         scores=ip.scores,
@@ -194,12 +196,13 @@ class IpNSWPlus:
                max_steps: Optional[int] = None,
                storage: Optional[str] = None,
                live: Optional[torch.Tensor] = None,
-               valid: Optional[torch.Tensor] = None) -> PlusResult:
+               valid: Optional[torch.Tensor] = None,
+               capturable: bool = False) -> PlusResult:
         """``storage`` overrides the index's own for this call; ``live`` is
         the tombstone mask of a mutable index and ``valid`` the [B]
         bucket-padding mask (``search.beam_search``), each applied to both
         walks: pad rows skip the angular stage, seed nothing and come back
-        as ids -1."""
+        as ids -1.  ``capturable`` reads nothing back in either walk."""
         if self.ip_graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -219,6 +222,7 @@ class IpNSWPlus:
             ip_store=self.ip_store if st == "int8" else None,
             live=live,
             valid=_as_mask(valid, self.device),
+            capturable=capturable,
         )
 
 

@@ -19,33 +19,108 @@ out of proportion to the items removed.
 
 ``MutableIndex`` wraps a built ``IpNSW`` or ``IpNSWPlus`` (both graphs of the
 latter mutate together and share one live mask).  It pads the graphs once to
-``capacity`` rows and then updates them in place, on the index's device: the
-JAX package's jitted bodies with donated carries become plain functions that
-write the padded tensors, in the same order of operations.  A chunk of a
-mutation is sliced to its rows where the JAX package pads it to
-``mutation_batch`` rows; walks are row-independent, so the result is the
-same.  The host keeps what the JAX package keeps there: a mirror of the live
-mask (for validation and for seeded sampling) and the free-slot deque.
-``ChurnTrace`` generates seeded churn and fault-injection event streams, and
-``core/invariants.py`` checks the graphs.
+``capacity`` rows; from then on every tensor of the graphs and the int8
+stores, the live mask and the norms keeps its address.  Each mutation runs
+in fixed-shape chunks of ``mutation_batch`` rows (``_chunks``) that write
+those tensors in place (``build.write_carry``, ``storage.write_store_rows``):
+the JAX package's jitted bodies with donated carries, in the same order of
+operations.  On the card the upsert chunk (``upsert_step``) is captured
+once as a CUDA graph and replayed for every later chunk
+(``capture.capture``); delete and relink run eagerly.  On the CPU every
+chunk runs eagerly.  The host keeps what the JAX package keeps there: a
+mirror of the live mask (for validation and for seeded sampling), the
+free-slot deque and the relink candidates.  ``ChurnTrace`` generates seeded
+churn and fault-injection event streams, and ``core/invariants.py`` checks
+the graphs.
 """
 from __future__ import annotations
 
-import dataclasses
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.build import commit_batch, find_neighbors
+from repro_torch.core.build import commit_batch, find_neighbors, write_carry
+from repro_torch.core.capture import capture, data_ptrs, no_sync, to_device
 from repro_torch.core.graph import GraphIndex, pad_graph
 from repro_torch.core.invariants import check_graph_invariants, dead_edge_fraction
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus, _find_ip_neighbors_seeded
 from repro_torch.core.similarity import NEG_INF, normalize
-from repro_torch.core.storage import ItemStore, quantize_items, update_store_rows
+from repro_torch.core.storage import ItemStore, quantize_items, write_store_rows
+
+
+def _walk_knobs(index: Union[IpNSW, IpNSWPlus], live: torch.Tensor) -> Tuple[dict, dict]:
+    """Knobs of the ip-graph find and of the angular find: live-masked,
+    fixed-shape (pad rows born done) and with nothing read back."""
+    fixed = dict(live=live, capturable=True)
+    ip = dict(max_degree=index.max_degree, ef=index.ef_construction,
+              max_steps=2 * index.ef_construction, **fixed)
+    if not isinstance(index, IpNSWPlus):
+        return ip, {}
+    ang_ef = max(index.ang_ef, index.ang_degree)
+    return ip, dict(max_degree=index.ang_degree, ef=ang_ef, max_steps=2 * ang_ef, **fixed)
+
+
+def upsert_step(index: Union[IpNSW, IpNSWPlus], norms: torch.Tensor,
+                live: torch.Tensor) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], None]:
+    """The fixed-shape upsert batch (the body of the JAX package's
+    ``_upsert_arrays`` / ``_upsert_plus_arrays``): ``step(slots [mb] int64,
+    payload [mb, d] fp32, valid [mb] bool)`` writes the batch's item rows,
+    norms and live bits, the graphs and the int8 store rows in place.  Pad
+    rows repeat a valid row's slot and payload (``MutableIndex._chunks``),
+    so what they write changes nothing; their walks are born done and the
+    commits drop them.  Nothing is read back, so on the card the step is
+    captured as a CUDA graph."""
+    ip_knobs, ang_knobs = _walk_knobs(index, live)
+    ang_norms = torch.ones_like(norms)  # every angular item is unit
+    commit = dict(reverse_links=index.reverse_links)
+
+    def step(slots: torch.Tensor, pay: torch.Tensor, valid: torch.Tensor) -> None:
+        # Item rows and norms first, then the batch slots dead for the find:
+        # fresh slots were never live, reused ones are tombstones whose stale
+        # adjacency rows may still route the walk, and no new item can link
+        # to a half-written batch row.
+        if isinstance(index, IpNSWPlus):
+            ag, ig = index.ang_graph, index.ip_graph
+            new_ang = normalize(pay)
+            ig.items[slots] = pay
+            ag.items[slots] = new_ang
+            norms[slots] = torch.linalg.vector_norm(pay, dim=-1)
+            live.index_fill_(0, slots, False)
+            # §4.2 order: the angular insert, then the angular-seeded ip one
+            a_nbr, a_sc = find_neighbors(ag, new_ang, valid=valid, **ang_knobs)
+            write_carry(ag, commit_batch(ag, slots, a_nbr, a_sc, ang_norms, valid=valid,
+                                         **commit))
+            g_nbr, g_sc = _find_ip_neighbors_seeded(ig, pay, a_nbr[:, :index.k_angular],
+                                                    valid=valid, **ip_knobs)
+            write_carry(ig, commit_batch(ig, slots, g_nbr, g_sc, norms, valid=valid, **commit))
+            stores = ((index.ip_store, pay), (index.ang_store, new_ang))
+        else:
+            g = index.graph
+            g.items[slots] = pay
+            norms[slots] = torch.linalg.vector_norm(pay, dim=-1)
+            live.index_fill_(0, slots, False)
+            nbr, sc = find_neighbors(g, pay, valid=valid, **ip_knobs)
+            write_carry(g, commit_batch(g, slots, nbr, sc, norms, valid=valid, **commit))
+            stores = ((index.store, pay),)
+        for store, rows in stores:
+            if store is not None:
+                write_store_rows(store, slots, rows)
+        live.index_fill_(0, slots, True)
+
+    return step
+
+
+def _drop_self(nbr: torch.Tensor, sc: torch.Tensor, slots: torch.Tensor,
+               valid: torch.Tensor):
+    """A relinked node stays live during its own find, so it can come back
+    as its own neighbor: masked to -1 before the commit (I3), with the pad
+    rows, as the JAX package's ``_relink_arrays`` masks them."""
+    cut = (nbr == slots[:, None]) | ~valid[:, None]
+    return torch.where(cut, -1, nbr), torch.where(cut, NEG_INF, sc)
 
 
 class MutableIndex:
@@ -53,7 +128,11 @@ class MutableIndex:
 
     Construction pads the graphs to ``capacity`` rows (never-used tail: adj
     -1, items 0, live False); every mutation then writes those tensors in
-    place, ``mutation_batch`` rows at a time.
+    place, in fixed-shape chunks of ``mutation_batch`` rows.  On the card
+    the first upsert chunk runs eagerly and is captured as a CUDA graph,
+    which every later chunk replays (captured anew if an operand was
+    replaced since, as ``search(storage="int8")`` does for an index built
+    without its int8 store).
 
     Slot policy (deterministic): tombstoned slots are reused FIFO by
     deletion time, then never-used headroom in ascending order.  When both
@@ -101,11 +180,14 @@ class MutableIndex:
         size0 = int(g.size)
         self.norms = torch.linalg.vector_norm(g.items, dim=-1)
         self.live = torch.arange(self.capacity, device=self.device) < size0
-        self._ang_norms = torch.ones_like(self.norms)  # every angular item is unit
         self._live_host = np.arange(self.capacity) < size0
         self._next_fresh = size0
         self._free: deque = deque()   # tombstones, FIFO by deletion time
         self.mutation_count = 0
+        # the captured upsert chunk: (capture.Captured, its static buffers,
+        # the addresses of the operands it was captured over)
+        self._upsert_graph: Optional[tuple] = None
+        self.upsert_capture_ms: Optional[float] = None  # the latest capture's host ms
 
     # -- introspection -----------------------------------------------------
 
@@ -143,16 +225,15 @@ class MutableIndex:
         else:
             idx.store = pad(idx.store, idx.graph.items)
 
-    def _sync_store_rows(self, slots, new_items, new_ang) -> None:
-        """Mirror an upsert's item rows into the cached int8 stores."""
+    def operands(self) -> tuple:
+        """The addresses of every tensor a mutation writes: the graphs, the
+        int8 stores, the live mask and the norms (0 for a store not made)."""
         idx = self.index
         if self.plus:
-            if idx.ip_store is not None:
-                idx.ip_store = update_store_rows(idx.ip_store, slots, new_items)
-            if idx.ang_store is not None:
-                idx.ang_store = update_store_rows(idx.ang_store, slots, new_ang)
-        elif idx.store is not None:
-            idx.store = update_store_rows(idx.store, slots, new_items)
+            parts = (idx.ang_graph, idx.ip_graph, idx.ang_store, idx.ip_store)
+        else:
+            parts = (idx.graph, idx.store)
+        return data_ptrs(*parts, self.live, self.norms)
 
     # -- allocation --------------------------------------------------------
 
@@ -172,23 +253,49 @@ class MutableIndex:
             self._next_fresh += 1
         return np.asarray(out, np.int32)
 
-    def _chunks(self, ids: np.ndarray):
-        """(start, slots) per chunk of ``mutation_batch`` ids, slots a long
-        tensor on the index's device."""
-        mb = self.mutation_batch
-        for i in range(0, len(ids), mb):
-            yield i, torch.as_tensor(ids[i:i + mb], dtype=torch.long, device=self.device)
+    def _chunks(self, ids: np.ndarray, payload=None):
+        """``(slots [mb] int64, payload [mb, d] | None, valid [mb] bool)`` per
+        chunk of ``mutation_batch`` ids, on the index's device, padded to
+        ``mb`` rows as the JAX package pads them, except that a pad row
+        repeats the last valid row, its slot and payload: PyTorch has no
+        scatter that drops a row (JAX's ``mode="drop"``), and a repeated row
+        with equal values writes nothing new.  All chunks go to the device
+        at once, by asynchronous copies (``capture.to_device``)."""
+        mb, n = self.mutation_batch, len(ids)
+        flat = np.arange(-(-n // mb) * mb)
+        take = np.minimum(flat, n - 1).reshape(-1, mb)  # payload row of each chunk row
+        slots = to_device(np.asarray(ids, np.int64)[take], self.device)
+        valid = to_device((flat < n).reshape(-1, mb), self.device)
+        if payload is None:
+            pay = [None] * len(take)
+        elif isinstance(payload, torch.Tensor):
+            pay = payload.to(self.device)[to_device(take, self.device)]
+        else:
+            pay = to_device(payload[take], self.device)
+        for c in range(len(take)):
+            yield slots[c], pay[c], valid[c]
 
-    def _walk_knobs(self) -> Tuple[dict, dict]:
-        """Knobs of the ip-graph find and of the angular find."""
-        idx = self.index
-        ip = dict(max_degree=idx.max_degree, ef=idx.ef_construction,
-                  max_steps=2 * idx.ef_construction, live=self.live)
-        if not self.plus:
-            return ip, {}
-        ang_ef = max(idx.ang_ef, idx.ang_degree)
-        return ip, dict(max_degree=idx.ang_degree, ef=ang_ef, max_steps=2 * ang_ef,
-                        live=self.live)
+    def _upsert_chunk(self, slots: torch.Tensor, pay: torch.Tensor,
+                      valid: torch.Tensor) -> None:
+        """One upsert chunk: eager on the CPU; on the card a replay of the
+        captured step, captured at the first chunk (whose eager warm-up
+        upserts it) or when an operand moved.  The replay and its copies
+        run under ``capture.no_sync()``."""
+        if self.device.type != "cuda":
+            upsert_step(self.index, self.norms, self.live)(slots, pay, valid)
+            return
+        key = self.operands()
+        if self._upsert_graph is None or self._upsert_graph[2] != key:
+            bufs = (slots.clone(), pay.clone(), valid.clone())
+            cap = capture(upsert_step(self.index, self.norms, self.live), *bufs)
+            self._upsert_graph = (cap, bufs, key)
+            self.upsert_capture_ms = cap.capture_ms
+            return
+        cap, bufs, _ = self._upsert_graph
+        with no_sync():
+            for buf, x in zip(bufs, (slots, pay, valid)):
+                buf.copy_(x)
+            cap.graph.replay()
 
     # -- mutations ---------------------------------------------------------
 
@@ -196,49 +303,17 @@ class MutableIndex:
         """Insert (or replace, via slot reuse) a batch of items; returns the
         slot ids assigned, in payload order."""
         d = self.graph.items.shape[1]
-        if not isinstance(new_items, torch.Tensor):
+        if isinstance(new_items, torch.Tensor):
+            new_items = new_items.float()
+        else:
             new_items = np.asarray(new_items, np.float32)
-        new_items = torch.as_tensor(new_items, dtype=torch.float32,
-                                    device=self.device).contiguous()
         if new_items.ndim != 2 or new_items.shape[1] != d:
             raise ValueError(
                 f"upsert payload must be [b, {d}], got {tuple(new_items.shape)}"
             )
         slots = self._allocate(new_items.shape[0])
-        idx = self.index
-        ip_knobs, ang_knobs = self._walk_knobs()
-        for i, rows in self._chunks(slots):
-            pay = new_items[i:i + rows.shape[0]]
-            # Item rows and norms first, then the batch slots dead for the
-            # find: fresh slots were never live, reused ones are tombstones
-            # whose stale adjacency rows may still route the walk, and no
-            # new item can link to a half-written batch row.
-            if self.plus:
-                ag, ig = idx.ang_graph, idx.ip_graph
-                new_ang = normalize(pay)
-                ig.items[rows] = pay
-                ag.items[rows] = new_ang
-                self.norms[rows] = torch.linalg.vector_norm(pay, dim=-1)
-                self.live[rows] = False
-                # §4.2 order: the angular insert, then the angular-seeded ip one
-                a_nbr, a_sc = find_neighbors(ag, new_ang, **ang_knobs)
-                idx.ang_graph = commit_batch(ag, rows, a_nbr, a_sc, self._ang_norms,
-                                             reverse_links=idx.reverse_links)
-                g_nbr, g_sc = _find_ip_neighbors_seeded(
-                    ig, pay, a_nbr[:, :idx.k_angular], **ip_knobs)
-                idx.ip_graph = commit_batch(ig, rows, g_nbr, g_sc, self.norms,
-                                            reverse_links=idx.reverse_links)
-                self._sync_store_rows(rows, pay, new_ang)
-            else:
-                g = idx.graph
-                g.items[rows] = pay
-                self.norms[rows] = torch.linalg.vector_norm(pay, dim=-1)
-                self.live[rows] = False
-                nbr, sc = find_neighbors(g, pay, **ip_knobs)
-                idx.graph = commit_batch(g, rows, nbr, sc, self.norms,
-                                         reverse_links=idx.reverse_links)
-                self._sync_store_rows(rows, pay, None)
-            self.live[rows] = True
+        for chunk in self._chunks(slots, new_items):
+            self._upsert_chunk(*chunk)
         self._live_host[slots] = True
         self.mutation_count += 1
         return slots
@@ -261,27 +336,22 @@ class MutableIndex:
             raise ValueError(f"slots already tombstoned: {dead.tolist()}")
         if int(self._live_host.sum()) - ids.size < 1:
             raise RuntimeError("delete would tombstone the entire catalog")
-        for _, rows in self._chunks(ids):
-            self.live[rows] = False
+        for slots, _, _ in self._chunks(ids):
+            self.live.index_fill_(0, slots, False)
             # The entry re-seats to the max-norm live node (the criterion the
-            # build keeps), by one masked argmax taking the first maximum.
+            # build keeps), by one masked argmax taking the first maximum (a
+            # 1-element index: a 0-dim one would be read back).
             masked = torch.where(self.live, self.norms, NEG_INF)
-            new_entry = torch.argmax(masked)
-            ip = self.graph
-            moved = ~self.live[ip.entry]
-            ip = dataclasses.replace(
-                ip, entry=torch.where(moved, new_entry, ip.entry),
-                entry_norm=torch.where(moved, masked[new_entry], ip.entry_norm))
+            best = torch.argmax(masked, dim=0, keepdim=True)
+            moved = ~self.live[self.graph.entry.view(1)]
+            reseat = [(self.graph, masked.gather(0, best))]
             if self.plus:
-                self.index.ip_graph = ip
                 # The angular entry only needs to be a live vertex: it takes
                 # the ip re-seat (every angular norm is 1.0) when that moved.
-                ag = self.index.ang_graph
-                self.index.ang_graph = dataclasses.replace(
-                    ag, entry=torch.where(moved, new_entry, ag.entry),
-                    entry_norm=torch.where(moved, 1.0, ag.entry_norm))
-            else:
-                self.index.graph = ip
+                reseat.append((self.index.ang_graph, 1.0))
+            for g, norm in reseat:
+                g.entry.copy_(torch.where(moved, best, g.entry).squeeze(0))
+                g.entry_norm.copy_(torch.where(moved, norm, g.entry_norm).squeeze(0))
         self._live_host[ids] = False
         self._free.extend(ids.tolist())
         self.mutation_count += 1
@@ -304,9 +374,10 @@ class MutableIndex:
 
     # -- repair ------------------------------------------------------------
 
-    def _relink_candidates(self) -> torch.Tensor:
+    def _relink_candidates(self) -> np.ndarray:
         """Live used rows ordered worst-first by dead-out-edge fraction
-        (float64, ties by id), cut at ``relink_threshold``."""
+        (float64, ties by id), cut at ``relink_threshold``; read back to the
+        host, as the JAX package's list is a numpy array."""
         adj = self.graph.adj[: self.size]
         live = self.live
         edge = (adj >= 0) & live[: adj.shape[0], None]
@@ -315,50 +386,38 @@ class MutableIndex:
         frac = torch.where(n_edges > 0,
                            dead.double() / n_edges.clamp_min(1).double(), 0.0)
         cand = torch.nonzero(frac >= self.relink_threshold).flatten()
-        return cand[torch.sort(-frac[cand], stable=True).indices]
+        return cand[torch.sort(-frac[cand], stable=True).indices].cpu().numpy()
 
     def relink_debt(self) -> int:
         """Nodes currently above the repair threshold."""
-        return int(self._relink_candidates().numel())
+        return len(self._relink_candidates())
 
     def relink(self, budget: int) -> int:
         """Repair up to ``budget`` of the worst rotted live nodes; returns
         how many were relinked.  Call repeatedly (or with a large budget)
         until ``relink_debt() == 0`` for a full repair."""
         todo = self._relink_candidates()[: max(int(budget), 0)]
-        if todo.numel() == 0:
+        if todo.size == 0:
             return 0
         idx = self.index
-        ip_knobs, ang_knobs = self._walk_knobs()
-        mb = self.mutation_batch
-        for i in range(0, todo.numel(), mb):
-            rows = todo[i:i + mb]
-            # The node stays live during its own find, so it can come back
-            # as its own neighbor: masked to -1 before the commit (I3).
+        ip_knobs, ang_knobs = _walk_knobs(idx, self.live)
+        commit = dict(reverse_links=idx.reverse_links)
+        for slots, _, valid in self._chunks(todo):
             if self.plus:
-                ag, ig = idx.ang_graph, idx.ip_graph
-                a_nbr, a_sc = find_neighbors(ag, ag.items[rows], **ang_knobs)
-                a_self = a_nbr == rows[:, None]
-                idx.ang_graph = commit_batch(
-                    ag, rows, torch.where(a_self, -1, a_nbr),
-                    torch.where(a_self, NEG_INF, a_sc), self._ang_norms,
-                    reverse_links=idx.reverse_links)
-                g = ig
+                ag, g = idx.ang_graph, idx.ip_graph
+                a_nbr, a_sc = find_neighbors(ag, ag.items[slots], valid=valid, **ang_knobs)
+                write_carry(ag, commit_batch(ag, slots, *_drop_self(a_nbr, a_sc, slots, valid),
+                                             torch.ones_like(self.norms), valid=valid,
+                                             **commit))
                 g_nbr, g_sc = _find_ip_neighbors_seeded(
-                    g, g.items[rows], a_nbr[:, :idx.k_angular], **ip_knobs)
+                    g, g.items[slots], a_nbr[:, :idx.k_angular], valid=valid, **ip_knobs)
             else:
                 g = idx.graph
-                g_nbr, g_sc = find_neighbors(g, g.items[rows], **ip_knobs)
-            g_self = g_nbr == rows[:, None]
-            g = commit_batch(g, rows, torch.where(g_self, -1, g_nbr),
-                             torch.where(g_self, NEG_INF, g_sc), self.norms,
-                             reverse_links=idx.reverse_links)
-            if self.plus:
-                idx.ip_graph = g
-            else:
-                idx.graph = g
+                g_nbr, g_sc = find_neighbors(g, g.items[slots], valid=valid, **ip_knobs)
+            write_carry(g, commit_batch(g, slots, *_drop_self(g_nbr, g_sc, slots, valid),
+                                        self.norms, valid=valid, **commit))
         self.mutation_count += 1
-        return int(todo.numel())
+        return int(todo.size)
 
     # -- observability -----------------------------------------------------
 

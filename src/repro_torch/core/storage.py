@@ -70,21 +70,33 @@ def make_store(items: torch.Tensor, storage: str) -> Optional[ItemStore]:
     return quantize_items(items)
 
 
+def write_store_rows(store: ItemStore, rows: torch.Tensor, new_items: torch.Tensor) -> None:
+    """Requantize ``rows`` (in [0, N)) of ``store`` from ``new_items`` in
+    place, as a whole requantization would give them: the store's tensors
+    keep their addresses, so a captured CUDA graph that reads or writes
+    them stays valid, and nothing is read back.  A row may repeat only
+    with equal values: a mutation chunk's pad rows repeat one of its valid
+    rows with that row's payload (``MutableIndex._chunks``), so writing
+    them changes nothing, as the JAX package's dropped pad rows do not."""
+    part = quantize_items(new_items)
+    rows = rows.long()
+    store.codes[rows] = part.codes
+    store.scales[rows] = part.scales
+
+
 def update_store_rows(store: ItemStore, rows: torch.Tensor,
                       new_items: torch.Tensor) -> ItemStore:
     """A new store with ``rows`` requantized from ``new_items``, as a whole
     requantization would give them.  Indexing is the JAX scatter's: rows in
     ``[-N, 0)`` count from the end, and rows outside ``[-N, N)`` (the pad
     rows ``rows == N``) are dropped."""
-    part = quantize_items(new_items)
     n = store.codes.shape[0]
     rows = rows.long()
     rows = torch.where(rows < 0, rows + n, rows)
     keep = (rows >= 0) & (rows < n)
-    codes, scales = store.codes.clone(), store.scales.clone()
-    codes[rows[keep]] = part.codes[keep]
-    scales[rows[keep]] = part.scales[keep]
-    return ItemStore(codes=codes, scales=scales)
+    out = ItemStore(codes=store.codes.clone(), scales=store.scales.clone())
+    write_store_rows(out, rows[keep], new_items[keep])
+    return out
 
 
 def store_scores(queries: torch.Tensor, store: ItemStore, ids: torch.Tensor) -> torch.Tensor:

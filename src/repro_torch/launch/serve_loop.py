@@ -15,13 +15,17 @@ order and semantics.
                     ladder floor (late) when nothing fits.  Requests are never
                     rejected.
   bucket ladder  -- the fixed set of (batch, ef) shapes.  Each bucket is one
-                    program of the ``BucketExecutor``: the search closure with
-                    the index, k, ef and storage bound in, and one device query
-                    buffer and one ``valid`` buffer of the bucket's batch.  A
-                    dispatch copies into the buffers; pad rows ride the
-                    ``valid=`` mask of ``core.search.beam_search`` (born done,
-                    ids -1, no evals), so a valid row's result is bit-identical
-                    to an unpadded search.
+                    program of the ``BucketExecutor``: the bucket's search
+                    over the index's graphs, stores and live mask, with k, ef
+                    and storage bound in, on one device query buffer and one
+                    ``valid`` buffer of the bucket's batch.  On the card the
+                    program is one CUDA graph, captured at the bucket's first
+                    dispatch (``core/capture.py``) and replayed by every
+                    later one; on the CPU it runs eagerly.  A dispatch copies
+                    into the buffers; pad rows ride the ``valid=`` mask of
+                    ``core.search.beam_search`` (born done, ids -1, no
+                    evals), so a valid row's result is bit-identical to an
+                    unpadded search.
   clock          -- every time read goes through an injectable clock.
                     ``VirtualClock`` and a deterministic service model make a
                     run a pure function of the arrival trace; ``WallClock``
@@ -50,6 +54,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.capture import capture, data_ptrs, no_sync
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus, _search_plus
 from repro_torch.core.mutation import MutableIndex, apply_churn_event
@@ -237,35 +242,92 @@ class LinearServiceModel:
 # --------------------------------------------------------------------------
 
 
-def _ipnsw_bucket(graph, store, live, queries, valid, *, k, ef, storage):
+def _ipnsw_bucket(graph, store, live, queries, valid, *, k, ef, storage, capturable=False):
     init = graph.entry.expand(queries.shape[0], 1)
     r = beam_search(graph, queries, init, pool_size=max(ef, k), max_steps=2 * ef, k=k,
-                    storage=storage, store=store, valid=valid, live=live)
+                    storage=storage, store=store, valid=valid, live=live, capturable=capturable)
     return r.ids, r.scores, r.evals
 
 
 def _plus_bucket(ang_graph, ip_graph, ang_store, ip_store, live, queries, valid, *, k, ef,
-                 ang_ef, k_angular, storage):
+                 ang_ef, k_angular, storage, capturable=False):
     r = _search_plus(ang_graph, ip_graph, queries, k=k, ef=ef, ang_ef=ang_ef,
                      k_angular=k_angular, max_steps=2 * ef,
                      ang_max_steps=2 * max(ang_ef, k_angular), storage=storage,
-                     ang_store=ang_store, ip_store=ip_store, live=live, valid=valid)
+                     ang_store=ang_store, ip_store=ip_store, live=live, valid=valid,
+                     capturable=capturable)
     return r.ids, r.scores, r.evals
+
+
+class _Program:
+    """A bucket's program on the CPU: ``body`` run eagerly on the device
+    query buffer ``q_buf`` [batch, d] and ``valid`` buffer ``v_buf``
+    [batch] that every dispatch copies into; host arrays in, the packed
+    host array out."""
+
+    captured = None
+
+    def __init__(self, body: Callable, q_buf: torch.Tensor, v_buf: torch.Tensor):
+        self.body, self.q_buf, self.v_buf = body, q_buf, v_buf
+
+    def __call__(self, queries: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        self.q_buf.copy_(torch.from_numpy(queries))
+        self.v_buf.copy_(torch.from_numpy(valid))
+        return self.body(self.q_buf, self.v_buf).numpy()
+
+
+class _CapturedProgram(_Program):
+    """A bucket's program on the card.  The inputs are staged in pinned
+    memory and copied to the buffers asynchronously; the first call runs
+    ``body`` eagerly (the capture's warm-up, whose output it returns) and
+    captures it as a CUDA graph (``captured``, a ``capture.Captured``);
+    every later call replays the graph.  The copies and the replay run
+    under ``no_sync()``; the one device-to-host copy of the packed output,
+    and its wait, follow."""
+
+    def __init__(self, body: Callable, q_buf: torch.Tensor, v_buf: torch.Tensor):
+        super().__init__(body, q_buf, v_buf)
+        self.q_host = torch.empty(q_buf.shape, dtype=q_buf.dtype, pin_memory=True)
+        self.v_host = torch.empty(v_buf.shape, dtype=v_buf.dtype, pin_memory=True)
+
+    def __call__(self, queries: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        # the staging buffers are free: the previous dispatch waited for its copies
+        self.q_host.numpy()[...] = queries
+        self.v_host.numpy()[...] = valid
+        with no_sync():
+            self.q_buf.copy_(self.q_host, non_blocking=True)
+            self.v_buf.copy_(self.v_host, non_blocking=True)
+            if self.captured is not None:
+                self.captured.graph.replay()
+                out = self.captured.out
+        if self.captured is None:
+            self.captured = capture(self.body, self.q_buf, self.v_buf)
+            out = self.captured.warm
+            self.out_host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        self.out_host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+        return self.out_host.numpy().copy()
 
 
 class BucketExecutor:
     """One program per ladder bucket.
 
-    A program is the bucket's search closure: the index, k, ef and storage
-    bound in, plus one device query buffer ``[batch, d]`` and one ``valid``
-    buffer ``[batch]`` that every dispatch of the bucket copies into.  It is
-    built at the bucket's first dispatch and logged in ``compile_log`` as
-    "warmup" (before ``warmup()`` returns) or "steady" (a ladder regression).
+    A program is the bucket's search over the index's graphs, stores and
+    live mask as they are when it is built, with k, ef and storage bound
+    in, on one device query buffer ``[batch, d]`` and one ``valid`` buffer
+    ``[batch]`` that every dispatch of the bucket copies into.  On the card
+    it is one CUDA graph (seeds, walks, int8 rerank, live cut and the
+    packing of the output), captured at the bucket's first dispatch and
+    replayed by the others; on the CPU it runs eagerly.  It is built at the
+    bucket's first dispatch and logged in ``compile_log`` as "warmup"
+    (before ``warmup()`` returns) or "steady" (a ladder regression).
 
-    Takes a ``core.mutation.MutableIndex`` too: the graphs, stores and live
-    mask are then read at every dispatch, so churn applied between
-    dispatches is served at once; mutations write in place at a fixed
-    capacity, so no shape changes and no program is rebuilt.
+    Takes a ``core.mutation.MutableIndex`` too: its mutations write the
+    graphs, stores and live mask in place at a fixed capacity, so churn
+    applied between dispatches is served at once, no shape changes and no
+    program is rebuilt.  A dispatch whose operands were replaced since its
+    program was built (a graph, a store or the live mask at another
+    address) raises: the program would read the old ones.
     """
 
     def __init__(self, index, ladder: BucketLadder, *, k: int = 10):
@@ -278,7 +340,7 @@ class BucketExecutor:
         self.index = index
         self.ladder = ladder
         self.k = k
-        self._programs: Dict[Bucket, Callable] = {}
+        self._programs: Dict[Bucket, Tuple[tuple, _Program]] = {}
         self.compile_log: List[Tuple[Bucket, str]] = []
         self._steady = False
 
@@ -308,8 +370,8 @@ class BucketExecutor:
         return self._graph().items.shape[1]
 
     def _consts(self):
-        """The graph / store / live operands of the next dispatch, read
-        anew each time so churn between dispatches is served."""
+        """The graph / store / live operands of a program (the int8 stores
+        are made here when missing, before any program reads them)."""
         idx = self.index
         live = None if self.mutable is None else self.mutable.live
         if isinstance(idx, IpNSWPlus):
@@ -320,28 +382,33 @@ class BucketExecutor:
                     idx.ip_store if idx.storage == "int8" else None, live)
         return idx.graph, idx._resolve_store(idx.storage), live
 
-    def _build_program(self, bucket: Bucket) -> Callable:
-        idx, k = self.index, self.k
+    def _body(self, bucket: Bucket, consts: tuple) -> Callable:
+        """The bucket's program over ``consts`` (``_consts()``): the search
+        and the packing of its ids, score bits and evals into one [batch,
+        2k + 1] int32 tensor, for one device-to-host copy.  Nothing is read
+        back, so on the card it can be captured."""
+        idx = self.index
         if isinstance(idx, IpNSWPlus):
-            fn = functools.partial(_plus_bucket, k=k, ef=bucket.ef, ang_ef=idx.ang_ef,
-                                   k_angular=idx.k_angular, storage=idx.storage)
+            fn = functools.partial(_plus_bucket, k=self.k, ef=bucket.ef, ang_ef=idx.ang_ef,
+                                   k_angular=idx.k_angular, storage=idx.storage, capturable=True)
         else:
-            fn = functools.partial(_ipnsw_bucket, k=k, ef=bucket.ef, storage=idx.storage)
+            fn = functools.partial(_ipnsw_bucket, k=self.k, ef=bucket.ef, storage=idx.storage,
+                                   capturable=True)
+
+        def body(queries: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+            ids, scores, evals = fn(*consts, queries, valid)
+            return torch.cat([ids, scores.view(torch.int32), evals[:, None]], dim=1)
+
+        return body
+
+    def _build_program(self, bucket: Bucket) -> Tuple[tuple, _Program]:
+        """(the operands' addresses, the bucket's program)."""
+        consts = self._consts()
         dev = self._graph().items.device
         q_buf = torch.zeros((bucket.batch, self.dim()), dtype=torch.float32, device=dev)
         v_buf = torch.zeros((bucket.batch,), dtype=torch.bool, device=dev)
-
-        def program(queries: np.ndarray, valid: np.ndarray):
-            q_buf.copy_(torch.from_numpy(queries))
-            v_buf.copy_(torch.from_numpy(valid))
-            ids, scores, evals = fn(*self._consts(), q_buf, v_buf)
-            # one device-to-host copy: ids, score bits and evals side by side
-            host = torch.cat([ids, scores.view(torch.int32), evals[:, None]], dim=1).cpu().numpy()
-            return (np.ascontiguousarray(host[:, :k]),
-                    np.ascontiguousarray(host[:, k: 2 * k]).view(np.float32),
-                    np.ascontiguousarray(host[:, 2 * k]))
-
-        return program
+        program = _CapturedProgram if dev.type == "cuda" else _Program
+        return data_ptrs(*consts), program(self._body(bucket, consts), q_buf, v_buf)
 
     def warmup(self) -> None:
         """Build every ladder bucket on an all-pad batch (every row is born
@@ -357,12 +424,21 @@ class BucketExecutor:
         """Dispatch one padded bucket; returns (ids, scores, evals) as host
         arrays.  ``queries`` is [bucket.batch, d] fp32, ``valid`` [batch]
         bool."""
-        fn = self._programs.get(bucket)
-        if fn is None:
-            fn = self._build_program(bucket)
-            self._programs[bucket] = fn
+        built = self._programs.get(bucket)
+        if built is None:
+            built = self._build_program(bucket)
+            self._programs[bucket] = built
             self.compile_log.append((bucket, "steady" if self._steady else "warmup"))
-        return fn(np.asarray(queries, np.float32), np.asarray(valid, bool))
+        ptrs, program = built
+        if data_ptrs(*self._consts()) != ptrs:
+            raise RuntimeError(
+                f"bucket {bucket}: a graph, store or live mask of the index was replaced "
+                "since the bucket's program was built over it; build a new executor")
+        host = program(np.asarray(queries, np.float32), np.asarray(valid, bool))
+        k = self.k
+        return (np.ascontiguousarray(host[:, :k]),
+                np.ascontiguousarray(host[:, k: 2 * k]).view(np.float32),
+                np.ascontiguousarray(host[:, 2 * k]))
 
 
 # --------------------------------------------------------------------------

@@ -335,8 +335,9 @@ def test_entry_reseat_when_the_entry_dies(kind):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_mutation_sequence_bit_identical_to_jax_on_integer_items(kind):
     """Every kind of event, the state compared after each one.  Payloads of
-    20 and 37 rows are not multiples of ``mutation_batch``: the JAX package
-    pads its last chunk, the port slices it."""
+    20 and 37 rows are not multiples of ``mutation_batch``: both packages
+    pad the last chunk, the JAX package with slot 0 and a zero payload, the
+    port with its last valid row."""
     jm, tm = _pair(kind, integer=True, storage="int8", relink_threshold=0.1)
     rng = np.random.default_rng(11)
     _assert_same_state(jm, tm, "carried")
