@@ -131,6 +131,21 @@ nothing then, and are not counted): ``count_graph_launches``.
      rows; peak memory with the graphs and with eager dispatches; a
      profiled 256 x 40 dispatch three ways: eager with per-step walks,
      eager, captured.
+  5d. observability at full size: IpNSW and IpNSWPlus searched with and
+     without a trace context (f32, int8): every output bit-identical, the
+     trace's band_hist rows equal to the walk's evals and to a host bincount
+     of the visited ids' bands, its ids the visited prefix; a traced ladder
+     whose every bucket replay (3 pad rows, sync debug mode "error") equals
+     the eager traced program bit for bit, walk columns included; the
+     full-size loop under the virtual clock bare, with the metrics registry,
+     and with registry and trace (modes interleaved, the min of 3 runs after
+     a warm one): metrics_overhead_frac, traced_overhead_frac, the host ms
+     a dispatch the recording adds and where it goes, p50 equal in all three,
+     no steady build, the served traffic's top-band share; the same loop
+     traced under the wall clock beside phase 5b's bare run; serve --loop
+     --trace --metrics-out at the serve default (JAX's schedule and recall),
+     its JSONL read back and rendered by repro_torch.obs.report; a traced and
+     an untraced 256 x 40 dispatch profiled.
   6. full size + churn: a mutable IpNSWPlus at Yahoo!Music's size
      (capacity 170,920) takes a churn trace of turnover 0.1 (427 upsert and
      427 delete batches of 32, one hub kill, four relink passes); ms per
@@ -2246,6 +2261,320 @@ def phase_loop_full() -> dict:
     return runs
 
 
+# kernels the observability phase must launch: the builds, the ground truth,
+# the walks (f32, int8), the seeds' and the traces' scorers
+OBS_PATH = ("beam_walk", "beam_walk_int8", "commit_merge", "mips_topk", "gather_score",
+            "quant_score")
+# timed loop runs a mode, after one warm run: JAX's obs_overhead takes the
+# min of the first 3; the spread between runs of one mode is wider than the
+# recording's cost, so 10 are run and their min and median printed too
+OBS_REPEATS, OBS_JAX_REPEATS = 10, 3
+
+
+def _check_traced_search(label: str, index, queries, ctx, storage: str) -> float:
+    """A full-size search traced and untraced: every output bit-identical;
+    the trace's band_hist rows sum to the (G_s) walk's evals and equal a
+    host bincount of the visited ids' bands, its ids are the visited
+    prefix, hub_evals <= evals.  Returns the batch's top-band share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.obs import top_band_share
+
+    base = index.search(queries, k=10, ef=40, storage=storage)
+    r = index.search(queries, k=10, ef=40, storage=storage, trace=ctx)
+    plus = isinstance(index, IpNSWPlus)
+    fields = (("ids", "scores", "evals", "ang_evals", "ip_evals", "visited_ang", "visited_ip")
+              if plus else ("ids", "scores", "evals", "visited", "dead_evals"))
+    for field in fields:
+        a, b = getattr(base, field), getattr(r, field)
+        assert (a is None and b is None) or torch.equal(a, b), \
+            f"{label}: {field} differs under tracing"
+    assert plus or base.steps == r.steps, f"{label}: steps differ under tracing"
+    evals, visited, tr = (r.ip_evals, r.visited_ip, r.trace) if plus else (r.evals, r.visited,
+                                                                            r.trace)
+    assert torch.equal(tr.band_hist.sum(dim=1), evals), f"{label}: band_hist.sum(1) != evals"
+    assert torch.equal(tr.ids, visited[:, :ctx.trace_cap]), f"{label}: ids != visited prefix"
+    assert bool((tr.hub_evals <= evals).all()), f"{label}: hub_evals > evals"
+    vis, bands = visited.cpu().numpy(), ctx.band_ids.cpu().numpy()
+    rows = np.broadcast_to(np.arange(vis.shape[0])[:, None], vis.shape)
+    ok = vis >= 0
+    host = np.bincount(rows[ok] * ctx.n_bands + bands[vis[ok]],
+                       minlength=vis.shape[0] * ctx.n_bands).reshape(-1, ctx.n_bands)
+    assert np.array_equal(tr.band_hist.cpu().numpy(), host), f"{label}: band_hist != bincount"
+    pads = tr.ids.cpu().numpy() < 0
+    sc = tr.scores.cpu().numpy()
+    assert np.isneginf(sc[pads]).all() and np.isfinite(sc[~pads]).all(), f"{label}: scores"
+    share = top_band_share(tr.band_hist.sum(dim=0).cpu().numpy())
+    log(f"{label}: traced search B={queries.shape[0]} ef=40 bit-identical to the untraced one "
+        f"({', '.join(fields)}); band_hist rows = evals and = a host bincount; trace ids = "
+        f"visited[:, :{ctx.trace_cap}]; hub_evals {int(tr.hub_evals.sum())} of "
+        f"{int(evals.sum())} evals; steps_to_converge mean "
+        f"{float(tr.steps_to_converge.float().mean()):.2f}; top_band_share={share:.4f}")
+    return share
+
+
+@contextlib.contextmanager
+def _timed_methods(*targets):
+    """Inside, each ``(cls, name)`` method's calls and host seconds are
+    accumulated into ``{name: [calls, seconds]}``."""
+    spent, saved = {}, []
+    for cls, name in targets:
+        fn = getattr(cls, name)
+        spent[name] = [0, 0.0]
+
+        def timed(*args, _fn=fn, _acc=spent[name], **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                _acc[0] += 1
+                _acc[1] += time.perf_counter() - t0
+
+        saved.append((cls, name, fn))
+        setattr(cls, name, timed)
+    try:
+        yield spent
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def _record_per_response(reg, bucket, batch, now: float, finish: float, degraded: bool) -> None:
+    """The JAX loop's ``_record_dispatch`` (``src/repro/launch/serve_loop.py``)
+    without a trace: a histogram observe a response twice and an event a
+    response, one call a dispatch.  The plain version of the port's queued
+    and folded recording."""
+    n = len(batch)
+    reg.counter("serve_requests_total", "requests served").inc(n)
+    reg.counter("serve_batches_total", "bucket dispatches").inc()
+    if degraded:
+        reg.counter("serve_degraded_total",
+                    "dispatches served below the preferred ladder ef").inc()
+    reg.histogram("serve_coalesce_size", "requests coalesced per dispatch",
+                  buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512)).observe(n)
+    reg.histogram("serve_occupancy", "live rows / bucket batch per dispatch",
+                  buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
+                  ).observe(n / bucket.batch)
+    wait_h = reg.histogram("serve_queue_wait_seconds", "arrival -> dispatch (loop clock)")
+    lat_h = reg.histogram("serve_latency_seconds", "arrival -> finish (loop clock)")
+    miss = reg.counter("serve_deadline_miss_total", "late responses")
+    for r in batch:
+        wait_h.observe(now - r.arrival_t)
+        lat_h.observe(finish - r.arrival_t)
+        if finish > r.deadline_t:
+            miss.inc()
+        reg.event("response", finish, rid=r.rid, latency_s=finish - r.arrival_t,
+                  queue_wait_s=now - r.arrival_t, deadline_met=finish <= r.deadline_t)
+    reg.event("dispatch", now, batch=bucket.batch, ef=bucket.ef, n=n, degraded=degraded)
+
+
+def _check_recording(trace, stats, run_reg) -> None:
+    """The full-size run's dispatches recorded again two ways, each timed:
+    one call a dispatch of the JAX loop's per-response recording
+    (``_record_per_response``), and the port's queue and fold.  Both
+    registries equal each other and the run's own (less its end gauges)."""
+    from repro_torch.launch import serve_loop as sl
+    from repro_torch.obs import MetricsRegistry
+
+    by_rid = {r.rid: r for r in trace}
+    degraded = {r.rid: r.degraded for r in stats.responses}
+    records = [(b.bucket, [by_rid[i] for i in b.rids], b.dispatch_t, b.finish_t,
+                degraded[b.rids[0]]) for b in stats.batches]
+    plain = MetricsRegistry()
+    t0 = time.perf_counter()
+    for rec in records:
+        _record_per_response(plain, *rec)
+    plain_s = time.perf_counter() - t0
+    folded = MetricsRegistry()
+    loop = sl.ServeLoop.__new__(sl.ServeLoop)
+    loop.registry, loop._unfolded = folded, []
+    loop.executor = type("Untraced", (), {"last_walk": None})()
+    t0 = time.perf_counter()
+    for rec in records:
+        loop._record_dispatch(*rec)
+    loop._fold_dispatches()
+    port_s = time.perf_counter() - t0
+    run = [m for m in run_reg.collect() if not m["name"].startswith("serve_recompiles")]
+    assert plain.collect() == folded.collect() == run, "recording: registries differ"
+    assert plain.events == folded.events == run_reg.events, "recording: events differ"
+    log(f"obs recording of the run's {len(records)} dispatches ({len(trace)} responses): "
+        f"per response (the JAX loop's) {plain_s / len(records) * 1e6:.1f} us a dispatch, "
+        f"queued and folded (the port's) {port_s / len(records) * 1e6:.1f} us a dispatch; "
+        f"registries, events and the run's own equal")
+
+
+def phase_observability(loop_runs: dict) -> None:
+    """Phase 5d: the observability layer at full size (136,736 x 300
+    lognormal).  Traced searches (IpNSW and IpNSWPlus, f32 and int8) equal
+    the untraced ones; a traced bucket's replays equal its eager program;
+    the full-size loop under the virtual clock bare, with the registry and
+    with registry and trace (JAX's obs_overhead protocol: modes interleaved,
+    each first in turn, one warm run, the min of the first OBS_JAX_REPEATS
+    runs; the min and median of OBS_REPEATS too): the overhead fractions,
+    the recording's cost a dispatch (and the JAX loop's) and where the host
+    ms goes, equal p50s, no steady build, the served traffic's top-band
+    share; the same loop under the wall clock traced beside phase 5b's bare
+    run; ``serve --loop --trace --metrics-out`` at the serve default, its
+    JSONL read back and rendered by ``repro_torch.obs.report``; a traced
+    and an untraced 256 x 40 dispatch profiled."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.brute_force import exact_topk
+    from repro_torch.core.ipnsw import IpNSW
+    from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.launch import serve
+    from repro_torch.launch import serve_loop as sl
+    from repro_torch.launch.serve import _build_ladder, _trace_context
+    from repro_torch.launch.serve_loop import schedule_digest
+    from repro_torch.obs import MetricsRegistry, load_jsonl, top_band_share
+    from repro_torch.obs.report import report
+
+    items = torch.as_tensor(mips_dataset(N_FULL, D_FULL, "lognormal", seed=0), device="cuda")
+    queries = mips_queries(LOOP_FULL_REQUESTS, D_FULL, seed=1)
+    q256 = torch.as_tensor(queries[:256], device="cuda")
+    _zero_counts()
+    plus = IpNSWPlus(max_degree=16, ef_construction=32, insert_batch=512).build(items)
+    ipnsw = IpNSW(max_degree=16, ef_construction=32, insert_batch=512).build(items)
+    for name, index in (("ipnsw", ipnsw), ("ipnsw_plus", plus)):
+        ctx = _trace_context(index)
+        for storage in ("f32", "int8"):
+            _check_traced_search(f"obs search {name} {storage}", index, q256, ctx, storage)
+    plus.storage = "f32"
+
+    # the traced buckets: every replay equals the eager traced program
+    ladder, ctx = _build_ladder(256, 40), _trace_context(plus)
+    traced = sl.BucketExecutor(plus, ladder, k=10, trace_ctx=ctx)
+    bare = sl.BucketExecutor(plus, ladder, k=10)
+    traced.warmup()
+    bare.warmup()
+    _check_replays_equal_eager("obs traced buckets f32", traced, queries)
+
+    # the full-size loop under the virtual clock, three ways, interleaved
+    trace = sl.poisson_trace(queries, rate_qps=LOOP_FULL_RATE, seed=2, ef=40,
+                             classes=("interactive", "standard", "relaxed"))
+    modes = {"bare": (bare, False), "metrics": (bare, True), "traced": (traced, True)}
+
+    def serve_once(mode):
+        executor, recorded = modes[mode]
+        reg = MetricsRegistry() if recorded else None
+        executor.registry = reg
+        loop = sl.ServeLoop(plus, ladder=ladder, clock=sl.VirtualClock(), executor=executor,
+                            service_model=sl.LinearServiceModel(), registry=reg)
+        gc.collect()  # set-up: no collection of this phase's garbage in a timed run
+        t0 = time.perf_counter()
+        with watch_replays() as seen:
+            stats = loop.run(trace)
+        return time.perf_counter() - t0, stats, reg, seen
+
+    walls = {mode: [] for mode in modes}
+    stats_by, regs = {}, {}
+    gc.collect()
+    gc.freeze()  # the earlier phases' live objects: out of every collection in the runs
+    order = list(modes)
+    for rep in range(OBS_REPEATS + 1):
+        for mode in order[rep % 3:] + order[:rep % 3]:  # each mode first in turn
+            wall, stats_by[mode], regs[mode], seen = serve_once(mode)
+            _assert_replays(f"obs loop virtual {mode} run {rep}", seen, len(stats_by[mode].batches))
+            if rep:
+                walls[mode].append(wall)
+    gc.unfreeze()
+    base, metrics_w, traced_w = (min(walls[m][:OBS_JAX_REPEATS]) for m in modes)
+    batches = len(stats_by["bare"].batches)
+    p50 = {m: stats_by[m].percentile_ms(50) for m in modes}
+    assert p50["bare"] == p50["metrics"] == p50["traced"], f"obs loop: p50 differs {p50}"
+    assert schedule_digest(stats_by["bare"].batches) == schedule_digest(stats_by["traced"].batches)
+    assert stats_by["traced"].recompiles_steady == 0, "obs loop: a steady build when traced"
+    band = regs["traced"].get("walk_evals_by_band").values
+    assert band.sum() == regs["traced"].get("walk_evals_total").value > 0
+    share = top_band_share(band)
+    out = {"base_wall_s": base, "metrics_wall_s": metrics_w, "traced_wall_s": traced_w,
+           "metrics_overhead_frac": metrics_w / base - 1.0,
+           "traced_overhead_frac": traced_w / base - 1.0,
+           "p50_ms_base": p50["bare"], "p50_ms_traced": p50["traced"],
+           "recompiles_steady_traced": stats_by["traced"].recompiles_steady,
+           "top_band_share": share, "batches": batches,
+           "registry_ms_per_dispatch": (metrics_w - base) / batches * 1e3,
+           "traced_ms_per_dispatch": (traced_w - base) / batches * 1e3}
+    for stat, fn in (("min", min), ("median", np.median)):
+        b = float(fn(walls["bare"]))
+        out[f"metrics_overhead_frac_{stat}{OBS_REPEATS}"] = float(fn(walls["metrics"])) / b - 1.0
+        out[f"traced_overhead_frac_{stat}{OBS_REPEATS}"] = float(fn(walls["traced"])) / b - 1.0
+    log(f"obs loop virtual f32 ({LOOP_FULL_REQUESTS} requests, {batches} dispatches; the "
+        f"fractions are JAX's protocol, the min of the first {OBS_JAX_REPEATS} runs a mode; walls "
+        f"{ {m: ['%.6f' % w for w in ws] for m, ws in walls.items()} }): " + " ".join(
+            f"{k}={v!r}" for k, v in out.items())
+        + f" (JAX's bar metrics_overhead_frac <= 0.05: "
+          f"{'met' if out['metrics_overhead_frac'] <= 0.05 else 'not met'})")
+    # where the recording's host time goes: one more run a mode, timed by method
+    for mode in ("metrics", "traced"):
+        with _timed_methods((sl.ServeLoop, "_record_dispatch"),
+                            (sl.ServeLoop, "_fold_dispatches"),
+                            (sl.BucketExecutor, "_record_walk"),
+                            (sl.BucketExecutor, "run")) as spent:
+            wall, stats, _, _ = serve_once(mode)
+        log(f"obs loop virtual {mode}: host us a dispatch " + " ".join(
+            f"{name}={sec / batches * 1e6:.1f} ({calls} calls)"
+            for name, (calls, sec) in spent.items()) + f"; loop wall {wall:.6f} s with timers")
+    _check_recording(trace, stats_by["metrics"], regs["metrics"])
+
+    # the full-size loop under the wall clock, traced and recorded
+    _, gt = exact_topk(torch.as_tensor(queries, device="cuda"), items, k=10)
+    gt = gt.cpu().numpy()
+    reg = MetricsRegistry()
+    traced.registry = reg
+    gc.collect()
+    loop = sl.ServeLoop(plus, ladder=ladder, clock=sl.WallClock(), executor=traced,
+                        service_model=sl.LinearServiceModel(), registry=reg)
+    with watch_replays() as seen:
+        stats = loop.run(trace)
+    run = _loop_report("wall_f32 traced", stats, gt)
+    assert run["served"] == LOOP_FULL_REQUESTS and run["recompiles_steady"] == 0
+    _assert_replays("obs loop wall traced", seen, run["batches"])
+    bare_run = loop_runs["wall_f32"]
+    log(f"obs loop wall f32: traced+registry p50={run['p50_ms']:.4f} p99={run['p99_ms']:.4f} "
+        f"qps={run['qps']:.1f} recall={run['recall']:.4f}; phase 5b bare p50="
+        f"{bare_run['p50_ms']:.4f} p99={bare_run['p99_ms']:.4f} qps={bare_run['qps']:.1f} "
+        f"recall={bare_run['recall']:.4f}; top_band_share="
+        f"{top_band_share(reg.get('walk_evals_by_band').values):.4f}")
+
+    # serve --loop --trace --metrics-out at the serve default
+    path = ROOT / "build" / "serve_loop_trace.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    with watch_replays() as seen:
+        res = serve.main(["--loop", "--trace", "--metrics-out", str(path)])
+    _assert_replays("obs serve --loop --trace", seen, res["summary"]["batches"])
+    assert schedule_digest(res["batches"]) == JAX_LOOP_SCHEDULE_SHA256
+    assert abs(res["recall"] - JAX_LOOP_RECALL["f32"]) <= RECALL_MARGIN, res["recall"]
+    snap = load_jsonl(str(path))
+    buf = io.StringIO()
+    summary = report(str(path), out=buf)
+    assert snap["meta"]["traced"] and summary["serve_requests_total"] == 256
+    assert sum(e["event"] == "response" for e in snap["events"]) == 256
+    log(f"obs serve --loop --trace --metrics-out {path.relative_to(ROOT)}: "
+        f"{path.stat().st_size} bytes, {len(snap['metrics'])} metrics, {len(snap['events'])} "
+        f"events; report summary {summary}")
+    for line in buf.getvalue().splitlines()[:16]:
+        log(f"obs report | {line}")
+
+    # a traced and an untraced dispatch of the full 256 x 40 bucket
+    full, host_q, ones = sl.Bucket(256, 40), queries[:256], np.ones(256, bool)
+    traced.registry = bare.registry = None
+    for label, executor in (("untraced", bare), ("traced", traced)):
+        executor.run(full, host_q, ones)
+        _profiled(f"obs dispatch of a full 256x40 bucket, f32 [captured, {label}]",
+                  lambda: executor.run(full, host_q, ones), batches=1, reps=20)
+    counts = _read_counts()
+    _assert_path("observability", counts, OBS_PATH)
+    log(f"observability: launches={counts} gather_score by width={_widths()['gather_score']} "
+        f"quant_score by width={_widths()['quant_score']}")
+
+
 # kernels whose only path is their own entry point (phase_entry_points)
 ENTRY_ONLY = ("topk_merge", "flash_attn", "flash_attn_bf16", *STEP_KERNELS,
               "mips_topk_select_int8")
@@ -2339,12 +2668,12 @@ def eager_upserts():
 
 def _eager_bucket(executor, bucket, capturable: bool = True):
     """A bucket's search run eagerly: the module-level ``_ipnsw_bucket`` /
-    ``_plus_bucket`` that its program captured, over the executor's
-    operands and on the buffers its program holds (the latest dispatch's
-    inputs); the host (ids, scores, evals)."""
+    ``_plus_bucket`` that its program captured (traced with the executor's
+    trace context, if it has one), over the executor's operands and on the
+    buffers its program holds (the latest dispatch's inputs); the packed
+    host output (``serve_loop._pack``): ids, score bits, evals and, traced,
+    the walk's columns."""
     import functools
-
-    import torch
 
     from repro_torch.core.ipnsw_plus import IpNSWPlus
     from repro_torch.launch import serve_loop as sl
@@ -2352,30 +2681,34 @@ def _eager_bucket(executor, bucket, capturable: bool = True):
     prog, idx = executor._programs[bucket][1], executor.index
     fn = (functools.partial(sl._plus_bucket, ang_ef=idx.ang_ef, k_angular=idx.k_angular)
           if isinstance(idx, IpNSWPlus) else sl._ipnsw_bucket)
-    ids, scores, evals = fn(*executor._consts(), prog.q_buf, prog.v_buf, k=executor.k,
-                            ef=bucket.ef, storage=idx.storage, capturable=capturable)
-    host = torch.cat([ids, scores.view(torch.int32), evals[:, None]], dim=1).cpu().numpy()
-    k = executor.k
-    return host[:, :k], host[:, k: 2 * k].view("float32"), host[:, 2 * k]
+    return sl._pack(*fn(*executor._consts(), prog.q_buf, prog.v_buf, k=executor.k,
+                        ef=bucket.ef, storage=idx.storage, capturable=capturable,
+                        trace=executor.trace_ctx)).cpu().numpy()
 
 
 def _check_replays_equal_eager(label: str, executor, queries) -> None:
-    """Each bucket of the executor's ladder dispatched (a replay) with three
-    pad rows, against the eager program on the same buffers: ids, score
-    bits and evals bit-identical."""
+    """Each bucket of the executor's ladder dispatched (one replay, under
+    sync debug mode "error") with three pad rows, against the eager program
+    on the same buffers: the packed outputs (ids, score bits, evals, and a
+    traced program's walk columns) bit-identical, pad rows included."""
     import numpy as np
 
     for bucket in executor.ladder.buckets():
         valid = np.arange(bucket.batch) < bucket.batch - 3
-        got = executor.run(bucket, queries[:bucket.batch], valid)
+        with watch_replays() as seen:
+            got = executor._programs[bucket][1](
+                np.asarray(queries[:bucket.batch], np.float32), valid)
+        assert seen == {"replays": 1, "modes": {2}}, f"{label} {bucket}: {seen}"
         want = _eager_bucket(executor, bucket)
-        for field, g, w in zip(("ids", "scores", "evals"), got, want):
-            assert np.array_equal(np.asarray(g).view(np.int32), np.asarray(w).view(np.int32)), \
-                f"{label} {bucket}: the replay's {field} differ from the eager program's"
+        assert got.shape == want.shape and np.array_equal(got, want), \
+            f"{label} {bucket}: the replay's packed output differs from the eager program's " \
+            f"in columns {sorted(set(np.nonzero(got != want)[1].tolist()))}"
     capture_ms = {f"{b.batch}x{b.ef}": round(executor._programs[b][1].captured.capture_ms, 2)
                   for b in executor.ladder.buckets()}
     log(f"{label}: every bucket's replay (3 pad rows) equals the eager program bit for bit "
-        f"(ids, score bits, evals); capture_ms={capture_ms}")
+        f"({got.shape[1]} packed columns: ids, score bits, evals"
+        f"{', band_hist, hub_evals, steps' if executor.trace_ctx is not None else ''}); "
+        f"capture_ms={capture_ms}")
 
 
 # kernels each churn phase must launch: the live walks of upserts, relinks
@@ -2835,7 +3168,8 @@ def main() -> int:
     phase_churn_default()
     phase_serve_loop_default()
     counts = phase_full_size()
-    phase_loop_full()
+    loop_runs = phase_loop_full()
+    phase_observability(loop_runs)
     # each kernel's launches on the full-size path that runs it
     counts.update({name: n for name, n in phase_churn_full().items() if name.endswith("_live")})
     counts.update(entry_counts)

@@ -3,8 +3,9 @@
 The functions take numpy arrays only -- ``np.asarray`` of the JAX package's
 ``GraphIndex`` fields, and of its ``ItemStore`` as ``(codes, scales)`` -- so
 this module imports nothing of that package.  A graph (and int8 store) built
-by JAX can then be searched by the port and the ids compared, and a JAX
-``MutableIndex`` carried across in mid-churn can go on mutating in the port.
+by JAX can then be searched by the port and the ids compared, a JAX
+``MutableIndex`` carried across in mid-churn can go on mutating in the port,
+and a JAX ``TraceContext``'s tables can trace the port's walks.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
 from repro_torch.core.mutation import MutableIndex
 from repro_torch.core.storage import ItemStore
+from repro_torch.obs.trace import TraceContext
 
 
 def graph_from_arrays(
@@ -48,6 +50,20 @@ def store_from_arrays(codes: np.ndarray, scales: np.ndarray, *,
     return ItemStore(
         codes=torch.tensor(np.asarray(codes, np.int8), device=device),
         scales=torch.tensor(np.asarray(scales, np.float32), device=device),
+    )
+
+
+def trace_context_from_arrays(band_ids: np.ndarray, hub_mask: np.ndarray,
+                              band_edges: np.ndarray, *, trace_cap: int, n_bands: int,
+                              device: str = "cuda") -> TraceContext:
+    """A ``TraceContext`` on ``device`` from a JAX ``TraceContext``'s numpy
+    tables: ``band_ids [N]`` int32, ``hub_mask [N]`` bool, ``band_edges
+    [n_bands + 1]`` fp32, and its ``trace_cap`` and ``n_bands``."""
+    return TraceContext(
+        torch.tensor(np.asarray(band_ids, np.int32), device=device),
+        torch.tensor(np.asarray(hub_mask, bool), device=device),
+        torch.tensor(np.asarray(band_edges, np.float32), device=device),
+        trace_cap=trace_cap, n_bands=n_bands,
     )
 
 

@@ -38,6 +38,7 @@ from repro_torch.core.graph import GraphIndex, empty_graph
 from repro_torch.core.search import beam_search
 from repro_torch.core.similarity import NEG_INF, Similarity, pair_scores, prepare_items, top_l
 from repro_torch.kernels.commit_merge import commit_merge
+from repro_torch.obs.registry import get_registry
 
 BUILD_BACKENDS = ("host", "scan")
 
@@ -262,28 +263,6 @@ def insert_batch_step(
     return step
 
 
-def scan_build_arrays(
-    prepared: torch.Tensor,
-    norms: torch.Tensor,
-    batch_ids: torch.Tensor,    # [T, B] int64 (tail clamped)
-    batch_valid: torch.Tensor,  # [T, B] bool
-    *,
-    max_degree: int,
-    ef: int,
-    max_steps: int,
-    insert_batch: int,
-    reverse_links: bool,
-):
-    """The scan build (bootstrap, then ``replay_schedule`` over the
-    fixed-shape batch) -> ``(adj, size, entry, entry_norm)``."""
-    graph = bootstrap_graph(prepared, norms, max_degree=max_degree,
-                            insert_batch=insert_batch, reverse_links=reverse_links)
-    replay_schedule(insert_batch_step(graph, norms, max_degree=max_degree, ef=ef,
-                                      max_steps=max_steps, reverse_links=reverse_links),
-                    batch_ids, batch_valid)
-    return graph.adj, graph.size, graph.entry, graph.entry_norm
-
-
 def build_graph(
     items: torch.Tensor,
     *,
@@ -309,24 +288,34 @@ def build_graph(
     norms = torch.linalg.vector_norm(prepared, dim=-1)
     steps = max_steps if max_steps is not None else 2 * ef_construction
     _, batch_ids, batch_valid = batch_schedule(n, insert_batch)
+    # Phase spans go to the process-global registry, as the JAX package's
+    # do.  They measure the build's host time: CUDA launches are
+    # asynchronous and no synchronize is added, so device work may overlap
+    # a span (with build_backend="scan" the insert span is the replays'
+    # dispatch).
+    reg = get_registry()
+    with reg.span("build_bootstrap", "bootstrap batch (exact top-k)"):
+        graph = bootstrap_graph(prepared, norms, max_degree=max_degree,
+                                insert_batch=insert_batch, reverse_links=reverse_links)
     if build_backend == "scan":
-        adj, size, entry, entry_norm = scan_build_arrays(
-            prepared, norms, torch.as_tensor(batch_ids, device=prepared.device),
-            torch.as_tensor(batch_valid, device=prepared.device), max_degree=max_degree,
-            ef=ef_construction, max_steps=steps, insert_batch=insert_batch,
-            reverse_links=reverse_links)
-        return GraphIndex(adj=adj, items=prepared, size=size, entry=entry, entry_norm=entry_norm)
+        if batch_ids.shape[0]:
+            with reg.span("build_insert", "insertion driver (dispatch only on scan)"):
+                replay_schedule(
+                    insert_batch_step(graph, norms, max_degree=max_degree, ef=ef_construction,
+                                      max_steps=steps, reverse_links=reverse_links),
+                    torch.as_tensor(batch_ids, device=prepared.device),
+                    torch.as_tensor(batch_valid, device=prepared.device))
+        return graph
 
-    graph = bootstrap_graph(prepared, norms, max_degree=max_degree,
-                            insert_batch=insert_batch, reverse_links=reverse_links)
-    for row, valid in zip(batch_ids, batch_valid):
-        bids = torch.as_tensor(row[valid], device=prepared.device)
-        if neighbor_fn is None:
-            nbr, sc = find_neighbors(graph, prepared[bids], max_degree=max_degree,
-                                     ef=ef_construction, max_steps=steps)
-        else:
-            nbr, sc = neighbor_fn(graph, prepared[bids])
-        graph = commit_batch(graph, bids, nbr, sc, norms, reverse_links=reverse_links)
-        if progress and (int(row[0]) // insert_batch) % 20 == 0:
-            print(f"  inserted {int(row[valid][-1]) + 1}/{n}")
+    with reg.span("build_insert", "insertion driver (dispatch only on scan)"):
+        for row, valid in zip(batch_ids, batch_valid):
+            bids = torch.as_tensor(row[valid], device=prepared.device)
+            if neighbor_fn is None:
+                nbr, sc = find_neighbors(graph, prepared[bids], max_degree=max_degree,
+                                         ef=ef_construction, max_steps=steps)
+            else:
+                nbr, sc = neighbor_fn(graph, prepared[bids])
+            graph = commit_batch(graph, bids, nbr, sc, norms, reverse_links=reverse_links)
+            if progress and (int(row[0]) // insert_batch) % 20 == 0:
+                print(f"  inserted {int(row[valid][-1]) + 1}/{n}")
     return graph

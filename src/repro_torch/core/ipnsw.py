@@ -67,7 +67,7 @@ class IpNSW:
                storage: Optional[str] = None,
                live: Optional[torch.Tensor] = None,
                valid: Optional[torch.Tensor] = None,
-               capturable: bool = False) -> SearchResult:
+               capturable: bool = False, trace=None) -> SearchResult:
         """``storage`` overrides the index's own for this call.  ``live`` is
         the [N] tombstone mask of a mutable index (``core/mutation.py``):
         dead nodes route the walk but never appear in the results.
@@ -75,7 +75,9 @@ class IpNSW:
         pad rows come back as ids -1 at no evaluation, valid rows as an
         unpadded search gives them.  ``capturable`` reads nothing back
         (``steps`` stays on the device), so the search can be captured in a
-        CUDA graph."""
+        CUDA graph.  ``trace`` is an optional ``obs.TraceContext``: the
+        result then carries ``SearchResult.trace`` at unchanged walk outputs
+        (``search.beam_search``)."""
         if self.graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -86,7 +88,7 @@ class IpNSW:
             self.graph, q, init, pool_size=max(ef, k),
             max_steps=max_steps if max_steps is not None else 2 * ef, k=k,
             storage=st, store=store, live=live, valid=_as_mask(valid, self.device),
-            capturable=capturable,
+            capturable=capturable, trace=trace,
         )
 
 

@@ -49,6 +49,8 @@ class PlusResult(NamedTuple):
     ip_evals: torch.Tensor     # [B]
     visited_ang: torch.Tensor  # [B, Va] ids scored on A_s
     visited_ip: torch.Tensor   # [B, Vi] ids scored on G_s
+    trace: Optional[object] = None  # obs.WalkTrace of the G_s refine walk;
+    #   None untraced
 
 
 def _seed_from_angular(ip_adj: torch.Tensor, ang_ids: torch.Tensor) -> torch.Tensor:
@@ -101,6 +103,7 @@ def _search_plus(
     live: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
     capturable: bool = False,
+    trace=None,
 ) -> PlusResult:
     b = queries.shape[0]
     # Angular ranking is monotone in q . x_hat, so the raw query walks the
@@ -114,9 +117,12 @@ def _search_plus(
                       k=k_angular, storage=storage, store=ang_store, live=live, valid=valid,
                       capturable=capturable)
     seeds = _seed_from_angular(ip_graph.adj, ang.ids)
+    # The trace covers the G_s refine walk only: the walk whose norm bias
+    # the paper measures (the angular walk runs on the normalized copy,
+    # where every norm is 1).
     ip = beam_search(ip_graph, queries, seeds, pool_size=max(ef, k),
                      max_steps=max_steps, k=k, storage=storage, store=ip_store, live=live,
-                     valid=valid, capturable=capturable)
+                     valid=valid, capturable=capturable, trace=trace)
     return PlusResult(
         ids=ip.ids,
         scores=ip.scores,
@@ -125,6 +131,7 @@ def _search_plus(
         ip_evals=ip.evals,
         visited_ang=ang.visited,
         visited_ip=ip.visited,
+        trace=ip.trace,
     )
 
 
@@ -197,12 +204,15 @@ class IpNSWPlus:
                storage: Optional[str] = None,
                live: Optional[torch.Tensor] = None,
                valid: Optional[torch.Tensor] = None,
-               capturable: bool = False) -> PlusResult:
+               capturable: bool = False, trace=None) -> PlusResult:
         """``storage`` overrides the index's own for this call; ``live`` is
         the tombstone mask of a mutable index and ``valid`` the [B]
         bucket-padding mask (``search.beam_search``), each applied to both
         walks: pad rows skip the angular stage, seed nothing and come back
-        as ids -1.  ``capturable`` reads nothing back in either walk."""
+        as ids -1.  ``capturable`` reads nothing back in either walk.
+        ``trace`` is an optional ``obs.TraceContext`` over the raw item
+        norms: it traces the G_s refine walk (``PlusResult.trace``) at
+        unchanged outputs."""
         if self.ip_graph is None:
             raise RuntimeError("call build() first")
         st = storage if storage is not None else self.storage
@@ -223,6 +233,7 @@ class IpNSWPlus:
             live=live,
             valid=_as_mask(valid, self.device),
             capturable=capturable,
+            trace=trace,
         )
 
 

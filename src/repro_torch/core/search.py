@@ -32,6 +32,10 @@ back as ids -1 / scores -inf; the walk ends once every valid row is done.
 Capture (``capturable=True``, the scan build driver of ``core/build.py``):
 nothing is read back and no shape depends on the data, so the search can be
 recorded into a CUDA graph and replayed; ``steps`` stays on the device.
+
+Tracing (``trace=``, ``obs/trace.py``): the walk's telemetry is reduced from
+its ``visited`` buffer after the ``beam_walk`` launch, so the walk and every
+other output are the same with tracing on or off.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from repro_torch.core.similarity import NEG_INF, top_l
 from repro_torch.core.storage import ItemStore, quantize_items, store_scores, validate_storage
 from repro_torch.kernels.beam_step import beam_walk
 from repro_torch.kernels.gather_score import gather_score
+from repro_torch.obs.trace import TraceContext, WalkTrace, walk_trace
 
 
 class SearchResult(NamedTuple):
@@ -55,6 +60,8 @@ class SearchResult(NamedTuple):
     visited: torch.Tensor  # [B, V] int32 every scored id (-1 padded)
     dead_evals: Optional[torch.Tensor] = None  # [B] int32 evals on tombstones
     #   (None without a live mask)
+    trace: Optional[WalkTrace] = None  # walk telemetry (obs/trace.py), None
+    #   without a TraceContext; derived from ``visited`` after the walk
 
 
 def _dedup_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -78,6 +85,7 @@ def beam_search(
     live: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
     capturable: bool = False,
+    trace: Optional[TraceContext] = None,
 ) -> SearchResult:
     """Run the batched walk.
 
@@ -104,9 +112,21 @@ def beam_search(
               query rows are ignored but must hold finite values.
     capturable: read nothing back (``ops.beam_walk``): ``steps`` is a 0-dim
               device tensor.  Everything else is unchanged.
+    trace:    a TraceContext over the graph's N nodes (``obs/trace.py``), or
+              None.  The result then carries ``SearchResult.trace``: the
+              first ``trace_cap`` visited ids and their walk scores, the
+              evaluations per norm band, the hub hits and the steps to
+              converge of each query, computed from ``visited`` after the
+              walk (no read-back: a capturable search stays capturable).
+              Every other output is bit-identical to an untraced search.
     """
     validate_storage(storage)
     adj, items = graph.adj, graph.items
+    if trace is not None and trace.band_ids.shape[0] != adj.shape[0]:
+        raise ValueError(
+            f"trace context covers {trace.band_ids.shape[0]} nodes but the "
+            f"graph has {adj.shape[0]} -- rebuild it with make_trace_context "
+            "on this index's norms (mutable indexes: the full capacity)")
     if storage == "int8" and store is None:
         store = quantize_items(items)
     elif storage == "f32":
@@ -157,6 +177,12 @@ def beam_search(
                      capturable=capturable)
     pool_ids, pool_scores, evals, dead_evals, step = (
         walk.pool_ids, walk.pool_scores, walk.evals, walk.dead_evals, walk.steps)
+    # scored by the walk's own scorer, so an int8 trace reports the quantized
+    # scores the walk ranked by
+    tr = None if trace is None else walk_trace(
+        trace, visited, queries, items,
+        gather_score if store is None else lambda q, _items, ids: store_scores(q, store, ids),
+        seeds=S, degree=M)
 
     if store is not None:
         # Exact fp32 rerank of the final pool: the quantized walk chose which
@@ -176,6 +202,7 @@ def beam_search(
             steps=step,
             visited=visited,
             dead_evals=dead_evals,
+            trace=tr,
         )
 
     if live is not None:
@@ -191,6 +218,7 @@ def beam_search(
             steps=step,
             visited=visited,
             dead_evals=dead_evals,
+            trace=tr,
         )
 
     return SearchResult(
@@ -199,4 +227,5 @@ def beam_search(
         evals=evals,
         steps=step,
         visited=visited,
+        trace=tr,
     )

@@ -6,7 +6,8 @@ recall@k against the exact scan.
   PYTHONPATH=src python -m repro_torch.launch.serve --index ipnsw_plus \\
       --n-items 20000 --dim 64 --batch 256 --ef 40 [--storage int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --loop [--clock wall] \\
-      [--rate 2000] [--requests 256] [--churn-trace 0.2] [--relink-budget 64]
+      [--rate 2000] [--requests 256] [--churn-trace 0.2] [--relink-budget 64] \\
+      [--trace] [--metrics-out run.jsonl]
 
 The defaults are the JAX package's (``python -m repro.launch.serve``); the
 index is ``IpNSW`` / ``IpNSWPlus(max_degree=16, ef_construction=32,
@@ -26,6 +27,15 @@ count.  ``--churn-trace FRAC`` opens the index as a ``MutableIndex``
 (capacity 1.25 N) and replays the JAX CLI's churn trace between dispatches;
 recall is still measured against the catalog as it was before the churn.
 A build of a ladder bucket in steady state exits non-zero.
+
+``--trace`` threads an ``obs.TraceContext`` through every walk (the G_s walk
+of ip-NSW+), over the index's raw item norms and adjacency: the evaluations
+per catalog norm band and the hub hits are recorded and printed as a band
+table, at unchanged walk outputs.  ``--metrics-out PATH`` writes a metrics
+snapshot on exit: ``*.prom`` Prometheus text, anything else JSONL with the
+event timeline, which ``python -m repro_torch.obs.report PATH`` renders.
+The one-shot mode records into the process-global registry (the build's
+phase spans are there too), the loop into a registry of its own.
 """
 from __future__ import annotations
 
@@ -39,10 +49,19 @@ from repro_torch.core.brute_force import exact_topk
 from repro_torch.core.build import BUILD_BACKENDS
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
+from repro_torch.core.mutation import MutableIndex
 from repro_torch.core.storage import STORAGE_BACKENDS
 from repro_torch.data import mips_dataset, mips_queries
 from repro_torch.launch import serve_loop as sl
-from repro_torch.obs.recall import recall_at_k
+from repro_torch.obs import (
+    MetricsRegistry,
+    TraceContext,
+    get_registry,
+    make_trace_context,
+    recall_at_k,
+    render_band_table,
+    write_metrics,
+)
 
 
 def _sync(device: torch.device) -> None:
@@ -79,8 +98,17 @@ def main(argv=None) -> dict:
                          "churn trace turning over FRAC of the catalog between dispatches")
     ap.add_argument("--relink-budget", type=int, default=64,
                     help="nodes repaired per relink pass of the churn trace (0: none)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a metrics snapshot on exit: *.prom = Prometheus text, "
+                         "anything else = JSONL with the event timeline (render with "
+                         "python -m repro_torch.obs.report)")
+    ap.add_argument("--trace", action="store_true",
+                    help="thread an obs.TraceContext through every walk: per-norm-band "
+                         "eval histograms and hub hits at unchanged walk outputs")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
+    if args.trace and args.index == "bruteforce":
+        raise SystemExit("--trace instruments graph walks; pick a graph index")
 
     items = torch.as_tensor(mips_dataset(args.n_items, args.dim, args.profile, seed=0),
                             device=device)
@@ -92,6 +120,7 @@ def main(argv=None) -> dict:
     _, gt = exact_topk(queries, items, k=args.k)
     gt = gt.cpu().numpy()
 
+    trace_ctx = None
     if args.index == "bruteforce":
         _sync(device)
         t0 = time.perf_counter()
@@ -104,20 +133,68 @@ def main(argv=None) -> dict:
         index = cls(max_degree=16, ef_construction=32, insert_batch=512,
                     build_backend=args.build_backend, storage=args.storage,
                     device=args.device).build(items)
-        index.search(queries, k=args.k, ef=args.ef)  # warm-up
+        if args.trace:
+            trace_ctx = _trace_context(index)
+        index.search(queries, k=args.k, ef=args.ef, trace=trace_ctx)  # warm-up
         _sync(device)
         t0 = time.perf_counter()
-        r = index.search(queries, k=args.k, ef=args.ef)
+        r = index.search(queries, k=args.k, ef=args.ef, trace=trace_ctx)
         _sync(device)
         dt = time.perf_counter() - t0
         ids = r.ids
         evals = float(r.evals.float().mean())
+        if trace_ctx is not None:
+            band = r.trace.band_hist.sum(dim=0).cpu().numpy()
+            get_registry().vector(
+                "walk_evals_by_band", band.shape[0],
+                "similarity evaluations per catalog norm band (Fig-5)",
+                label="band",
+            ).add(band)
+            get_registry().counter(
+                "walk_hub_evals_total",
+                "evaluations landing on the top-in-degree hub set (Fig-4)",
+            ).inc(int(r.trace.hub_evals.sum()))
     rec = recall_at_k(ids.cpu().numpy(), gt)
     print(f"[serve] index={args.index} shards=1 storage={args.storage} "
           f"N={args.n_items} B={args.batch} ef={args.ef}: "
           f"recall@{args.k}={rec:.3f} evals/q={evals:.0f} "
           f"({dt / args.batch * 1e3:.2f} ms/query batch-amortized) device={device}")
+    if trace_ctx is not None:
+        _print_band_table(get_registry(), trace_ctx)
+    if args.metrics_out:
+        _write_metrics(get_registry(), args.metrics_out)
     return {"recall": rec, "evals_per_query": evals, "search_seconds": dt}
+
+
+def _trace_context(index, size=None) -> TraceContext:
+    """An ``obs.TraceContext`` over the index the walks run on: the raw
+    item norms (the ip graph's for ip-NSW+, the walk the paper's norm bias
+    lives in) and its adjacency for the hub set, on the index's device.  A
+    MutableIndex gives its capacity-sized norms, with ``size=`` the real
+    catalog so the band edges fit the true norm distribution."""
+    if isinstance(index, MutableIndex):
+        g = index.graph
+        norms = index.norms.cpu().numpy()
+    else:
+        g = index.ip_graph if isinstance(index, IpNSWPlus) else index.graph
+        norms = np.linalg.norm(g.items.cpu().numpy(), axis=1)
+    return make_trace_context(norms, g.adj.cpu().numpy(), size=size, device=g.items.device)
+
+
+def _write_metrics(registry, path: str, meta=None) -> None:
+    full = {"tool": "repro_torch.launch.serve"}
+    full.update(meta or {})
+    fmt = write_metrics(registry, path, meta=full)
+    print(f"[serve] metrics snapshot ({fmt}) -> {path}")
+
+
+def _print_band_table(registry, trace_ctx: TraceContext) -> None:
+    vec = registry.get("walk_evals_by_band")
+    if vec is None:
+        print("[serve] no traced walks recorded")
+        return
+    print("[serve] evals by catalog norm band (band 0 = smallest norms):")
+    print(render_band_table(vec.values, trace_ctx.band_edges.cpu().numpy()))
 
 
 def _build_ladder(batch: int, ef: int) -> sl.BucketLadder:
@@ -143,7 +220,7 @@ def _run_loop(args, items: torch.Tensor) -> dict:
                              classes=("interactive", "standard", "relaxed"))
     churn = None
     if args.churn_trace > 0:
-        from repro_torch.core.mutation import ChurnTrace, MutableIndex
+        from repro_torch.core.mutation import ChurnTrace
 
         index = MutableIndex(index, capacity=int(args.n_items * 1.25))
         dur = max(r.arrival_t for r in trace) + 1e-3
@@ -154,9 +231,16 @@ def _run_loop(args, items: torch.Tensor) -> dict:
             relink_budget=args.relink_budget,
         )
 
+    registry = trace_ctx = None
+    if args.metrics_out or args.trace:
+        registry = MetricsRegistry()
+    if args.trace:
+        trace_ctx = _trace_context(index, size=args.n_items)
+
     clock = sl.VirtualClock() if args.clock == "virtual" else sl.WallClock()
     loop = sl.ServeLoop(index, ladder=ladder, clock=clock, k=args.k,
-                        service_model=sl.LinearServiceModel())
+                        service_model=sl.LinearServiceModel(), registry=registry,
+                        trace_ctx=trace_ctx)
     stats = loop.run(trace, churn=churn)
 
     by_rid = sorted(stats.responses, key=lambda r: r.rid)
@@ -178,10 +262,20 @@ def _run_loop(args, items: torch.Tensor) -> dict:
               f"live_frac={s['health_live_fraction']:.3f} "
               f"dead_edge_frac={s['health_dead_edge_frac']:.3f} "
               f"relink_debt={s['health_relink_debt']:.0f}")
+    if trace_ctx is not None:
+        _print_band_table(registry, trace_ctx)
+    if args.metrics_out:
+        meta = {"mode": "loop", "index": args.index, "clock": args.clock,
+                "profile": args.profile, "n_items": args.n_items,
+                "rate_qps": args.rate, "requests": args.requests,
+                "traced": bool(args.trace)}
+        if trace_ctx is not None:
+            meta["band_edges"] = [float(e) for e in trace_ctx.band_edges.cpu().numpy()]
+        _write_metrics(registry, args.metrics_out, meta=meta)
     if s["recompiles_steady"]:
         raise SystemExit(f"bucket-ladder regression: {s['recompiles_steady']} "
                          "steady-state program builds (expected 0)")
-    return {"recall": rec, "summary": s, "batches": stats.batches}
+    return {"recall": rec, "summary": s, "batches": stats.batches, "registry": registry}
 
 
 if __name__ == "__main__":

@@ -41,6 +41,12 @@ passes each event's time; ``ServeStats`` carries the index's health after it.
 and steady state as the JAX executor records its compiles: the ladder builds
 its buckets once at warmup, and a build in steady state
 (``recompiles_steady > 0``) is a ladder regression.
+
+Observability (``repro_torch.obs``), off by default: ``trace_ctx`` traces
+every bucket's walk inside its program (one CUDA graph and one copy back a
+dispatch still), and ``registry`` receives the walk aggregates, each
+dispatch and response, churn events and health, all stamped with the loop's
+clock, as the JAX loop records them.
 """
 from __future__ import annotations
 
@@ -242,21 +248,34 @@ class LinearServiceModel:
 # --------------------------------------------------------------------------
 
 
-def _ipnsw_bucket(graph, store, live, queries, valid, *, k, ef, storage, capturable=False):
+def _ipnsw_bucket(graph, store, live, queries, valid, *, k, ef, storage, capturable=False,
+                  trace=None):
     init = graph.entry.expand(queries.shape[0], 1)
     r = beam_search(graph, queries, init, pool_size=max(ef, k), max_steps=2 * ef, k=k,
-                    storage=storage, store=store, valid=valid, live=live, capturable=capturable)
-    return r.ids, r.scores, r.evals
+                    storage=storage, store=store, valid=valid, live=live, capturable=capturable,
+                    trace=trace)
+    return r.ids, r.scores, r.evals, r.trace
 
 
 def _plus_bucket(ang_graph, ip_graph, ang_store, ip_store, live, queries, valid, *, k, ef,
-                 ang_ef, k_angular, storage, capturable=False):
+                 ang_ef, k_angular, storage, capturable=False, trace=None):
     r = _search_plus(ang_graph, ip_graph, queries, k=k, ef=ef, ang_ef=ang_ef,
                      k_angular=k_angular, max_steps=2 * ef,
                      ang_max_steps=2 * max(ang_ef, k_angular), storage=storage,
                      ang_store=ang_store, ip_store=ip_store, live=live, valid=valid,
-                     capturable=capturable)
-    return r.ids, r.scores, r.evals
+                     capturable=capturable, trace=trace)
+    return r.ids, r.scores, r.evals, r.trace
+
+
+def _pack(ids, scores, evals, walk) -> torch.Tensor:
+    """A bucket's outputs as one int32 tensor, for one device-to-host copy:
+    [batch, 2k + 1] ids, score bits and evals, and with a trace its
+    band_hist, hub_evals and steps_to_converge after them (n_bands + 2
+    columns more)."""
+    cols = [ids, scores.view(torch.int32), evals[:, None]]
+    if walk is not None:
+        cols += [walk.band_hist, walk.hub_evals[:, None], walk.steps_to_converge[:, None]]
+    return torch.cat(cols, dim=1)
 
 
 class _Program:
@@ -326,11 +345,23 @@ class BucketExecutor:
     graphs, stores and live mask in place at a fixed capacity, so churn
     applied between dispatches is served at once, no shape changes and no
     program is rebuilt.  A dispatch whose operands were replaced since its
-    program was built (a graph, a store or the live mask at another
-    address) raises: the program would read the old ones.
+    program was built (a graph, a store, the live mask or a table of the
+    trace context at another address) raises: the program would read the
+    old ones.
+
+    ``trace_ctx`` (an ``obs.TraceContext`` over the index's nodes, a
+    MutableIndex's full capacity) traces every walk: it is fixed for the
+    executor's lifetime, so warmup builds the traced programs and steady
+    state builds none.  A program then packs each row's band histogram, hub
+    evaluations and steps to converge into its output, and ``last_walk``
+    holds the latest dispatch's batch sums.  ``registry`` receives those
+    aggregates every dispatch (``_record_walk``); the executor reads no
+    clock.  Both default off: the programs are then exactly the untraced
+    ones.
     """
 
-    def __init__(self, index, ladder: BucketLadder, *, k: int = 10):
+    def __init__(self, index, ladder: BucketLadder, *, k: int = 10, trace_ctx=None,
+                 registry=None):
         self.mutable = index if isinstance(index, MutableIndex) else None
         if self.mutable is not None:
             index = index.index
@@ -340,6 +371,9 @@ class BucketExecutor:
         self.index = index
         self.ladder = ladder
         self.k = k
+        self.trace_ctx = trace_ctx
+        self.registry = registry
+        self.last_walk: Optional[Dict[str, object]] = None
         self._programs: Dict[Bucket, Tuple[tuple, _Program]] = {}
         self.compile_log: List[Tuple[Bucket, str]] = []
         self._steady = False
@@ -382,33 +416,38 @@ class BucketExecutor:
                     idx.ip_store if idx.storage == "int8" else None, live)
         return idx.graph, idx._resolve_store(idx.storage), live
 
+    def _ptrs(self, consts: tuple) -> tuple:
+        """The addresses a program over ``consts`` reads: the operands' and
+        the trace context's tables."""
+        return data_ptrs(*consts, None if self.trace_ctx is None else self.trace_ctx.tensors())
+
     def _body(self, bucket: Bucket, consts: tuple) -> Callable:
-        """The bucket's program over ``consts`` (``_consts()``): the search
-        and the packing of its ids, score bits and evals into one [batch,
-        2k + 1] int32 tensor, for one device-to-host copy.  Nothing is read
-        back, so on the card it can be captured."""
+        """The bucket's program over ``consts`` (``_consts()``): the search,
+        traced with ``trace_ctx`` when there is one, and the packing of its
+        outputs into one int32 tensor (``_pack``) for one device-to-host
+        copy.  Nothing is read back, so on the card it can be captured."""
         idx = self.index
         if isinstance(idx, IpNSWPlus):
             fn = functools.partial(_plus_bucket, k=self.k, ef=bucket.ef, ang_ef=idx.ang_ef,
-                                   k_angular=idx.k_angular, storage=idx.storage, capturable=True)
+                                   k_angular=idx.k_angular, storage=idx.storage, capturable=True,
+                                   trace=self.trace_ctx)
         else:
             fn = functools.partial(_ipnsw_bucket, k=self.k, ef=bucket.ef, storage=idx.storage,
-                                   capturable=True)
+                                   capturable=True, trace=self.trace_ctx)
 
         def body(queries: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-            ids, scores, evals = fn(*consts, queries, valid)
-            return torch.cat([ids, scores.view(torch.int32), evals[:, None]], dim=1)
+            return _pack(*fn(*consts, queries, valid))
 
         return body
 
     def _build_program(self, bucket: Bucket) -> Tuple[tuple, _Program]:
-        """(the operands' addresses, the bucket's program)."""
+        """(the addresses it reads, the bucket's program)."""
         consts = self._consts()
         dev = self._graph().items.device
         q_buf = torch.zeros((bucket.batch, self.dim()), dtype=torch.float32, device=dev)
         v_buf = torch.zeros((bucket.batch,), dtype=torch.bool, device=dev)
         program = _CapturedProgram if dev.type == "cuda" else _Program
-        return data_ptrs(*consts), program(self._body(bucket, consts), q_buf, v_buf)
+        return self._ptrs(consts), program(self._body(bucket, consts), q_buf, v_buf)
 
     def warmup(self) -> None:
         """Build every ladder bucket on an all-pad batch (every row is born
@@ -430,15 +469,54 @@ class BucketExecutor:
             self._programs[bucket] = built
             self.compile_log.append((bucket, "steady" if self._steady else "warmup"))
         ptrs, program = built
-        if data_ptrs(*self._consts()) != ptrs:
+        if self._ptrs(self._consts()) != ptrs:
             raise RuntimeError(
-                f"bucket {bucket}: a graph, store or live mask of the index was replaced "
+                f"bucket {bucket}: a graph, store, live mask or trace table was replaced "
                 "since the bucket's program was built over it; build a new executor")
-        host = program(np.asarray(queries, np.float32), np.asarray(valid, bool))
+        valid = np.asarray(valid, bool)
+        host = program(np.asarray(queries, np.float32), valid)
         k = self.k
+        self._record_walk(None if self.trace_ctx is None else host[:, 2 * k + 1:], valid)
         return (np.ascontiguousarray(host[:, :k]),
                 np.ascontiguousarray(host[:, k: 2 * k]).view(np.float32),
                 np.ascontiguousarray(host[:, 2 * k]))
+
+    def _record_walk(self, walk, valid: np.ndarray) -> None:
+        """Keep this dispatch's walk telemetry in ``last_walk`` (the band
+        histogram summed over the batch, hub evals, mean steps to converge
+        of the valid rows) and fold it into the registry's vector and
+        counters.  ``walk`` is the packed output's walk columns [B, n_bands
+        + 2] (band_hist, hub_evals, steps_to_converge), or None untraced.
+        Pad rows are born done and add zero, so one column sum gives every
+        total, and the steps' sum over n valid rows is their mean's (whole
+        numbers: exact in float64, one division, as numpy's mean).  Nothing
+        here reads a clock."""
+        if walk is None:
+            self.last_walk = None
+            return
+        nb = walk.shape[1] - 2
+        sums = walk.sum(axis=0)  # int64
+        band, hub, n = sums[:nb], int(sums[nb]), int(np.count_nonzero(valid))
+        self.last_walk = {
+            "band_hist": band,
+            "hub_evals": hub,
+            "steps_mean": float(sums[nb + 1]) / n if n else 0.0,
+            "n": n,
+        }
+        reg = self.registry
+        if reg is not None:
+            reg.vector(
+                "walk_evals_by_band", band.shape[0],
+                "similarity evaluations per catalog norm band (Fig-5)",
+                label="band",
+            ).add(band)
+            reg.counter(
+                "walk_hub_evals_total",
+                "evaluations landing on the top-in-degree hub set (Fig-4)",
+            ).inc(hub)
+            reg.counter(
+                "walk_evals_total", "total similarity evaluations",
+            ).inc(float(band.sum()))
 
 
 # --------------------------------------------------------------------------
@@ -501,6 +579,35 @@ class ServeStats:
         return out
 
 
+class _DispatchEvents:
+    """The timeline records of folded dispatches (``ServeLoop.
+    _fold_dispatches``), built when the registry's events are read: for
+    each dispatch its response events, then its dispatch event -- the JAX
+    loop's records, fields and order.  ``rid``, ``latency``, ``wait`` and
+    ``met`` hold every response of the dispatches, in order."""
+
+    def __init__(self, todo, rid, latency, wait, met):
+        self.todo, self.columns = todo, (rid, latency, wait, met)
+
+    def dicts(self) -> List[dict]:
+        rid, latency, wait, met = (c.tolist() for c in self.columns)
+        out, stop = [], 0
+        for bucket, batch, now, finish, degraded, walk in self.todo:
+            start, stop = stop, stop + len(batch)
+            finish = float(finish)
+            out.extend({"event": "response", "t": finish, "rid": rid[i], "latency_s": latency[i],
+                        "queue_wait_s": wait[i], "deadline_met": met[i]}
+                       for i in range(start, stop))
+            ev = {"event": "dispatch", "t": float(now), "batch": bucket.batch, "ef": bucket.ef,
+                  "n": len(batch), "degraded": degraded}
+            if walk is not None:
+                ev["band_hist"] = [int(v) for v in walk["band_hist"]]
+                ev["hub_evals"] = walk["hub_evals"]
+                ev["steps_mean"] = walk["steps_mean"]
+            out.append(ev)
+        return out
+
+
 class ServeLoop:
     """Single-threaded, event-driven continuous-batching loop.
 
@@ -524,14 +631,21 @@ class ServeLoop:
 
     def __init__(self, index, *, ladder: Optional[BucketLadder] = None, clock=None,
                  k: int = 10, service_model=None, executor: Optional[BucketExecutor] = None,
-                 assert_invariants: bool = False):
+                 assert_invariants: bool = False, registry=None, trace_ctx=None):
         self.ladder = ladder if ladder is not None else BucketLadder()
         self.clock = clock if clock is not None else VirtualClock()
         self.service_model = (service_model if service_model is not None
                               else LinearServiceModel())
+        # registry / trace_ctx (repro_torch.obs): None is the untraced,
+        # unrecorded path.  Every record carries the loop clock's times and
+        # values only: the loop never reads wall time (the registry's span()
+        # is the build's, never used here).
+        self.registry = registry
         self.executor = (executor if executor is not None
-                         else BucketExecutor(index, self.ladder, k=k))
+                         else BucketExecutor(index, self.ladder, k=k, trace_ctx=trace_ctx,
+                                             registry=registry))
         self.k = self.executor.k
+        self._unfolded: list = []  # dispatches not yet folded into the registry
         # re-check I1-I6 after every applied churn event (a host sweep per
         # event; tests and debugging)
         self.assert_invariants = assert_invariants
@@ -562,12 +676,84 @@ class ServeLoop:
         while churn_q and churn_q[0].t <= now:
             ev = churn_q.popleft()
             applied.append(apply_churn_event(m, ev))
+            if self.registry is not None:
+                self._fold_dispatches()  # the dispatches before it, first
+                self.registry.counter(
+                    "index_churn_events_total", "applied churn events",
+                ).inc()
+                self.registry.event("churn", now, kind=ev.kind)
+                self._record_health(m)
             if self.assert_invariants:
                 errs = m.check_invariants()
                 if errs:
                     raise AssertionError(
                         f"graph invariants violated after churn event {ev.kind!r} "
                         f"at t={ev.t}:\n" + "\n".join(errs))
+
+    def _record_health(self, m) -> None:
+        """Mirror ``MutableIndex.health()`` into registry gauges (tombstone
+        ratio, relink debt, dead edges, headroom after a churn event)."""
+        for key, val in m.health().items():
+            self.registry.gauge(
+                f"index_{key}", "MutableIndex.health() gauge",
+            ).set(val)
+
+    def _record_dispatch(self, bucket: Bucket, batch, now: float, finish: float,
+                         degraded: bool) -> None:
+        """Queue one dispatch (its bucket, requests, loop-clock times,
+        degrade flag and the executor's ``last_walk``) for
+        ``_fold_dispatches``: a list append, where the JAX loop's
+        per-response records would cost the dispatch more host time than
+        the card's replay takes."""
+        self._unfolded.append((bucket, batch, now, finish, degraded, self.executor.last_walk))
+
+    def _fold_dispatches(self) -> None:
+        """Fold the queued dispatches into the registry, in dispatch order:
+        the records the JAX loop makes at each dispatch (counters, the
+        coalesce / occupancy / queue-wait / latency histograms, the response
+        events and the dispatch event), equal in names, values and order,
+        made for many dispatches at once (``Histogram.observe_many``, one
+        ``_DispatchEvents`` block).  The loop folds before it records a
+        churn event and when its run ends, so the registry is complete
+        whenever the loop is not running."""
+        todo, self._unfolded = self._unfolded, []
+        if not todo:
+            return
+        reg = self.registry
+        ns = [len(batch) for _, batch, *_ in todo]
+        # whole-valued floats: one sum adds what one inc() a dispatch adds
+        reg.counter("serve_requests_total", "requests served").inc(sum(ns))
+        reg.counter("serve_batches_total", "bucket dispatches").inc(len(todo))
+        degraded = sum(1 for *_, deg, _ in todo if deg)
+        if degraded:
+            reg.counter(
+                "serve_degraded_total",
+                "dispatches served below the preferred ladder ef",
+            ).inc(degraded)
+        reg.histogram(
+            "serve_coalesce_size", "requests coalesced per dispatch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512),
+        ).observe_many(ns)
+        reg.histogram(
+            "serve_occupancy", "live rows / bucket batch per dispatch",
+            buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0),
+        ).observe_many([n / bucket.batch for (bucket, *_), n in zip(todo, ns)])
+        reqs = [r for _, batch, *_ in todo for r in batch]
+        arrival = np.fromiter((r.arrival_t for r in reqs), np.float64, len(reqs))
+        deadline = np.fromiter((r.deadline_t for r in reqs), np.float64, len(reqs))
+        rid = np.fromiter((r.rid for r in reqs), np.int64, len(reqs))
+        now = np.repeat([t[2] for t in todo], ns)
+        finish = np.repeat([t[3] for t in todo], ns)
+        wait, latency, met = now - arrival, finish - arrival, finish <= deadline
+        reg.histogram(
+            "serve_queue_wait_seconds", "arrival -> dispatch (loop clock)",
+        ).observe_many(wait)
+        reg.histogram(
+            "serve_latency_seconds", "arrival -> finish (loop clock)",
+        ).observe_many(latency)
+        reg.counter("serve_deadline_miss_total", "late responses").inc(
+            float(np.count_nonzero(finish > deadline)))
+        reg.event_block(_DispatchEvents(todo, rid, latency, wait, met))
 
     def run(self, requests: Iterable[Request], churn=None) -> ServeStats:
         """``churn`` (optional) is a ``core.mutation.ChurnTrace`` -- or any
@@ -597,68 +783,82 @@ class ServeLoop:
         batches: List[BatchRecord] = []
         max_b = self.ladder.max_batch
 
-        while pending or queue:
-            now = self.clock.now()
-            self._apply_churn(churn_q, now, applied)
-            while pending and pending[0].arrival_t <= now:
-                queue.append(pending.popleft())
-            if not queue:
-                # wake for the next arrival or the next churn event
-                t = pending[0].arrival_t
-                if churn_q:
-                    t = min(t, churn_q[0].t)
-                self.clock.sleep_until(t)
-                continue
+        try:
+            while pending or queue:
+                now = self.clock.now()
+                self._apply_churn(churn_q, now, applied)
+                while pending and pending[0].arrival_t <= now:
+                    queue.append(pending.popleft())
+                if not queue:
+                    # wake for the next arrival or the next churn event
+                    t = pending[0].arrival_t
+                    if churn_q:
+                        t = min(t, churn_q[0].t)
+                    self.clock.sleep_until(t)
+                    continue
 
-            queue.sort(key=self._order)
-            head = queue[0]
-            next_arrival = pending[0].arrival_t if pending else None
-            dispatch_by = head.deadline_t - self.service_model.service_s(
-                Bucket(max_b, self.ladder.ef_pref(head.ef)))
-            if (len(queue) < max_b and next_arrival is not None
-                    and next_arrival <= dispatch_by and now < dispatch_by):
-                # coalesce: sleep to the earliest of the next arrival, the
-                # head's dispatch-by point and the next churn event
-                t = min(next_arrival, dispatch_by)
-                if churn_q:
-                    t = min(t, churn_q[0].t)
-                self.clock.sleep_until(max(t, now))
-                continue
+                queue.sort(key=self._order)
+                head = queue[0]
+                next_arrival = pending[0].arrival_t if pending else None
+                dispatch_by = head.deadline_t - self.service_model.service_s(
+                    Bucket(max_b, self.ladder.ef_pref(head.ef)))
+                if (len(queue) < max_b and next_arrival is not None
+                        and next_arrival <= dispatch_by and now < dispatch_by):
+                    # coalesce: sleep to the earliest of the next arrival, the
+                    # head's dispatch-by point and the next churn event
+                    t = min(next_arrival, dispatch_by)
+                    if churn_q:
+                        t = min(t, churn_q[0].t)
+                    self.clock.sleep_until(max(t, now))
+                    continue
 
-            batch = queue[:max_b]
-            del queue[:len(batch)]
-            bucket_batch = self.ladder.batch_for(len(batch))
-            ef, degraded = self._choose_ef(batch, bucket_batch, now)
-            bucket = Bucket(bucket_batch, ef)
+                batch = queue[:max_b]
+                del queue[:len(batch)]
+                bucket_batch = self.ladder.batch_for(len(batch))
+                ef, degraded = self._choose_ef(batch, bucket_batch, now)
+                bucket = Bucket(bucket_batch, ef)
 
-            padded = np.zeros((bucket.batch, d), np.float32)
-            for i, r in enumerate(batch):
-                padded[i] = r.query
-            valid = np.arange(bucket.batch) < len(batch)
-            ids, scores, _ = self.executor.run(bucket, padded, valid)
+                padded = np.zeros((bucket.batch, d), np.float32)
+                for i, r in enumerate(batch):
+                    padded[i] = r.query
+                valid = np.arange(bucket.batch) < len(batch)
+                ids, scores, _ = self.executor.run(bucket, padded, valid)
 
-            if self.clock.virtual:
-                finish = now + self.service_model.service_s(bucket)
-                self.clock.sleep_until(finish)
-            else:
-                finish = self.clock.now()  # after the host copy: the work is done
+                if self.clock.virtual:
+                    finish = now + self.service_model.service_s(bucket)
+                    self.clock.sleep_until(finish)
+                else:
+                    finish = self.clock.now()  # after the host copy: the work is done
 
-            for i, r in enumerate(batch):
-                responses.append(Response(
-                    rid=r.rid, ids=ids[i], scores=scores[i], ef_request=r.ef,
-                    ef_served=ef, bucket=bucket, arrival_t=r.arrival_t, dispatch_t=now,
-                    finish_t=finish, deadline_t=r.deadline_t,
-                    deadline_met=finish <= r.deadline_t, degraded=degraded))
-            batches.append(BatchRecord(
-                seq=len(batches), dispatch_t=now, finish_t=finish, bucket=bucket,
-                rids=tuple(r.rid for r in batch), ef_served=ef))
+                for i, r in enumerate(batch):
+                    responses.append(Response(
+                        rid=r.rid, ids=ids[i], scores=scores[i], ef_request=r.ef,
+                        ef_served=ef, bucket=bucket, arrival_t=r.arrival_t, dispatch_t=now,
+                        finish_t=finish, deadline_t=r.deadline_t,
+                        deadline_met=finish <= r.deadline_t, degraded=degraded))
+                batches.append(BatchRecord(
+                    seq=len(batches), dispatch_t=now, finish_t=finish, bucket=bucket,
+                    rids=tuple(r.rid for r in batch), ef_served=ef))
+                if self.registry is not None:
+                    self._record_dispatch(bucket, batch, now, finish, degraded)
 
-        # drain churn events dated past the last response
-        while churn_q:
-            self.clock.sleep_until(churn_q[0].t)
-            self._apply_churn(churn_q, self.clock.now(), applied)
+            # drain churn events dated past the last response
+            while churn_q:
+                self.clock.sleep_until(churn_q[0].t)
+                self._apply_churn(churn_q, self.clock.now(), applied)
+        finally:
+            if self.registry is not None:
+                self._fold_dispatches()
 
         m = self.executor.mutable
+        if self.registry is not None:
+            self.registry.gauge(
+                "serve_recompiles_warmup", "program builds during warmup",
+            ).set(self.executor.recompiles_warmup)
+            self.registry.gauge(
+                "serve_recompiles_steady",
+                "program builds after warmup (ladder regression if > 0)",
+            ).set(self.executor.recompiles_steady)
         return ServeStats(
             responses=responses, batches=batches,
             recompiles_warmup=self.executor.recompiles_warmup,

@@ -162,6 +162,8 @@ def test_capturable_index_search_equals_the_plain_search(kind, storage):
     for field, x in zip(plain._fields, plain):
         if field == "steps":
             assert isinstance(x, int) and captured.steps.shape == () and int(captured.steps) == x
+        elif field == "trace":  # untraced searches: None in both
+            assert x is None and captured.trace is None
         else:
             assert torch.equal(x, getattr(captured, field)), field
     assert (plain.ids[~valid] == -1).all() and not torch.isin(plain.ids, torch.nonzero(~live)).any()
