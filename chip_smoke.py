@@ -161,6 +161,32 @@ nothing then, and are not counted): ``count_graph_launches``.
      ms per upsert batch both ways.  After it, a bucket ladder over the
      mutable index: a replayed dispatch with the tombstone mask equal to
      the eager program's bit for bit.
+  7. sharded (src/repro_torch/core/distributed.py): at full size, P = 4
+     shards of 34,184 rows, IpNSW and IpNSWPlus built round-robin and
+     norm-banded with the host and the scan driver (the scan driver's
+     graphs, one capture a shard, equal the host driver's bit for bit;
+     capture ms a shard, build s); f32 and int8: the one-launch fan-out's
+     rows equal each shard's own walk (ids, score bits, evals), the
+     fan-out's merge the oracle's (sharded_search_reference), the routed
+     searches of both drivers and storage="tiered" the exhaustive merge's
+     ids up to near-ties and its recall within 0.01, the oracle's visits at
+     most the fan-out's, no id >= N; a search launches beam_walk once a
+     walk stage (IpNSW 1 unrouted, 2 routed; IpNSWPlus 2 and 4) and reads
+     nothing back (sync debug mode "error"); search ms
+     of 256 in turns (fan-out, oracle, unsharded IpNSW) and two profiled
+     sharded searches; JAX's routing gate logged there and asserted at the
+     shard benchmark's CI configuration (N 2,000, d 16, P 8; also logged at
+     its full one, N 10,000); under churn at the serve default (N 20,000,
+     d 64, the JAX package's banded-churn scenario scaled,
+     scripts/sharded_churn_reference.py): I1-I6, every live norm under its
+     band's max_norm, no tombstoned gid served, the fan-out's rows equal
+     each band's own walk with tombstones (dead evals too), every upsert
+     chunk after a band's first a replay under sync debug mode "error",
+     recall after relinking within 0.02 of the JAX package's on the same
+     scenario, a fresh banded rebuild's beside it; serve --shards 4 with
+     norm_bands / upper_bound, with --storage tiered and round-robin, recall
+     within 0.02 of the JAX CLI's.  Its launches are added to the kernels
+     line.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -3110,6 +3136,486 @@ def phase_profile(items, queries, ipnsw) -> None:
     ipnsw.storage = "f32"
 
 
+# ------------------------------------------------------------ phase 7: sharded
+
+# `XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu
+# PYTHONPATH=src python -m repro.launch.serve --shards 4 ...` (the JAX package,
+# on the CPU) printed, with --partition norm_bands --route upper_bound:
+# [serve] index=ipnsw_plus shards=4 storage=f32 partition=norm_bands
+# route=upper_bound shards_visited_mean=2.09 skipped_mean=1.91 N=20000 B=256
+# ef=40: recall@10=0.930 evals/q=1224 (0.73 ms/query batch-amortized)
+# xla_compiles=1446
+# with --storage tiered added: the same but storage=tiered, evals/q=1225
+# (0.70 ms/query batch-amortized) xla_compiles=1535; and with the default
+# --partition roundrobin --route none: shards_visited_mean=4.00
+# skipped_mean=0.00 recall@10=0.995 evals/q=1949 (0.41 ms/query
+# batch-amortized) xla_compiles=968.
+SHARDED_SERVE = {  # name: (flags, JAX's recall@10, JAX's shards_visited_mean)
+    "norm_bands_upper_bound": (["--partition", "norm_bands", "--route", "upper_bound"],
+                               0.930, 2.09),
+    "norm_bands_upper_bound_tiered": (["--partition", "norm_bands", "--route", "upper_bound",
+                                       "--storage", "tiered"], 0.930, 2.09),
+    "roundrobin_none": (["--partition", "roundrobin", "--route", "none"], 0.995, 4.00),
+}
+SHARDS = 4  # the JAX CLI's example: 34,184 rows a shard at full size
+SHARD_BUILD = dict(max_degree=16, ef_construction=32, insert_batch=512)
+# beam_walk launches of one sharded search: (plus, routed) -> launches
+SHARD_STAGES = {(False, False): 1, (False, True): 2, (True, False): 2, (True, True): 4}
+# JAX's routing gate (scripts/check_bench_json.py, check_shard): routed rows
+# visit at least 30% fewer shards than round-robin's exhaustive merge, skip
+# some, and lose at most 0.01 of its recall@10; asserted at the benchmark's
+# CI configuration (benchmarks/shard_bench.py --quick, profile word_like:
+# lognormal, N 2,000, d 16, P 8, 32 queries), logged at its full one (N
+# 10,000, 256 queries) and at Yahoo!Music's size
+ROUTE_RECALL_MARGIN = 0.01
+ROUTE_VISITS_SAVED = 0.30
+GATE_CELLS = {"ci": (2_000, 32), "full": (10_000, 256)}  # name: (N, queries)
+GATE_BUILD = dict(max_degree=16, ef_construction=32, insert_batch=64, build_backend="scan")
+# the JAX package's banded-churn scenario scaled to the serve default
+# (scripts/sharded_churn_reference.py); the JAX package on the CPU printed
+# recall@10 before=0.9453125000000001 after_relink=0.755859375
+# fresh_rebuild=0.7898437500000001 (28 relink passes): at this size
+# the reference itself ends 0.034 under a fresh rebuild
+JAX_SHARDED_CHURN_RECALL = 0.755859375
+WALK_KERNELS = ("beam_walk", "beam_walk_int8", "beam_walk_live", "beam_walk_int8_live")
+SHARDED_PATH = ("beam_walk", "beam_walk_int8", "beam_walk_live", "commit_merge", "mips_topk",
+                "gather_score", "quant_score")
+
+
+def _walk_launches(fn) -> tuple:
+    """(fn's result, its beam_walk launches of every variant, its per-step
+    kernel launches)."""
+    before = _read_counts()
+    out = fn()
+    after = _read_counts()
+    return (out, sum(after[n] - before[n] for n in WALK_KERNELS),
+            sum(after[n] - before[n] for n in STEP_KERNELS))
+
+
+def _same_graphs(label: str, a, b) -> None:
+    """Two ShardedIndexes' graphs bit for bit: adjacency, size, entry,
+    entry_norm of every shard, both graphs."""
+    import torch
+
+    for name in ("ip", "ang"):
+        ga, gb = getattr(a, name), getattr(b, name)
+        if ga is None:
+            continue
+        for field in ("adj", "size", "entry", "entry_norm"):
+            x, y = getattr(ga, field), getattr(gb, field)
+            same = torch.equal(x.view(torch.int32), y.view(torch.int32)) \
+                if x.dtype == torch.float32 else torch.equal(x, y)
+            assert same, f"{label}: {name}.{field} differs"
+
+
+def _check_fanout(label: str, index, queries, plus: bool, storage: str) -> None:
+    """The one-launch fan-out against each shard's own walk (beam_search /
+    the ip-NSW+ search on the shard's graphs): ids, score bits, evals and
+    dead evals equal, row for row."""
+    import torch
+
+    from repro_torch.core.distributed import fanout
+    from repro_torch.core.ipnsw_plus import _seed_from_angular
+    from repro_torch.core.search import beam_search
+    from repro_torch.core.storage import ItemStore
+
+    p, b = index.n_shards, queries.shape[0]
+    walk = dict(plus=plus, k=10, ef=40, max_steps=80, ang_ef=10, k_angular=10)
+    every = torch.arange(p, device=queries.device)
+    f, launches, steps = _walk_launches(lambda: fanout(index, queries, every, storage=storage,
+                                                       **walk))
+    assert launches == (2 if plus else 1) and not steps, \
+        f"{label}: the fan-out launched {launches} walks, {steps} per-step kernels"
+    int8 = storage == "int8"
+    for s in range(p):
+        def shard(g):
+            return None if g is None else type(g)(g.adj[s], g.items[s], g.size[s], g.entry[s],
+                                                  g.entry_norm[s])
+
+        def store(st):
+            return None if st is None or not int8 else ItemStore(st.codes[s], st.scales[s])
+
+        live = None if index.live is None else index.live[s]
+        if plus:
+            a = beam_search(shard(index.ang), queries, index.ang.entry[s].expand(b, 1),
+                            pool_size=10, max_steps=20, k=10, storage=storage,
+                            store=store(index.ang_store), live=live)
+            r = beam_search(shard(index.ip), queries, _seed_from_angular(index.ip.adj[s], a.ids),
+                            pool_size=40, max_steps=80, k=10, storage=storage,
+                            store=store(index.store), live=live)
+            want = (r.ids, r.scores, a.evals + r.evals,
+                    None if live is None else a.dead_evals + r.dead_evals)
+        else:
+            r = beam_search(shard(index.ip), queries, index.ip.entry[s].expand(b, 1),
+                            pool_size=40, max_steps=80, k=10, storage=storage,
+                            store=store(index.store), live=live)
+            want = (r.ids, r.scores, r.evals, r.dead_evals)
+        got = (f.ids[s], f.scores[s], f.evals[s],
+               None if f.dead_evals is None else f.dead_evals[s])
+        assert torch.equal(got[0], want[0]), f"{label}: shard {s} ids"
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)), \
+            f"{label}: shard {s} score bits"
+        assert torch.equal(got[2], want[2]), f"{label}: shard {s} evals"
+        assert (got[3] is None) == (want[3] is None) and (
+            got[3] is None or torch.equal(got[3], want[3])), f"{label}: shard {s} dead evals"
+
+
+def _sharded_timings(label: str, runs: dict, reps: int = 10) -> dict:
+    """Median wall ms of each search in ``runs`` (name -> fn), run in turns
+    (the order reversed every other round), each call synchronized."""
+    import numpy as np
+    import torch
+
+    walls = {name: [] for name in runs}
+    names = list(runs)
+    for i in range(reps):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    med = {name: float(np.median(w)) for name, w in walls.items()}
+    log(f"{label}: search of 256 wall ms, median of {reps} in turns: " + " ".join(
+        f"{name}={ms:.4f} [{min(walls[name]):.4f}, {max(walls[name]):.4f}]"
+        for name, ms in med.items()))
+    return med
+
+
+def _gate_row(rr_recall: float, rr_stats, nb_recall: float, nb_stats, shards: int) -> dict:
+    rr_vis = float(rr_stats.shards_visited.float().mean())
+    nb_vis = float(nb_stats.shards_visited.float().mean())
+    return {"roundrobin_recall": rr_recall, "roundrobin_visits": rr_vis,
+            "recall": nb_recall, "visits": nb_vis, "visited_saved_frac": 1 - nb_vis / rr_vis,
+            "skipped_frac": float(nb_stats.bound_skips.float().mean()) / shards}
+
+
+def _gate_holds(row: dict) -> bool:
+    return (row["skipped_frac"] > 0 and row["visited_saved_frac"] >= ROUTE_VISITS_SAVED
+            and row["recall"] >= row["roundrobin_recall"] - ROUTE_RECALL_MARGIN)
+
+
+def _log_gate(label: str, row: dict) -> None:
+    log(f"sharded gate {label}: roundrobin recall@10={row['roundrobin_recall']:.4f} "
+        f"visits={row['roundrobin_visits']:.4f}; norm_bands upper_bound (oracle) "
+        f"recall@10={row['recall']:.4f} visits={row['visits']:.4f} visited_saved_frac="
+        f"{row['visited_saved_frac']:.4f} skipped_frac={row['skipped_frac']:.4f} -- JAX's gate "
+        f"(>= {ROUTE_VISITS_SAVED} saved, recall within {ROUTE_RECALL_MARGIN}) "
+        f"{'holds' if _gate_holds(row) else 'does not hold'}")
+
+
+def phase_sharded_gate() -> None:
+    """JAX's routing gate at the shard benchmark's configurations
+    (benchmarks/shard_bench.py, profile word_like), both index kinds, the
+    oracle's rows as the benchmark counts them (the fan-out's visits
+    beside): asserted at the CI one, logged at the full one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import (
+        build_sharded,
+        sharded_search,
+        sharded_search_reference,
+    )
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.obs.recall import recall_at_k
+
+    p, d = 8, 16
+    for cell, (n, n_queries) in GATE_CELLS.items():
+        items = mips_dataset(n, d, "lognormal", seed=1)
+        queries = torch.as_tensor(mips_queries(n_queries, d, seed=100), device="cuda")
+        gt = np.argsort(-(queries.cpu().numpy() @ items.T), axis=1, kind="stable")[:, :10]
+        for plus in (False, True):
+            name = f"{cell} {'ipnsw_plus' if plus else 'ipnsw'} N={n} d={d} P={p}"
+            rr = build_sharded(items, p, plus=plus, partition="roundrobin", **GATE_BUILD)
+            nb = build_sharded(items, p, plus=plus, partition="norm_bands", storage="int8",
+                               **GATE_BUILD)
+            common = dict(k=10, ef=32, plus=plus, return_stats=True)
+            base = sharded_search_reference(rr, queries, **common)
+            for storage in ("f32", "tiered"):
+                ids, _, _, st = sharded_search_reference(nb, queries, route="upper_bound",
+                                                         storage=storage, **common)
+                fan = sharded_search(nb, queries, route="upper_bound", storage=storage,
+                                     **common)[3]
+                row = _gate_row(recall_at_k(base[0].cpu().numpy(), gt), base[3],
+                                recall_at_k(ids.cpu().numpy(), gt), st, p)
+                _log_gate(f"{name} {storage} (fan-out visits "
+                          f"{float(fan.shards_visited.float().mean()):.4f})", row)
+                if cell == "ci":
+                    assert _gate_holds(row), f"sharded gate {name} {storage}: {row}"
+
+
+def phase_sharded_full() -> None:
+    """Phase 7 at full size: sharded builds (roundrobin; norm_bands with
+    the host and the scan driver, bit-identical), the fan-out against
+    each shard's own walk, the fan-out and the oracle merged, routing held
+    to the exhaustive merge and to JAX's gate, launches a stage, timings
+    and one profiled search."""
+    import torch
+
+    from repro_torch.core.brute_force import exact_topk
+    from repro_torch.core.capture import no_sync
+    from repro_torch.core.distributed import (
+        build_sharded,
+        sharded_search,
+        sharded_search_reference,
+    )
+    from repro_torch.core.ipnsw import IpNSW
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.obs.recall import recall_at_k
+    from repro_torch.testing import near_tie_rows
+
+    items = torch.as_tensor(mips_dataset(N_FULL, D_FULL, "lognormal", seed=0), device="cuda")
+    queries = torch.as_tensor(mips_queries(256, D_FULL, seed=1), device="cuda")
+    _, gt = exact_topk(queries, items, k=10)
+    gt = gt.cpu().numpy()
+    recall = lambda ids: recall_at_k(ids.cpu().numpy(), gt)  # noqa: E731
+    gate, searched = {}, {}
+    for plus in (False, True):
+        name = "ipnsw_plus" if plus else "ipnsw"
+        built, build_s = {}, {}
+        for key, partition, driver in (("roundrobin", "roundrobin", "host"),
+                                       ("norm_bands", "norm_bands", "host"),
+                                       ("norm_bands_scan", "norm_bands", "scan")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            built[key] = build_sharded(items, SHARDS, plus=plus, partition=partition,
+                                       build_backend=driver, storage="int8", **SHARD_BUILD)
+            torch.cuda.synchronize()
+            build_s[key] = time.perf_counter() - t0
+            if driver == "scan":
+                log(f"sharded {name} scan build: capture ms a shard " + " ".join(
+                    f"{run.capture_ms:.2f}" for run in build_sharded.last)
+                    + f", replays a shard {[run.replays for run in build_sharded.last]}")
+        _same_graphs(f"sharded {name} scan vs host driver", built["norm_bands_scan"],
+                     built["norm_bands"])
+        log(f"sharded {name}: P={SHARDS} Nloc={built['norm_bands'].ip.adj.shape[1]} build_s "
+            + " ".join(f"{k}={v:.3f}" for k, v in build_s.items())
+            + " -- the scan driver's graphs equal the host driver's bit for bit; "
+            f"max_norm norm_bands={built['norm_bands'].max_norm.tolist()} "
+            f"roundrobin={built['roundrobin'].max_norm.tolist()}")
+        index = built["norm_bands"]
+        common = dict(k=10, ef=40, plus=plus, return_stats=True)
+        for storage in ("f32", "int8"):
+            label = f"sharded {name} {storage}"
+            _check_fanout(label, index, queries, plus, storage)
+            (ids_x, sc_x, ev_x, st_x), walks, steps = _walk_launches(
+                lambda: sharded_search(index, queries, storage=storage, **common))
+            assert walks == SHARD_STAGES[plus, False] and not steps, \
+                f"{label}: an unrouted search launched {walks} walks, {steps} per-step kernels"
+            ids_o, sc_o, ev_o, _ = sharded_search_reference(index, queries, storage=storage,
+                                                            **common)
+            assert torch.equal(ids_x, ids_o) and torch.equal(
+                sc_x.view(torch.int32), sc_o.view(torch.int32)) and torch.equal(ev_x, ev_o), \
+                f"{label}: the fan-out's merge differs from the oracle's"
+            base = recall(ids_x)
+            runs = {"exhaustive": (ids_x, sc_x, st_x)}
+            for tier in ((storage, "tiered") if storage == "f32" else (storage,)):
+                (ids_r, sc_r, _, st_r), walks, steps = _walk_launches(
+                    lambda: sharded_search(index, queries, storage=tier, route="upper_bound",
+                                           **common))
+                assert walks == SHARD_STAGES[plus, True] and not steps, \
+                    f"{label}: a routed search ({tier}) launched {walks} walks, {steps} per-step"
+                ids_s, sc_s, _, st_s = sharded_search_reference(
+                    index, queries, storage=tier, route="upper_bound", **common)
+                runs[f"routed_{tier}"] = (ids_r, sc_r, st_r)
+                runs[f"oracle_{tier}"] = (ids_s, sc_s, st_s)
+                assert bool((st_s.shards_visited <= st_r.shards_visited).all()), \
+                    f"{label}: the oracle visited more shards than the fan-out ({tier})"
+                tied = near_tie_rows(ids_r.cpu().numpy(), ids_s.cpu().numpy(),
+                                     sc_r.cpu().numpy(), sc_s.cpu().numpy())
+                if tier != "tiered":
+                    tied = set(tied) | set(near_tie_rows(ids_r.cpu().numpy(),
+                                                         ids_x.cpu().numpy(),
+                                                         sc_r.cpu().numpy(),
+                                                         sc_x.cpu().numpy()))
+                log(f"{label}: routed {tier}: near-tie rows {sorted(tied)}")
+            for key, (ids, _, st) in runs.items():
+                rec = recall(ids)
+                assert int(ids.max()) < N_FULL, f"{label} {key}: an id >= N"
+                assert rec >= base - ROUTE_RECALL_MARGIN, \
+                    f"{label} {key}: recall {rec} below the exhaustive merge's {base} - 0.01"
+                log(f"{label} {key}: recall@10={rec:.4f} shards_visited_mean="
+                    f"{float(st.shards_visited.float().mean()):.4f} skipped_mean="
+                    f"{float(st.bound_skips.float().mean()):.4f}")
+            searched[name, storage] = runs
+            # the fan-out reads nothing back: a sync in it raises here
+            with no_sync():
+                for tier in ((storage, "tiered") if storage == "f32" else (storage,)):
+                    sharded_search(index, queries, storage=tier, route="upper_bound", **common)
+                sharded_search(index, queries, storage=storage, **common)
+        rr = sharded_search_reference(built["roundrobin"], queries, **common)
+        oracle = searched[name, "f32"]["oracle_f32"]
+        gate[name] = _gate_row(recall(rr[0]), rr[3], recall(oracle[0]), oracle[2], SHARDS)
+        del built
+
+    # timings in turns and one profiled search: ip-NSW on the f32 items
+    index = build_sharded(items, SHARDS, plus=False, partition="norm_bands",
+                          build_backend="scan", **SHARD_BUILD)
+    flat = IpNSW(build_backend="scan", **SHARD_BUILD).build(items)
+    common = dict(k=10, ef=40, plus=False)
+    _sharded_timings("sharded ipnsw f32", {
+        "fanout_routed": lambda: sharded_search(index, queries, route="upper_bound", **common),
+        "oracle_routed": lambda: sharded_search_reference(index, queries, route="upper_bound",
+                                                          **common),
+        "fanout_exhaustive": lambda: sharded_search(index, queries, **common),
+        "oracle_exhaustive": lambda: sharded_search_reference(index, queries, **common),
+        "unsharded": lambda: flat.search(queries, k=10, ef=40),
+    })
+    _profiled("sharded ipnsw search f32 [routed fan-out]",
+              lambda: sharded_search(index, queries, route="upper_bound", **common), reps=20)
+    _profiled("sharded ipnsw search f32 [exhaustive fan-out]",
+              lambda: sharded_search(index, queries, **common), reps=20)
+    for name, row in gate.items():
+        _log_gate(f"full size {name}", row)
+        # what routing guarantees at any size: it skips, and (above) costs no
+        # recall against the exhaustive merge of the same bands
+        assert row["skipped_frac"] > 0 and row["visited_saved_frac"] > 0, \
+            f"sharded full size {name}: routing skipped no shard"
+
+
+@contextlib.contextmanager
+def counted_upserts():
+    """Inside, every upsert chunk of a MutableIndex is counted."""
+    from repro_torch.core import mutation
+
+    seen = {"chunks": 0}
+    chunk = mutation.MutableIndex._upsert_chunk
+
+    def counted(m, *args):
+        seen["chunks"] += 1
+        chunk(m, *args)
+
+    mutation.MutableIndex._upsert_chunk = counted
+    try:
+        yield seen
+    finally:
+        mutation.MutableIndex._upsert_chunk = chunk
+
+
+def phase_sharded_churn() -> None:
+    """Phase 7 under churn at the serve default (N 20,000, d 64, P 4,
+    ip-NSW): the JAX package's banded-churn scenario
+    (tests/test_mutation.py::test_sharded_banded_churn_keeps_invariants_and_recall)
+    scaled up: delete a third, upsert items whose outliers widen band 0,
+    kill band 0's hubs, relink to zero debt."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import (
+        ShardedMutable,
+        build_sharded,
+        sharded_search,
+        sharded_search_reference,
+    )
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.obs.recall import recall_at_k
+
+    n, d, p = 20_000, 64, SHARDS
+    items = mips_dataset(n, d, "lognormal", seed=0)
+    queries = torch.as_tensor(mips_queries(256, d, seed=77), device="cuda")
+    t0 = time.perf_counter()
+    sm = ShardedMutable(items, p, plus=False, headroom=-(-n // p), **SHARD_BUILD)
+    log(f"sharded churn: N={n} d={d} P={p} capacity={sm.capacity} built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    assert sm.check_invariants() == []
+    common = dict(k=10, ef=64, plus=False, route="upper_bound", return_stats=True)
+
+    def live_recall(ids) -> float:
+        gids, live_items = sm.live_items()
+        rows = np.argsort(-(queries.cpu().numpy() @ live_items.T), axis=1, kind="stable")[:, :10]
+        return recall_at_k(ids.cpu().numpy(), gids[rows])
+
+    base = live_recall(sharded_search_reference(sm.snapshot(), queries, **common)[0])
+    rng = np.random.default_rng(3)
+    with counted_upserts() as seen, watch_replays() as replays:
+        t0 = time.perf_counter()
+        sm.delete(rng.choice(sm.live_gids(), size=n * 80 // 256, replace=False))
+        t_delete = time.perf_counter() - t0
+        fresh_items = mips_dataset(n * 96 // 256, d, "lognormal", seed=8).copy()
+        fresh_items[: len(fresh_items) // 24] *= 10.0  # norm outliers: band 0 widens
+        t0 = time.perf_counter()
+        new_gids = sm.upsert(fresh_items)
+        t_upsert = time.perf_counter() - t0
+        assert sm.check_invariants() == [] and len(set(new_gids.tolist())) == len(new_gids)
+        killed = sm.kill_hubs(0, k=sm.capacity)
+        assert len(killed) > 0 and sm.check_invariants() == []
+        t0 = time.perf_counter()
+        passes = 0
+        while sm.relink_debt():
+            sm.relink(64)
+            passes += 1
+        t_relink = time.perf_counter() - t0
+    captures = sum(m._upsert_graph is not None for m in sm.shards)
+    _assert_replays("sharded churn upserts", replays, seen["chunks"] - captures)
+    assert sm.check_invariants() == [], "sharded churn: invariants after relinking"
+    snap = sm.snapshot()
+    # the routing bound survives churn (the JAX test's check, its 1e-5 too)
+    norms = np.linalg.norm(snap.ip.items.cpu().numpy(), axis=-1)
+    live = snap.live.cpu().numpy()
+    for s in range(p):
+        if live[s].any():
+            assert norms[s][live[s]].max() <= float(snap.max_norm[s]) + 1e-5, \
+                f"sharded churn: band {s} holds a live norm above its max_norm"
+    _check_fanout("sharded churn snapshot", snap, queries, False, "f32")
+    ids_o, _, _, st_o = sharded_search_reference(snap, queries, **common)
+    ids_f, _, _, st_f = sharded_search(snap, queries, **common)
+    live_gids = set(sm.live_gids().tolist())
+    for ids in (ids_f, ids_o):
+        served = set(ids.flatten().tolist()) - {-1}
+        assert served <= live_gids, "sharded churn: a tombstoned gid was served"
+    rec_post = live_recall(ids_o)
+    gids, live_items = sm.live_items()
+    fresh = build_sharded(live_items, p, plus=False, partition="norm_bands", **SHARD_BUILD)
+    ids_fr = sharded_search_reference(fresh, queries, **common)[0]
+    rows = np.argsort(-(queries.cpu().numpy() @ live_items.T), axis=1, kind="stable")[:, :10]
+    rec_fresh = recall_at_k(ids_fr.cpu().numpy(), rows)
+    log(f"sharded churn: deleted {n * 80 // 256} in {t_delete:.3f} s, upserted {len(new_gids)} in "
+        f"{t_upsert:.3f} s ({seen['chunks']} chunks, {captures} captures), killed "
+        f"{len(killed)} band-0 hubs, relinked in {passes} passes {t_relink:.3f} s; "
+        f"max_norm={snap.max_norm.tolist()} recall@10 before={base:.4f} after_relink="
+        f"{rec_post:.4f} (JAX {JAX_SHARDED_CHURN_RECALL}; fan-out {live_recall(ids_f):.4f}) "
+        f"fresh_rebuild={rec_fresh:.4f} "
+        f"shards_visited_mean={float(st_f.shards_visited.float().mean()):.4f} (oracle "
+        f"{float(st_o.shards_visited.float().mean()):.4f}) invariants I1-I6 hold, no "
+        f"tombstoned gid served")
+    assert abs(rec_post - JAX_SHARDED_CHURN_RECALL) <= RECALL_MARGIN, \
+        f"sharded churn: recall {rec_post} not within 0.02 of JAX's {JAX_SHARDED_CHURN_RECALL}"
+
+
+def phase_sharded_serve() -> None:
+    """``serve --shards 4`` at the serve default against the JAX CLI."""
+    from repro_torch.launch import serve
+
+    for name, (flags, jax_recall, jax_visited) in SHARDED_SERVE.items():
+        res = serve.main(["--index", "ipnsw_plus", "--shards", str(SHARDS), *flags])
+        log(f"serve --shards {SHARDS} {name}: recall@10={res['recall']:.4f} (JAX {jax_recall}) "
+            f"shards_visited_mean={res['shards_visited_mean']:.4f} (JAX {jax_visited}) "
+            f"skipped_mean={res['skipped_mean']:.4f} evals/q={res['evals_per_query']:.1f} "
+            f"search_ms={res['search_seconds'] * 1e3:.3f}")
+        assert abs(res["recall"] - jax_recall) <= RECALL_MARGIN, \
+            f"serve --shards {name}: recall {res['recall']} not within 0.02 of JAX {jax_recall}"
+
+
+def phase_sharded() -> dict:
+    """Phase 7: the sharded path; returns its launches."""
+    import torch
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    phase_sharded_full()
+    log(f"sharded full size peak_memory_bytes={torch.cuda.max_memory_allocated()}")
+    phase_sharded_gate()
+    phase_sharded_churn()
+    phase_sharded_serve()
+    counts = _read_counts()
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s launches={counts}")
+    _assert_path("sharded", counts, SHARDED_PATH)
+    return counts
+
+
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "beam_step": ("src/repro_torch/csrc/beam_step.cu",
@@ -3174,6 +3680,8 @@ def main() -> int:
     counts.update({name: n for name, n in phase_churn_full().items() if name.endswith("_live")})
     counts.update(entry_counts)
     counts.update({name: k33_counts[name] for name in K33_PATH})
+    for name, n in phase_sharded().items():  # the sharded path's launches come on top
+        counts[name] += n
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])
                for name, (src, rep) in SOURCES.items()]

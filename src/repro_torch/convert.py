@@ -5,7 +5,8 @@ The functions take numpy arrays only -- ``np.asarray`` of the JAX package's
 this module imports nothing of that package.  A graph (and int8 store) built
 by JAX can then be searched by the port and the ids compared, a JAX
 ``MutableIndex`` carried across in mid-churn can go on mutating in the port,
-and a JAX ``TraceContext``'s tables can trace the port's walks.
+a JAX ``TraceContext``'s tables can trace the port's walks, and a JAX
+``ShardedIndex`` can be searched by the port's sharded drivers.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import ShardedIndex, with_flat_adjacency
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
@@ -65,6 +67,38 @@ def trace_context_from_arrays(band_ids: np.ndarray, hub_mask: np.ndarray,
         torch.tensor(np.asarray(band_edges, np.float32), device=device),
         trace_cap=trace_cap, n_bands=n_bands,
     )
+
+
+def sharded_from_arrays(ip: Mapping[str, np.ndarray], ang: Optional[Mapping[str, np.ndarray]],
+                        *, offset: np.ndarray, count: Optional[np.ndarray] = None,
+                        store: Optional[Sequence[np.ndarray]] = None,
+                        ang_store: Optional[Sequence[np.ndarray]] = None,
+                        live: Optional[np.ndarray] = None, gid: Optional[np.ndarray] = None,
+                        max_norm: Optional[np.ndarray] = None,
+                        device: str = "cuda") -> ShardedIndex:
+    """A ``ShardedIndex`` on ``device`` from a JAX ``ShardedIndex``'s numpy
+    state: ``ip`` and ``ang`` (None for ip-NSW) hold the stacked graph
+    fields (adj [P, Nloc, M], items [P, Nloc, d], size, entry, entry_norm
+    [P]); the int8 stores as ``(codes [P, Nloc, d], scales [P, Nloc])``;
+    ``offset`` / ``count`` [P], ``live`` / ``gid`` [P, Nloc] and
+    ``max_norm`` [P].  The flat adjacency of the fan-out is made here."""
+    def graph(g: Mapping[str, np.ndarray]) -> GraphIndex:
+        return GraphIndex(
+            adj=torch.tensor(np.asarray(g["adj"], np.int32), device=device),
+            items=torch.tensor(np.asarray(g["items"], np.float32), device=device),
+            size=torch.tensor(np.asarray(g["size"], np.int64), device=device),
+            entry=torch.tensor(np.asarray(g["entry"], np.int64), device=device),
+            entry_norm=torch.tensor(np.asarray(g["entry_norm"], np.float32), device=device))
+
+    def tensor(x, dtype) -> Optional[torch.Tensor]:
+        return None if x is None else torch.tensor(np.asarray(x, dtype), device=device)
+
+    return with_flat_adjacency(ShardedIndex(
+        ip=graph(ip), ang=None if ang is None else graph(ang),
+        offset=tensor(offset, np.int32), count=tensor(count, np.int32),
+        store=_store(store, device), ang_store=_store(ang_store, device),
+        live=tensor(live, bool), gid=tensor(gid, np.int32),
+        max_norm=tensor(max_norm, np.float32)))
 
 
 def _store(arrays: Optional[Sequence[np.ndarray]], device: str) -> Optional[ItemStore]:

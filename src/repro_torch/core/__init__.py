@@ -10,9 +10,11 @@ import importlib
 
 _EXPORTS = {
     "GraphIndex": "graph",
+    "empty_graph": "graph",
     "in_degrees": "graph",
     "out_degrees": "graph",
     "Similarity": "similarity",
+    "normalize": "similarity",
     "beam_search": "search",
     "SearchResult": "search",
     "BUILD_BACKENDS": "build",
@@ -21,6 +23,7 @@ _EXPORTS = {
     "IpNSWPlus": "ipnsw_plus",
     "PlusResult": "ipnsw_plus",
     "exact_topk": "brute_force",
+    "assert_graph_invariants": "invariants",
     "check_graph_invariants": "invariants",
     "dead_edge_fraction": "invariants",
     "MutableIndex": "mutation",
@@ -35,7 +38,20 @@ _EXPORTS = {
     "store_scores": "storage",
     "update_store_rows": "storage",
     "validate_storage": "storage",
+    "recall_at_k": "recall",
+    "recall_curve": "recall",
+    "ShardedIndex": "distributed",
+    "RouteStats": "distributed",
+    "ShardedMutable": "distributed",
+    "build_sharded": "distributed",
+    "norm_band_partition": "distributed",
+    "shard_visit_mask": "distributed",
+    "sharded_search": "distributed",
+    "sharded_search_reference": "distributed",
 }
+# the recall helpers live in the observability layer (repro_torch.obs.recall),
+# as the JAX package's do; every other name in a submodule of this package
+_PACKAGE = {"recall": "repro_torch.obs"}
 
 __all__ = sorted(_EXPORTS)
 
@@ -43,4 +59,5 @@ __all__ = sorted(_EXPORTS)
 def __getattr__(name: str):
     if name not in _EXPORTS:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    module = _EXPORTS[name]
+    return getattr(importlib.import_module(f"{_PACKAGE.get(module, __name__)}.{module}"), name)

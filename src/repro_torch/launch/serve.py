@@ -4,7 +4,8 @@ trace through the continuous-batching loop (``--loop``), and report
 recall@k against the exact scan.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --index ipnsw_plus \\
-      --n-items 20000 --dim 64 --batch 256 --ef 40 [--storage int8]
+      --n-items 20000 --dim 64 --batch 256 --ef 40 [--storage int8|tiered] \\
+      [--shards 4 --partition norm_bands --route upper_bound]
   PYTHONPATH=src python -m repro_torch.launch.serve --loop [--clock wall] \\
       [--rate 2000] [--requests 256] [--churn-trace 0.2] [--relink-budget 64] \\
       [--trace] [--metrics-out run.jsonl]
@@ -17,6 +18,16 @@ scan ignores it, as the JAX CLI does.  ``--build-backend scan`` builds every
 index with the scan driver (``core/build.py``: on the card one insertion
 batch captured as a CUDA graph and replayed).  ``--device`` defaults to the
 card.
+
+``--shards P`` (P > 1) builds a sharded index (``core/distributed.py``): P
+shard-local graphs on the one card, every query walking all of them in one
+``beam_walk`` launch a walk stage, the per-shard top k merged.
+``--partition norm_bands`` cuts the catalog into descending-norm bands,
+``--route upper_bound`` skips a shard whose bound ``max_norm * ||q||``
+cannot reach the query's k-th score (the print line then carries
+shards_visited_mean / skipped_mean), and ``--storage tiered`` walks the hot
+top band f32 and the cold bands int8.  The JAX CLI's validation and
+messages; unlike it, no device count is needed.
 
 ``--loop`` schedules ``--requests`` queries arriving at ``--rate`` QPS in
 three deadline classes through ``launch/serve_loop.py`` on the ladder
@@ -47,10 +58,16 @@ import torch
 
 from repro_torch.core.brute_force import exact_topk
 from repro_torch.core.build import BUILD_BACKENDS
+from repro_torch.core.distributed import (
+    PARTITION_BACKENDS,
+    ROUTE_MODES,
+    SHARD_STORAGE,
+    build_sharded,
+    sharded_search,
+)
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
 from repro_torch.core.mutation import MutableIndex
-from repro_torch.core.storage import STORAGE_BACKENDS
 from repro_torch.data import mips_dataset, mips_queries
 from repro_torch.launch import serve_loop as sl
 from repro_torch.obs import (
@@ -78,10 +95,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--ef", type=int, default=40)
+    ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--profile", default="lognormal")
-    ap.add_argument("--storage", default="f32", choices=STORAGE_BACKENDS,
+    ap.add_argument("--storage", default="f32", choices=SHARD_STORAGE,
                     help="item store the search streams (int8 = quantized walk "
-                         "+ exact fp32 rerank)")
+                         "+ exact fp32 rerank; tiered = hot top band f32, cold bands "
+                         "int8 -- sharded only, needs --route upper_bound)")
+    ap.add_argument("--partition", default="roundrobin", choices=PARTITION_BACKENDS,
+                    help="sharded catalog split (norm_bands = count-balanced bands of "
+                         "descending ||x|| with per-shard max_norm routing bounds)")
+    ap.add_argument("--route", default="none", choices=ROUTE_MODES,
+                    help="sharded query routing (upper_bound skips shards whose "
+                         "max_norm*||q|| cannot beat the running k-th score)")
     ap.add_argument("--build-backend", default="host", choices=BUILD_BACKENDS,
                     help="insertion driver (build.BUILD_BACKENDS)")
     ap.add_argument("--device", default="cuda")
@@ -106,22 +131,51 @@ def main(argv=None) -> dict:
                     help="thread an obs.TraceContext through every walk: per-norm-band "
                          "eval histograms and hub hits at unchanged walk outputs")
     args = ap.parse_args(argv)
+    if args.shards <= 1 and (args.route != "none" or args.partition != "roundrobin"
+                             or args.storage == "tiered"):
+        raise SystemExit("--partition/--route/--storage tiered shape the sharded fan-out; "
+                         "add --shards N")
+    if args.storage == "tiered" and args.route != "upper_bound":
+        raise SystemExit("--storage tiered rides the routed two-phase walk; "
+                         "add --route upper_bound")
     device = torch.device(args.device)
-    if args.trace and args.index == "bruteforce":
-        raise SystemExit("--trace instruments graph walks; pick a graph index")
+    if args.trace and (args.shards > 1 or args.index == "bruteforce"):
+        raise SystemExit("--trace instruments graph walks on one device; "
+                         "drop --shards / pick a graph index")
 
     items = torch.as_tensor(mips_dataset(args.n_items, args.dim, args.profile, seed=0),
                             device=device)
     if args.loop:
-        if args.index == "bruteforce":
-            raise SystemExit("--loop serves ipnsw / ipnsw_plus; pick a graph index")
+        if args.shards > 1 or args.index == "bruteforce":
+            raise SystemExit("--loop serves ipnsw/ipnsw_plus on one device; "
+                             "drop --shards / pick a graph index")
         return _run_loop(args, items)
     queries = torch.as_tensor(mips_queries(args.batch, args.dim, seed=1), device=device)
     _, gt = exact_topk(queries, items, k=args.k)
     gt = gt.cpu().numpy()
 
     trace_ctx = None
-    if args.index == "bruteforce":
+    route_note, extra = "", {}
+    if args.shards > 1:
+        index = build_sharded(items, args.shards, plus=args.index == "ipnsw_plus",
+                              build_backend=args.build_backend, storage=args.storage,
+                              partition=args.partition, device=args.device,
+                              max_degree=16, ef_construction=32, insert_batch=512)
+        knobs = dict(k=args.k, ef=args.ef, storage=args.storage, route=args.route,
+                     return_stats=True, plus=args.index == "ipnsw_plus")
+        sharded_search(index, queries, **knobs)  # warm-up
+        _sync(device)
+        t0 = time.perf_counter()
+        ids, _, ev, rstats = sharded_search(index, queries, **knobs)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        evals = float(ev.float().mean())
+        extra = {"shards_visited_mean": float(rstats.shards_visited.float().mean()),
+                 "skipped_mean": float(rstats.bound_skips.float().mean())}
+        route_note = (f"partition={args.partition} route={args.route} "
+                      f"shards_visited_mean={extra['shards_visited_mean']:.2f} "
+                      f"skipped_mean={extra['skipped_mean']:.2f} ")
+    elif args.index == "bruteforce":
         _sync(device)
         t0 = time.perf_counter()
         _, ids = exact_topk(queries, items, k=args.k)
@@ -155,15 +209,15 @@ def main(argv=None) -> dict:
                 "evaluations landing on the top-in-degree hub set (Fig-4)",
             ).inc(int(r.trace.hub_evals.sum()))
     rec = recall_at_k(ids.cpu().numpy(), gt)
-    print(f"[serve] index={args.index} shards=1 storage={args.storage} "
-          f"N={args.n_items} B={args.batch} ef={args.ef}: "
+    print(f"[serve] index={args.index} shards={args.shards} storage={args.storage} "
+          f"{route_note}N={args.n_items} B={args.batch} ef={args.ef}: "
           f"recall@{args.k}={rec:.3f} evals/q={evals:.0f} "
           f"({dt / args.batch * 1e3:.2f} ms/query batch-amortized) device={device}")
     if trace_ctx is not None:
         _print_band_table(get_registry(), trace_ctx)
     if args.metrics_out:
         _write_metrics(get_registry(), args.metrics_out)
-    return {"recall": rec, "evals_per_query": evals, "search_seconds": dt}
+    return {"recall": rec, "evals_per_query": evals, "search_seconds": dt, **extra}
 
 
 def _trace_context(index, size=None) -> TraceContext:

@@ -61,10 +61,12 @@ def test_wrappers_check_the_device():
     assert _lib.on_cuda(torch.zeros(1)) is False
 
 
-@pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable", "serve_loop"])
+@pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable", "serve_loop",
+                                   "sharded", "sharded_mutable", "serve_shards"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks a host without CUDA")
+    from repro_torch.core.distributed import ShardedMutable, build_sharded
     from repro_torch.core.ipnsw import IpNSW
     from repro_torch.core.ipnsw_plus import IpNSWPlus
     from repro_torch.core.mutation import MutableIndex
@@ -77,8 +79,14 @@ def test_default_device_raises_without_cuda(entry):
         elif entry == "serve_loop":
             serve.main(["--loop", "--n-items", "64", "--dim", "8", "--batch", "4",
                         "--requests", "4"])
+        elif entry == "serve_shards":
+            serve.main(["--n-items", "64", "--dim", "8", "--batch", "4", "--shards", "2"])
         elif entry == "mutable":
             MutableIndex(IpNSW().build(items), capacity=80).upsert(items[:4])
+        elif entry == "sharded":
+            build_sharded(items, 2)
+        elif entry == "sharded_mutable":
+            ShardedMutable(items, 2)
         else:
             (IpNSW if entry == "ipnsw" else IpNSWPlus)().build(items)
 
