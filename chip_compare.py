@@ -11,7 +11,7 @@ Each variant or fault is a named edit of a source (EDITS below), applied
 to a copy of ``src/`` under ``build/compare/<name>``, which builds its own
 kernel library.  ``--variants`` times ``mips_topk`` (k = 10, and its select
 route at k = 33 and 1,000 with the select kernels' sum), the bf16
-``flash_attention`` and ``commit_merge`` (both COMMIT_SHAPES cells) of the
+``flash_attention`` and ``commit_merge`` (every COMMIT_SHAPES cell) of the
 checkout and of each variant, one process per tree, in turns (checkout,
 variants, variants reversed, checkout), at the shapes of ``chip_smoke.py``'s
 phase 3; with ``--walk`` it times

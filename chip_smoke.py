@@ -45,6 +45,9 @@ Phases (each one that fails ends the run with a non-zero exit):
      kernels' sum, library_ms, bound and candidates per row; and
      MIPS_TIED_SHAPES, every score of a query tied, so each row overflows
      its candidate buffer and is selected from its scores).  commit_merge
+     runs at the build's merge (M 16 and the angular graph's M 10) and at
+     a hierarchy's upper level (M 8); gather_score also at SimpleLSH's
+     rerank (W 100 and 800).  commit_merge
      also runs one whole commit (pre-pass and kernel) per cell under
      torch.cuda.set_sync_debug_mode("error"): no read-back from the card.
      A "roofline" line gives each
@@ -52,7 +55,9 @@ Phases (each one that fails ends the run with a non-zero exit):
      library_ms; phase 2 counts the tensor-core instructions of the bf16
      kernel's SASS (cuobjdump).  beam_walk, the whole walk in one launch,
      runs in every variant (f32, int8, each with and without a tombstone
-     mask) at the main path's walks (WALK_SHAPES), at pad rows born done,
+     mask) at the main path's walks (WALK_SHAPES; the hierarchy's descent,
+     a pool of one, and its upper levels' build walk among them), at pad
+     rows born done,
      a max_steps cut, a walk that ends before max_steps (WALK_LONG), an
      ef of 400 whose visited rows stay in device memory (WALK_LARGE_V) and
      a width of 37 (scalar loads), on integer and float inputs: every output (pool, visited, evals, dead
@@ -187,6 +192,36 @@ nothing then, and are not counted): ``count_graph_launches``.
      norm_bands / upper_bound, with --storage tiered and round-robin, recall
      within 0.02 of the JAX CLI's.  Its launches are added to the kernels
      line.
+  8. index family (core/hnsw.py, core/norm_filter.py, core/lsh.py): at full
+     size (Yahoo!Music's 136,736 x 300, 256 queries, k 10, ef 40, ground
+     truth from mips_topk) a HierarchicalIpNSW (M 16, ef_construction 32,
+     insert_batch 512) built with the host and the scan driver: every
+     level's adjacency, size, entry, entry_norm, ids and inv bit-identical,
+     I1-I4 on every level, the scan's replays under sync debug mode
+     "error"; level sizes and build seconds; searched f32 and int8 (recall,
+     evals with the descent, ms as the median of 20) with one beam_walk
+     launch a level, beside a flat IpNSW at the same ef; after the phase's
+     launches are read, every level's walk of both searches equal to the
+     per-step loop's.  NormFilteredIndex(keep_frac 0.25, plus) with the
+     same knobs, f32 and int8: every id in the kept slice, recall beside
+     its bound top_group_share(gt, 25%) and a flat IpNSWPlus's, build s
+     and ms.  SimpleLSH(n_bits 96) at T 100 and 800: recall and ms; the
+     Hamming stage (mips_topk's select route under bulk ties: every
+     agreement an even integer) bit-identical to the plain version on CPU
+     copies, its ms, select ms, library ms, bound and candidates per row;
+     the card's codes and whole search against the same index copied to
+     the CPU (codes equal off SIGN_TOL, ids up to near-ties).  At the
+     serve default (N 20,000, d 64) HierarchicalIpNSW's and
+     NormFilteredIndex's recall@10 within 0.02 of the JAX package's;
+     SimpleLSH's, for plane seeds 0-9, within two result slots of the
+     port's own on the CPU seed for seed, and its mean within 0.05 of the
+     JAX package's mean (the planes differ;
+     scripts/index_family_reference.py).  Its launches (the builds and
+     searches; not the timings and comparisons, ``uncounted``) are added
+     to the kernels line.  After they are read, a hierarchy on integer
+     items (3,000 x 300: levels of 188, 12 and 2 items) built on the card
+     with both drivers and on the CPU, bit for bit on every level, and
+     its searches equal.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -260,6 +295,11 @@ WALK_SHAPES = {
     "build_ip": (512, 32, 16, 161, 64),
     "search_angular": (256, 10, 10, 1, 20),
     "search_ip": (256, 40, 16, 160, 80),
+    # HierarchicalIpNSW (core/hnsw.py) at full size: the greedy descent, a pool
+    # of one on an upper level (M 8, 4 * 16 steps), and an upper level's build
+    # walk (M 8, ef_construction 8, 16 steps)
+    "descent": (256, 1, 8, 1, 64),
+    "build_upper": (512, 8, 8, 1, 16),
 }
 # on a random graph new candidates keep entering the pool, so these walks run
 # to max_steps; with 400 steps the search IP walk ends on its own
@@ -267,11 +307,14 @@ WALK_LONG = (256, 40, 16, 160, 400)
 # ef 400: V = 160 + 800 * 16 = 12,960 ids, past VISITED_SHARED_MAX, so the
 # walk scans its visited rows in device memory
 WALK_LARGE_V = (64, 400, 16, 160, 800)
-COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10)}  # (insert batch, M)
+# (insert batch, M); "upper": a HierarchicalIpNSW upper level (M 16 // 2)
+COMMIT_SHAPES = {"ip": (512, 16), "angular": (512, 10), "upper": (512, 8)}
 # gathered scorers: (B, W) on the main path, d = 300
 QUANT_SHAPES = {"seed_ip": (256, 160), "seed_angular": (256, 1)}
 GATHER_SHAPES = {"seed_ip": (256, 160), "build_seed_ip": (512, 161), "rerank_ip": (256, 40),
-                 "rerank_angular": (256, 10), "build_seed_angular": (512, 1)}
+                 "rerank_angular": (256, 10), "build_seed_angular": (512, 1),
+                 # SimpleLSH's exact rerank of its T candidates (phase 8)
+                 "lsh_rerank_t100": (256, 100), "lsh_rerank_t800": (256, 800)}
 # the scorers' edges, checked only: (B, W, d, row 0 all -1) -- one query, one
 # slot a query, a ragged last tile with a dead row, the scalar loads (d 37)
 # and two rounds of loads (d 512)
@@ -1829,6 +1872,32 @@ def _read_counts() -> dict:
 STEP_KERNELS = ("beam_step", "beam_step_int8", "beam_step_live", "beam_step_int8_live")
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Inside, launches happen but are taken back out of the counts on
+    exit: the launches made to time a kernel or to compare it with its
+    plain version are not the path's."""
+    from repro_torch.kernels.beam_step import beam_walk
+
+    counters = _kernel_counters()
+    saved = _wrapper_counts()
+    steps = beam_walk.steps
+    widths = {name: dict(by_width) for name, by_width in _widths().items()}
+    graphs = {name: dict(tally) for name, tally in _IN_GRAPHS.items()}
+    try:
+        yield
+    finally:
+        for name, (fn, attr) in counters.items():
+            setattr(fn, attr, saved[name])
+        beam_walk.steps = steps
+        for name, by_width in _widths().items():
+            by_width.clear()
+            by_width.update(widths[name])
+        for name, tally in _IN_GRAPHS.items():
+            tally.clear()
+            tally.update(graphs[name])
+
+
 def _walk_steps() -> int:
     """Walk steps so far: beam_walk's step counts, and one a launch of the
     per-step kernel (the per-step loop)."""
@@ -3042,13 +3111,7 @@ def _profiled(label: str, fn, batches: int = 0, reps: int = 0) -> list:
         f"idle_share={1 - device_s / wall:.3f} {per_step}{per_batch} "
         f"wall_ms={wall * 1e3:.4f} device_busy_ms={device_s * 1e3:.4f}")
     if reps:
-        walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
+        walls = _walls(fn, reps)
         med = float(np.median(walls))
         log(f"profile {label}: unprofiled wall_ms median={med:.4f} of {reps} "
             f"[{min(walls):.4f}, {max(walls):.4f}] idle_share={1 - device_s * 1e3 / med:.3f} "
@@ -3057,6 +3120,27 @@ def _profiled(label: str, fn, batches: int = 0, reps: int = 0) -> list:
         log(f"profile {label}: {e.self_device_time_total * 1e-3:10.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
     return events
+
+
+def _walls(fn, reps: int = 20) -> list:
+    """Wall milliseconds of ``reps`` unprofiled calls of ``fn``, the card
+    synchronized around each."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _median_ms(fn, reps: int = 20) -> float:
+    import numpy as np
+
+    return float(np.median(_walls(fn, reps)))
 
 
 def _profiled_both(label: str, fn, reps: int = 0) -> None:
@@ -3068,14 +3152,16 @@ def _profiled_both(label: str, fn, reps: int = 0) -> None:
 
 
 @contextlib.contextmanager
-def per_step_walks():
+def per_step_walks(capturable: bool = False):
     """Inside, every walk of core/search runs as the host loop of the
     beam_step kernel (``per_step_walk``), as the port walked before
-    beam_walk."""
+    beam_walk.  ``capturable``: a walk asked to read nothing back takes
+    the loop too, which reads back every step (outside a capture only)."""
     from repro_torch.core import search
 
     fused = search.beam_walk
-    search.beam_walk = per_step_walk
+    search.beam_walk = ((lambda *a, capturable=False, **kw: per_step_walk(*a, **kw))
+                        if capturable else per_step_walk)
     try:
         yield
     finally:
@@ -3616,6 +3702,404 @@ def phase_sharded() -> dict:
     return counts
 
 
+# ------------------------------------------------------------ index family
+
+# the serve CLI's build knobs, at full size and at the serve default
+FAMILY_BUILD = dict(max_degree=16, ef_construction=32, insert_batch=512)
+FAMILY_EF, FAMILY_KEEP = 40, 0.25
+LSH_BITS = 96                 # benchmarks/fig7_recall_time.py's width
+LSH_CANDIDATES = (100, 800)
+SIGN_TOL = 1e-5               # |projection| under which a code's sign is the rounding's
+# `PYTHONPATH=src python scripts/index_family_reference.py` (the JAX package, on
+# the CPU) printed: [index_family_reference] package=jax N=20000 d=64 B=256 ef=40
+# hnsw_levels=[20000, 1261, 81, 4] norm_filter_bound=1.0 ...
+# recall@10 hnsw_f32=0.9140625000000001 hnsw_int8=0.9136718750000001
+# norm_filter_f32=0.9312500000000001 norm_filter_int8=0.9328125000000002
+# lsh_t100=0.38984375 lsh_t800=0.637109375
+JAX_FAMILY_RECALL = {"hnsw_f32": 0.9140625000000001, "hnsw_int8": 0.9136718750000001,
+                     "norm_filter_f32": 0.9312500000000001,
+                     "norm_filter_int8": 0.9328125000000002}
+# SimpleLSH draws its planes with each package's own generator, so one draw
+# of the port's is not one of JAX's: the card is held to the port's own
+# recall on the CPU for plane seeds 0-9 (the same planes), and the mean over
+# those seeds to JAX's mean.  `... index_family_reference.py --lsh-seeds 10`
+# printed, JAX: lsh_t100 mean=0.38046875 std=0.014155 (seed 0: 0.38984375),
+# lsh_t800 mean=0.62125 std=0.017215 (seed 0: 0.637109375); and with
+# `--package torch --device cpu` the port's values below (std 0.027917 and
+# 0.031039).  The standard error of the difference of the two means is about
+# 0.010 and 0.011, so LSH_RECALL_MARGIN is 4.5 of them or more.
+JAX_LSH_MEAN_RECALL = {"lsh_t100": 0.38046875, "lsh_t800": 0.62125}
+PORT_CPU_LSH_RECALL = {
+    "lsh_t100": (0.439453125, 0.40664062500000003, 0.386328125, 0.402734375, 0.367578125,
+                 0.36757812500000003, 0.38515625, 0.44375, 0.380078125, 0.4242187499999999),
+    "lsh_t800": (0.683203125, 0.6421874999999999, 0.623046875, 0.623046875, 0.609375,
+                 0.61640625, 0.615625, 0.68125, 0.60859375, 0.678515625)}
+LSH_RECALL_MARGIN = 0.05
+# the card against the port's CPU copy, per seed: two of 256 x 10 result slots,
+# a near tie at the 10th place of two rows (the rerank's fp32 sums differ in
+# order between the card and the CPU)
+LSH_CPU_TOL = 2 / 2560
+FAMILY_PATH = ("beam_walk", "beam_walk_int8", "commit_merge", "mips_topk", "mips_topk_select",
+               "gather_score", "quant_score")
+# the plain build of a small hierarchy on integer items: levels of 3,000, 188,
+# 12 and 2 items (assign_levels, seed 0), the two top ones under a batch and
+# the top one under M 8
+FAMILY_PLAIN_N = 3_000
+
+
+def _device_ms_or_none(fn, only: str = ""):
+    """``device_ms``, or None where the profiler keeps losing a call's
+    device events (late in a long run it has: 17 of 20 launches seen in
+    every session); the CUDA-event times beside it stand."""
+    try:
+        return device_ms(fn, only=only)
+    except RuntimeError as err:
+        log(f"device time not measured: {err}")
+        return None
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def _timed_build(make):
+    """(index, build seconds, graph replays and their sync debug modes)."""
+    import torch
+
+    with watch_replays() as seen:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = make()
+        torch.cuda.synchronize()
+    return index, time.perf_counter() - t0, seen
+
+
+def _scan_replays(sizes, insert_batch: int) -> int:
+    """Graph replays of a scan build over levels of these sizes: rows 1 ..
+    T-1 of each schedule of two rows or more."""
+    from repro_torch.core.build import batch_schedule
+
+    rows = [batch_schedule(n, insert_batch)[1].shape[0] for n in sizes]
+    return sum(r - 1 for r in rows if r >= 2)
+
+
+def _same_levels(label: str, a, b) -> None:
+    """Two HierarchicalIpNSWs level for level, bit for bit: adjacency, size,
+    entry, entry_norm, ids and inv (``b`` may lie on another device)."""
+    import torch
+
+    assert len(a.levels) == len(b.levels), f"{label}: {len(a.levels)} != {len(b.levels)} levels"
+    for level, (x, y) in enumerate(zip(a.levels, b.levels)):
+        for field in ("adj", "size", "entry", "entry_norm"):
+            u, v = getattr(x, field), getattr(y, field).to(getattr(x, field).device)
+            assert torch.equal(u.view(torch.int32) if u.dtype == torch.float32 else u,
+                               v.view(torch.int32) if v.dtype == torch.float32 else v), \
+                f"{label} level {level}: {field} differs"
+        assert torch.equal(a.ids[level], b.ids[level].to(a.ids[level].device)), \
+            f"{label} level {level}: ids differ"
+        assert torch.equal(a.inv[level], b.inv[level].to(a.inv[level].device)), \
+            f"{label} level {level}: inv differs"
+
+
+def phase_family_hnsw(items, queries, gt, flat) -> dict:
+    """HierarchicalIpNSW at full size: built with both drivers, every level
+    bit-identical and I1-I4 on it; searched f32 and int8, one beam_walk
+    launch a level.  Returns its searches for the per-step check."""
+    from repro_torch.core import HierarchicalIpNSW
+    from repro_torch.core.invariants import assert_graph_invariants
+    from repro_torch.obs.recall import recall_at_k
+
+    built, build_s = {}, {"host": [], "scan": []}
+    for driver in ("host", "scan", "scan", "host"):  # in turns
+        index, seconds, seen = _timed_build(
+            lambda: HierarchicalIpNSW(build_backend=driver, **FAMILY_BUILD).build(items))
+        built.setdefault(driver, (index, seconds, seen))
+        build_s[driver].append(seconds)
+    host, scan = built["host"][0], built["scan"][0]
+    sizes = [int(g.size) for g in host.levels]
+    assert sizes[0] == N_FULL and sizes == sorted(sizes, reverse=True), sizes
+    _same_levels("hnsw host against scan", host, scan)
+    for level, graph in enumerate(host.levels):
+        assert_graph_invariants(graph, name=f"hnsw/level{level}")
+    want = _scan_replays(sizes, FAMILY_BUILD["insert_batch"])
+    assert built["scan"][2] == {"replays": want, "modes": {2}}, (built["scan"][2], want)
+    assert built["host"][2]["replays"] == 0
+    log(f"index family hnsw: N={N_FULL} d={D_FULL} M=16 ef_construction=32 insert_batch=512 "
+        f"level_sizes={sizes} upper levels M=8 ef_construction=8; build_s (turns host, scan, "
+        f"scan, host) host={['%.4f' % x for x in build_s['host']]} "
+        f"scan={['%.4f' % x for x in build_s['scan']]} (scan: {want} graph replays under "
+        f"sync debug mode error); every level's adj, size, entry, entry_norm, ids, inv "
+        f"bit-identical across the drivers; invariants I1-I4 hold on every level")
+    searched = {}
+    for storage in ("f32", "int8"):
+        run = lambda: host.search(queries, k=10, ef=FAMILY_EF, storage=storage)  # noqa: E731
+        run()  # warm-up (int8: the stores)
+        res, walks, steps = _walk_launches(run)
+        assert walks == len(sizes) and steps == 0, \
+            f"hnsw {storage}: {walks} walk launches for {len(sizes)} levels, {steps} per-step"
+        rec = recall_at_k(res.ids.cpu().numpy(), gt)
+        with uncounted():  # timings and the flat index beside it
+            ms = _median_ms(run)
+            flat_run = lambda: flat["ipnsw"].search(queries, k=10, ef=FAMILY_EF,  # noqa: E731
+                                                    storage=storage)
+            flat_res = flat_run()
+            flat_rec = recall_at_k(flat_res.ids.cpu().numpy(), gt)
+            flat_ms = _median_ms(flat_run)
+            if storage == "f32":  # where the time goes: device busy, idle, top kernels
+                _profiled("index family hnsw search f32 256x40", run, reps=20)
+                _profiled("index family flat ipnsw search f32 256x40", flat_run, reps=20)
+        log(f"index family hnsw search storage={storage} B=256 k=10 ef={FAMILY_EF}: "
+            f"recall@10={rec:.4f} evals/q={res.evals.float().mean().item():.1f} (descent and "
+            f"level 0) ms={ms:.4f} (median of 20) beam_walk launches a search={walks}; flat "
+            f"ipnsw recall@10={flat_rec:.4f} evals/q={flat_res.evals.float().mean().item():.1f} "
+            f"ms={flat_ms:.4f}")
+        assert rec > 0.5, f"hnsw {storage}: recall@10 {rec}"
+        searched[storage] = (host, res)
+    return searched
+
+
+def phase_family_norm_filter(items, queries, gt, flat) -> None:
+    """NormFilteredIndex(keep_frac=0.25, plus=True) at full size, f32 and
+    int8: every id in the kept slice; recall beside its bound and the flat
+    IpNSWPlus's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import NormFilteredIndex
+    from repro_torch.core.norms import top_group_share
+    from repro_torch.obs.recall import recall_at_k
+
+    nf, build_s, _ = _timed_build(lambda: NormFilteredIndex(keep_frac=FAMILY_KEEP, plus=True,
+                                                            **FAMILY_BUILD).build(items))
+    assert len(nf.global_ids) == int(N_FULL * FAMILY_KEEP)
+    share = top_group_share(gt, np.linalg.norm(items.cpu().numpy(), axis=1), 100 * FAMILY_KEEP)
+    for storage in ("f32", "int8"):
+        run = lambda: nf.search(queries, k=10, ef=FAMILY_EF, storage=storage)  # noqa: E731
+        res = run()
+        ids = res.ids[res.ids >= 0]
+        assert bool(torch.isin(ids, nf.global_ids).all()), f"norm filter {storage}: an id outside"
+        rec = recall_at_k(res.ids.cpu().numpy(), gt)
+        with uncounted():
+            ms = _median_ms(run)
+            plus_run = lambda: flat["ipnsw_plus"].search(queries, k=10,  # noqa: E731
+                                                         ef=FAMILY_EF, storage=storage)
+            plus_rec = recall_at_k(plus_run().ids.cpu().numpy(), gt)
+            plus_ms = _median_ms(plus_run)
+        log(f"index family norm_filter keep_frac={FAMILY_KEEP} plus=True storage={storage}: "
+            f"kept={len(nf.global_ids)} recall@10={rec:.4f} bound top_group_share(gt, 25%)="
+            f"{share:.4f} evals/q={res.evals.float().mean().item():.1f} build_s={build_s:.4f} "
+            f"ms={ms:.4f} (median of 20); flat ipnsw_plus recall@10={plus_rec:.4f} build_s="
+            f"{flat['ipnsw_plus_build_s']:.4f} ms={plus_ms:.4f}; every id in the kept slice")
+        assert rec > 0.6 * share, f"norm filter {storage}: recall {rec} under 0.6 x {share}"
+
+
+def phase_family_lsh(items, queries, gt) -> None:
+    """SimpleLSH(n_bits=96) at full size, T = 100 and 800: recall and ms;
+    the Hamming stage (mips_topk's select route under bulk ties) bit-
+    identical to its plain version on CPU copies of the query codes and
+    codes, timed, candidates per row; codes and the whole search against
+    the same index copied to the CPU.  Only the searches are counted."""
+    import torch
+
+    from repro_torch.core import SimpleLSH
+    from repro_torch.core.lsh import augment_items, augment_queries, sign_codes
+    from repro_torch.kernels.mips_topk import mips_topk, mips_topk_select
+    from repro_torch.kernels.mips_topk.ops import select_plan
+    from repro_torch.obs.recall import recall_at_k
+    from repro_torch.testing import assert_topk_match
+
+    lsh, build_s, _ = _timed_build(lambda: SimpleLSH(n_bits=LSH_BITS).build(items))
+    cpu = SimpleLSH(n_bits=LSH_BITS, device="cpu")
+    cpu.codes, cpu.planes, cpu.items = lsh.codes.cpu(), lsh.planes.cpu(), lsh.items.cpu()
+    q_cpu = queries.cpu()
+    q_codes = sign_codes(augment_queries(queries), lsh.planes)
+    planes64 = cpu.planes.double()
+    for name, aug, codes in (("item", augment_items(cpu.items), cpu.codes),
+                             ("query", augment_queries(q_cpu), q_codes)):
+        differ = sign_codes(aug, cpu.planes) != codes.cpu()
+        near = (aug.double() @ planes64).abs() < SIGN_TOL
+        assert not bool((differ & ~near).any()), f"lsh: {name} codes differ off the sign tolerance"
+        log(f"index family lsh {name} codes: card against CPU differ at {int(differ.sum())} of "
+            f"{differ.numel()} bits, projections within {SIGN_TOL} of 0: {int(near.sum())}")
+    n = lsh.codes.shape[0]
+    recalls = []
+    for t in LSH_CANDIDATES:
+        run = lambda: lsh.search(queries, k=10, n_candidates=t)  # noqa: E731
+        res = run()
+        rec = recall_at_k(res.ids.cpu().numpy(), gt)
+        recalls.append(rec)
+        with uncounted():  # the comparisons with the plain versions and the timings
+            ms = _median_ms(run)
+            hamming = lambda: mips_topk(q_codes, lsh.codes, k=t)  # noqa: E731
+            s_k, i_k = hamming()
+            s_p, i_p = mips_topk(q_codes.cpu(), cpu.codes, k=t)  # the plain version
+            assert torch.equal(i_k.cpu(), i_p) and torch.equal(s_k.cpu(), s_p), \
+                f"lsh T={t}: the Hamming stage differs from its plain version"
+            kth = s_p[:, -1:]
+            split = ((q_codes.cpu() @ cpu.codes.T == kth).sum(1) > (s_p == kth).sum(1))
+            cands = mips_topk_select(q_codes, lsh.codes, k=t)[2].float()
+            b, d = q_codes.shape
+            bound_ms, by = bound(b * d * 4 + n * d * 4 + b * t * 8, 2.0 * b * n * d)
+            # by CUDA events: the library call's gemm kernel varies between
+            # calls, so device_ms cannot count it a call
+            call_ms = cuda_ms(hamming)
+            library_call_ms = cuda_ms(lambda: torch.topk(q_codes @ lsh.codes.T, t, dim=1))
+            hamming_ms = _device_ms_or_none(hamming)
+            select_ms = _device_ms_or_none(hamming, only="select")
+        plain = cpu.search(q_cpu, k=10, n_candidates=t)
+        same = (q_codes.cpu() == sign_codes(augment_queries(q_cpu), cpu.planes)).all(1).numpy()
+        tied = assert_topk_match(res.ids.cpu().numpy()[same], res.scores.cpu().numpy()[same],
+                                 plain.ids.numpy()[same], plain.scores.numpy()[same])
+        log(f"index family lsh n_bits={LSH_BITS} T={t}: recall@10={rec:.4f} evals/q={t} "
+            f"build_s={build_s:.4f} ms={ms:.4f} (median of 20); Hamming stage "
+            f"(mips_topk select route, B={b} N={n} d={d} k={t}) bit-identical to the plain "
+            f"version, rows whose cut splits a tie group={int(split.sum())}/{b}, ms="
+            f"{_ms(hamming_ms)} select_ms={_ms(select_ms)} "
+            f"call_ms={call_ms:.4f} library_call_ms={library_call_ms:.4f} "
+            f"bound_ms={bound_ms:.5f} bound_by={by} "
+            f"candidates_median={cands.median().item():.0f} candidates_max="
+            f"{cands.max().item():.0f} rows_from_scores="
+            f"{int((cands > select_plan(n, t)[1]).sum())}; whole search against the CPU "
+            f"copy: {int(same.sum())} rows with equal query codes, near_tie_rows={len(tied)}")
+    assert 0 < recalls[0] < recalls[-1], f"lsh: recall@10 {recalls} does not rise with T"
+
+
+def phase_family_serve_default() -> None:
+    """Each class at the serve default (``scripts/index_family_reference.py``,
+    the same protocol): HierarchicalIpNSW and NormFilteredIndex against the
+    JAX package's recall; SimpleLSH, for plane seeds 0-9, against the port's
+    own recall on the CPU seed for seed, and its mean against JAX's."""
+    import numpy as np
+
+    from repro_torch.core import HierarchicalIpNSW, NormFilteredIndex, SimpleLSH
+    from repro_torch.data import mips_dataset, mips_queries
+    from repro_torch.obs.recall import recall_at_k
+
+    items = mips_dataset(20_000, 64, "lognormal", seed=0).astype(np.float32)
+    queries = mips_queries(256, 64, seed=1).astype(np.float32)
+    gt = np.argsort(-(queries.astype(np.float64) @ items.astype(np.float64).T), axis=1,
+                    kind="stable")[:, :10]
+    got = {}
+    hnsw = HierarchicalIpNSW(storage="int8", **FAMILY_BUILD).build(items)
+    nf = NormFilteredIndex(keep_frac=FAMILY_KEEP, plus=True, storage="int8",
+                           **FAMILY_BUILD).build(items)
+    for storage in ("f32", "int8"):
+        for name, index in (("hnsw", hnsw), ("norm_filter", nf)):
+            got[f"{name}_{storage}"] = recall_at_k(
+                index.search(queries, k=10, ef=FAMILY_EF, storage=storage).ids.cpu().numpy(), gt)
+    for name, rec in got.items():
+        log(f"index family serve default {name}: recall@10={rec:.4f} "
+            f"(JAX {JAX_FAMILY_RECALL[name]:.4f}, margin {RECALL_MARGIN})")
+        assert abs(rec - JAX_FAMILY_RECALL[name]) <= RECALL_MARGIN, \
+            f"serve default {name}: recall {rec} not within {RECALL_MARGIN} of JAX's"
+    lsh_recall = {name: [] for name in PORT_CPU_LSH_RECALL}
+    for seed in range(len(PORT_CPU_LSH_RECALL["lsh_t100"])):
+        lsh = SimpleLSH(n_bits=LSH_BITS, seed=seed).build(items)
+        for t in LSH_CANDIDATES:
+            lsh_recall[f"lsh_t{t}"].append(recall_at_k(
+                lsh.search(queries, k=10, n_candidates=t).ids.cpu().numpy(), gt))
+    for name, recalls in lsh_recall.items():
+        off = [abs(a - b) for a, b in zip(recalls, PORT_CPU_LSH_RECALL[name])]
+        mean = float(np.mean(recalls))
+        log(f"index family serve default {name} plane seeds 0-{len(recalls) - 1}: recall@10="
+            f"{['%.7f' % r for r in recalls]}; against the port on the CPU, largest difference "
+            f"{max(off):.7f} (tolerance {LSH_CPU_TOL:.7f}); mean {mean:.7f} against JAX's "
+            f"{JAX_LSH_MEAN_RECALL[name]:.7f} (margin {LSH_RECALL_MARGIN})")
+        assert max(off) <= LSH_CPU_TOL, \
+            f"serve default {name}: the card's recall {recalls} is not the CPU's"
+        assert abs(mean - JAX_LSH_MEAN_RECALL[name]) <= LSH_RECALL_MARGIN, \
+            f"serve default {name}: mean recall {mean} not within {LSH_RECALL_MARGIN} of JAX's"
+
+
+def phase_family_per_step(searched, queries) -> None:
+    """The hierarchy's searches again with per-step walks (the host loop of
+    the beam_step kernel): every level's walk, the pool-of-one descent
+    included, gives the fused walk's outputs."""
+    import torch
+
+    for storage, (index, fused) in searched.items():
+        with per_step_walks(capturable=True):
+            looped = index.search(queries, k=10, ef=FAMILY_EF, storage=storage)
+        for field in ("ids", "scores", "evals", "visited"):
+            x, y = getattr(fused, field), getattr(looped, field)
+            assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y), \
+                f"hnsw {storage}: {field} differs from the per-step loop's"
+        assert fused.steps == looped.steps
+        log(f"index family hnsw storage={storage}: the per-step loop's ids, score bits, evals "
+            f"and visited equal the fused walks' on every level")
+
+
+def phase_family_plain_levels() -> None:
+    """A hierarchy on integer items (every dot product exact; d 300, the
+    full-size knobs, FAMILY_PLAIN_N items) built on the card with both
+    drivers and on the CPU, where every wrapper runs its plain version:
+    every level bit for bit, the bootstrap of the top levels under a batch
+    and under M included; searched f32 and int8 on integer queries, ids,
+    score bits, evals and steps equal to the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import HierarchicalIpNSW
+
+    rng = np.random.default_rng(4)
+    items = (rng.choice([-1.0, 1.0], size=(FAMILY_PLAIN_N, D_FULL))
+             * rng.choice([1.0, 2.0, 4.0], size=(FAMILY_PLAIN_N, 1))).astype(np.float32)
+    queries = rng.integers(-3, 4, (256, D_FULL)).astype(np.float32)
+    t0 = time.perf_counter()
+    plain = HierarchicalIpNSW(storage="int8", device="cpu", **FAMILY_BUILD).build(items)
+    plain_s = time.perf_counter() - t0
+    sizes = [int(g.size) for g in plain.levels]
+    for driver in ("host", "scan"):
+        card = HierarchicalIpNSW(build_backend=driver, storage="int8", **FAMILY_BUILD).build(items)
+        _same_levels(f"hnsw integer items, {driver} on the card against the CPU", card, plain)
+    for storage in ("f32", "int8"):
+        got = card.search(queries, k=10, ef=FAMILY_EF, storage=storage)
+        want = plain.search(queries, k=10, ef=FAMILY_EF, storage=storage)
+        for field in ("ids", "scores", "evals", "visited"):
+            x, y = getattr(got, field).cpu(), getattr(want, field)
+            assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y), \
+                f"hnsw integer items {storage}: {field} differs from the CPU's"
+        assert int(got.steps) == int(want.steps), f"hnsw integer items {storage}: steps"
+    log(f"index family hnsw integer items N={FAMILY_PLAIN_N} d={D_FULL} level_sizes={sizes}: "
+        f"every level of the host and the scan build on the card bit-identical to the build "
+        f"on the CPU ({plain_s:.1f} s); f32 and int8 searches' ids, score bits, evals, visited "
+        f"and steps equal")
+
+
+def phase_index_family() -> dict:
+    """Phase 8: the rest of the index family; returns its launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import IpNSW, IpNSWPlus
+    from repro_torch.core.brute_force import exact_topk
+    from repro_torch.data import mips_dataset, mips_queries
+
+    items = torch.as_tensor(mips_dataset(N_FULL, D_FULL, "lognormal", seed=0).astype(np.float32),
+                            device="cuda")
+    queries = torch.as_tensor(mips_queries(256, D_FULL, seed=1).astype(np.float32),
+                              device="cuda")
+    flat = {}  # phase 5's flat classes, beside the family: built before the count
+    for name, cls in (("ipnsw", IpNSW), ("ipnsw_plus", IpNSWPlus)):
+        flat[name], flat[f"{name}_build_s"], _ = _timed_build(
+            lambda: cls(**FAMILY_BUILD).build(items))
+    _zero_counts()
+    t0 = time.perf_counter()
+    gt = exact_topk(queries, items, k=10)[1].cpu().numpy()
+    searched = phase_family_hnsw(items, queries, gt, flat)
+    phase_family_norm_filter(items, queries, gt, flat)
+    phase_family_lsh(items, queries, gt)
+    phase_family_serve_default()
+    counts = _read_counts()
+    log(f"index family phase: {time.perf_counter() - t0:.1f} s launches={counts}")
+    _assert_path("index family", counts, FAMILY_PATH)
+    phase_family_per_step(searched, queries)
+    phase_family_plain_levels()
+    return counts
+
+
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "beam_step": ("src/repro_torch/csrc/beam_step.cu",
@@ -3681,6 +4165,8 @@ def main() -> int:
     counts.update(entry_counts)
     counts.update({name: k33_counts[name] for name in K33_PATH})
     for name, n in phase_sharded().items():  # the sharded path's launches come on top
+        counts[name] += n
+    for name, n in phase_index_family().items():  # and the index family's
         counts[name] += n
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])

@@ -5,8 +5,10 @@ The functions take numpy arrays only -- ``np.asarray`` of the JAX package's
 this module imports nothing of that package.  A graph (and int8 store) built
 by JAX can then be searched by the port and the ids compared, a JAX
 ``MutableIndex`` carried across in mid-churn can go on mutating in the port,
-a JAX ``TraceContext``'s tables can trace the port's walks, and a JAX
-``ShardedIndex`` can be searched by the port's sharded drivers.
+a JAX ``TraceContext``'s tables can trace the port's walks, a JAX
+``ShardedIndex`` can be searched by the port's sharded drivers, and a JAX
+``HierarchicalIpNSW``, ``SimpleLSH`` or ``NormFilteredIndex`` by the port's
+class of the same name.
 """
 from __future__ import annotations
 
@@ -18,9 +20,12 @@ import torch
 
 from repro_torch.core.distributed import ShardedIndex, with_flat_adjacency
 from repro_torch.core.graph import GraphIndex
+from repro_torch.core.hnsw import HierarchicalIpNSW
 from repro_torch.core.ipnsw import IpNSW
 from repro_torch.core.ipnsw_plus import IpNSWPlus
+from repro_torch.core.lsh import SimpleLSH
 from repro_torch.core.mutation import MutableIndex
+from repro_torch.core.norm_filter import NormFilteredIndex
 from repro_torch.core.storage import ItemStore
 from repro_torch.obs.trace import TraceContext
 
@@ -154,3 +159,60 @@ def mutable_from_arrays(index: Union[IpNSW, IpNSWPlus], *, norms: np.ndarray,
     m._next_fresh = int(next_fresh)
     m.mutation_count = int(mutation_count)
     return m
+
+
+def hnsw_from_arrays(levels: Sequence[Mapping[str, np.ndarray]], ids: Sequence[np.ndarray],
+                     inv: Sequence[np.ndarray], *,
+                     stores: Optional[Sequence[Sequence[np.ndarray]]] = None,
+                     device: str = "cuda", **params) -> HierarchicalIpNSW:
+    """A ``HierarchicalIpNSW`` around a JAX hierarchy's numpy state:
+    ``levels`` hold each level's ``graph_from_arrays`` arguments (adj,
+    items, size, entry, entry_norm), ``ids`` and ``inv`` each level's
+    local -> global and global -> local int32 maps, ``stores`` each level's
+    int8 store as ``(codes, scales)``; ``params`` are its knobs
+    (``max_degree`` defaults to level 0's adjacency width)."""
+    params.setdefault("max_degree", np.asarray(levels[0]["adj"]).shape[1])
+    index = HierarchicalIpNSW(device=device, **params)
+    index.levels = [graph_from_arrays(**g, device=device) for g in levels]
+    index.ids = [torch.tensor(np.asarray(x, np.int32), device=device) for x in ids]
+    index.inv = [torch.tensor(np.asarray(x, np.int32), device=device) for x in inv]
+    index.stores = ([None] * len(levels) if stores is None
+                    else [_store(s, device) for s in stores])
+    return index
+
+
+def lsh_from_arrays(codes: np.ndarray, planes: np.ndarray, items: np.ndarray, *,
+                    device: str = "cuda", **params) -> SimpleLSH:
+    """A ``SimpleLSH`` around a JAX index's ``codes [N, n_bits]`` (±1),
+    ``planes [d + 1, n_bits]`` and ``items [N, d]``; ``n_bits`` defaults
+    to the codes' width."""
+    params.setdefault("n_bits", np.asarray(codes).shape[1])
+    index = SimpleLSH(device=device, **params)
+    index.codes = torch.tensor(np.asarray(codes, np.float32), device=device)
+    index.planes = torch.tensor(np.asarray(planes, np.float32), device=device)
+    index.items = torch.tensor(np.asarray(items, np.float32), device=device)
+    return index
+
+
+def norm_filtered_from_arrays(global_ids: np.ndarray, ip: Mapping[str, np.ndarray],
+                              ang: Optional[Mapping[str, np.ndarray]] = None, *,
+                              ip_store: Optional[Sequence[np.ndarray]] = None,
+                              ang_store: Optional[Sequence[np.ndarray]] = None,
+                              device: str = "cuda", **params) -> NormFilteredIndex:
+    """A ``NormFilteredIndex`` around a JAX filter's ``global_ids`` and its
+    inner index's graphs: ``ip`` (and ``ang`` for an ip-NSW+ inner index,
+    which sets ``plus``) hold ``graph_from_arrays`` arguments, ``ip_store``
+    and ``ang_store`` the int8 stores as ``(codes, scales)``.  The inner
+    index's ``max_degree`` follows ``ip``'s adjacency width."""
+    params.setdefault("max_degree", np.asarray(ip["adj"]).shape[1])
+    index = NormFilteredIndex(plus=ang is not None, device=device, **params)
+    knobs = dict(max_degree=index.max_degree, ef_construction=index.ef_construction,
+                 insert_batch=index.insert_batch, build_backend=index.build_backend,
+                 storage=index.storage)
+    if ang is None:
+        index.inner = ipnsw_from_arrays(**ip, store=ip_store, device=device, **knobs)
+    else:
+        index.inner = ipnsw_plus_from_arrays(ang, ip, ang_store=ang_store, ip_store=ip_store,
+                                             device=device, **knobs)
+    index.global_ids = torch.tensor(np.asarray(global_ids, np.int32), device=device)
+    return index

@@ -48,6 +48,10 @@ _EXPORTS = {
     "shard_visit_mask": "distributed",
     "sharded_search": "distributed",
     "sharded_search_reference": "distributed",
+    "HierarchicalIpNSW": "hnsw",
+    "SimpleLSH": "lsh",
+    "LSHResult": "lsh",
+    "NormFilteredIndex": "norm_filter",
 }
 # the recall helpers live in the observability layer (repro_torch.obs.recall),
 # as the JAX package's do; every other name in a submodule of this package

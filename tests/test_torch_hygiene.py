@@ -34,7 +34,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, repro_torch.testing, "
-            "repro_torch.core.mutation, repro_torch.launch.serve_loop, "
+            "repro_torch.core.mutation, repro_torch.launch.serve_loop, repro_torch.core.norms, "
             "repro_torch.kernels.topk_merge, repro_torch.kernels.flash_attn; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,14 +62,18 @@ def test_wrappers_check_the_device():
 
 
 @pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable", "serve_loop",
-                                   "sharded", "sharded_mutable", "serve_shards"])
+                                   "sharded", "sharded_mutable", "serve_shards", "hnsw", "lsh",
+                                   "norm_filter"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks a host without CUDA")
     from repro_torch.core.distributed import ShardedMutable, build_sharded
+    from repro_torch.core.hnsw import HierarchicalIpNSW
     from repro_torch.core.ipnsw import IpNSW
     from repro_torch.core.ipnsw_plus import IpNSWPlus
+    from repro_torch.core.lsh import SimpleLSH
     from repro_torch.core.mutation import MutableIndex
+    from repro_torch.core.norm_filter import NormFilteredIndex
     from repro_torch.launch import serve
 
     items = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
@@ -87,6 +91,12 @@ def test_default_device_raises_without_cuda(entry):
             build_sharded(items, 2)
         elif entry == "sharded_mutable":
             ShardedMutable(items, 2)
+        elif entry == "hnsw":
+            HierarchicalIpNSW().build(items)
+        elif entry == "lsh":
+            SimpleLSH().build(items)
+        elif entry == "norm_filter":
+            NormFilteredIndex().build(items)
         else:
             (IpNSW if entry == "ipnsw" else IpNSWPlus)().build(items)
 
