@@ -222,6 +222,31 @@ nothing then, and are not counted): ``count_graph_launches``.
      items (3,000 x 300: levels of 188, 12 and 2 items) built on the card
      with both drivers and on the CPU, bit for bit on every level, and
      its searches equal.
+  9. recsys towers and training (src/repro_torch/{train,models,configs}):
+     (a) SASRec, MIND, DIEN and DLRM-RM2 at their published configs, every
+     RECSYS_SHAPES cell through build_cell on the card: train_batch 3 steps
+     (loss, step ms as the mean of steps 2-3, the optimizer's ms against
+     its bound of 28 bytes a parameter, peak memory; every step fits the
+     card at the published batch of 65,536),
+     serve_p99, serve_bulk and retrieval_cand (ms, peak memory, finite and
+     sorted outputs); (b) each arch's train, serve and retrieval steps on
+     the card against the plain CPU computation at the published widths,
+     the tables cut to 100,000 rows and a batch of 256: loss within rtol
+     1e-5, every gradient leaf within 1e-4 of its largest element, serve
+     and retrieval scores within 1e-5 of their row's largest, retrieval ids
+     equal up to near-ties; (c) SASRec's train state through a checkpoint and back, bit
+     for bit, and one step resumed from it equal to the uninterrupted
+     step; (d) IpNSW+ (scan driver) over SASRec's trained 10^6 x 50 item
+     table, searched with 1,024 user embeddings: recall@10 against
+     exact_topk rising over ef 40, 80, 160, evals, build s, ms; (e)
+     examples/train_and_serve_torch.py at its defaults: the final loss
+     within 1e-3 of the port's CPU run and recall@10 within 0.02 of it at
+     each ef.  Phase 3 also holds mips_topk's select route at the retrieval
+     cells (B 1 at d 50 and 18, B 4 at d 64, N 10^6, k 100; library_ms
+     torch.topk(q @ x.T)) and gather_score at the serve cells ((512, 1,000,
+     d 50), MIND's (2,048, 1,000, d 64), (262,144, 1,000, d 50)) to their
+     plain versions and the witness.  Phase 9's launches (the driven steps,
+     the index and the example) are added to the kernels line.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -1365,6 +1390,112 @@ def phase_mips_topk(g) -> dict:
                 log(line)
                 del q, x, scales
     return out
+
+
+# the recsys cells' kernels (phase 9) at their shapes over a 10^6-row table:
+# mips_topk's select route at retrieval_cand (B, N, d, k) -- SASRec's and
+# DIEN's user vector, MIND's four interests -- and gather_score's rerank at
+# serve_p99 / serve_bulk (B, W, d), MIND's rows B x K = 512 x 4 over the
+# same ids
+RECSYS_ROWS = 1_000_000
+MIPS_RECSYS_SHAPES = {"sasrec_retrieval": (1, RECSYS_ROWS, 50, 100),
+                      "dien_retrieval": (1, RECSYS_ROWS, 18, 100),
+                      "mind_retrieval": (4, RECSYS_ROWS, 64, 100)}
+GATHER_RECSYS_SHAPES = {"sasrec_serve_p99": (512, 1_000, 50), "mind_serve_p99": (2_048, 1_000, 64),
+                        "sasrec_serve_bulk": (262_144, 1_000, 50)}
+PLAIN_CHUNK = 8_192  # rows a plain gather_score call takes at serve_bulk ([B, W, d] in memory)
+
+
+def _chunked(fn, rows: int):
+    """``fn(q, items, ids)`` over chunks of ``rows`` query rows, concatenated."""
+    import torch
+
+    return lambda q, items, ids: torch.cat([fn(q[s: s + rows], items, ids[s: s + rows])
+                                            for s in range(0, q.shape[0], rows)])
+
+
+def phase_recsys_kernels(g) -> None:
+    """mips_topk (select route) and gather_score at the recsys cells'
+    shapes: bit-identical to the plain version on integer inputs, the
+    tolerance contract on float inputs; gather_score also to its witness's
+    bits.  ms, plain_ms, bound and, for mips_topk, library_ms
+    (torch.topk(q @ x.T)); launches of the check."""
+    import torch
+
+    from repro_torch.kernels.gather_score import gather_score, gather_score_ref
+    from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref, mips_topk_select
+
+    for cell, (b, n, d, k) in MIPS_RECSYS_SHAPES.items():
+        for kind in ("int", "float"):
+            q = _int_or_float((b, d), kind == "int", g)
+            x = _int_or_float((n, d), kind == "int", g)
+            run = lambda: mips_topk(q, x, k=k)  # noqa: E731
+            plain = lambda: mips_topk_ref(q, x, k=k)  # noqa: E731
+            (s_k, i_k), (s_p, i_p) = run(), plain()
+            cands = mips_topk_select(q, x, k=k)[2].float()
+            torch.cuda.synchronize()
+            rows = _check_topk(f"mips_topk {cell}/{kind}", i_k, s_k, i_p, s_p, kind == "int")
+            err = _max_abs_err(s_k, s_p)
+            line = (f"kernel=mips_topk route=select cell={cell} inputs={kind} B={b} N={n} d={d} "
+                    f"k={k} near_tie_rows={rows} max_abs_err={err:.3g} "
+                    f"candidates_max={cands.max().item():.0f}")
+            if kind == "float":
+                library = lambda: torch.topk(torch.matmul(q, x.T), k, dim=1)  # noqa: E731
+                ms = _device_ms_or_none(run)
+                select_ms = _device_ms_or_none(run, only="select")
+                call_ms = cuda_ms(run)
+                plain_ms = _device_ms_or_none(plain)
+                library_ms = _device_ms_or_none(library)
+                bound_ms, by = bound(b * d * 4 + n * d * 4 + b * k * 8, 2.0 * b * n * d)
+                line += (f" ms={_ms(ms)} select_ms={_ms(select_ms)} call_ms={call_ms:.4f} "
+                         f"plain_ms={_ms(plain_ms)} library_ms={_ms(library_ms)} "
+                         f"bound_ms={bound_ms:.5f} bound_by={by}")
+                if ms is not None and library_ms is not None:
+                    line += (f" share_of_bound={bound_ms / ms:.4f} "
+                             f"ms_over_library_ms={ms / library_ms:.3f}")
+            log(line + f" launches={mips_topk.launches_select}")
+            del q, x
+    for cell, (b, w, d) in GATHER_RECSYS_SHAPES.items():
+        for kind in ("int", "float"):
+            items = _int_or_float((RECSYS_ROWS, d), kind == "int", g)
+            q = _int_or_float((b, d), kind == "int", g)
+            if cell.startswith("mind"):  # a user's K = 4 interests score its ids
+                ids = _score_ids(b // 4, w, RECSYS_ROWS, g).repeat_interleave(4, dim=0)
+            else:
+                ids = _score_ids(b, w, RECSYS_ROWS, g)
+            plain_fn = _chunked(gather_score_ref, PLAIN_CHUNK) if b > PLAIN_CHUNK \
+                else gather_score_ref
+            run = lambda: gather_score(q, items, ids)  # noqa: E731
+            plain = lambda: plain_fn(q, items, ids)  # noqa: E731
+            got = _poisoned(run, (b, w))
+            wit, want = _scorer_witness("gather_score", q, items, None, ids), plain()
+            torch.cuda.synchronize()
+            tag = f"gather_score {cell}/{kind} B={b} W={w} d={d}"
+            assert torch.equal(got.view(torch.int32), wit.view(torch.int32)), \
+                f"{tag}: scores differ from the witness's bits"
+            err = _check_scores(tag, got, want, kind == "int")
+            line = (f"kernel=gather_score cell={cell} inputs={kind} B={b} W={w} d={d} "
+                    f"witness_bit_identical=True max_abs_err={err:.3g}")
+            if kind == "float":
+                if b > PLAIN_CHUNK:
+                    # launches of 100-200 ms: CUDA events (host gaps are
+                    # nothing beside them); profiling them left the
+                    # profiler dropping events for the phases after
+                    ms = call_ms = cuda_ms(run, reps=5, warmup=1)
+                    plain_ms = cuda_ms(plain, reps=2, warmup=1)
+                else:
+                    ms = _device_ms_or_none(run)
+                    call_ms = cuda_ms(run)
+                    plain_ms = _device_ms_or_none(plain)
+                bound_ms, by = _scorer_bound("gather_score", ids, d)
+                share = "not measured" if ms is None else f"{bound_ms / ms:.3f}"
+                line += (f" ms={_ms(ms)} call_ms={call_ms:.4f} plain_ms={_ms(plain_ms)}"
+                         f"{' (chunks of %d rows; CUDA events)' % PLAIN_CHUNK if b > PLAIN_CHUNK else ''} "
+                         f"library_ms=None bound_ms={bound_ms:.5f} bound_by={by} "
+                         f"share_of_bound={share}")
+            log(line + f" launches={gather_score.launches}")
+            del items, q, ids, got, wit, want
+    torch.cuda.empty_cache()
 
 
 def _log_roofline(name: str, flops: float, ms: float, bound_ms: float, library_ms, **extra):
@@ -4100,6 +4231,356 @@ def phase_index_family() -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 9
+RECSYS_ARCHS = ("sasrec", "mind", "dien", "dlrm-rm2")
+RECSYS_TRAIN_STEPS = 3
+RECSYS_CPU_ROWS, RECSYS_CPU_BATCH = 100_000, 256  # (b): tables cut, batch
+RECSYS_CPU_USERS, RECSYS_CPU_CANDIDATES = 16, 20_000  # (b): retrieval rows, DLRM's candidates
+RECSYS_GRAD_RTOL = 1e-4   # (b): a gradient leaf, relative to its largest element
+# (b): serve and retrieval scores, relative to their row's largest: the user
+# vector comes out of a whole tower, so a score near zero carries the
+# rounding of the tower's larger values
+RECSYS_SCORE_RTOL = 1e-5
+RECSYS_INDEX_USERS = 1_024
+RECSYS_INDEX_EFS = (40, 80, 160)
+# `PYTHONPATH=src python examples/train_and_serve_torch.py --device cpu` (the
+# port on the CPU; 2,000 x 20,000, d 32, 300 steps of 4,096) printed loss
+# 0.0342 -> 0.0329 and recall@10 0.624 / 0.759 / 0.877 at ef 20 / 40 / 80;
+# unrounded:
+PORT_CPU_EXAMPLE = {"loss_final": 0.03288940712809563,
+                    "recall": {20: 0.6240234375, 40: 0.7587890625, 80: 0.8771484375}}
+EXAMPLE_LOSS_RTOL = 1e-3
+ADAMW_BYTES_PER_PARAM = 28  # read p, g, m, v; write p, m, v (fp32)
+RECSYS_PATH = ("gather_score", "mips_topk", "mips_topk_select", "beam_walk", "commit_merge")
+
+
+def _recsys_inputs(arch, abstract, g, batch: int = 0):
+    """Inputs of the shapes and dtypes of ``abstract`` (a cell's meta
+    batch, or its meta hist), on the card: ``hist`` a valid prefix of
+    random length then -1 (as SyntheticClickStream draws it), labels 0 / 1,
+    dense features normal, every other id uniform over the table.
+    ``batch``: another number of rows than the cell's."""
+    import torch
+
+    def make(name, t):
+        shape = (batch or t.shape[0], *t.shape[1:])
+        if name == "hist":
+            ids = torch.randint(0, arch.n_ids, shape, generator=g, device="cuda",
+                                dtype=torch.int32)
+            lengths = torch.randint(1, shape[1] + 1, (shape[0], 1), generator=g, device="cuda")
+            return ids.masked_fill(torch.arange(shape[1], device="cuda") >= lengths, -1)
+        if name == "labels":
+            return torch.randint(0, 2, shape, generator=g, device="cuda").float()
+        if t.dtype == torch.float32:
+            return torch.randn(shape, generator=g, device="cuda")
+        return torch.randint(0, arch.n_ids, shape, generator=g, device="cuda", dtype=torch.int32)
+
+    if isinstance(abstract, dict):
+        return {name: make(name, t) for name, t in abstract.items()}
+    return make("hist", abstract)
+
+
+def _scaled_err(got, want) -> float:
+    """max |got - want| over the largest |want| of the same row."""
+    return float(((got - want).abs() / want.abs().amax(dim=-1, keepdim=True)).max())
+
+
+def _synced_ms(fn, reps: int) -> list:
+    """Wall ms of each of ``reps`` calls, each ended by a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_recsys_train(arch, params, g) -> tuple:
+    """(a) train_batch: RECSYS_TRAIN_STEPS steps of the cell's step at the
+    published widths; loss, step ms (mean of steps 2-3), the optimizer's ms
+    (adamw_update alone on the last gradients, CUDA events) against its
+    bound, peak memory.  Returns (params, opt, batch)."""
+    import torch
+
+    from repro_torch.train import adamw_init, adamw_update, cosine_schedule, value_and_grad
+    from repro_torch.train.tree import leaves
+
+    cell = arch.build_cell("train_batch")
+    b = cell.meta["batch"]
+    batch = _recsys_inputs(arch, cell.args[2], g)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(RECSYS_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = cell.step_fn(params, opt, batch)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(map(lambda x: x == x and abs(x) < float("inf"), losses)), \
+        f"{cell.name}: loss not finite: {losses}"
+    with uncounted():
+        _, grads = value_and_grad(arch.loss_fn())(params, batch, arch.cfg)
+        lr = cosine_schedule(opt.step, base_lr=1e-3, warmup=500, total=50_000)
+        opt_ms = cuda_ms(lambda: adamw_update(grads, opt, params, lr=lr), reps=3, warmup=1)
+        del grads
+    n_params = sum(p.numel() for p in leaves(params))
+    opt_bound_ms, _ = bound(ADAMW_BYTES_PER_PARAM * n_params, 0)
+    step_ms = sum(walls[1:]) / len(walls[1:])
+    line = (f"recsys {cell.name} B={b} "
+            f"loss={'/'.join(f'{x:.6f}' for x in losses)} step_ms={step_ms:.2f} "
+            f"walls={'/'.join(f'{w:.1f}' for w in walls)} optimizer_ms={opt_ms:.3f} "
+            f"optimizer_bound_ms={opt_bound_ms:.3f} optimizer_share={opt_ms / step_ms:.3f} "
+            f"params={n_params} peak_gib={peak:.2f}")
+    log(line)
+    return params, opt, batch
+
+
+def phase_recsys_serve(arch, params, g) -> None:
+    """(a) serve_p99, serve_bulk, retrieval_cand: ms (mean of 3 synced
+    calls after a warm one) and peak memory; outputs finite, retrieval ids
+    in the table, sorted by score."""
+    import torch
+
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        cell = arch.build_cell(shape)
+        inputs = _recsys_inputs(arch, cell.args[1], g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = cell.step_fn(params, inputs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with uncounted():
+            walls = _synced_ms(lambda: cell.step_fn(params, inputs), 3)
+        if isinstance(out, dict):
+            s, i = out["scores"], out["ids"]
+            assert bool(torch.isfinite(s).all()), f"{cell.name}: scores not finite"
+            assert bool(((i >= 0) & (i < (cell.meta["n_cand"] if arch.arch_id == "dlrm-rm2"
+                                           else arch.n_ids))).all()), f"{cell.name}: ids"
+            assert bool((s[..., 1:] <= s[..., :-1]).all()), f"{cell.name}: not sorted"
+        else:
+            assert bool(torch.isfinite(out).all()), f"{cell.name}: scores not finite"
+        log(f"recsys {cell.name} B={cell.meta['batch']} n_cand={cell.meta['n_cand']} "
+            f"ms={sum(walls) / len(walls):.3f} walls={'/'.join(f'{w:.2f}' for w in walls)} "
+            f"peak_gib={peak:.2f} out={list(out['ids'].shape) if isinstance(out, dict) else list(out.shape)}")
+        del inputs, out
+
+
+def phase_recsys_cpu(aid: str) -> None:
+    """(b) The card against the plain CPU computation at the published
+    widths, the tables cut to RECSYS_CPU_ROWS and a batch of
+    RECSYS_CPU_BATCH: the loss within rtol 1e-5, every gradient leaf within
+    RECSYS_GRAD_RTOL of its largest element, serve and retrieval scores
+    within RECSYS_SCORE_RTOL of their row's largest, retrieval ids equal up
+    to near-ties (two scores within that tolerance)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import value_and_grad
+    from repro_torch.train.tree import named_leaves, tree_map
+
+    base = get_arch(aid)
+    field = "n_rows" if aid == "dlrm-rm2" else "n_items"
+    arch = dataclasses.replace(base, cfg=dataclasses.replace(base.cfg, **{field: RECSYS_CPU_ROWS}))
+    cpu_params = arch.init(torch.Generator().manual_seed(1), device="cpu")
+    gpu_params = tree_map(lambda t: t.to("cuda"), cpu_params)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = {}
+    for shape in ("train_batch", "serve_p99", "retrieval_cand"):
+        gpu_cell, cpu_cell = arch.build_cell(shape), arch.build_cell(shape, device="cpu")
+        rows = {"train_batch": RECSYS_CPU_BATCH, "serve_p99": RECSYS_CPU_BATCH,
+                "retrieval_cand": RECSYS_CPU_CANDIDATES if aid == "dlrm-rm2" else RECSYS_CPU_USERS}
+        gpu_in = _recsys_inputs(arch, gpu_cell.args[-1], g, batch=rows[shape])
+        cpu_in = tree_map(lambda t: t.cpu(), gpu_in)
+        if shape == "train_batch":
+            loss_fn = arch.loss_fn()
+            gl, gg = value_and_grad(loss_fn)(gpu_params, gpu_in, arch.cfg)
+            cl, cg = value_and_grad(loss_fn)(cpu_params, cpu_in, arch.cfg)
+            assert np.isclose(float(gl), float(cl), rtol=1e-5, atol=0), \
+                f"{aid}: loss {float(gl)!r} on the card, {float(cl)!r} on the CPU"
+            cpu_grads = dict(named_leaves(cg))
+            for name, leaf in named_leaves(gg):
+                ref = cpu_grads[name]
+                err = float((leaf.cpu() - ref).abs().max())
+                scale = float(ref.abs().max())
+                assert err <= RECSYS_GRAD_RTOL * scale, \
+                    f"{aid} grad {name}: max error {err:.3g} over {scale:.3g}"
+                worst[name] = err / scale if scale else 0.0
+            worst_leaf = max(worst, key=worst.get)
+            line = (f"loss_card={float(gl):.8f} loss_cpu={float(cl):.8f} "
+                    f"grad_worst={worst[worst_leaf]:.3g} ({worst_leaf})")
+        elif shape == "serve_p99":
+            got, want = gpu_cell.step_fn(gpu_params, gpu_in).cpu(), cpu_cell.step_fn(cpu_params,
+                                                                                     cpu_in)
+            err = _scaled_err(got, want)
+            assert err <= RECSYS_SCORE_RTOL, f"{aid} serve: scores {err:.3g} of a row's largest"
+            line += f" serve_err={err:.3g}"
+        else:
+            got, want = gpu_cell.step_fn(gpu_params, gpu_in), cpu_cell.step_fn(cpu_params, cpu_in)
+            gi, gs = got["ids"].cpu(), got["scores"].cpu()
+            ci, cs = want["ids"], want["scores"]
+            if gi.dim() == 1:
+                gi, gs, ci, cs = gi[None], gs[None], ci[None], cs[None]
+            err = _scaled_err(gs, cs)
+            assert err <= RECSYS_SCORE_RTOL, f"{aid} retrieval: scores {err:.3g} of a row's largest"
+            # ids equal but where the two scores of a slot tie within that tolerance
+            differ = gi != ci
+            tol = RECSYS_SCORE_RTOL * cs.abs().amax(dim=-1, keepdim=True)
+            assert not bool((differ & ((gs - cs).abs() > tol)).any()), f"{aid}: retrieval ids"
+            line += (f" retrieval_err={err:.3g} retrieval_near_tie_rows="
+                     f"{int(differ.any(dim=-1).sum())} of {gi.shape[0]}")
+    log(f"recsys card_vs_cpu {aid} rows={RECSYS_CPU_ROWS} batch={RECSYS_CPU_BATCH} {line}")
+
+
+def phase_recsys_checkpoint(arch, params, opt, batch) -> None:
+    """(c) SASRec's whole train state saved and restored on the card bit for
+    bit, then one step from the restored state equal to the uninterrupted
+    run's step (bit for bit where that step repeats itself bit for bit)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import named_leaves
+
+    state = {"params": params, "opt": opt}
+    d = ROOT / "build" / "recsys_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(str(d), int(opt.step), state, extra={"arch": arch.arch_id})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, manifest = ckpt.restore(str(d), state, device="cuda")
+    restore_s = time.perf_counter() - t0
+    assert manifest["step"] == int(opt.step)
+    for (name, a), (_, b) in zip(named_leaves(state), named_leaves(restored)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype, name
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), \
+            f"checkpoint: {name} differs after the round trip"
+    cell = arch.build_cell("train_batch")
+    with uncounted():
+        first = named_leaves(cell.step_fn(params, opt, batch))
+        again = named_leaves(cell.step_fn(params, opt, batch))
+        resumed = named_leaves(cell.step_fn(restored["params"], restored["opt"], batch))
+    # the uninterrupted step run twice: where it repeats itself bit for bit,
+    # the resumed step must equal it bit for bit; where it does not (atomic
+    # adds in a gradient), each leaf within the two runs' own difference
+    deterministic = all(torch.equal(x, y) for (_, x), (_, y) in zip(first, again))
+    for (name, x), (_, y), (_, z) in zip(first, again, resumed):
+        spread = 0.0 if deterministic else float((x - y).abs().max())
+        err = float((x - z).abs().max()) if x.is_floating_point() else float(not torch.equal(x, z))
+        assert err <= spread, f"checkpoint: the resumed step differs at {name}: {err} > {spread}"
+    shutil.rmtree(d, ignore_errors=True)
+    n = sum(t.numel() for _, t in named_leaves(state))
+    log(f"recsys checkpoint {arch.arch_id} step={manifest['step']} leaves="
+        f"{len(manifest['leaves'])} values={n} bit_identical=True step_deterministic="
+        f"{deterministic} resumed_step_equal=True "
+        f"save_s={save_s:.2f} restore_s={restore_s:.2f}")
+
+
+def phase_recsys_index(arch, params, g) -> None:
+    """(d) IpNSW+ (scan driver) over SASRec's trained 10^6 x 50 item table,
+    searched with RECSYS_INDEX_USERS user embeddings: recall@10 against
+    exact_topk at each ef, rising with ef; evals a query, build s, ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import IpNSWPlus, exact_topk, recall_at_k
+    from repro_torch.models.recsys.sasrec import user_embedding
+
+    items = params["item_emb"].detach().contiguous()
+    hist = _recsys_inputs(arch, arch.build_cell("retrieval_cand").args[1], g,
+                          batch=RECSYS_INDEX_USERS)
+    with torch.no_grad():
+        users = user_embedding(params, hist, arch.cfg).contiguous()
+    gt = exact_topk(users, items, k=10)[1].cpu().numpy()
+    index, build_s, _ = _timed_build(lambda: IpNSWPlus(**FAMILY_BUILD, build_backend="scan",
+                                                       device="cuda").build(items))
+    recalls = []
+    line = f"recsys index sasrec N={items.shape[0]} d={items.shape[1]} build_s={build_s:.2f}"
+    for ef in RECSYS_INDEX_EFS:
+        r = index.search(users, k=10, ef=ef)
+        recalls.append(recall_at_k(r.ids.cpu().numpy(), gt))
+        with uncounted():
+            ms = float(np.median(_synced_ms(lambda: index.search(users, k=10, ef=ef), 5)))
+        line += (f" ef{ef}: recall@10={recalls[-1]:.4f} evals={float(r.evals.float().mean()):.1f}"
+                 f" ms={ms:.3f}")
+    log(line)
+    assert all(a < b for a, b in zip(recalls, recalls[1:])), f"recall does not rise with ef: {recalls}"
+
+
+def phase_recsys_example() -> None:
+    """(e) examples/train_and_serve_torch.py at its defaults on the card:
+    the final loss within EXAMPLE_LOSS_RTOL of the port's CPU run, recall@10
+    at each ef within RECALL_MARGIN of it."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import train_and_serve_torch as example
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    out = example.main(["--device", "cuda"])
+    want = PORT_CPU_EXAMPLE
+    rel = abs(out["loss_final"] - want["loss_final"]) / want["loss_final"]
+    log(f"recsys example loss_final={out['loss_final']!r} (CPU {want['loss_final']!r}, rel "
+        f"{rel:.3g}) train_s={out['train_s']:.2f} build_s={out['build_s']:.2f} " + " ".join(
+            f"ef{ef}: recall@10={r!r} (CPU {want['recall'][ef]!r}) evals={out['evals'][ef]:.1f}"
+            for ef, r in out["recall"].items()))
+    assert rel <= EXAMPLE_LOSS_RTOL, f"example: loss {out['loss_final']} against the CPU's"
+    for ef, r in out["recall"].items():
+        assert abs(r - want["recall"][ef]) <= RECALL_MARGIN, f"example: recall at ef {ef}: {r}"
+
+
+def phase_recsys() -> dict:
+    """Phase 9: the recsys towers and the training substrate; returns the
+    launches of its driven steps, index and example."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    gc.collect()  # the earlier phases' indexes: DLRM's step needs 56 GiB of the card
+    torch.cuda.empty_cache()
+    # phase 3's checks at the recsys shapes, here at the end of the run: their
+    # profiler sessions, on top of phase 3's, left the profiler dropping a
+    # session's last events, and phases 3-5 count the events they see
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    phase_recsys_kernels(g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _zero_counts()
+    for aid in RECSYS_ARCHS:
+        arch = get_arch(aid)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        params = arch.init(g, device="cuda")
+        params, opt, batch = phase_recsys_train(arch, params, g)
+        phase_recsys_serve(arch, params, g)
+        if aid == "sasrec":
+            phase_recsys_checkpoint(arch, params, opt, batch)
+            del opt, batch
+            phase_recsys_index(arch, params, g)
+        del params
+        torch.cuda.empty_cache()
+    phase_recsys_example()
+    counts = _read_counts()
+    with uncounted():
+        for aid in RECSYS_ARCHS:
+            phase_recsys_cpu(aid)
+    log(f"recsys phase: {time.perf_counter() - t0:.1f} s launches={counts}")
+    _assert_path("recsys", counts, RECSYS_PATH)
+    return counts
+
+
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "beam_step": ("src/repro_torch/csrc/beam_step.cu",
@@ -4167,6 +4648,8 @@ def main() -> int:
     for name, n in phase_sharded().items():  # the sharded path's launches come on top
         counts[name] += n
     for name, n in phase_index_family().items():  # and the index family's
+        counts[name] += n
+    for name, n in phase_recsys().items():  # and the recsys cells'
         counts[name] += n
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])

@@ -8,7 +8,9 @@ by JAX can then be searched by the port and the ids compared, a JAX
 a JAX ``TraceContext``'s tables can trace the port's walks, a JAX
 ``ShardedIndex`` can be searched by the port's sharded drivers, and a JAX
 ``HierarchicalIpNSW``, ``SimpleLSH`` or ``NormFilteredIndex`` by the port's
-class of the same name.
+class of the same name.  ``params_from_arrays`` and ``adamw_from_arrays``
+carry a model's parameter tree (a JAX ``init``'s, as numpy arrays) and its
+AdamW state, so that the port trains and serves from JAX's values.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core.mutation import MutableIndex
 from repro_torch.core.norm_filter import NormFilteredIndex
 from repro_torch.core.storage import ItemStore
 from repro_torch.obs.trace import TraceContext
+from repro_torch.train.optimizer import AdamWState
 
 
 def graph_from_arrays(
@@ -216,3 +219,20 @@ def norm_filtered_from_arrays(global_ids: np.ndarray, ip: Mapping[str, np.ndarra
                                              device=device, **knobs)
     index.global_ids = torch.tensor(np.asarray(global_ids, np.int32), device=device)
     return index
+
+
+def params_from_arrays(tree, *, device: str = "cuda"):
+    """A nested dict / list / tuple of numpy arrays (a JAX ``init``'s tree,
+    ``np.asarray`` of each leaf) as the same tree of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_arrays(v, device=device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_arrays(v, device=device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def adamw_from_arrays(step, mu, nu, *, device: str = "cuda") -> AdamWState:
+    """A JAX ``AdamWState``'s fields (as numpy) as the port's."""
+    return AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+                      mu=params_from_arrays(mu, device=device),
+                      nu=params_from_arrays(nu, device=device))

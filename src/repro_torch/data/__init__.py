@@ -1,3 +1,8 @@
-from repro_torch.data.synthetic import mips_dataset, mips_queries
+from repro_torch.data.synthetic import (
+    SyntheticClickStream,
+    SyntheticLMStream,
+    mips_dataset,
+    mips_queries,
+)
 
-__all__ = ["mips_dataset", "mips_queries"]
+__all__ = ["SyntheticClickStream", "SyntheticLMStream", "mips_dataset", "mips_queries"]

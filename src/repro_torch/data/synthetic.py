@@ -9,6 +9,10 @@ which is the property its analyses key on:
   lognormal     heavy right tail of norms (WordVector / ImageNet shape)
   uniform_norm  random directions with norms uniform in [0.2, 1.0]
   shift (+c)    ImageNet-A/-B transform of §5: add c to every norm
+
+``SyntheticLMStream`` and ``SyntheticClickStream`` are the training streams:
+``batch_at(step)`` is a pure function of ``(seed, step)``, so the pipeline
+state a checkpoint needs is the step counter.
 """
 from __future__ import annotations
 
@@ -43,3 +47,47 @@ def mips_dataset(
 def mips_queries(n: int, d: int, seed: int = 1) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+
+
+class SyntheticLMStream:
+    """Deterministic, resumable token stream: ``batch_at(step)`` is a pure
+    function of (seed, step)."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, seed: int = 0):
+        self.vocab, self.batch, self.seq, self.seed = vocab, batch, seq, seed
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 32) + step)
+        toks = rng.integers(0, self.vocab, size=(self.batch, self.seq + 1))
+        return {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }
+
+
+class SyntheticClickStream:
+    """CTR / click batches for the recsys towers (the same determinism
+    contract).  ``pos`` is [B, S] (SASRec's per-position next item)."""
+
+    def __init__(self, n_items: int, batch: int, seq: int, n_sparse: int = 26,
+                 n_dense: int = 13, seed: int = 0):
+        self.n_items, self.batch, self.seq = n_items, batch, seq
+        self.n_sparse, self.n_dense, self.seed = n_sparse, n_dense, seed
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 32) + step)
+        b, s = self.batch, self.seq
+        hist = rng.integers(0, self.n_items, size=(b, s)).astype(np.int32)
+        # ragged histories: a random valid prefix per row, -1 after it
+        lengths = rng.integers(1, s + 1, size=(b, 1))
+        hist = np.where(np.arange(s)[None, :] < lengths, hist, -1)
+        return {
+            "hist": hist,
+            "pos": rng.integers(0, self.n_items, size=(b, s)).astype(np.int32),
+            "neg": rng.integers(0, self.n_items, size=(b, s, 4)).astype(np.int32),
+            "target": rng.integers(0, self.n_items, size=(b,)).astype(np.int32),
+            "labels": rng.integers(0, 2, size=(b,)).astype(np.float32),
+            "aux_neg": rng.integers(0, self.n_items, size=(b, s)).astype(np.int32),
+            "dense": rng.normal(size=(b, self.n_dense)).astype(np.float32),
+            "sparse": rng.integers(0, self.n_items, size=(b, self.n_sparse)).astype(np.int32),
+        }

@@ -1,0 +1,68 @@
+"""DLRM (Naumov et al., arXiv:1906.00091), RM2-scale.
+
+dense [B, 13] -> bottom MLP -> [B, 64]
+sparse [B, 26] -> 26 embedding tables -> [B, 26, 64]
+dot interaction over the 27 vectors -> 351 pairwise dots, beside the bottom
+output -> top MLP -> CTR logit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models.layers import dense_stack, dense_stack_init, make_generator, normal
+from repro_torch.models.recsys.embedding import multi_table_lookup
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    name: str = "dlrm-rm2"
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 64
+    n_rows: int = 1_000_000           # rows a sparse table
+    bot_mlp: tuple = (512, 256, 64)
+    top_mlp: tuple = (512, 512, 256, 1)
+    dtype: Any = torch.float32
+
+    @property
+    def n_interact(self) -> int:
+        f = self.n_sparse + 1
+        return f * (f - 1) // 2
+
+
+def init(cfg: DLRMConfig, generator=None, *, device="cuda"):
+    g = generator if generator is not None else make_generator(device)
+    return {
+        "tables": normal((cfg.n_sparse, cfg.n_rows, cfg.embed_dim), g, device,
+                         cfg.n_rows**-0.25, cfg.dtype),
+        "bot": dense_stack_init(g, [cfg.n_dense, *cfg.bot_mlp], cfg.dtype, device),
+        "top": dense_stack_init(g, [cfg.n_interact + cfg.embed_dim, *cfg.top_mlp], cfg.dtype,
+                                device),
+    }
+
+
+def forward(params, batch, cfg: DLRMConfig) -> torch.Tensor:
+    """batch = {dense [B, 13] f32, sparse [B, 26] int32} -> logits [B]."""
+    bot = dense_stack(params["bot"], batch["dense"].to(cfg.dtype), final_act=True)
+    emb = multi_table_lookup(params["tables"], batch["sparse"])   # [B, 26, d]
+    feats = torch.cat([bot[:, None, :], emb], dim=1)              # [B, 27, d]
+
+    # dot interaction: the strict lower triangle of feats @ feats^T, row-major
+    # (torch.tril_indices(f, f, -1) is jnp.tril_indices(f, k=-1)'s order)
+    z = torch.einsum("bfd,bgd->bfg", feats, feats)
+    f = feats.shape[1]
+    iu, ju = torch.tril_indices(f, f, -1, device=feats.device)
+    inter = z[:, iu, ju]                                          # [B, 351]
+
+    top_in = torch.cat([bot, inter], dim=-1)
+    return dense_stack(params["top"], top_in)[:, 0]
+
+
+def bce_loss(params, batch, cfg: DLRMConfig) -> torch.Tensor:
+    logits = forward(params, batch, cfg)
+    y = batch["labels"].to(torch.float32)
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))

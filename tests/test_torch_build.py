@@ -186,6 +186,19 @@ def test_commit_batch_valid_matches_jax(pads, reverse_links):
         assert torch.equal(getattr(ragged, field), getattr(tg2, field)), field
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for the module's tests.  Run in several
+    worker processes on a few cores, a process's intra-op threads wait at
+    every parallel region for peers the scheduler has put aside: a build of
+    many small ops took 15-30x its time alone (and 1x with one thread).
+    The other port test files import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def kernels_on_meta(monkeypatch):
     """The kernel wrappers take meta tensors as they take CUDA tensors, and

@@ -43,7 +43,7 @@ from repro_torch.kernels.gather_score import gather_score
 from repro_torch.kernels.quant_score import quant_score
 from repro_torch.launch.serve_loop import Bucket, BucketExecutor, BucketLadder
 
-from test_torch_build import _meta, _meta_graph, kernels_on_meta  # noqa: F401 -- a fixture
+from test_torch_build import _meta, _meta_graph, kernels_on_meta, one_torch_thread  # noqa: F401 -- fixtures
 from test_torch_mutation import D, JAX_BACKENDS, N, PARAMS, _assert_same_state, _carry
 from test_torch_mutation import _integer_items
 

@@ -45,6 +45,7 @@ from repro_torch.core.ipnsw_plus import _seed_from_angular
 from repro_torch.core.search import beam_search
 from repro_torch.launch import serve
 from repro_torch.testing import RECALL_MARGIN, near_tie_rows
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 N, D, P, K, EF = 510, 16, 4, 10, 32
 PARAMS = dict(max_degree=8, ef_construction=16, insert_batch=64)

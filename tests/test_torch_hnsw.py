@@ -42,6 +42,7 @@ from repro_torch.core.invariants import check_graph_invariants
 from repro_torch.core.search import beam_search
 from repro_torch.core.storage import ItemStore
 from repro_torch.testing import RECALL_MARGIN, near_tie_rows
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 N, D, K, EF = 600, 16, 10, 16
 PARAMS = dict(max_degree=8, ef_construction=16, insert_batch=64, seed=3)

@@ -14,7 +14,8 @@ import torch
 from repro_torch.kernels import _lib
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "train_and_serve_torch.py"]
 
 
 def _imported_modules(path):
@@ -35,7 +36,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, repro_torch.testing, "
             "repro_torch.core.mutation, repro_torch.launch.serve_loop, repro_torch.core.norms, "
-            "repro_torch.kernels.topk_merge, repro_torch.kernels.flash_attn; "
+            "repro_torch.kernels.topk_merge, repro_torch.kernels.flash_attn, repro_torch.train, "
+            "repro_torch.models.recsys, repro_torch.configs, repro_torch.configs.common, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -63,7 +66,7 @@ def test_wrappers_check_the_device():
 
 @pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable", "serve_loop",
                                    "sharded", "sharded_mutable", "serve_shards", "hnsw", "lsh",
-                                   "norm_filter"])
+                                   "norm_filter", "train", "recsys_cell"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks a host without CUDA")
@@ -97,6 +100,14 @@ def test_default_device_raises_without_cuda(entry):
             SimpleLSH().build(items)
         elif entry == "norm_filter":
             NormFilteredIndex().build(items)
+        elif entry == "train":
+            from repro_torch.launch import train
+
+            train.main(["--arch", "sasrec", "--steps", "1", "--batch", "4"])
+        elif entry == "recsys_cell":
+            from repro_torch.configs import get_arch
+
+            get_arch("sasrec").build_cell("serve_p99")
         else:
             (IpNSW if entry == "ipnsw" else IpNSWPlus)().build(items)
 

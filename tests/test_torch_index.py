@@ -45,6 +45,7 @@ from repro_torch.core.ipnsw_plus import IpNSWPlus
 from repro_torch.core.search import beam_search
 from repro_torch.obs.recall import recall_at_k, recall_curve
 from repro_torch.testing import RECALL_MARGIN, near_tie_rows
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 N, D, K, EF = 1500, 24, 10, 48
 FLOORS = {"gaussian": 0.80, "lognormal": 0.85}  # tests/test_recall.py::FLOORS
@@ -71,6 +72,15 @@ def _gt(profile):
 @functools.lru_cache(maxsize=None)
 def _jax_index(kind, profile):
     return KINDS[kind][0](**PARAMS).build(jnp.asarray(_items(profile)))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_index(kind, profile, build_backend="host", reverse_links=True):
+    """The port's build of ``_items(profile)``, built once a module: the
+    scan driver's tests and the end-to-end recall tests read the same
+    indexes (searches do not change an index)."""
+    return KINDS[kind][1](build_backend=build_backend, reverse_links=reverse_links,
+                          device="cpu", **PARAMS).build(_items(profile))
 
 
 def _arrays(g):
@@ -108,7 +118,7 @@ def test_search_on_carried_graph_matches_jax(kind, profile):
 @pytest.mark.parametrize("profile", ["gaussian", "lognormal"])
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_end_to_end_build_recall_matches_jax(kind, profile):
-    index = KINDS[kind][1](device="cpu", **PARAMS).build(_items(profile))
+    index = _port_index(kind, profile)
     q = _queries()
     rec = recall_at_k(index.search(torch.from_numpy(q), k=K, ef=EF).ids.numpy(), _gt(profile))
     jrec = recall_at_k(np.asarray(_jax_index(kind, profile).search(jnp.asarray(q), k=K, ef=EF).ids),
@@ -181,10 +191,9 @@ def test_scan_build_bit_identical_to_host(kind, case):
     """N 1,500 in batches of 256: a ragged tail of 220 rows, padded to 256
     and masked by the scan driver.  ``_directed``: ``reverse_links=False``,
     Algorithm 2 as printed (forward rows only)."""
-    profile = case.split("_")[0]
-    params = dict(PARAMS, reverse_links=case != "gaussian_directed", device="cpu")
-    host = KINDS[kind][1](**params).build(_items(profile))
-    scan = KINDS[kind][1](build_backend="scan", **params).build(_items(profile))
+    profile, reverse_links = case.split("_")[0], case != "gaussian_directed"
+    host = _port_index(kind, profile, "host", reverse_links)
+    scan = _port_index(kind, profile, "scan", reverse_links)
     for h, s in zip(_graphs(host), _graphs(scan)):
         _assert_bit_identical(h, s)
         assert int(s.size) == N
@@ -209,7 +218,7 @@ def test_scan_build_matches_jax_scan(kind, profile):
     """The port's and JAX's scan builds of the same items: recall@10 within
     ``RECALL_MARGIN`` of each other and above the floor, I1-I6 by both
     packages' checkers (every slot live: no dead edge allowed)."""
-    scan = KINDS[kind][1](build_backend="scan", device="cpu", **PARAMS).build(_items(profile))
+    scan = _port_index(kind, profile, "scan")
     jscan = KINDS[kind][0](build_backend="scan", **PARAMS).build(jnp.asarray(_items(profile)))
     q = _queries()
     rec = recall_at_k(scan.search(torch.from_numpy(q), k=K, ef=EF).ids.numpy(), _gt(profile))

@@ -68,6 +68,7 @@ from repro_torch.kernels.mips_topk.ref import BIN_BITS, SORT_MAX
 from repro_torch.kernels.mips_topk.ops import check_kernel_inputs as check_mips_inputs
 from repro_torch.kernels.topk_merge import topk_merge
 from repro_torch.testing import assert_topk_match, scores_close
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 
 def _vectors(rng, shape, integer):

@@ -36,6 +36,7 @@ from repro_torch.core import LSHResult, SimpleLSH
 from repro_torch.core.lsh import augment_items, augment_queries, sign_codes
 from repro_torch.kernels.mips_topk import mips_topk
 from repro_torch.testing import assert_topk_match
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 N, D, K, BITS = 3000, 32, 10, 96
 CANDIDATES = (50, 100, 800)

@@ -53,6 +53,7 @@ from repro_torch.core import (
 from repro_torch.core.search import beam_search
 from repro_torch.kernels.beam_step import beam_step, beam_step_ref, beam_walk
 from repro_torch.testing import RECALL_MARGIN, near_tie_rows
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 N, D, K = 300, 16, 10
 PARAMS = dict(max_degree=8, ef_construction=32, insert_batch=100)

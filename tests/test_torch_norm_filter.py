@@ -35,6 +35,7 @@ from repro_torch.core import IpNSW, IpNSWPlus, NormFilteredIndex
 from repro_torch.core import norms
 from repro_torch.core.norm_filter import kept_slice
 from repro_torch.testing import RECALL_MARGIN, near_tie_rows
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 N, D, K, EF, KEEP = 600, 16, 10, 32, 0.25
 PARAMS = dict(keep_frac=KEEP, max_degree=8, ef_construction=16, insert_batch=64)

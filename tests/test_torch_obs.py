@@ -58,7 +58,7 @@ from repro_torch.obs import (
 )
 from repro_torch.obs.report import report
 
-from test_torch_build import _meta  # noqa: F401
+from test_torch_build import _meta, one_torch_thread  # noqa: F401 -- an autouse fixture
 from test_torch_capture import _meta_index, _walk_launches, counters, kernels_on_meta  # noqa: F401
 from test_torch_mutation import D as ID, JAX_BACKENDS, N as IN, PARAMS as IPARAMS
 from test_torch_mutation import _carry as _carry_mutable

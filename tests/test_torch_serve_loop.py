@@ -51,6 +51,7 @@ from repro_torch.launch.serve_loop import (
     schedule_digest,
 )
 from repro_torch.testing import assert_topk_match
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 N, D, K = 400, 16, 5
 PARAMS = dict(max_degree=8, ef_construction=16, insert_batch=100)

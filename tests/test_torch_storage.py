@@ -56,6 +56,7 @@ from repro_torch.kernels.quant_score import quant_score, quant_score_ref
 from repro_torch.kernels.quant_score.ops import check_quant_inputs
 from repro_torch.obs.recall import recall_at_k
 from repro_torch.testing import RECALL_MARGIN, assert_topk_match, near_tie_rows, scores_close
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
 PROFILES = ("gaussian", "lognormal")
 N, D, K, EF = 1500, 24, 10, 48                   # tests/test_recall.py's sets
