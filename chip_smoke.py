@@ -247,6 +247,28 @@ nothing then, and are not counted): ``count_graph_launches``.
      d 50), MIND's (2,048, 1,000, d 64), (262,144, 1,000, d 50)) to their
      plain versions and the witness.  Phase 9's launches (the driven steps,
      the index and the example) are added to the kernels line.
+  10. LM family (src/repro_torch/models/{layers,moe,transformer}.py,
+     configs): first phase 3's flash_attn checks at the LM path's shapes
+     (here, last, as phase 9's): S = 1 edges (small, ragged T, a q_offset
+     before the last key; fp32 and bf16) and the cells FLASH_LM_SHAPES
+     (granite, gemma global and long_500k, gemma's local ring past its
+     wrap, internlm2 and qwen3 decode; granite's 32k prefill, held in row
+     blocks), each against the plain version under FLASH_TOL, the ring
+     also against JAX's ring mask, timed beside the plain version, SDPA and
+     a byte bound.  (a) every LM arch's prefill_32k and decode_32k, and
+     gemma's long_500k, through LMArch.build_cell on the card at the
+     published widths (bf16, seeded weights drawn on the card), cut by
+     LM_CUTS to fit 80 GB: ms a prefill, tokens/s, ms a decode step on
+     caches of seeded draws (4 steps at q_offset seq - 4 ... seq - 1, each
+     under sync debug mode "error"), peak memory, finite logits, and where
+     one decode step's device time goes; (b) each arch at the published
+     widths, one pattern cycle of layers, fp32, batch 2, a 256-token
+     prompt and 8 decode steps, on the card against the CPU: logits within
+     1e-4 of the row's largest |logit|, argmax and MoE expert choices equal
+     but at near-ties; (c) examples/lm_decode_torch.py on the card, its
+     tokens equal to its CPU run's.  Every prefill and decode of an LM
+     layer is one flash_attn launch: the launches of (a) and (c) must equal
+     the layer calls made, and are added to the kernels line.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -4581,6 +4603,537 @@ def phase_recsys() -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 10
+LM_ARCHS = ("granite-3-2b", "gemma3-12b", "internlm2-20b", "qwen3-moe-235b-a22b", "grok-1-314b")
+# (a) the cuts that fit one 80 GB card: arch -> (layers or None, prefill
+# batch, decode batch); the published batches are 32 (prefill_32k) and 128
+# (decode_32k); gemma's long_500k runs at its published batch of 1, uncut.
+# qwen3's and grok's bf16 weights (438 and 590 GiB) need the layer cut
+# first.  Each batch is the largest whose peak, extrapolated from a run at
+# a smaller one (the "batch_that_fits" each cell logs), stays near 72 GiB
+# of the card's 79; PERF.md §4 records each cut beside its peak memory.
+LM_CUTS = {"granite-3-2b": (None, 16, 26),
+           "gemma3-12b": (None, 10, 21),
+           "internlm2-20b": (None, 3, 6),
+           "qwen3-moe-235b-a22b": (10, 2, 36),
+           "grok-1-314b": (5, 2, 36)}
+LM_DECODE_STEPS = 4
+CARD_GIB = 72  # what a cell may plan to hold of the card's 79 GiB
+# (b) card against CPU: layers cut to one pattern cycle, all experts, fp32
+LM_CPU_LAYERS = {"granite-3-2b": 2, "gemma3-12b": 6, "internlm2-20b": 2,
+                 "qwen3-moe-235b-a22b": 2, "grok-1-314b": 1}
+LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 256, 8
+LM_LOGIT_RTOL = 1e-4  # (b): a logit, relative to its row's largest |logit|
+# (b): a block's output on the card, relative to its row's largest |value|:
+# a block's fp32 output is up to 7.6e-5 of that from a float64 run on the
+# same input (gemma's first block; scripts/lm_conditioning.py), and the card
+# and the CPU each carry such an error
+LM_BLOCK_RTOL = 2.5e-4
+# flash_attn at the LM path's shapes, checked (against the plain version
+# under FLASH_TOL) and timed beside SDPA, at the end of the run (phase 10,
+# as phase 9 runs its own phase 3 checks).  S = 1 edges first (small T,
+# ragged T, a q_offset before the last key), fp32 and bf16:
+FLASH_DECODE_EDGES = {"s1_small": (2, 1, 100, 4, 2, 64, 99, None),
+                      "s1_ragged": (3, 1, 1000, 8, 2, 128, 999, None),
+                      "s1_before_end": (2, 1, 777, 4, 1, 256, 300, None)}
+# then the cells (B from LM_CUTS): decode reads a cache of T slots at
+# q_offset = min(position, T - 1) (models/layers.attention); gemma's local
+# ring is its 1,024-slot cache past the wrap (position 32,770, mapped to
+# 1,023); granite's prefill is one S = T = 32,768 call, held in row blocks
+FLASH_LM_SHAPES = {
+    "granite_decode": (LM_CUTS["granite-3-2b"][2], 1, 32768, 32, 8, 64, 32767, None),
+    "gemma_global_decode": (LM_CUTS["gemma3-12b"][2], 1, 32768, 16, 8, 256, 32767, None),
+    "gemma_long_500k": (1, 1, 524288, 16, 8, 256, 524287, None),
+    "gemma_local_ring": (LM_CUTS["gemma3-12b"][2], 1, 1024, 16, 8, 256, 1023, None),
+    "internlm2_decode": (LM_CUTS["internlm2-20b"][2], 1, 32768, 48, 8, 128, 32767, None),
+    "qwen3_decode": (LM_CUTS["qwen3-moe-235b-a22b"][2], 1, 32768, 64, 4, 128, 32767, None),
+    "granite_prefill": (LM_CUTS["granite-3-2b"][1], 32768, 32768, 32, 8, 64, 0, None),
+}
+FLASH_LM_FP32 = ("granite_decode", "gemma_local_ring", "internlm2_decode")
+GEMMA_RING_POSITION = 32770
+PREFILL_ROW_BLOCKS = (0, 16384, 32768 - 64)  # first rows of the 64-row blocks held
+CHECK_GIB = 8  # a plain check's fp32 kv copies at most (the batch is split)
+
+
+def _lm_sdpa(q, k, v, q_offset: int, window):
+    """scaled_dot_product_attention on the same inputs; a decode row that
+    sees every key needs no mask (the flash backend takes it)."""
+    import torch.nn.functional as F
+
+    if q.shape[1] == 1 and q_offset >= k.shape[1] - 1 and window is None:
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True)
+    return _sdpa(q, k, v, q_offset, window)
+
+
+def _ring_reference(q, ck, cv, position: int, window: int):
+    """JAX's decode over a ring cache (layers.py:330-344) in fp32: slot s
+    holds position ``position - ((position - s) mod T)``, kept where it is
+    in ``(position - window, position]`` and >= 0."""
+    import torch
+
+    t, hd = ck.shape[1], q.shape[-1]
+    g = q.shape[2] // ck.shape[2]
+    sl = torch.arange(t, device=q.device)
+    k_pos = position - torch.remainder(position - sl, t)
+    keep = (k_pos <= position) & (k_pos >= 0) & (k_pos > position - window)
+    kh, vh = (x.float().repeat_interleave(g, 2).transpose(1, 2) for x in (ck, cv))
+    logits = q.float().transpose(1, 2) @ kh.transpose(-1, -2) / hd ** 0.5
+    p = torch.softmax(logits.masked_fill(~keep, float("-inf")), dim=-1)
+    return (p @ vh).transpose(1, 2)
+
+
+def check_flash_lm_cell(cell: str, shape, dtype, g):
+    """flash_attention at an LM shape against the plain version (FLASH_TOL)
+    in batch slices whose fp32 kv copies stay under CHECK_GIB; a prefill
+    cell in row blocks (PREFILL_ROW_BLOCKS, by q_offset: its [S, T] scores
+    do not fit); the ring cell in fp32 also against JAX's ring mask.
+    Returns (q, k, v, largest error)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+
+    b, s, t, h, kv, hd, off, win = shape
+    dname = str(dtype).split(".")[-1]
+    q, k, v = _flash_inputs(shape, dtype, g)
+    got = flash_attention(q, k, v, q_offset=off, window=win)
+    torch.cuda.synchronize()
+    per_row = 2 * t * h * hd * 4 * max(s, 64) / 64  # fp32 repeated k and v of one batch row
+    step = max(1, min(b, int(CHECK_GIB * 2**30 // per_row)))
+    err = 0.0
+    for b0 in range(0, b, step):
+        qs, ks, vs = (x[b0:b0 + step] for x in (q, k, v))
+        if s == 1:
+            blocks = [(0, 1)]
+        else:
+            blocks = [(r, min(r + 64, s)) for r in PREFILL_ROW_BLOCKS]
+        for r0, r1 in blocks:
+            qb = qs[:, r0:r1].contiguous()
+            want = flash_attention_ref(qb, ks, vs, q_offset=off + r0, window=win)
+            spread = _flash_spread(qb, ks, vs, off + r0, win)
+            e, _ = _check_flash(f"{cell}/{dname} b{b0} rows[{r0},{r1})",
+                                got[b0:b0 + step, r0:r1], want, spread, FLASH_TOL[dname])
+            err = max(err, e)
+            del want, spread
+        if cell == "gemma_local_ring" and dtype == torch.float32:
+            ring = _ring_reference(qs, ks, vs, GEMMA_RING_POSITION, 1024)
+            spread = _flash_spread(qs, ks, vs, off, win)
+            e, _ = _check_flash(f"{cell}/{dname} b{b0} against JAX's ring mask at position "
+                                f"{GEMMA_RING_POSITION}", got[b0:b0 + step], ring, spread,
+                                FLASH_TOL[dname])
+            err = max(err, e)
+        torch.cuda.empty_cache()
+    return q, k, v, err
+
+
+def phase_lm_kernels(g) -> None:
+    """flash_attn at the S = 1 edges (check_flash_cell) and at the LM
+    path's shapes (check_flash_lm_cell), each LM cell timed beside the
+    plain version (decode; not prefill, whose scores do not fit), SDPA and
+    its byte bound (the cache read once)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+
+    for cell, shape in FLASH_DECODE_EDGES.items():
+        b, s, t, h, kv, hd, off, win = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            *_, err, n_empty = check_flash_cell(cell, shape, dtype, g)
+            log(f"kernel=flash_attn edge={cell} dtype={str(dtype).split('.')[-1]} B={b} S={s} "
+                f"T={t} H={h} KV={kv} hd={hd} q_offset={off} window={win} "
+                f"rows_without_keys={n_empty} max_abs_err={err:.3g}")
+    for cell, shape in FLASH_LM_SHAPES.items():
+        b, s, t, h, kv, hd, off, win = shape
+        dtypes = (torch.float32, torch.bfloat16) if cell in FLASH_LM_FP32 else (torch.bfloat16,)
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[-1]
+            q, k, v, err = check_flash_lm_cell(cell, shape, dtype, g)
+            run = lambda: flash_attention(q, k, v, q_offset=off, window=win)  # noqa: E731
+            ms = _device_ms_or_none(run)
+            call_ms = cuda_ms(run, reps=5, warmup=1)
+            plain_ms = None
+            if s == 1:  # a prefill's [S, T] scores do not fit
+                plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, q_offset=off, window=win),
+                                   reps=3, warmup=1)
+                torch.cuda.empty_cache()
+            library_ms = cuda_ms(_lm_sdpa(q, k, v, off, win), reps=3, warmup=1)
+            torch.cuda.empty_cache()
+            itemsize = q.element_size()
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * itemsize
+            flops = 4.0 * hd * _flash_pairs(s, t, off, win) * b * h
+            rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+            bound_ms, by = bound(nbytes, flops, rate)
+            rows = 128 if dtype == torch.bfloat16 else 64
+            blocks = -(-s // rows) * h * b
+            best = ms if ms is not None else call_ms
+            log(f"kernel=flash_attn lm_cell={cell} dtype={dname} B={b} S={s} T={t} H={h} KV={kv} "
+                f"hd={hd} q_offset={off} window={win} blocks={blocks} (132 SMs) "
+                f"flops={flops:.4g} bytes={nbytes:.4g} ms={_ms(ms)} call_ms={call_ms:.4f} "
+                f"plain_ms={_ms(plain_ms)} (CUDA events) library_ms={_ms(library_ms)} "
+                f"(SDPA, CUDA events) bound_ms={bound_ms:.5f} bound_by={by} "
+                f"share_of_bound={bound_ms / best:.4f} rtol, atol, c={FLASH_TOL[dname]} "
+                f"max_abs_err={err:.3g}")
+            del q, k, v
+            torch.cuda.empty_cache()
+
+
+def _lm_cut(aid: str, layers=None, dtype=None):
+    """The arch with its config's layers (and dtype) replaced."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(aid)
+    cfg = arch.cfg
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return dataclasses.replace(arch, cfg=cfg)
+
+
+def _gib(x: float) -> float:
+    return x / 2**30
+
+
+def _fits(peak: float, weights: float, batch: int) -> int:
+    """The largest batch a cell's peak extrapolates to under CARD_GIB:
+    (peak - weights) grows with the batch."""
+    per_row = (peak - weights) / batch
+    return int((CARD_GIB * 2**30 - weights) // per_row) if per_row > 0 else batch
+
+
+def phase_lm_prefill(arch, params, batch: int, weights: float, g) -> None:
+    """(a) prefill_32k at ``batch``: a warm-up prompt of 1,024 tokens, then
+    one timed call (ms, tokens/s, peak); logits finite."""
+    import torch
+
+    cell = arch.build_cell("prefill_32k")
+    s = cell.args[1].shape[1]
+    warm = torch.randint(0, arch.cfg.vocab, (batch, 1024), generator=g, device="cuda")
+    out = cell.step_fn(params, warm)
+    del out, warm
+    tokens = torch.randint(0, arch.cfg.vocab, (batch, s), generator=g, device="cuda",
+                           dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = cell.step_fn(params, tokens)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    assert logits.shape == (batch, arch.cfg.vocab) and bool(torch.isfinite(logits).all()), \
+        f"{cell.name}: logits not finite"
+    layers = arch.cfg.n_layers
+    log(f"lm {cell.name} layers={layers} B={batch} S={s} ms={wall:.1f} "
+        f"tokens_per_s={batch * s / wall * 1e3:.0f} peak_gib={_gib(peak):.2f} "
+        f"weights_gib={_gib(weights):.2f} batch_that_fits~{_fits(peak, weights, batch)} "
+        f"logits_finite=True")
+    del logits, caches, tokens
+    torch.cuda.empty_cache()
+
+
+def phase_lm_decode(arch, params, shape: str, batch: int, weights: float, g) -> None:
+    """(a) LM_DECODE_STEPS steps of ``shape``'s decode cell at ``batch`` on
+    caches of seeded draws (a zero cache makes every softmax uniform), at
+    q_offset seq - 4 ... seq - 1, each under sync debug mode "error" (a
+    read-back fails the run), timed by CUDA events; logits finite.
+    Returns the mean ms of the steps after the first."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    cell = arch.build_cell(shape)
+    s = cell.args[3] + 1
+    torch.cuda.reset_peak_memory_stats()
+    caches = tf.init_cache(arch.cfg, batch, s, device="cuda")
+    for pair in caches:
+        for c in pair:
+            c.normal_(generator=g)
+    token = torch.randint(0, arch.cfg.vocab, (batch, 1), generator=g, device="cuda")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(LM_DECODE_STEPS + 1)]
+    torch.cuda.synchronize()
+    logits = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        events[0].record()
+        for i in range(LM_DECODE_STEPS):
+            lg, caches = cell.step_fn(params, caches, token, s - LM_DECODE_STEPS + i)
+            events[i + 1].record()
+            token = lg.argmax(-1)[:, None]
+            logits.append(lg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    steps = [events[i].elapsed_time(events[i + 1]) for i in range(LM_DECODE_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    assert all(bool(torch.isfinite(lg).all()) for lg in logits), f"{cell.name}: logits not finite"
+    ms = sum(steps[1:]) / len(steps[1:])
+    cache_gib = _gib(sum(c.numel() * c.element_size() for pair in caches for c in pair))
+    log(f"lm {cell.name} layers={arch.cfg.n_layers} B={batch} T={s} steps_ms="
+        f"{'/'.join(f'{x:.3f}' for x in steps)} ms_per_token={ms:.3f} "
+        f"tokens_per_s={batch / ms * 1e3:.1f} cache_gib={cache_gib:.2f} "
+        f"peak_gib={_gib(peak):.2f} weights_gib={_gib(weights):.2f} "
+        f"batch_that_fits~{_fits(peak, weights, batch)} sync_debug=error logits_finite=True")
+    if shape == "long_500k" or arch.arch_id in ("granite-3-2b", "qwen3-moe-235b-a22b"):
+        _lm_step_breakdown(cell, params, caches, token, s - 1)
+    del caches, logits
+    torch.cuda.empty_cache()
+
+
+def _lm_step_breakdown(cell, params, caches, token, q_offset: int) -> None:
+    """Where one decode step's device time goes (torch.profiler): attention
+    (flash_attn), matrix products, the rest; the largest kernels; the idle
+    share of the step's wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with uncounted():
+        cell.step_fn(params, caches, token, q_offset)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cell.step_fn(params, caches, token, q_offset)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {"attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        key = "attention" if "flash_attn" in name else (
+            "matmul" if any(w in name for w in ("gemm", "cutlass", "sm90_", "xmma", "nvjet"))
+            else "other")
+        groups[key] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"lm step breakdown {cell.name}: busy_ms={total:.3f} wall_ms(profiled)={wall:.3f} "
+        f"idle_share={max(0.0, 1 - total / wall):.3f} "
+        + " ".join(f"{k}_ms={v:.3f}" for k, v in groups.items()) + " top: "
+        + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f}ms"
+                    for e in top))
+
+
+def phase_lm_cells() -> None:
+    """(a) every LM arch's prefill_32k and decode_32k, and gemma's
+    long_500k, through LMArch.build_cell on the card at the published
+    widths (bf16, random seeded weights drawn on the card), with LM_CUTS."""
+    import torch
+
+    from repro_torch.train.tree import leaves
+
+    for aid in LM_ARCHS:
+        layers, pre_b, dec_b = LM_CUTS[aid]
+        arch = _lm_cut(aid, layers)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = arch.init(g, device="cuda")
+        torch.cuda.synchronize()
+        weights = sum(t.numel() * t.element_size() for t in leaves(params))
+        log(f"lm {aid} init layers={arch.cfg.n_layers} of {_lm_cut(aid).cfg.n_layers} "
+            f"params={sum(t.numel() for t in leaves(params))} weights_gib={_gib(weights):.2f} "
+            f"init_s={time.perf_counter() - t0:.2f}")
+        phase_lm_prefill(arch, params, pre_b, weights, g)
+        phase_lm_decode(arch, params, "decode_32k", dec_b, weights, g)
+        if "long_500k" in arch.shape_names():
+            phase_lm_decode(arch, params, "long_500k", 1, weights, g)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _lm_greedy(arch, params, prompt, tokens=None):
+    """serve_prefill over ``prompt``, then LM_CPU_STEPS serve_steps fed
+    ``tokens`` (host arrays) or, where None, the greedy token of the last
+    logits: (the logits of each call on the CPU, the tokens fed)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    s = prompt.shape[1]
+    lg, caches = tf.serve_prefill(params, prompt, arch.cfg, max_len=s + LM_CPU_STEPS)
+    out, fed = [lg.cpu()], []
+    for i in range(LM_CPU_STEPS):
+        tok = out[-1].argmax(-1)[:, None].numpy() if tokens is None else tokens[i]
+        fed.append(tok)
+        lg, caches = tf.serve_step(params, caches, torch.as_tensor(tok, device=prompt.device),
+                                   s + i, arch.cfg)
+        out.append(lg.cpu())
+    return out, fed
+
+
+@contextlib.contextmanager
+def _blocks(forced=None):
+    """Patches models.transformer._block_apply to keep each block call's
+    (input, output) on the CPU.  With ``forced`` (an earlier run's list), a
+    call takes that run's input instead of its own and hands on that run's
+    output after keeping its own: each block is compared on the same input,
+    and the residual stream stays the earlier run's."""
+    from repro_torch.models import transformer as tf
+
+    original, seen = tf._block_apply, []
+
+    def block(bp, x, positions, cfg, window, kv_cache=None, q_offset=0):
+        if forced is not None:
+            x = forced[len(seen)][0].to(x.device)
+        y, kv, aux = original(bp, x, positions, cfg, window, kv_cache=kv_cache, q_offset=q_offset)
+        seen.append((x.cpu(), y.cpu()))
+        if forced is not None:
+            y = forced[len(seen) - 1][1].to(y.device)
+        return y, kv, aux
+
+    tf._block_apply = block
+    try:
+        yield seen
+    finally:
+        tf._block_apply = original
+
+
+@contextlib.contextmanager
+def _routes():
+    """Patches models.moe.route to keep each call's expert ids and the
+    router probs of its k-th and k+1-th choice, on the CPU."""
+    from repro_torch.models import moe
+
+    original, seen = moe.route, []
+
+    def route(x2d, router, top_k):
+        probs, vals, idx = original(x2d, router, top_k)
+        ordered = probs.sort(dim=-1, descending=True).values
+        seen.append((idx.cpu(), ordered[:, top_k - 1].cpu(), ordered[:, top_k].cpu()))
+        return probs, vals, idx
+
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = original
+
+
+def phase_lm_cpu(aid: str) -> None:
+    """(b) The card against the CPU at the published widths and vocab, the
+    layers cut to one pattern cycle (LM_CPU_LAYERS, all experts), fp32,
+    batch 2, a 256-token prompt and 8 decode steps (the CPU's greedy
+    tokens fed to both).  A random model at these widths is chaotic in
+    fp32 (JAX's init draws the queries at H**-0.5, so scores run to
+    hundreds): the CPU's own fp32 logits are 1e-5 to 0.2 of a row's
+    largest from a float64 run of the same weights, and an error grows
+    20-40x an attention layer (scripts/lm_conditioning.py).  So each block
+    runs on the card on the CPU run's input (``_blocks``): its output within
+    LM_BLOCK_RTOL of the row's largest |value|, the logits (from the CPU's
+    last hidden state) within LM_LOGIT_RTOL, the argmax equal but at
+    near-ties, the MoE expert choices equal but where the router's k-th and
+    k+1-th probs tie within 1e-5.  The card's free run is logged beside."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.tree import tree_map
+
+    arch = _lm_cut(aid, LM_CPU_LAYERS[aid], torch.float32)
+    gpu_params = arch.init(torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), gpu_params)
+    prompt = np.random.default_rng(3).integers(0, arch.cfg.vocab, (LM_CPU_BATCH, LM_CPU_PROMPT))
+    t0 = time.perf_counter()
+    with _blocks() as cpu_blocks, _routes() as cpu_routes:
+        cpu_out, tokens = _lm_greedy(arch, cpu_params, torch.as_tensor(prompt))
+    cpu_s = time.perf_counter() - t0
+    with _blocks(forced=cpu_blocks) as gpu_blocks, _routes() as gpu_routes:
+        gpu_out, _ = _lm_greedy(arch, gpu_params, torch.as_tensor(prompt, device="cuda"), tokens)
+    free_out, _ = _lm_greedy(arch, gpu_params, torch.as_tensor(prompt, device="cuda"), tokens)
+    assert len(gpu_blocks) == len(cpu_blocks) == arch.cfg.n_layers * (LM_CPU_STEPS + 1)
+    block_worst = max(_scaled_err(g, c) for (_, g), (_, c) in zip(gpu_blocks, cpu_blocks))
+    assert block_worst <= LM_BLOCK_RTOL, \
+        f"lm {aid}: a block on the card is {block_worst:.3g} of a row's largest from the CPU's"
+    worst, near_ties = 0.0, 0
+    for i, (got, want) in enumerate(zip(gpu_out, cpu_out)):
+        err = _scaled_err(got, want)
+        assert err <= LM_LOGIT_RTOL, f"lm {aid} card vs CPU, call {i}: {err:.3g} of a row's largest"
+        worst = max(worst, err)
+        ga, ca = got.argmax(-1), want.argmax(-1)
+        gap = want.gather(-1, ca[:, None])[:, 0] - want.gather(-1, ga[:, None])[:, 0]
+        assert bool(((ga == ca) | (gap <= LM_LOGIT_RTOL * want.abs().amax(-1))).all()), \
+            f"lm {aid}: the card's argmax differs off a near-tie at call {i}"
+        near_ties += int((ga != ca).sum())
+    free = [_scaled_err(g, c) for g, c in zip(free_out, cpu_out)]
+    free_same = sum(int((g.argmax(-1) == c.argmax(-1)).sum()) for g, c in zip(free_out, cpu_out))
+    line = (f"lm card_vs_cpu {aid} layers={arch.cfg.n_layers} fp32 B={LM_CPU_BATCH} "
+            f"prompt={LM_CPU_PROMPT} steps={LM_CPU_STEPS} block_worst={block_worst:.3g} "
+            f"(limit {LM_BLOCK_RTOL:g}) logit_worst={worst:.3g} (limit {LM_LOGIT_RTOL:g}) "
+            f"argmax_near_ties={near_ties} free_run_logit_err="
+            f"{'/'.join(f'{e:.2g}' for e in free)} free_run_argmax_equal={free_same} of "
+            f"{LM_CPU_BATCH * len(free)} cpu_s={cpu_s:.1f}")
+    if arch.cfg.is_moe:
+        assert len(gpu_routes) == len(cpu_routes) > 0, (len(gpu_routes), len(cpu_routes))
+        ties = 0
+        for (gi, _, _), (ci, kth, nxt) in zip(gpu_routes, cpu_routes):
+            differ = (gi != ci).any(-1)
+            assert bool((~differ | (kth - nxt <= 1e-5 * kth)).all()), \
+                f"lm {aid}: expert choices differ off a tie"
+            ties += int(differ.sum())
+        line += f" route_calls={len(cpu_routes)} tokens_routed_differently_at_ties={ties}"
+    log(line)
+    del gpu_params, cpu_params, cpu_blocks, gpu_blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_example() -> int:
+    """(c) examples/lm_decode_torch.py at its defaults on the card (its
+    assertion: decode's argmax equal to the full forward's at every checked
+    step) and on the CPU: the same tokens.  Returns its fp32 launches."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import lm_decode_torch as example
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    card = example.main(["--device", "cuda"])
+    with uncounted():
+        cpu = example.main(["--device", "cpu"])
+    assert np.array_equal(card["tokens"], cpu["tokens"]), "example: the card's tokens differ"
+    log(f"lm example tokens_equal_to_cpu=True max_rel_err card={card['max_err']:.3g} "
+        f"cpu={cpu['max_err']:.3g}")
+    return 6 * (1 + 16 + 4)  # prefill, 16 steps, 4 forward checks, 6 layers each
+
+
+def phase_lm() -> dict:
+    """Phase 10: the LM family on the card; returns the launches of (a) and
+    (c).  Every prefill and decode step of an LM layer is one flash_attn
+    launch, so the counts are held to the calls made: no LM path ran the
+    plain attention."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm phase: {_gib(torch.cuda.memory_allocated()):.2f} GiB held by earlier phases")
+    t0 = time.perf_counter()
+    with uncounted():
+        phase_lm_kernels(torch.Generator(device="cuda").manual_seed(10))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _zero_counts()
+    phase_lm_cells()
+    bf16_calls = sum(_lm_cut(aid, LM_CUTS[aid][0]).cfg.n_layers
+                     * (2 + LM_DECODE_STEPS * (2 if aid == "gemma3-12b" else 1))
+                     for aid in LM_ARCHS)
+    f32_calls = phase_lm_example()
+    counts = _read_counts()
+    t2 = time.perf_counter()
+    with uncounted():
+        for aid in LM_ARCHS:
+            phase_lm_cpu(aid)
+    log(f"lm phase: kernels {t1 - t0:.1f} s, cells and example {t2 - t1:.1f} s, card vs CPU "
+        f"{time.perf_counter() - t2:.1f} s; launches={counts} (bf16 calls {bf16_calls}, "
+        f"fp32 calls {f32_calls})")
+    assert counts["flash_attn_bf16"] == bf16_calls and counts["flash_attn"] == f32_calls, \
+        f"lm: attention ran other than one flash_attn launch a layer call: {counts}"
+    _assert_path("lm", counts, ("flash_attn", "flash_attn_bf16"))
+    return counts
+
+
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "beam_step": ("src/repro_torch/csrc/beam_step.cu",
@@ -4650,6 +5203,8 @@ def main() -> int:
     for name, n in phase_index_family().items():  # and the index family's
         counts[name] += n
     for name, n in phase_recsys().items():  # and the recsys cells'
+        counts[name] += n
+    for name, n in phase_lm().items():  # and the LM family's
         counts[name] += n
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])

@@ -1,14 +1,14 @@
 """Arch registry: ``--arch <id>`` resolves here.  The ten ids are the JAX
-package's; the recsys family is ported, the LM and GNN families raise
-``NotImplementedError`` until their slices (ROADMAP Queue 1, item 6)."""
+package's; the LM and recsys families are ported, the GNN family raises
+``NotImplementedError`` until its slice (ROADMAP Queue 1, item 6)."""
 import importlib
 
 _MODULES = {
-    "internlm2-20b": None,
-    "gemma3-12b": None,
-    "granite-3-2b": None,
-    "qwen3-moe-235b-a22b": None,
-    "grok-1-314b": None,
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "gemma3-12b": "repro_torch.configs.gemma3_12b",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "meshgraphnet": None,
     "sasrec": "repro_torch.configs.sasrec",
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
@@ -24,9 +24,8 @@ def get_arch(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if _MODULES[arch_id] is None:
-        family = "GNN" if arch_id == "meshgraphnet" else "LM"
         raise NotImplementedError(
-            f"{arch_id}: the {family} family is not ported yet (ROADMAP Queue 1, item 6)")
+            f"{arch_id}: the GNN family is not ported yet (ROADMAP Queue 1, item 6)")
     return importlib.import_module(_MODULES[arch_id]).ARCH
 
 

@@ -1,5 +1,14 @@
 """Arch -> (step function, abstract inputs, metadata) cell builders, the
-recsys part of the JAX package's ``configs/common.py``.
+LM and recsys parts of the JAX package's ``configs/common.py``.
+
+``LMArch.build_cell(shape_name, device=...)``: ``prefill_32k`` runs
+``serve_prefill`` over the [B, S] prompt (caches sized S) and returns the
+last token's logits and the caches; ``decode_32k`` and gemma's
+``long_500k`` run one ``serve_step`` against caches of S slots (a ring of
+``window`` slots for sliding layers), with ``q_offset`` a host int.  The
+cells run at the published widths; the batch or layer cuts that fit one
+card are the caller's (``chip_smoke.py`` records its own).  ``train_4k``
+comes with the LM training slice.
 
 ``RecsysArch.build_cell(shape_name, device=...)`` returns a ``Cell``: the
 step function, its inputs as ``meta`` tensors (the port's
@@ -34,6 +43,7 @@ from repro_torch.kernels.gather_score import gather_score
 from repro_torch.models.recsys import dien as dien_mod
 from repro_torch.models.recsys import dlrm as dlrm_mod
 from repro_torch.models.recsys import mind as mind_mod
+from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import sasrec as sasrec_mod
 from repro_torch.train.optimizer import adamw_init, adamw_update, cosine_schedule
 from repro_torch.train.tree import leaves, value_and_grad
@@ -42,9 +52,74 @@ from repro_torch.train.tree import leaves, value_and_grad
 class Cell(NamedTuple):
     name: str                 # "<arch>/<shape>"
     step_fn: Callable
-    args: tuple               # the inputs, as meta tensors
+    args: tuple               # the inputs, as meta tensors (a decode's q_offset: an int)
     meta: dict
 
+
+# ---------------------------------------------------------------------------
+# LM transformers
+# ---------------------------------------------------------------------------
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+
+@dataclasses.dataclass
+class LMArch:
+    arch_id: str
+    cfg: tf.TransformerConfig
+    family: str = "lm"
+
+    def shape_names(self):
+        names = ["train_4k", "prefill_32k", "decode_32k"]
+        if any(w is not None for w in self.cfg.window_pattern):
+            names.append("long_500k")  # sub-quadratic archs only
+        return names
+
+    def init(self, generator=None, *, device="cuda"):
+        return tf.init(self.cfg, generator, device=device)
+
+    def build_cell(self, shape_name: str, device="cuda") -> "Cell":
+        if shape_name not in self.shape_names():
+            raise KeyError(f"{self.arch_id} has no cell {shape_name!r}; "
+                           f"it has {self.shape_names()}")
+        sh = LM_SHAPES[shape_name]
+        if sh["kind"] == "train":
+            raise NotImplementedError(f"{self.arch_id}/{shape_name}: the LM family trains in the "
+                                      "next slice (ROADMAP Queue 1, item 6)")
+        cfg = self.cfg
+        dev = torch.device(device)
+        torch.empty(0, device=dev)  # an absent device fails here, before any work
+        b, s = sh["batch"], sh["seq"]
+        meta = dict(family="lm", arch=self.arch_id, shape=shape_name, kind=sh["kind"],
+                    params=cfg.param_count(), active_params=cfg.active_param_count(),
+                    tokens=b * s if sh["kind"] != "decode" else b)
+        name = f"{self.arch_id}/{shape_name}"
+        params_abs = tf.abstract_params(cfg)
+
+        if sh["kind"] == "prefill":
+            def prefill_step(params, tokens):
+                _check_device(dev, (params, tokens))
+                return tf.serve_prefill(params, tokens, cfg, max_len=tokens.shape[1])
+
+            return Cell(name, prefill_step, (params_abs, _abstract((b, s), torch.int32)), meta)
+
+        def decode_step(params, caches, token, q_offset: int):
+            _check_device(dev, (params, caches, token))
+            return tf.serve_step(params, caches, token, q_offset, cfg)
+
+        caches_abs = tf.init_cache(cfg, b, s, device="meta")
+        return Cell(name, decode_step,
+                    (params_abs, caches_abs, _abstract((b, 1), torch.int32), s - 1), meta)
+
+
+# ---------------------------------------------------------------------------
+# recsys
+# ---------------------------------------------------------------------------
 
 RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65_536),

@@ -223,12 +223,17 @@ def norm_filtered_from_arrays(global_ids: np.ndarray, ip: Mapping[str, np.ndarra
 
 def params_from_arrays(tree, *, device: str = "cuda"):
     """A nested dict / list / tuple of numpy arrays (a JAX ``init``'s tree,
-    ``np.asarray`` of each leaf) as the same tree of tensors on ``device``."""
+    ``np.asarray`` of each leaf) as the same tree of tensors on ``device``.
+    A bfloat16 leaf (numpy's ``ml_dtypes.bfloat16``, which torch cannot
+    take) is carried bit for bit through its 16-bit pattern."""
     if isinstance(tree, dict):
         return {k: params_from_arrays(v, device=device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_arrays(v, device=device) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(device)
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def adamw_from_arrays(step, mu, nu, *, device: str = "cuda") -> AdamWState:

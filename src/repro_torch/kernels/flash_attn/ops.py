@@ -6,7 +6,8 @@ Pallas kernel's ``bq`` / ``bk`` tiling knobs are gone).
 
 ``flash_attention.launches`` and ``flash_attention.launches_bf16`` count the
 fp32 and bf16 kernel launches of both entry points (plain runs do not
-count)."""
+count).  The kernels have no backward: a CUDA input that needs a gradient
+raises (the LM training slice brings one, ROADMAP Queue 1, item 6)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -51,6 +52,9 @@ def flash_attention(
         raise ValueError(f"window must be positive or None, got {window}")
     if not _lib.on_cuda(q):
         return flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError("flash_attention has no backward kernel yet (the LM training "
+                                  "slice, ROADMAP Queue 1, item 6)")
     check_kernel_inputs(q, k, v)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]

@@ -1,3 +1,4 @@
-"""Model substrate.  Ported: the recsys towers (``models.recsys``) and the
-dense-stack part of ``layers``; the LM transformers, MoE and the GNN wait
-for their slices (ROADMAP Queue 1)."""
+"""Model substrate.  Ported: the LM transformers (``transformer``, ``moe``,
+``layers``; serving, and the loss's value) and the recsys towers
+(``models.recsys``); the LM backward and the GNN wait for their slices
+(ROADMAP Queue 1)."""

@@ -1,6 +1,15 @@
-"""Shared layers: initializers and the dense MLP stack (the recsys subset
-of the JAX package's ``models/layers.py``; attention, rope, rmsnorm and the
-transformer MLP wait for the LM slice).
+"""Shared layers, the JAX package's ``models/layers.py``: initializers, the
+dense MLP stack of the recsys towers, and the transformer's RMSNorm, rotary
+embedding, grouped-query attention (train / prefill, and decode on a
+ring-buffer cache) and SwiGLU MLP.  The mesh pieces (``shard``, the
+``*_specs`` trees, ``set_batch_axes*``) are the mesh tools' (ROADMAP
+Queue 1); one card has no mesh.
+
+Attention runs on ``kernels.flash_attn.flash_attention``: the CUDA kernel
+(fp32, or bf16 on the tensor cores) for tensors on the card, its plain
+version for tensors on the CPU.  JAX's query chunking (``attn_chunk``) and
+its flash / dense-block switch only change the order of a sum, so they do
+not carry over.
 
 Random draws come from an explicit ``torch.Generator``: the draw happens on
 the generator's device and the result moves to ``device``, so a CPU
@@ -15,6 +24,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attn import flash_attention
 
 
 def make_generator(device="cuda", seed: int = 0) -> Optional[torch.Generator]:
@@ -34,6 +45,8 @@ def normal(shape, generator: Optional[torch.Generator], device, scale: float = 1
 
 
 def _dense_init(generator, shape, dtype, device, scale: Optional[float] = None):
+    """``N(0, 1) * fan_in**-0.5`` with JAX's ``fan_in = shape[-2]``: for
+    ``wq [d, H, hd]`` that is H, not d (a property of the reference)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     return normal(shape, generator, device, scale if scale is not None else fan_in**-0.5, dtype)
 
@@ -53,3 +66,136 @@ def dense_stack(layers, x: torch.Tensor, act: Callable = F.relu,
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the transformer's layers
+# ---------------------------------------------------------------------------
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [..., k] @ b [k, n]`` accumulated and returned in fp32 (JAX's
+    ``preferred_element_type=jnp.float32``): bf16 operands on the card by
+    one bf16 GEMM with an fp32 output, elsewhere in fp32."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32).view(
+            *a.shape[:-1], b.shape[-1])
+    return a.float() @ b.float()
+
+
+def rmsnorm_init(d: int, dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    h = x.float()
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * g.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: [..., S] int.  The frequencies are
+    ``theta ** (-i / half)`` rounded once from float64: the fp32 values
+    XLA's ``pow`` gives (torch's fp32 ``pow`` is an ulp off for some i, and
+    at position 32,768 an ulp of a frequency moves an angle by 2e-3)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    expo = (torch.arange(0, half, dtype=torch.float32, device=x.device) / half).double()
+    freq = (theta ** -expo).float()
+    ang = positions[..., :, None, None].float() * freq  # [.., S, 1, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def attention_init(generator, d_model, n_heads, n_kv, head_dim, dtype=torch.bfloat16,
+                   device="cuda"):
+    return {
+        "wq": _dense_init(generator, (d_model, n_heads, head_dim), dtype, device),
+        "wk": _dense_init(generator, (d_model, n_kv, head_dim), dtype, device),
+        "wv": _dense_init(generator, (d_model, n_kv, head_dim), dtype, device),
+        "wo": _dense_init(generator, (n_heads, head_dim, d_model), dtype, device),
+    }
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dnh->bsnh")`` as one matrix product."""
+    d, n, h = w.shape
+    return (x @ w.reshape(d, n * h)).view(*x.shape[:-1], n, h)
+
+
+def attention(params, x: torch.Tensor, positions: torch.Tensor, *, n_kv: int,
+              window: Optional[int] = None, kv_cache: Optional[tuple] = None,
+              q_offset: int = 0, rope_theta: float = 10000.0):
+    """x: [B, S, d].  Returns (out [B, S, d], (k, v)).
+
+    Train / prefill (``kv_cache=None``): ``positions`` is ``arange(S)``;
+    one ``flash_attention`` over the sequence, causal (``window``: sliding).
+
+    Decode: ``kv_cache=(k, v)`` [B, T, n_kv, hd], S = 1, ``q_offset`` the
+    new token's absolute position (a host int).  The token's k / v are
+    written into the cache in place at slot ``q_offset % T`` and the cache
+    is returned.  If T is smaller than the context (sliding-window layers)
+    the cache is a ring: slot s holds position ``q_offset - ((q_offset - s)
+    mod T)``, and JAX's mask keeps the slots whose position is in
+    ``[max(0, q_offset - window + 1), q_offset]``.  With ``T = cache_len <=
+    window`` those are exactly the slots ``s <= min(q_offset, T - 1)``, so
+    the kernel's causal mask at ``q_offset = min(q_offset, T - 1)``, with no
+    window, computes the same function for global and sliding layers,
+    before and after the ring wraps.
+    """
+    b, s, _ = x.shape
+    h, hd = params["wq"].shape[1:]
+    q = rope(_project(x, params["wq"]), positions, rope_theta)
+    k = rope(_project(x, params["wk"]), positions, rope_theta)
+    v = _project(x, params["wv"])
+
+    if kv_cache is not None:
+        if s != 1:
+            raise ValueError(f"decode takes one token at a time, got S = {s}")
+        ck, cv = kv_cache
+        t = ck.shape[1]
+        slot = q_offset % t
+        ck[:, slot:slot + 1].copy_(k)
+        cv[:, slot:slot + 1].copy_(v)
+        ctx = flash_attention(q.to(ck.dtype), ck, cv, q_offset=min(q_offset, t - 1))
+        k, v = ck, cv
+    else:
+        ctx = flash_attention(q, k, v, q_offset=0, window=window)
+    out = ctx.reshape(b, s, h * hd).to(x.dtype) @ params["wo"].reshape(h * hd, -1)
+    return out, (k, v)
+
+
+def mlp_init(generator, d_model, d_ff, dtype=torch.bfloat16, device="cuda"):
+    return {
+        "w_gate": _dense_init(generator, (d_model, d_ff), dtype, device),
+        "w_in": _dense_init(generator, (d_model, d_ff), dtype, device),
+        "w_out": _dense_init(generator, (d_ff, d_model), dtype, device),
+    }
+
+
+# rows of an [n, d_ff] intermediate the MLPs hold at once (about 1 GiB of
+# fp32): a 32k-token prefill runs the MLP in row chunks, each row's values
+# unchanged
+FFN_CHUNK_VALUES = 1 << 28
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
+           w_out: torch.Tensor) -> torch.Tensor:
+    """``(silu(x @ w_gate) * (x @ w_in)) @ w_out``, SiLU in fp32 and cast
+    back (x [n, d], or [E, n, d] with per-expert weights)."""
+    h = F.silu((x @ w_gate).float()).to(x.dtype) * (x @ w_in)
+    return h @ w_out
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU MLP over [B, S, d], in row chunks of FFN_CHUNK_VALUES."""
+    x2d = x.reshape(-1, x.shape[-1])
+    rows = max(1, FFN_CHUNK_VALUES // params["w_gate"].shape[-1])
+    if x2d.shape[0] <= rows:
+        return swiglu(x2d, params["w_gate"], params["w_in"], params["w_out"]).view(x.shape)
+    out = torch.empty_like(x2d)
+    for i in range(0, x2d.shape[0], rows):
+        out[i:i + rows] = swiglu(x2d[i:i + rows], params["w_gate"], params["w_in"],
+                                 params["w_out"])
+    return out.view(x.shape)

@@ -1,0 +1,303 @@
+"""Dense + MoE decoder-only LM, the JAX package's ``models/transformer.py``.
+
+Parameters are plain trees in JAX's layout: the blocks stacked
+``[n_rep, P, ...]`` (P = len(window_pattern), the static local / global
+attention cycle; gemma3: 5 sliding + 1 global) with JAX's leaf names, so
+``convert.params_from_arrays``, ``train.tree.named_leaves`` and the
+checkpoint format take an LM tree as they are.  JAX's ``lax.scan`` over
+n_rep is a Python loop over views of the stacked leaves.
+
+Entry points (``mesh`` must be None: the mesh tools are ROADMAP Queue 1's):
+  init(cfg, generator, device=)          -> params
+  forward(params, tokens, cfg)           -> (logits, aux_loss)
+  lm_loss(params, batch, cfg)            -> scalar loss (the value; no
+                                            gradient on the card yet)
+  init_cache(cfg, batch, max_len)        -> per-pattern KV caches
+  serve_prefill(params, tokens, cfg, ..) -> (logits, caches)
+  serve_step(params, caches, token, off) -> (logits, caches), the caches
+                                            written in place
+
+JAX's XLA layout knobs (``seq_parallel``, ``flash``, ``kv_chunk``,
+``attn_chunk``, ``remat``) do not carry over: one ``flash_attention`` call
+takes a layer's whole sequence, and nothing is rematerialized without a
+backward pass.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.train.tree import leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    rope_theta: float = 10000.0
+    # cycle of per-layer attention windows; None = global full attention.
+    # gemma3: (W, W, W, W, W, None), 5 local : 1 global.
+    window_pattern: Tuple[Optional[int], ...] = (None,)
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_expert_split: int = 1   # store each expert as N ffn column-shards
+    capacity_factor: float = 1.25
+    tied_embed: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    loss_chunk: int = 1024  # 0 = materialize the full [B, S, V] logits
+
+    @property
+    def pattern_len(self) -> int:
+        return len(self.window_pattern)
+
+    @property
+    def n_rep(self) -> int:
+        assert self.n_layers % self.pattern_len == 0, (self.n_layers, self.window_pattern)
+        return self.n_layers // self.pattern_len
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe_experts > 0
+
+    def param_count(self) -> int:
+        """Total parameters (the roofline's 6 N D term)."""
+        attn = self.d_model * self.head_dim * (self.n_heads * 2 + self.n_kv * 2)
+        if self.is_moe:
+            ffn = self.moe_experts * 3 * self.d_model * self.d_ff
+            ffn += self.d_model * self.moe_experts
+        else:
+            ffn = 3 * self.d_model * self.d_ff
+        per_layer = attn + ffn + 2 * self.d_model
+        embed = self.vocab * self.d_model * (1 if self.tied_embed else 2)
+        return self.n_layers * per_layer + embed + self.d_model
+
+    def active_param_count(self) -> int:
+        """Activated parameters a token (MoE: top_k of moe_experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        attn = self.d_model * self.head_dim * (self.n_heads * 2 + self.n_kv * 2)
+        ffn = self.moe_top_k * 3 * self.d_model * self.d_ff
+        ffn += self.d_model * self.moe_experts
+        per_layer = attn + ffn + 2 * self.d_model
+        embed = self.vocab * self.d_model * (1 if self.tied_embed else 2)
+        return self.n_layers * per_layer + embed + self.d_model
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("a mesh is the mesh tools' (ROADMAP Queue 1, item 6); "
+                                  "the port runs on one device")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _layer_init(generator, cfg: TransformerConfig, device):
+    p = {"attn": L.attention_init(generator, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                                  cfg.dtype, device)}
+    if cfg.is_moe:
+        p["ffn"] = M.moe_init(generator, cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.dtype,
+                              expert_split=cfg.moe_expert_split, device=device)
+    else:
+        p["ffn"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.dtype, device)
+    p["ln1"] = L.rmsnorm_init(cfg.d_model, cfg.dtype, device)
+    p["ln2"] = L.rmsnorm_init(cfg.d_model, cfg.dtype, device)
+    return p
+
+
+def init(cfg: TransformerConfig, generator=None, *, device="cuda"):
+    """The parameter tree, JAX's leaves and dtypes (the router fp32).  The
+    stacked blocks are allocated once and drawn a layer at a time (one
+    layer's fp32 draw in memory at once); on ``meta`` nothing is drawn.
+    The values are the port's own: parity tests carry JAX's across."""
+    g = generator if generator is not None else L.make_generator(device)
+    shapes = _layer_init(None, cfg, "meta")
+    blocks = tree_map(lambda a: torch.empty((cfg.n_rep, cfg.pattern_len, *a.shape),
+                                            dtype=a.dtype, device=device), shapes)
+    if torch.device(device).type != "meta":
+        for r in range(cfg.n_rep):
+            for p in range(cfg.pattern_len):
+                layer = _layer_init(g, cfg, device)
+                for dst, src in zip(leaves(blocks), leaves(layer)):
+                    dst[r, p].copy_(src)
+                del layer
+    params = {
+        "embed": L._dense_init(g, (cfg.vocab, cfg.d_model), cfg.dtype, device, scale=1.0),
+        "blocks": blocks,
+        "final_ln": L.rmsnorm_init(cfg.d_model, cfg.dtype, device),
+    }
+    if not cfg.tied_embed:
+        params["unembed"] = L._dense_init(g, (cfg.d_model, cfg.vocab), cfg.dtype, device)
+    return params
+
+
+def abstract_params(cfg: TransformerConfig):
+    """The parameter tree as meta tensors (no allocation)."""
+    return init(cfg, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _layers(params, cfg: TransformerConfig):
+    """(rep, pattern index, window, block params as views) in depth order."""
+    for r in range(cfg.n_rep):
+        for p, window in enumerate(cfg.window_pattern):
+            yield r, p, window, tree_map(lambda a: a[r, p], params["blocks"])
+
+
+def _block_apply(bp, x, positions, cfg: TransformerConfig, window, kv_cache=None, q_offset=0):
+    h, new_kv = L.attention(bp["attn"], L.rmsnorm(x, bp["ln1"]), positions, n_kv=cfg.n_kv,
+                            window=window, kv_cache=kv_cache, q_offset=q_offset,
+                            rope_theta=cfg.rope_theta)
+    x = x + h
+    h2 = L.rmsnorm(x, bp["ln2"])
+    if cfg.is_moe:
+        ff, aux = M.moe_apply(bp["ffn"], h2, n_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.capacity_factor,
+                              expert_split=cfg.moe_expert_split)
+    else:
+        ff, aux = L.mlp(bp["ffn"], h2), None
+    return x + ff, new_kv, aux
+
+
+def _unembed(params, cfg: TransformerConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tied_embed else params["unembed"]
+
+
+def hidden_states(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
+    """The forward up to and with the final norm: ([B, S, d], aux_loss)."""
+    _no_mesh(mesh)
+    s = tokens.shape[1]
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(s, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, _, window, bp in _layers(params, cfg):
+        x, _, a = _block_apply(bp, x, positions, cfg, window)
+        if a is not None:
+            aux = aux + a
+    return L.rmsnorm(x, params["final_ln"]), aux
+
+
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
+    """tokens [B, S] -> (logits [B, S, V] fp32, aux_loss)."""
+    x, aux = hidden_states(params, tokens, cfg, mesh)
+    return L.matmul_f32(x, _unembed(params, cfg)), aux
+
+
+def _needs_grad_on_card(params) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.is_cuda and t.requires_grad for t in leaves(params))
+
+
+def lm_loss(params, batch, cfg: TransformerConfig, mesh=None, aux_weight: float = 0.01):
+    """batch = {"tokens": [B, S] int, "labels": [B, S] int} -> the mean
+    next-token NLL + aux_weight * aux.  With ``loss_chunk`` dividing S
+    (and smaller), the cross-entropy runs in sequence chunks of
+    [B, loss_chunk, V] fp32 logits.  The value only: on the card a call
+    that needs a gradient raises until attention has its backward."""
+    if _needs_grad_on_card(params):
+        raise NotImplementedError("lm_loss's gradient on the card comes with the LM training "
+                                  "slice (ROADMAP Queue 1, item 6): attention has no backward "
+                                  "kernel yet")
+    tokens, labels = batch["tokens"], batch["labels"].long()
+    b, s = tokens.shape
+    unembed = _unembed(params, cfg)
+    if cfg.loss_chunk and s % cfg.loss_chunk == 0 and s > cfg.loss_chunk:
+        x, aux = hidden_states(params, tokens, cfg, mesh)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, cfg.loss_chunk):
+            logits = L.matmul_f32(x[:, i:i + cfg.loss_chunk], unembed)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[:, i:i + cfg.loss_chunk, None])[..., 0]
+            tot = tot + torch.sum(logz - gold)
+        nll = tot / (b * s)
+    else:
+        logits, aux = forward(params, tokens, cfg, mesh)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        nll = torch.mean(logz - gold)
+    return nll + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# serving (prefill + decode with per-pattern KV caches)
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg: TransformerConfig, window: Optional[int], max_len: int) -> int:
+    return max_len if window is None else min(window, max_len)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, *, device="cuda"):
+    """Per-pattern-position KV caches: a tuple over P of (k, v), each
+    [n_rep, B, T, n_kv, hd] zeros; sliding-window layers hold only
+    ``window`` slots (long_500k's sub-quadratic memory)."""
+    dtype = dtype or cfg.dtype
+    caches = []
+    for window in cfg.window_pattern:
+        shape = (cfg.n_rep, batch, cache_len(cfg, window, max_len), cfg.n_kv, cfg.head_dim)
+        caches.append((torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device)))
+    return tuple(caches)
+
+
+@torch.inference_mode()
+def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None,
+                  max_len: Optional[int] = None):
+    """Run the prompt, fill the caches: (last-token logits [B, V] fp32,
+    caches).  ``max_len >= S`` sizes them.  A layer's cache of T slots takes
+    the prompt's last T positions at slots 0..T-1 (zeros past S when S < T):
+    a ring at its natural slots (position mod T) only when S % T == 0, as
+    in the JAX package."""
+    _no_mesh(mesh)
+    b, s = tokens.shape
+    max_len = max_len or s
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(s, device=x.device)
+    caches = init_cache(cfg, b, max_len, device=x.device)
+    for r, p, window, bp in _layers(params, cfg):
+        x, (k, v), _ = _block_apply(bp, x, positions, cfg, window)
+        t = cache_len(cfg, window, max_len)
+        ck, cv = caches[p][0][r], caches[p][1][r]
+        if s >= t:
+            ck.copy_(k[:, s - t:])
+            cv.copy_(v[:, s - t:])
+        else:
+            ck[:, :s].copy_(k)
+            cv[:, :s].copy_(v)
+        del k, v
+    x = L.rmsnorm(x[:, -1:], params["final_ln"])
+    return L.matmul_f32(x, _unembed(params, cfg))[:, 0], caches
+
+
+@torch.inference_mode()
+def serve_step(params, caches, token: torch.Tensor, q_offset: int, cfg: TransformerConfig,
+               mesh=None):
+    """One decode step.  token [B, 1]; ``q_offset`` the new token's absolute
+    position, a host int (a step reads nothing back).  Each layer writes
+    its new k / v into its cache in place at slot ``q_offset % T``.
+    Returns (logits [B, V] fp32, caches)."""
+    _no_mesh(mesh)
+    q_offset = int(q_offset)
+    x = params["embed"][token.long()]
+    positions = torch.full((1,), q_offset, dtype=torch.int64, device=x.device)
+    for r, p, window, bp in _layers(params, cfg):
+        kv = (caches[p][0][r], caches[p][1][r])
+        x, _, _ = _block_apply(bp, x, positions, cfg, window, kv_cache=kv, q_offset=q_offset)
+    x = L.rmsnorm(x, params["final_ln"])
+    return L.matmul_f32(x, _unembed(params, cfg))[:, 0], caches

@@ -25,18 +25,40 @@ import torch
 
 from repro_torch.train.tree import named_leaves, unflatten
 
+def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
+    """A leaf as the array JAX's ``save`` writes: a bfloat16 leaf as its
+    16-bit patterns in a 2-byte void array, which is what numpy stores for
+    an ``ml_dtypes.bfloat16`` array."""
+    t = leaf.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _from_numpy(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A stored array as a tensor of ``dtype``: 2-byte void arrays are
+    bfloat16 bits (either package's save), taken bit for bit."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(dtype)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr).to(dtype)
+    return torch.from_numpy(arr.astype(torch.empty((), dtype=dtype).numpy().dtype))
+
+
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None) -> str:
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
 
-    arrays = {name: leaf.detach().cpu().numpy() for name, leaf in named_leaves(tree)}
+    named = named_leaves(tree)
+    arrays = {name: _to_numpy(leaf) for name, leaf in named}
     np.savez(os.path.join(tmp, "shard_0.npz"), **arrays)
 
     manifest = {
         "step": step,
         "n_procs": 1,
-        "leaves": {n: {"shape": list(a.shape), "dtype": str(a.dtype)} for n, a in arrays.items()},
+        "leaves": {n: {"shape": list(leaf.shape), "dtype": str(leaf.dtype).split(".")[-1]}
+                   for n, leaf in named},
         "extra": extra or {},
     }
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
@@ -92,11 +114,11 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None, *, device=None)
     for name, tmpl in named_leaves(template):
         if name not in data:
             raise KeyError(f"checkpoint missing leaf {name}")
-        arr = data[name].astype(torch.empty((), dtype=tmpl.dtype).numpy().dtype)
+        arr = data[name]
         if tuple(arr.shape) != tuple(tmpl.shape):
             raise ValueError(f"{name}: ckpt {arr.shape} != template {tuple(tmpl.shape)}")
         dev = device if device is not None else tmpl.device
         if torch.device(dev).type == "meta":
             raise ValueError(f"{name}: a meta template needs a device to restore onto")
-        out.append(torch.from_numpy(arr).to(dev))
+        out.append(_from_numpy(arr, tmpl.dtype).to(dev))
     return unflatten(template, out), manifest

@@ -15,7 +15,8 @@ from repro_torch.kernels import _lib
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "train_and_serve_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "train_and_serve_torch.py",
+    ROOT / "examples" / "lm_decode_torch.py", ROOT / "scripts" / "lm_conditioning.py"]
 
 
 def _imported_modules(path):
@@ -38,7 +39,7 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.core.mutation, repro_torch.launch.serve_loop, repro_torch.core.norms, "
             "repro_torch.kernels.topk_merge, repro_torch.kernels.flash_attn, repro_torch.train, "
             "repro_torch.models.recsys, repro_torch.configs, repro_torch.configs.common, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.models.transformer, repro_torch.models.moe; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -66,7 +67,7 @@ def test_wrappers_check_the_device():
 
 @pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable", "serve_loop",
                                    "sharded", "sharded_mutable", "serve_shards", "hnsw", "lsh",
-                                   "norm_filter", "train", "recsys_cell"])
+                                   "norm_filter", "train", "recsys_cell", "lm_cell"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks a host without CUDA")
@@ -108,6 +109,10 @@ def test_default_device_raises_without_cuda(entry):
             from repro_torch.configs import get_arch
 
             get_arch("sasrec").build_cell("serve_p99")
+        elif entry == "lm_cell":
+            from repro_torch.configs import get_arch
+
+            get_arch("granite-3-2b").build_cell("decode_32k")
         else:
             (IpNSW if entry == "ipnsw" else IpNSWPlus)().build(items)
 

@@ -31,6 +31,8 @@ CELL_ROWS = 2_000
 BATCH = 4
 CELL_CANDIDATES = 3_000  # DLRM's retrieval rows at the reduced config
 
+# the recsys ids of the registry (the LM family's are tests/test_torch_lm.py's)
+RECSYS_IDS = [a for a in PORTED_ARCH_IDS if get_arch(a).family == "recsys"]
 TOWERS = {  # arch id: (JAX module, port module, loss name)
     "sasrec": (jax_sasrec, sasrec, "sampled_softmax_loss"),
     "mind": (jax_mind, mind, "sampled_softmax_loss"),
@@ -219,7 +221,7 @@ def cells():
     """Per (arch, shape): JAX's params, inputs and its jitted step's output."""
     mesh = make_mesh_compat((1,), ("data",))
     out = {}
-    for aid in PORTED_ARCH_IDS:
+    for aid in RECSYS_IDS:
         jcfg, tcfg = _cfgs(aid, CELL_ROWS)
         jarch = dataclasses.replace(jax_get_arch(aid), cfg=jcfg)
         params, _ = jarch.mod.init(jax.random.PRNGKey(1), jcfg)
@@ -237,7 +239,8 @@ def cells():
     return out
 
 
-@pytest.mark.parametrize("arch_id,shape", [(a, s) for a, s in all_cells() if s != "serve_bulk"])
+@pytest.mark.parametrize("arch_id,shape", [(a, s) for a, s in all_cells()
+                                           if a in RECSYS_IDS and s != "serve_bulk"])
 def test_cell_steps_match_jax(arch_id, shape, cells):
     """serve_bulk is serve_p99's step at another batch."""
     ref = cells[arch_id, shape]
@@ -300,8 +303,10 @@ def test_registry_covers_every_arch_id():
     from repro_torch.configs import ARCH_IDS
 
     assert ARCH_IDS == JAX_ARCH_IDS
-    assert sorted(PORTED_ARCH_IDS) == ["dien", "dlrm-rm2", "mind", "sasrec"]
-    assert len(all_cells()) == 16
+    assert sorted(PORTED_ARCH_IDS) == ["dien", "dlrm-rm2", "gemma3-12b", "granite-3-2b",
+                                       "grok-1-314b", "internlm2-20b", "mind",
+                                       "qwen3-moe-235b-a22b", "sasrec"]
+    assert len(all_cells()) == 16 + 5 * 3 + 1  # recsys 4 x 4; LM 5 x 3 and gemma's long_500k
     for aid in set(ARCH_IDS) - set(PORTED_ARCH_IDS):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             get_arch(aid)
