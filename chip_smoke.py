@@ -269,6 +269,44 @@ nothing then, and are not counted): ``count_graph_launches``.
      tokens equal to its CPU run's.  Every prefill and decode of an LM
      layer is one flash_attn launch: the launches of (a) and (c) must equal
      the layer calls made, and are added to the kernels line.
+  11. LM training (src/repro_torch/csrc/flash_attn_bwd.cu, models,
+     train/optimizer.py adamw_update_, configs train_4k, launch/train.py):
+     (a) the flash_attn backward (its delta, dK / dV and dQ kernels) against
+     flash_attention_bwd_ref on the same inputs (q, k, v, the forward
+     kernel's out and lse, a seeded dout) at its edges (FLASH_BWD_EDGES:
+     ragged S, hd 32 and 256, G 1, a window of 17, a q_offset, rows with no
+     key, whose gradients must be 0; fp32 and bf16) and at each train
+     cell's attention (FLASH_BWD_CELLS at LM_TRAIN_CUTS' batch: granite,
+     gemma local and global, internlm2, qwen3; bf16, granite also fp32)
+     within FLASH_BWD_TOL, the forward's lse within LSE_ATOL of the plain
+     version's on fp32 values, two runs bit-identical; each cell timed
+     beside its plain version, SDPA's backward and a bound of 10 hd flops a
+     pair; (b) every train_4k cell through LMArch.build_cell at the
+     published widths cut by LM_TRAIN_CUTS (bf16, seeded weights drawn on
+     the card): LM_TRAIN_STEPS steps (ms a step as the mean of steps 2-3,
+     tokens/s, model-flops share of 989 TFLOP/s, peak memory, the batch
+     that fits, losses finite; the last step under sync debug mode
+     "error"), then one profiled step's device time by flash_attn forward
+     / backward / GEMMs / rest, then the gradient norm (finite; float64
+     sums, the optimizer's fp32 norm, JAX's formula, logged beside) by a
+     value_and_grad of its own; grok's cell builds and, 73.0 GiB of state
+     at 12 bytes a parameter, is not stepped; (c) each arch at the
+     published widths, one pattern cycle (LM_TRAIN_CPU_LAYERS), fp32, batch
+     1, 256 tokens, loss_chunk 128, on the card against the CPU: each
+     block's VJP on the CPU run's block input and output cotangent within
+     LM_BLOCK_GRAD_RTOL of a leaf's largest, the head (final norm and
+     cross-entropy) on the CPU's last hidden state (loss within
+     LM_LOSS_RTOL, gradients within LM_HEAD_GRAD_RTOL), the limits set from
+     scripts/lm_grad_conditioning.py (whose block, head and routing
+     helpers this phase uses); the free run's loss and gradients logged (a
+     random model at these widths is chaotic in fp32); the bf16 head
+     product and its VJP (train_4k's loss on the card) against the CPU
+     within HEAD_BF16_TOL;
+     (d) the train launcher's LM branch on the card (fp32) against its CPU
+     run, each loss within LM_LAUNCHER_RTOL.  Every layer call that needs
+     a gradient is one backward launch, and under remat two forward
+     launches ((b): bf16) or one without ((d): fp32): the launches of (b)
+     and (d) must equal those calls, and are added to the kernels line.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -1634,22 +1672,30 @@ def _flash_pairs(s: int, t: int, q_offset: int, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def _sdpa_mask(q, k, q_offset: int, window):
+    """None where the mask is plain causal (SDPA's flag), else the [S, T]
+    boolean mask."""
+    import torch
+
+    s, t = q.shape[1], k.shape[1]
+    if not (q_offset or window is not None or s != t):
+        return None
+    qi = q_offset + torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(t, device=q.device)[None, :]
+    mask = ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    return mask
+
+
 def _sdpa(q, k, v, q_offset: int, window):
     """The library yardstick: one scaled_dot_product_attention call on the
     same inputs (heads first, grouped heads by ``enable_gqa``), causal by
     flag where the mask is plain causal, else by a boolean mask."""
-    import torch
     import torch.nn.functional as F
 
-    s, t = q.shape[1], k.shape[1]
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    mask = None
-    if q_offset or window is not None or s != t:
-        qi = q_offset + torch.arange(s, device=q.device)[:, None]
-        ki = torch.arange(t, device=q.device)[None, :]
-        mask = ki <= qi
-        if window is not None:
-            mask &= ki > qi - window
+    mask = _sdpa_mask(q, k, q_offset, window)
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                   is_causal=mask is None, enable_gqa=True)
 
@@ -1941,7 +1987,9 @@ def _kernel_counters():
             "gather_score": (gather_score, "launches"),
             "topk_merge": (topk_merge, "launches"),
             "flash_attn": (flash_attention, "launches"),
-            "flash_attn_bf16": (flash_attention, "launches_bf16")}
+            "flash_attn_bf16": (flash_attention, "launches_bf16"),
+            "flash_attn_bwd": (flash_attention, "launches_bwd"),
+            "flash_attn_bwd_bf16": (flash_attention, "launches_bwd_bf16")}
 
 
 def _zero_counts() -> None:
@@ -2175,8 +2223,8 @@ def phase_full_size() -> dict:
     log("full size launches by width: " + " ".join(
         f"{name}={dict(sorted(by_width.items()))}" for name, by_width in _widths().items()))
     live = [name for name in counts if name.endswith("_live")]
-    _assert_path("full size", counts, [name for name in counts
-                                       if name not in live + list(ENTRY_ONLY) + list(K33_PATH)])
+    _assert_path("full size", counts, [name for name in counts if name not in
+                                       live + list(ENTRY_ONLY) + list(K33_PATH) + list(TRAIN_PATH)])
     assert not any(counts[name] for name in live), f"a frozen index launched a live kernel: {counts}"
     phase_walk_before_after(searched, queries, gt)
     phase_scan_build(items, queries, searched)
@@ -2828,6 +2876,8 @@ ENTRY_ONLY = ("topk_merge", "flash_attn", "flash_attn_bf16", *STEP_KERNELS,
               "mips_topk_select_int8")
 # kernels whose path is serve --k 33 (phase 4)
 K33_PATH = ("mips_topk_select",)
+# kernels whose path is LM training (phase 11)
+TRAIN_PATH = ("flash_attn_bwd", "flash_attn_bwd_bf16")
 
 # kernels each serving-loop path must launch: the build, the ground truth,
 # the walks' steps and seeds (f32: gather_score; int8: quant_score, and
@@ -5134,6 +5184,587 @@ def phase_lm() -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 11
+# train_4k (seq 4,096, published batch 256) at the published widths, bf16
+# weights and gradients, fp32 AdamW moments (12 bytes a parameter before any
+# activation): arch -> (layers or None, batch).  Each batch is the largest
+# whose peak, extrapolated from a run at a smaller one (the
+# "batch_that_fits" each cell logs, or measured), peaks at about 65 GiB:
+# granite at B 32 (extrapolated to 70 GiB from B 4) ran out of memory at
+# 71.4 GiB held and a 6.0 GiB logits chunk asked for, 10% past the
+# extrapolation, so the cuts keep that margin under CARD_GIB (PERF.md §4).
+# grok's one layer holds 6.53 B parameters, 73.0 GiB at 12 bytes: its cell
+# builds and is not stepped; it waits for the mesh tools (ROADMAP Queue 1).
+LM_TRAIN_CUTS = {"granite-3-2b": (None, 24),
+                 "gemma3-12b": (12, 4),
+                 "internlm2-20b": (8, 10),
+                 "qwen3-moe-235b-a22b": (1, 9),
+                 "grok-1-314b": (1, None)}
+LM_TRAIN_STEPS = 3
+TRAIN_BYTES_PER_PARAM = 12  # bf16 weights and gradients, fp32 mu and nu
+# (a) the backward against its plain version on the same inputs (q, k, v,
+# the forward kernel's out and lse, a seeded dout), per output tensor:
+# |got - want| <= rtol |want| + atol * max |want|.  fp32: atol 1e-4 (the
+# sums' order and exp2 against exp).  bf16: rtol 2**-7, the two outputs'
+# roundings to bf16 (2**-8 of a value each), and atol 2**-8: a ds that lies
+# at a bf16 rounding boundary rounds the other way in one of the two, which
+# moves one term of a sum by an ulp of that term.
+FLASH_BWD_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2**-7, 2**-8)}
+LSE_ATOL = 1e-4  # (a): the forward's lse against the plain version's on fp32 values
+# (a) edges: (B, S, T, H, KV, hd, q_offset, window), fp32 and bf16
+FLASH_BWD_EDGES = {"ragged_s": (2, 1000, 1000, 4, 2, 128, 0, None),
+                   "hd32": (2, 300, 300, 4, 2, 32, 0, None),
+                   "hd256": (1, 500, 500, 4, 2, 256, 0, None),
+                   "g1": (2, 300, 300, 4, 4, 64, 0, None),
+                   "window_17": (2, 700, 700, 8, 2, 64, 0, 17),
+                   "q_offset": (1, 200, 600, 4, 2, 64, 400, None),
+                   "rows_without_keys": (1, 64, 100, 2, 1, 64, 110, 20)}
+# (a) the train shapes, from each arch's attention and its LM_TRAIN_CUTS batch
+FLASH_BWD_CELLS = {"granite": ("granite-3-2b", None), "gemma_local": ("gemma3-12b", 1024),
+                   "gemma_global": ("gemma3-12b", None), "internlm2": ("internlm2-20b", None),
+                   "qwen3": ("qwen3-moe-235b-a22b", None)}
+BWD_FLOPS_PER_PAIR = 10  # a pair's five hd-long products (s, dp, dq, dk, dv), 2 hd each
+PLAIN_KV_CHUNK = 256     # the plain backward's keys a step on the card
+# (c) card against CPU: one pattern cycle of each arch at the published
+# widths, fp32, batch 1, 256 tokens, loss_chunk 128: LM_CPU_LAYERS, but
+# qwen3's cycle is its one layer (phase 10 takes two), which keeps its fp32
+# gradients beside its weights within the host's memory
+LM_TRAIN_CPU = dict(batch=1, seq=256, loss_chunk=128)
+LM_TRAIN_CPU_LAYERS = {**LM_CPU_LAYERS, "qwen3-moe-235b-a22b": 1}
+LM_LOSS_RTOL = 1e-5
+# (c): a random model at these widths is chaotic in fp32: the CPU's own
+# fp32 gradient is up to 2.4e-3 (granite) to 1.6 (gemma) of a leaf's
+# largest from a float64 run (scripts/lm_grad_conditioning.py on the card's
+# host), so the free run is logged, and each block's VJP (its input's and
+# its parameters' gradients) is held on the CPU run's input and output
+# cotangent, as phase 10 (b) holds the blocks' outputs, and the head
+# (final norm, cross-entropy) on the CPU run's last hidden state.  Limits,
+# relative to a leaf's largest |value|: one fp32 block VJP is up to 3.5e-4
+# from float64 (gemma) and the card and the CPU each carry such an error;
+# the head's fp32 gradients are up to 3.3e-5 from float64 (gemma's
+# unembedding), and the card sums its 262,144-long products in another
+# order than the CPU (1.6e-4 apart; PERF.md).
+LM_BLOCK_GRAD_RTOL = 1e-3
+LM_HEAD_GRAD_RTOL = 5e-4
+# (c): a MoE block's VJP on the card takes the CPU run's expert choices; its
+# own may differ only where the router's k-th and k+1-th probs lie within
+# this of each other: the router reads the block's attention output, which
+# is the card's own to about 2.5e-4 of a row's largest (LM_BLOCK_RTOL), and
+# moves a router logit by about 1e-3
+ROUTE_TIE_RTOL = 2e-3
+# (c) the bf16 head product's VJP (what train_4k's loss runs on the card),
+# card against CPU on HEAD_BF16_ROWS rows, per tensor:
+# |got - want| <= rtol |want| + atol max |want|.  The logits are fp32 sums of
+# bf16 products (the sums' order: atol 1e-5).  dx and d unembed are fp32
+# sums rounded once to bf16, as JAX rounds them: two sums a little apart
+# round to neighbouring bf16 values across a boundary, one ulp, at most
+# 2**-7 of a value (rtol), and 1e-5 of the largest for the sums' order.
+HEAD_BF16_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2**-7, 1e-5)}
+HEAD_BF16_ROWS = 16
+# (d) the train launcher's LM branch on the card against its CPU run
+LM_LAUNCHER_ARGS = ["--arch", "granite-3-2b", "--steps", "4", "--batch", "4"]
+LM_LAUNCHER_RTOL = 1e-4
+TRAIN_KERNELS = ("flash_attn", "flash_attn_bf16", "flash_attn_bwd", "flash_attn_bwd_bf16")
+
+
+def _bwd_shape(cell: str):
+    """(B, S, T, H, KV, hd, q_offset, window) of a train attention call."""
+    aid, window = FLASH_BWD_CELLS[cell]
+    cfg = _lm_cut(aid).cfg
+    s = 4096
+    return (LM_TRAIN_CUTS[aid][1], s, s, cfg.n_heads, cfg.n_kv, cfg.head_dim, 0, window)
+
+
+def _sdpa_bwd(q, k, v, dout, q_offset: int, window):
+    """The library yardstick: the backward of one scaled_dot_product_attention
+    call on the same inputs.  bf16 groups its heads by ``enable_gqa`` (the
+    flash backend); fp32 takes k and v repeated to H heads inside the graph
+    (the memory-efficient backend, which builds no [S, T] matrix and has no
+    fp32 GQA: ``enable_gqa`` sends fp32 to the math backend, whose [B, H, S,
+    S] scores do not fit at the train shapes), so its backward also sums dk
+    and dv over each group."""
+    import torch
+    import torch.nn.functional as F
+
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    mask = _sdpa_mask(q, k, q_offset, window)
+    gqa = q.dtype == torch.bfloat16
+    g = 1 if gqa else q.shape[2] // k.shape[2]
+    kx, vx = (x.repeat_interleave(g, dim=1) for x in (kh, vh))
+    out = F.scaled_dot_product_attention(qh, kx, vx, attn_mask=mask, is_causal=mask is None,
+                                         enable_gqa=gqa)
+    do = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True)
+
+
+def _check_bwd(name: str, got, want, dtype) -> float:
+    """Each of dq, dk, dv finite and within FLASH_BWD_TOL of the plain
+    version's; returns the largest error over the tensor's largest |value|."""
+    import torch
+
+    rtol, atol = FLASH_BWD_TOL[str(dtype).split(".")[-1]]
+    worst = 0.0
+    for label, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), f"flash_attn_bwd {name}: {label} not finite"
+        a, w = a.float(), w.float()
+        top = float(w.abs().max())
+        diff = (a - w).abs()
+        bad = diff > rtol * w.abs() + atol * top
+        worst = max(worst, float(diff.max()) / max(top, 1e-30))
+        assert not bool(bad.any()), (f"flash_attn_bwd {name}: {label} has {int(bad.sum())} "
+                                     f"values outside rtol={rtol:g} atol={atol:g} of its "
+                                     f"largest, max err {float(diff.max()):.3g} of {top:.3g}")
+    return worst
+
+
+def check_flash_bwd_cell(name: str, shape, dtype, g, timed: bool = False) -> dict:
+    """The forward kernel with lse (lse against the plain version's on fp32
+    values) and the backward kernel against flash_attention_bwd_ref on the
+    same inputs (FLASH_BWD_TOL); two runs bit-identical; rows with no key
+    get zero gradients.  ``timed``: ms (the backward's three kernels a call,
+    by CUDA events), plain_ms, SDPA's backward and the bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import (flash_attention_bwd, flash_attention_bwd_ref,
+                                                flash_attention_fwd_ref)
+    from repro_torch.kernels.flash_attn import ops
+
+    b, s, t, h, kv, hd, off, win = shape
+    dname = str(dtype).split(".")[-1]
+    q, k, v = _flash_inputs(shape, dtype, g)
+    dout = torch.randn((b, s, h, hd), generator=g, device="cuda").to(dtype)
+    out, lse = ops._forward_kernel(q, k, v, off, win, with_lse=True)
+    lse_err = None
+    if not timed:
+        _, want_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(), q_offset=off,
+                                              window=win)
+        seen = torch.isfinite(want_lse)
+        assert bool((torch.isfinite(lse) == seen).all()), f"lse {name}/{dname}: -inf rows differ"
+        lse_err = float((lse - want_lse)[seen].abs().max()) if bool(seen.any()) else 0.0
+        assert lse_err <= LSE_ATOL, f"lse {name}/{dname}: {lse_err:.3g} from the plain version"
+    run = lambda: flash_attention_bwd(q, k, v, out, dout, lse, q_offset=off, window=win)  # noqa
+    got = run()
+    again = run()
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=off, window=win,
+                                   kv_chunk=PLAIN_KV_CHUNK)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, w) for a, w in zip(got, again))
+    assert same, f"flash_attn_bwd {name}/{dname}: two runs differ"
+    err = _check_bwd(f"{name}/{dname}", got, want, dtype)
+    empty = _rows_without_keys(s, t, off, win)
+    assert bool((got[0][:, empty] == 0).all()), f"flash_attn_bwd {name}: a row with no key moved"
+    del want, again
+    torch.cuda.empty_cache()
+    res = dict(max_abs_err=err)
+    line = (f"kernel=flash_attn_bwd {'cell' if timed else 'edge'}={name} dtype={dname} B={b} "
+            f"S={s} T={t} H={h} KV={kv} hd={hd} q_offset={off} window={win} "
+            f"err_of_largest={err:.3g} (rtol, atol={FLASH_BWD_TOL[dname]}) deterministic=True"
+            + ("" if lse_err is None else f" lse_err={lse_err:.3g}")
+            + f" rows_without_keys={int(empty.sum())}")
+    if timed:
+        # CUDA events: a call is 40-300 ms of the card's time, so the host's
+        # share is nil, and in a long process torch.profiler's sessions lose
+        # these launches' events (8 sessions in a row at gemma's global cell)
+        ms = cuda_ms(run, reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=off,
+                                                           window=win, kv_chunk=PLAIN_KV_CHUNK),
+                           reps=1, warmup=1)
+        torch.cuda.empty_cache()
+        library_ms = cuda_ms(_sdpa_bwd(q, k, v, dout, off, win), reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        itemsize = q.element_size()
+        nbytes = (4 * q.numel() + 4 * k.numel()) * itemsize + lse.numel() * 4
+        pairs = _flash_pairs(s, t, off, win) * b * h
+        flops = float(BWD_FLOPS_PER_PAIR * hd * pairs)
+        rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        bound_ms, by = bound(nbytes, flops, rate)
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=by)
+        line += (f" pairs={pairs:.4g} ms={ms:.3f} plain_ms={plain_ms:.3f} (both CUDA events) "
+                 f"library_ms={library_ms:.3f} (SDPA backward, CUDA events) "
+                 f"bound_ms={bound_ms:.4f} bound_by={by} (rate {rate / 1e12:.0f} TFLOP/s, "
+                 f"{BWD_FLOPS_PER_PAIR} hd flops a pair) share_of_bound={bound_ms / ms:.4f} "
+                 f"tflops_at_14hd={14 * hd * pairs / ms / 1e9:.2f}")
+    log(line)
+    del q, k, v, dout, out, lse, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_train_kernels(g) -> dict:
+    """(a) The backward kernel at its edges (fp32 and bf16) and at each
+    train cell's attention (bf16; granite's also fp32), each timed beside
+    its plain version, SDPA's backward and its bound.  Returns the timings
+    of the kernels line (granite's attention)."""
+    import torch
+
+    for cell, shape in FLASH_BWD_EDGES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            check_flash_bwd_cell(cell, shape, dtype, g)
+    out = {}
+    for cell in FLASH_BWD_CELLS:
+        dtypes = (torch.float32, torch.bfloat16) if cell == "granite" else (torch.bfloat16,)
+        for dtype in dtypes:
+            res = check_flash_bwd_cell(cell, _bwd_shape(cell), dtype, g, timed=True)
+            if cell == "granite":
+                out["flash_attn_bwd" if dtype == torch.float32 else "flash_attn_bwd_bf16"] = res
+    return out
+
+
+def _grad_norms(params, batch, cfg) -> tuple:
+    """The norm of lm_loss's gradient at ``params`` on ``batch``, by one
+    value_and_grad outside the train step: (the fp32 norm the optimizer
+    clips by, JAX's formula, whose sum of squares overflows past 1.8e19 a
+    leaf element; the same norm formed without overflow, each leaf scaled
+    by its largest |value| and the squares summed in float64)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer, value_and_grad
+    from repro_torch.train.tree import leaves
+
+    _, grads = value_and_grad(tf.lm_loss)(params, batch, cfg)
+    total = 0.0
+    for g in leaves(grads):
+        top = g.abs().amax().float().clamp_min(1e-30)
+        total += float((top.double() * torch.linalg.vector_norm(g.float() / top).double()) ** 2)
+    return float(optimizer.global_norm(grads)), total ** 0.5
+
+
+KERNEL_GROUPS = (("attn_fwd", ("flash_attn_bf16_kernel", "flash_attn_f32_kernel")),
+                 ("attn_bwd", ("dkv_kernel", "dq_kernel", "delta_kernel")),
+                 ("gemm", ("gemm", "cutlass", "sm90_", "xmma", "nvjet")))
+
+
+def _train_breakdown(name: str, step) -> None:
+    """Where one profiled train step's device time goes: flash_attn forward,
+    its backward, matrix products, the rest; the largest kernels; the idle
+    share of the step's wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for e in kernels:
+        key = e.key.lower()
+        group = next((gname for gname, words in KERNEL_GROUPS
+                      if any(w.lower() in key for w in words)), "other")
+        groups[group] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"lm train breakdown {name}: busy_ms={total:.1f} wall_ms(profiled)={wall:.1f} "
+        f"idle_share={max(0.0, 1 - total / wall):.3f} "
+        + " ".join(f"{k}_ms={v:.1f} ({v / max(total, 1e-9):.3f})" for k, v in groups.items())
+        + " top: " + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.1f}ms"
+                               for e in top))
+
+
+def _train_batch(vocab: int, b: int, s: int, g) -> dict:
+    import torch
+
+    toks = torch.randint(0, vocab, (b, s + 1), generator=g, device="cuda", dtype=torch.int32)
+    return {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+
+
+def _model_flops(cfg, b: int, s: int) -> float:
+    """A train step's model flops: 6 N_active a token for the matrices and,
+    for attention, 3 x 4 hd a (query, key) pair in the mask, a head."""
+    pairs = sum(_flash_pairs(s, s, 0, w) for w in cfg.window_pattern) * cfg.n_rep
+    return 6.0 * cfg.active_param_count() * b * s + 12.0 * cfg.head_dim * cfg.n_heads * pairs * b
+
+
+def phase_lm_train_cell(aid: str, g) -> int:
+    """(b) train_4k through LMArch.build_cell at the published widths cut by
+    LM_TRAIN_CUTS: LM_TRAIN_STEPS steps, the last under sync debug mode
+    "error" (ms a step as the mean of steps 2-3, tokens/s, model-flops
+    share of 989 TFLOP/s, peak memory, the losses finite), all of the cell's
+    step as it stands; then one profiled step's breakdown, and the gradient
+    norm (finite) by a value_and_grad of its own.  Returns the layer calls
+    that needed a gradient (one backward launch each)."""
+    import torch
+
+    from repro_torch.train import adamw_init
+    from repro_torch.train.tree import leaves
+
+    layers, batch = LM_TRAIN_CUTS[aid]
+    arch = _lm_cut(aid, layers)
+    cfg = arch.cfg
+    cell = arch.build_cell("train_4k")
+    s = cell.args[2]["tokens"].shape[1]
+    n_params = sum(t.numel() for t in leaves(cell.args[0]))
+    if batch is None:
+        log(f"lm {cell.name} layers={cfg.n_layers} params={n_params} state_gib="
+            f"{_gib(TRAIN_BYTES_PER_PARAM * n_params):.2f} at {TRAIN_BYTES_PER_PARAM} B a "
+            f"parameter (bf16 weights and gradients, fp32 moments) before any activation: does "
+            f"not fit one card (CARD_GIB {CARD_GIB}); not stepped, waits for the mesh tools; "
+            f"meta={cell.meta}")
+        return 0
+    t0 = time.perf_counter()
+    params = arch.init(g, device="cuda")
+    state = [params, adamw_init(params)]
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    fixed = weights + sum(t.numel() * t.element_size() for t in leaves(state))  # and gradients
+    init_s = time.perf_counter() - t0
+    batches = [_train_batch(cfg.vocab, batch, s, g) for _ in range(LM_TRAIN_STEPS + 1)]
+    del params
+
+    def step(i):
+        state[0], state[1], loss = cell.step_fn(state[0], state[1], batches[i])
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(LM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == LM_TRAIN_STEPS - 1:  # a read-back in the step would raise
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses.append(step(i))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    with uncounted():
+        _train_breakdown(cell.name, lambda: step(-1))
+        clip_norm, grad_norm = _grad_norms(state[0], batches[-1], cfg)
+    losses = [float(x) for x in losses]
+    assert all(x == x and abs(x) < float("inf") for x in losses + [grad_norm]), \
+        f"{cell.name}: loss or gradient not finite: {losses} {grad_norm}"
+    ms = sum(walls[1:]) / len(walls[1:])
+    flops = _model_flops(cfg, batch, s)
+    log(f"lm {cell.name} layers={cfg.n_layers} of {_lm_cut(aid).cfg.n_layers} B={batch} S={s} "
+        f"params={n_params} weights_gib={_gib(weights):.2f} state_and_grads_gib="
+        f"{_gib(fixed):.2f} init_s={init_s:.1f} "
+        f"steps_ms={'/'.join(f'{w:.1f}' for w in walls)} ms_per_step={ms:.1f} "
+        f"tokens_per_s={batch * s / ms * 1e3:.0f} model_tflop={flops / 1e12:.2f} "
+        f"mfu={flops / (ms / 1e3) / BF16_FLOP_PER_S:.4f} (of 989 TFLOP/s bf16) "
+        f"peak_gib={_gib(peak):.2f} batch_that_fits~{_fits(peak, fixed, batch)} "
+        f"losses={'/'.join(f'{x:.4f}' for x in losses)} "
+        f"grad_norm={grad_norm:.4g} (float64 sums; a value_and_grad after the timed steps) "
+        f"optimizer_fp32_norm={clip_norm:.4g} "
+        f"last_step_sync_debug=error")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the counted steps (not the profiled one): one backward a layer
+    return cfg.n_layers * LM_TRAIN_STEPS
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|, on ``got``'s device."""
+    want = want.to(got.device)
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _check_head_bf16(aid: str, x, unembed) -> str:
+    """(c) The bf16 head product (``matmul_f32``: the logits of bf16 hidden
+    states against the bf16 unembedding, fp32 out) and its VJP for a seeded
+    fp32 cotangent, on the card (one bf16 GEMM forward, ``_MatmulF32``'s
+    backward) against the CPU (autograd of the fp32 product of the same
+    bf16 values), at the arch's published width and vocab: the logits
+    within HEAD_BF16_TOL's fp32 limit, dx and d unembed (each an fp32 sum
+    rounded once to bf16) within its bf16 one.  ``x`` [rows, d] and
+    ``unembed`` [d, V] are the CPU run's, rounded to bf16."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    a, b = x.detach().bfloat16(), unembed.detach().bfloat16()
+    cot = torch.randn((a.shape[0], b.shape[1]), generator=torch.Generator().manual_seed(5))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ad, bd = (t.to(dev).requires_grad_(True) for t in (a, b))
+        out = L.matmul_f32(ad, bd)
+        grads = torch.autograd.grad(out, (ad, bd), cot.to(dev))
+        res[dev] = [t.to("cuda") for t in (out.detach(), *grads)]  # compared on the card
+        fn = out.grad_fn
+        while type(fn).__name__ == "ViewBackward0":
+            fn = fn.next_functions[0][0]
+        assert dev != "cuda" or type(fn).__name__ == "_MatmulF32Backward", type(fn)
+        del ad, bd, out, grads
+    errs = []
+    for label, got, want in zip(("logits", "dx", "dunembed"), res["cuda"], res["cpu"]):
+        rtol, atol = HEAD_BF16_TOL["float32" if label == "logits" else "bfloat16"]
+        got, want = got.float(), want.float()
+        assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+        diff = (got - want).abs()
+        top = float(want.abs().max())
+        assert bool((diff <= rtol * want.abs() + atol * top).all()), \
+            f"lm train {aid}: the bf16 head's {label} {float(diff.max()):.3g} of {top:.3g}"
+        errs.append(f"{label}:{float(diff.max()) / top:.3g}")
+    return "/".join(errs) + f" (rows {a.shape[0]}, limits {HEAD_BF16_TOL})"
+
+
+def phase_lm_train_cpu(aid: str) -> None:
+    """(c) lm_loss's gradient at the published widths, one pattern cycle
+    (LM_TRAIN_CPU_LAYERS), fp32, LM_TRAIN_CPU's batch, on the card against
+    the CPU on the same weights and tokens: each block's VJP on the CPU
+    run's block input and output cotangent within LM_BLOCK_GRAD_RTOL of a
+    leaf's largest |value| (the CPU's own VJP is its run's: the gradients
+    of the block's input and of its slice of each stacked leaf; a MoE
+    block's card VJP takes the CPU run's expert choices, which may differ
+    from its own only where the router's k-th and k+1-th probs tie within
+    ROUTE_TIE_RTOL); the head's loss within LM_LOSS_RTOL and its
+    gradients within LM_HEAD_GRAD_RTOL on the CPU's last hidden state; the
+    free run (the card's whole value_and_grad, remat on, against the CPU's)
+    logged."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import value_and_grad
+    from repro_torch.train.tree import leaves, named_leaves, tree_map
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:  # the float64 study's block, head and routing helpers
+        from lm_grad_conditioning import block_vjp, captured_blocks, forced_route, head_vjp
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+    arch = _lm_cut(aid, LM_TRAIN_CPU_LAYERS[aid], torch.float32)
+    cfg = dataclasses.replace(arch.cfg, loss_chunk=LM_TRAIN_CPU["loss_chunk"])
+    gpu = arch.init(torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    cpu = tree_map(lambda t: t.cpu(), gpu)
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab, (LM_TRAIN_CPU["batch"], LM_TRAIN_CPU["seq"] + 1)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+    t0 = time.perf_counter()
+    with captured_blocks() as seen, _routes() as routes:
+        own = [p.requires_grad_(True) for p in leaves(cpu)]
+        cpu_loss = tf.lm_loss(cpu, batch, dataclasses.replace(cfg, remat=False))
+        cpu_loss.backward()
+    cpu_loss = cpu_loss.detach()
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(tf.lm_loss)(
+        gpu, {k: v.to("cuda") for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    free = {n: _rel_err(g, p.grad) for (n, g), p in zip(named_leaves(grads), own)}
+    free_loss = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    del grads
+    torch.cuda.empty_cache()
+
+    blocks, ties = [], 0
+    stacked = [p.grad.flatten(0, 1) for p in leaves(cpu["blocks"])]
+    for i, ((x, y), (_, _, window, bp_gpu)) in enumerate(zip(seen, tf._layers(gpu, cfg))):
+        want = [x.grad] + [g[i] for g in stacked]
+        forced = forced_route(routes[i][0]) if cfg.is_moe else contextlib.nullcontext()
+        with forced as route:
+            got = block_vjp(bp_gpu, x.detach().to("cuda"), y.grad.to("cuda"), cfg, window)
+        if cfg.is_moe:
+            _, kth, nxt = routes[i]
+            gap = ((kth - nxt) / kth)[route.differ]
+            assert bool((gap <= ROUTE_TIE_RTOL).all()), \
+                f"lm train {aid}: the card's expert choices differ off a tie: gaps {gap.tolist()}"
+            ties += int(route.differ.sum())
+        blocks.append(max(_rel_err(a, b) for a, b in zip(got, want)))
+        del got
+    del stacked
+    for p in own:
+        p.grad = None
+        p.requires_grad_(False)
+    gc.collect()
+    unembed = lambda p: p["embed"].T if cfg.tied_embed else p["unembed"]  # noqa: E731
+    last = seen[-1][1].detach()
+    del seen
+    want_loss, want = head_vjp(last, cpu["final_ln"], unembed(cpu), batch["labels"], cfg)
+    got_loss, got = head_vjp(last.to("cuda"), gpu["final_ln"], unembed(gpu),
+                             batch["labels"].to("cuda"), cfg)
+    head = max(_rel_err(a, b) for a, b in zip(got, want))
+    head_loss = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    bf16_head = _check_head_bf16(aid, L.rmsnorm(last, cpu["final_ln"])[0, :HEAD_BF16_ROWS],
+                                 unembed(cpu))
+    worst = max(free, key=free.get)
+    log(f"lm train card_vs_cpu {aid} layers={cfg.n_layers} fp32 B={LM_TRAIN_CPU['batch']} "
+        f"S={LM_TRAIN_CPU['seq']} loss_chunk={cfg.loss_chunk} block_vjp_worst="
+        f"{'/'.join(f'{e:.3g}' for e in blocks)} (limit {LM_BLOCK_GRAD_RTOL:g}) head_loss_rel_err="
+        f"{head_loss:.3g} (limit {LM_LOSS_RTOL:g}) head_grad_worst={head:.3g} (limit "
+        f"{LM_HEAD_GRAD_RTOL:g}) bf16_head_vjp={bf16_head} free_run_loss_rel_err={free_loss:.3g} "
+        f"free_run_worst_leaf={worst} "
+        f"{free[worst]:.3g} tokens_routed_differently_at_ties={ties} card_s={card_s:.1f} "
+        f"cpu_s={cpu_s:.1f} free_run: "
+        + " ".join(f"{n.replace(chr(39), '')}={e:.2g}" for n, e in free.items()))
+    assert max(blocks) <= LM_BLOCK_GRAD_RTOL, \
+        f"lm train {aid}: a block's VJP on the card is {max(blocks):.3g} of a leaf's largest"
+    assert head_loss <= LM_LOSS_RTOL and head <= LM_HEAD_GRAD_RTOL, \
+        f"lm train {aid}: the head's loss {head_loss:.3g} or gradients {head:.3g} off the CPU's"
+    del gpu, cpu, own
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train_launcher() -> int:
+    """(d) python -m repro_torch.launch.train with an LM id on the card
+    (fp32: the fp32 forward and backward kernels) and on the CPU: each
+    step's loss within LM_LAUNCHER_RTOL relative.  Returns its layer calls
+    that needed a gradient."""
+    from repro_torch.launch import train
+
+    card = train.main(LM_LAUNCHER_ARGS)
+    with uncounted():
+        cpu = train.main(LM_LAUNCHER_ARGS + ["--device", "cpu"])
+    got = [h["loss"] for h in card.history]
+    want = [h["loss"] for h in cpu.history]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    log(f"lm train launcher {' '.join(LM_LAUNCHER_ARGS)}: card losses "
+        f"{'/'.join(f'{x:.6f}' for x in got)} cpu {'/'.join(f'{x:.6f}' for x in want)} "
+        f"worst_rel_err={max(errs):.3g} (limit {LM_LAUNCHER_RTOL:g})")
+    assert len(got) == len(want) and max(errs) <= LM_LAUNCHER_RTOL, (got, want)
+    cfg = train._tiny_lm(_lm_cut(LM_LAUNCHER_ARGS[1]).cfg)
+    return cfg.n_layers * len(got)
+
+
+def phase_lm_train() -> tuple:
+    """Phase 11: LM training on the card.  Returns (the launches of (b) and
+    (d), the backward kernels' timings for the kernels line).  Every layer
+    call that needs a gradient is one backward launch and, under remat, two
+    forward launches (bf16, (b)); without remat one ((d), fp32)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm train phase: {_gib(torch.cuda.memory_allocated()):.2f} GiB held by earlier phases")
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    with uncounted():
+        timings = phase_lm_train_kernels(g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _zero_counts()
+    bf16_calls = sum(phase_lm_train_cell(aid, g) for aid in LM_TRAIN_CUTS)
+    f32_calls = phase_lm_train_launcher()
+    counts = _read_counts()
+    t2 = time.perf_counter()
+    with uncounted():
+        for aid in LM_ARCHS:
+            phase_lm_train_cpu(aid)
+    log(f"lm train phase: kernels {t1 - t0:.1f} s, cells and launcher {t2 - t1:.1f} s, card vs "
+        f"CPU {time.perf_counter() - t2:.1f} s; launches={ {n: counts[n] for n in TRAIN_KERNELS} } "
+        f"(bf16 layer calls with a gradient {bf16_calls}, fp32 {f32_calls})")
+    want = {"flash_attn_bwd_bf16": bf16_calls, "flash_attn_bf16": 2 * bf16_calls,
+            "flash_attn_bwd": f32_calls, "flash_attn": f32_calls}
+    assert all(counts[n] == want[n] for n in want), \
+        f"lm train: attention ran other than its kernels once a layer call: {counts} {want}"
+    _assert_path("lm train", counts, TRAIN_KERNELS)
+    return counts, timings
+
+
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "beam_step": ("src/repro_torch/csrc/beam_step.cu",
@@ -5172,6 +5803,11 @@ SOURCES = {
                    "src/repro/kernels/flash_attn/kernel.py:34"),
     "flash_attn_bf16": ("src/repro_torch/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn/kernel.py:34"),
+    # no Pallas kernel: the JAX package's attention backward, a custom VJP
+    "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                       "src/repro/models/layers.py:235"),
+    "flash_attn_bwd_bf16": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                            "src/repro/models/layers.py:235"),
 }
 
 
@@ -5206,6 +5842,10 @@ def main() -> int:
         counts[name] += n
     for name, n in phase_lm().items():  # and the LM family's
         counts[name] += n
+    train_counts, train_timings = phase_lm_train()
+    for name, n in train_counts.items():  # and LM training's
+        counts[name] += n
+    timings.update(train_timings)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])
                for name, (src, rep) in SOURCES.items()]

@@ -1,14 +1,18 @@
 """Arch -> (step function, abstract inputs, metadata) cell builders, the
 LM and recsys parts of the JAX package's ``configs/common.py``.
 
-``LMArch.build_cell(shape_name, device=...)``: ``prefill_32k`` runs
+``LMArch.build_cell(shape_name, device=...)``: ``train_4k`` is one
+training step, ``value_and_grad(lm_loss)`` (attention's backward on the
+flash_attn backward kernel, each pattern cycle and loss chunk checkpointed)
+then ``adamw_update_`` (params and moments written in place, the JAX cell's
+``donate=(0, 1)``) at JAX's cosine schedule (base 3e-4, warmup 2,000, total
+100,000); ``prefill_32k`` runs
 ``serve_prefill`` over the [B, S] prompt (caches sized S) and returns the
 last token's logits and the caches; ``decode_32k`` and gemma's
 ``long_500k`` run one ``serve_step`` against caches of S slots (a ring of
 ``window`` slots for sliding layers), with ``q_offset`` a host int.  The
 cells run at the published widths; the batch or layer cuts that fit one
-card are the caller's (``chip_smoke.py`` records its own).  ``train_4k``
-comes with the LM training slice.
+card are the caller's (``chip_smoke.py`` records its own).
 
 ``RecsysArch.build_cell(shape_name, device=...)`` returns a ``Cell``: the
 step function, its inputs as ``meta`` tensors (the port's
@@ -45,7 +49,7 @@ from repro_torch.models.recsys import dlrm as dlrm_mod
 from repro_torch.models.recsys import mind as mind_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import sasrec as sasrec_mod
-from repro_torch.train.optimizer import adamw_init, adamw_update, cosine_schedule
+from repro_torch.train.optimizer import adamw_init, adamw_update, adamw_update_, cosine_schedule
 from repro_torch.train.tree import leaves, value_and_grad
 
 
@@ -88,9 +92,6 @@ class LMArch:
             raise KeyError(f"{self.arch_id} has no cell {shape_name!r}; "
                            f"it has {self.shape_names()}")
         sh = LM_SHAPES[shape_name]
-        if sh["kind"] == "train":
-            raise NotImplementedError(f"{self.arch_id}/{shape_name}: the LM family trains in the "
-                                      "next slice (ROADMAP Queue 1, item 6)")
         cfg = self.cfg
         dev = torch.device(device)
         torch.empty(0, device=dev)  # an absent device fails here, before any work
@@ -100,6 +101,20 @@ class LMArch:
                     tokens=b * s if sh["kind"] != "decode" else b)
         name = f"{self.arch_id}/{shape_name}"
         params_abs = tf.abstract_params(cfg)
+
+        if sh["kind"] == "train":
+            grad_fn = value_and_grad(tf.lm_loss)
+
+            def train_step(params, opt, batch):
+                _check_device(dev, (params, opt, batch))
+                loss, grads = grad_fn(params, batch, cfg)
+                lr = cosine_schedule(opt.step, base_lr=3e-4, warmup=2000, total=100_000)
+                new_p, new_o = adamw_update_(grads, opt, params, lr=lr)
+                return new_p, new_o, loss
+
+            batch_abs = {"tokens": _abstract((b, s), torch.int32),
+                         "labels": _abstract((b, s), torch.int32)}
+            return Cell(name, train_step, (params_abs, adamw_init(params_abs), batch_abs), meta)
 
         if sh["kind"] == "prefill":
             def prefill_step(params, tokens):

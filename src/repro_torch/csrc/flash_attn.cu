@@ -11,7 +11,12 @@
 // kernel's: scores accumulate in fp32 and are scaled by 1/sqrt(hd); per kv
 // tile m' = max(m, rowmax s), p = exp(s - m'), corr = exp(m - m'),
 // l' = l corr + sum p, acc' = acc corr + round(p to v's type) . v; the row
-// is written as acc / max(l, 1e-30) in v's type.  The semantics of a row
+// is written as acc / max(l, 1e-30) in v's type.  Given an ``lse`` pointer
+// (training: the backward of csrc/flash_attn_bwd.cu recomputes p from it)
+// both kernels also write each row's log-sum-exp of its scaled scores,
+// lse = ln sum_t exp(s_t / sqrt(hd)) = (m + log2 l) ln 2 with m in log2
+// units, fp32 [B, H, S], -inf for a row with no key; with a null pointer the
+// serving path is unchanged.  The semantics of a row
 // with no key in its window are the plain reference's
 // (src/repro/kernels/flash_attn/ref.py:19): it is 0.  The Pallas kernel's
 // finite -1e30 mask gives every masked p the value 1 there and returns the
@@ -83,6 +88,7 @@ namespace {
 constexpr int kF32Warps = 8;
 constexpr int kF32Threads = kF32Warps * 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Tiles of the fp32 kernel by head dim: kG lanes a row group (a warp holds
 // 32 / kG groups), kTR query rows a thread (a block holds kF32Warps * 32 /
@@ -250,7 +256,8 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ q_rows,
 template <int HD>
 __global__ void __launch_bounds__(kF32Threads, 1) flash_attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, int S,
-    int T_, int H, int KV, float scale_log2, int q_offset, int window, float* __restrict__ out) {
+    int T_, int H, int KV, float scale_log2, int q_offset, int window, float* __restrict__ out,
+    float* __restrict__ lse) {
   using C = F32Cfg<HD>;
   constexpr int TR = C::kTR, TC = C::kTC, CW = C::kCW, BK = C::kBK, ST = C::kStages, G = C::kG;
   constexpr int BQ = C::kBQ, C4 = HD / 4;  // 16-byte chunks of a row
@@ -347,6 +354,10 @@ __global__ void __launch_bounds__(kF32Threads, 1) flash_attn_f32_kernel(
   for (int i = 0; i < TR; ++i) {
     const int row = row0 + wrow0 + C::kGroups * i + g;
     if (row >= S) continue;
+    if (lse != nullptr && j == 0) {  // m is in log2 units
+      lse[(static_cast<size_t>(b) * H + h) * S + row] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * kLn2 : -INFINITY;
+    }
     const float den = fmaxf(l[i], 1e-30f);
     float* orow = ob + static_cast<size_t>(row) * q_stride;
 #pragma unroll
@@ -361,7 +372,8 @@ __global__ void __launch_bounds__(kF32Threads, 1) flash_attn_f32_kernel(
 
 template <int HD>
 int launch_f32(const float* q, const float* k, const float* v, int B, int S, int T_, int H,
-               int KV, float scale, int q_offset, int window, float* out, cudaStream_t stream) {
+               int KV, float scale, int q_offset, int window, float* out, float* lse,
+               cudaStream_t stream) {
   using C = F32Cfg<HD>;
   const cudaError_t attr =
       cudaFuncSetAttribute(flash_attn_f32_kernel<HD>,
@@ -369,7 +381,7 @@ int launch_f32(const float* q, const float* k, const float* v, int B, int S, int
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(H, B, (S + C::kBQ - 1) / C::kBQ);
   flash_attn_f32_kernel<HD><<<grid, kF32Threads, C::kSmem, stream>>>(
-      q, k, v, S, T_, H, KV, scale * kLog2e, q_offset, window, out);
+      q, k, v, S, T_, H, KV, scale * kLog2e, q_offset, window, out, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -640,8 +652,9 @@ __device__ __forceinline__ void kv_tiles(int qt, int S, int T_, int q_offset, in
 template <int HD>
 __global__ void __launch_bounds__(kThreads, Cfg<HD>::kBlocksPerSm) flash_attn_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out, int S, int T_,
-    int H, int KV, float scale_log2, int q_offset, int window) {
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int S, int T_, int H, int KV, float scale_log2, int q_offset,
+    int window) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -809,6 +822,10 @@ __global__ void __launch_bounds__(kThreads, Cfg<HD>::kBlocksPerSm) flash_attn_bf
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int row = r + 8 * hf;
+    if (lse != nullptr && (lane & 3) == 0 && row < S) {  // m is in score units
+      lse[(static_cast<size_t>(b) * H + h) * S + row] =
+          sum > 0.f ? (m[hf] * scale_log2 + log2f(sum)) * kLn2 : -INFINITY;
+    }
     if (row < S) {
       __nv_bfloat16* orow =
           out + ((static_cast<size_t>(b) * S + row) * H + h) * HD + cq;
@@ -863,12 +880,22 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int positions, int
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+__global__ void fill_kernel(float* __restrict__ x, size_t n, float value) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    x[i] = value;
+  }
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, int B, int S, int T_, int H, int KV,
-           float scale, int q_offset, int window, void* out, cudaStream_t stream) {
+           float scale, int q_offset, int window, void* out, float* lse, cudaStream_t stream) {
   using C = Cfg<HD>;
-  if (T_ == 0) {  // no key: every row is 0
+  if (T_ == 0) {  // no key: every row is 0, its lse -inf
     cudaMemsetAsync(out, 0, static_cast<size_t>(B) * S * H * HD * 2, stream);
+    if (lse != nullptr) {
+      fill_kernel<<<64, 256, 0, stream>>>(lse, static_cast<size_t>(B) * H * S, -INFINITY);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   const CUtensorMapSwizzle sw =
@@ -885,7 +912,7 @@ int launch(const void* q, const void* k, const void* v, int B, int S, int T_, in
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_attn_bf16_kernel<HD><<<grid, kThreads, C::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), S, T_, H, KV,
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, S, T_, H, KV,
       scale * 1.4426950408889634f, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -894,20 +921,25 @@ int launch(const void* q, const void* k, const void* v, int B, int S, int T_, in
 }  // namespace
 
 // q, out: [B, S, H, hd]; k, v: [B, T, KV, hd] (16-byte aligned: cp.async
-// copies them); window <= 0: causal only.
+// copies them); window <= 0: causal only; lse: [B, H, S] fp32, or null.
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v, int B, int S, int T,
                               int H, int KV, int hd, float scale, int q_offset, int window,
-                              void* out, void* stream) {
+                              void* out, void* lse, void* stream) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
+  float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch_f32<32>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
-    case 64: return launch_f32<64>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
-    case 128: return launch_f32<128>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
-    case 256: return launch_f32<256>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, st);
+    case 32:
+      return launch_f32<32>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, lf, st);
+    case 64:
+      return launch_f32<64>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, lf, st);
+    case 128:
+      return launch_f32<128>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, lf, st);
+    case 256:
+      return launch_f32<256>(qf, kf, vf, B, S, T, H, KV, scale, q_offset, window, of, lf, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -915,13 +947,14 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v, int B
 // The same for bf16 q, k, v (16-byte aligned: TMA reads them) and out.
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v, int B, int S,
                                int T, int H, int KV, int hd, float scale, int q_offset,
-                               int window, void* out, void* stream) {
+                               int window, void* out, void* lse, void* stream) {
+  float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return tc::launch<32>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, st);
-    case 64: return tc::launch<64>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, st);
-    case 128: return tc::launch<128>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, st);
-    case 256: return tc::launch<256>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, st);
+    case 32: return tc::launch<32>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
+    case 64: return tc::launch<64>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
+    case 128: return tc::launch<128>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
+    case 256: return tc::launch<256>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

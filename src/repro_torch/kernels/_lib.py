@@ -27,8 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("beam_step.cu", "commit_merge.cu", "flash_attn.cu", "gather_score.cu",
-           "mips_topk.cu", "quant_score.cu", "topk_merge.cu")
+SOURCES = ("beam_step.cu", "commit_merge.cu", "flash_attn.cu", "flash_attn_bwd.cu",
+           "gather_score.cu", "mips_topk.cu", "quant_score.cu", "topk_merge.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -41,8 +41,10 @@ SIGNATURES = {
     "beam_walk_i8": [_P] * 11 + [_I] * 8 + [_P] * 7 + [_P],
     "commit_merge_f32": [_P] * 5 + [_I] * 3 + [_P],
     "empty_launch": [_I] * 2 + [_P],
-    "flash_attn_f32": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
-    "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] + [_P],
+    "flash_attn_f32": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 2 + [_P],
+    "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 2 + [_P],
+    "flash_attn_bwd_f32": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 4 + [_P],
+    "flash_attn_bwd_bf16": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 4 + [_P],
     "gather_score_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "gather_score_rowwise_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],
     "mips_topk_f32": [_P] * 2 + [_I] * 6 + [_P] * 4 + [_P],

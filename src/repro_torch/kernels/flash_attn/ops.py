@@ -1,13 +1,18 @@
 """flash_attn wrappers: a CPU tensor runs the plain version, a CUDA tensor
-launches a kernel of ``csrc/flash_attn.cu`` or raises.  fp32 inputs go to
-the fp32-unit kernel, bf16 ones to the tensor-core kernel (wgmma, TMA); q, k
-and v of one type, hd in {32, 64, 128, 256}; any sequence lengths (the
-Pallas kernel's ``bq`` / ``bk`` tiling knobs are gone).
+launches a kernel of ``csrc/flash_attn.cu`` (forward) or
+``csrc/flash_attn_bwd.cu`` (backward) or raises.  fp32 inputs go to the
+fp32-unit kernels, bf16 ones to the tensor-core forward (wgmma, TMA) and a
+backward on the fp32 units; q, k and v of one type, hd in {32, 64, 128,
+256}; any sequence lengths (the Pallas kernel's ``bq`` / ``bk`` tiling knobs
+are gone).
 
-``flash_attention.launches`` and ``flash_attention.launches_bf16`` count the
-fp32 and bf16 kernel launches of both entry points (plain runs do not
-count).  The kernels have no backward: a CUDA input that needs a gradient
-raises (the LM training slice brings one, ROADMAP Queue 1, item 6)."""
+``flash_attention`` is differentiable: when a gradient is needed it runs
+``_FlashAttention``, whose forward also writes each row's log-sum-exp and
+whose backward is ``flash_attention_bwd`` (the JAX package's custom VJP,
+``models/layers.py: _attend_flash``).  ``flash_attention.launches`` and
+``launches_bf16`` count the fp32 and bf16 forward launches of both entry
+points, ``launches_bwd`` and ``launches_bwd_bf16`` the backward's (plain
+runs do not count)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,7 +20,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+from repro_torch.kernels.flash_attn.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_fwd_ref,
+    flash_attention_ref,
+)
 
 HEAD_DIMS = (32, 64, 128, 256)
 
@@ -37,6 +46,97 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
     _lib.expect(v, "v", q.dtype, (b, t, kvh, hd), q.device)
 
 
+def check_bwd_inputs(q, k, v, out, dout, lse) -> None:
+    """``check_kernel_inputs``, and out and dout [B, S, H, hd] of q's type,
+    lse [B, H, S] fp32, all on q's device and contiguous."""
+    check_kernel_inputs(q, k, v)
+    b, s, h, _ = q.shape
+    _lib.expect(out, "out", q.dtype, q.shape, q.device)
+    _lib.expect(dout, "dout", q.dtype, q.shape, q.device)
+    _lib.expect(lse, "lse", torch.float32, (b, h, s), q.device)
+
+
+def _aligned(*xs):
+    """TMA (bf16) and cp.async / vector loads copy from 16-byte aligned
+    addresses; a view may start elsewhere."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in xs)
+
+
+def _count(name: str) -> None:
+    setattr(flash_attention, name, getattr(flash_attention, name) + 1)
+
+
+def _forward_kernel(q, k, v, q_offset: int, window: Optional[int], with_lse: bool):
+    """One forward launch: out, and with ``with_lse`` (out, lse [B, H, S])."""
+    check_kernel_inputs(q, k, v)
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    if out.numel() == 0:
+        return (out, lse) if with_lse else out
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v = _aligned(q, k, v)
+    entry = _lib.lib().flash_attn_bf16 if bf16 else _lib.lib().flash_attn_f32
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, t, h, kvh, hd,
+               1.0 / hd ** 0.5, q_offset, window or 0, out.data_ptr(),
+               lse.data_ptr() if with_lse else None, _lib.stream(q.device))
+    _lib.check(rc, "flash_attention")
+    _count("launches_bf16" if bf16 else "launches")
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, q_offset: int = 0,
+                        window: Optional[int] = None):
+    """(dq, dk, dv) of ``flash_attention`` from its inputs, its output, the
+    output's gradient and the forward's ``lse`` [B, H, S]; equals
+    ``flash_attention_bwd_ref``.  On the card: a delta pass, the dK / dV
+    kernel and the dQ kernel of ``csrc/flash_attn_bwd.cu``, deterministic
+    (no atomics)."""
+    if not _lib.on_cuda(q):
+        return flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=q_offset, window=window)
+    check_bwd_inputs(q, k, v, out, dout, lse)
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v, out, dout = _aligned(q, k, v, out, dout)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    entry = _lib.lib().flash_attn_bwd_bf16 if bf16 else _lib.lib().flash_attn_bwd_f32
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+               lse.data_ptr(), b, s, t, h, kvh, hd, 1.0 / hd ** 0.5, q_offset, window or 0,
+               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               _lib.stream(q.device))
+    _lib.check(rc, "flash_attention_bwd")
+    _count("launches_bwd_bf16" if bf16 else "launches_bwd")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward keeps q, k, v, the
+    output and the row log-sum-exps; the backward is ``flash_attention_bwd``
+    on them.  On the CPU both run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset: int, window: Optional[int]):
+        if _lib.on_cuda(q):
+            out, lse = _forward_kernel(q, k, v, q_offset, window, with_lse=True)
+        else:
+            out, lse = flash_attention_fwd_ref(q, k, v, q_offset=q_offset, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.q_offset, ctx.window = q_offset, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         q_offset=ctx.q_offset, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,   # [B, S, H, hd]
     k: torch.Tensor,   # [B, T, KV, hd]
@@ -47,35 +147,23 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal (``window``: sliding-window) attention forward; query i sits
     at position ``q_offset + i``, head h reads kv head ``h // (H / KV)``.
-    Returns [B, S, H, hd] in v's type; equals ``flash_attention_ref``."""
+    Returns [B, S, H, hd] in v's type; equals ``flash_attention_ref``.  An
+    input that needs a gradient goes through ``_FlashAttention``."""
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive or None, got {window}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if _lib.on_cuda(q):
+            check_kernel_inputs(q, k, v)
+        return _FlashAttention.apply(q, k, v, q_offset, window)
     if not _lib.on_cuda(q):
         return flash_attention_ref(q, k, v, q_offset=q_offset, window=window)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError("flash_attention has no backward kernel yet (the LM training "
-                                  "slice, ROADMAP Queue 1, item 6)")
-    check_kernel_inputs(q, k, v)
-    b, s, h, hd = q.shape
-    t, kvh = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    bf16 = q.dtype == torch.bfloat16
-    # TMA (bf16) and cp.async (fp32) copy from 16-byte aligned addresses; a
-    # view may start elsewhere
-    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
-    entry = _lib.lib().flash_attn_bf16 if bf16 else _lib.lib().flash_attn_f32
-    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, t, h, kvh, hd,
-               1.0 / hd ** 0.5, q_offset, window or 0, out.data_ptr(), _lib.stream(q.device))
-    _lib.check(rc, "flash_attention")
-    counter = "launches_bf16" if bf16 else "launches"
-    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
-    return out
+    return _forward_kernel(q, k, v, q_offset, window, with_lse=False)
 
 
 flash_attention.launches = 0
 flash_attention.launches_bf16 = 0
+flash_attention.launches_bwd = 0
+flash_attention.launches_bwd_bf16 = 0
 
 
 def flash_attention_head(

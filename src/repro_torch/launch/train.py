@@ -1,17 +1,19 @@
 """Training launcher (the JAX package's ``python -m repro.launch.train``)
-for the recsys family.
+for the LM and recsys families.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --steps 50 --ckpt-dir ckpt [--device cpu]
 
-``--scale tiny`` trains the arch's config with its tables cut to 10,000
-rows, on ``SyntheticClickStream`` batches, through ``train.loop.run``:
-AdamW, the cosine schedule (warmup a tenth of the steps), a checkpoint
-every ``--ckpt-every`` steps and at the end; re-running the same command
-resumes from the last committed checkpoint.  ``--device`` defaults to the
-card.  An LM id raises ``NotImplementedError`` (the LM family serves on
-the port; it trains in the next slice), and so does the GNN id (not ported
-yet);
+``--scale tiny`` trains, through ``train.loop.run``, an LM arch reduced as
+the JAX launcher's ``_tiny_lm`` reduces it (two pattern cycles at d 128,
+fp32, windows of 64, no remat) on ``SyntheticLMStream`` batches of
+``--batch`` x ``--seq`` tokens, or a recsys arch's config with its tables
+cut to 10,000 rows on ``SyntheticClickStream`` batches: AdamW, the cosine
+schedule (warmup a tenth of the steps), a checkpoint every
+``--ckpt-every`` steps and at the end; re-running the same command resumes
+from the last committed checkpoint.  The LM's initial weights are drawn
+from a CPU generator (seed 0), so a card run starts where a CPU run does.
+``--device`` defaults to the card.  The GNN id raises (not ported yet);
 ``--arch mind`` fails as the JAX launcher does: the click stream's ``pos``
 is SASRec's [B, S], and MIND's loss takes [B].
 """
@@ -23,10 +25,27 @@ import dataclasses
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.data import SyntheticClickStream
+from repro_torch.data import SyntheticClickStream, SyntheticLMStream
+from repro_torch.models import transformer as tf
 from repro_torch.train import adamw_init, adamw_update, cosine_schedule, loop, value_and_grad
 
 TINY_ROWS = 10_000
+
+
+def _tiny_lm(cfg: tf.TransformerConfig) -> tf.TransformerConfig:
+    """JAX's ``_tiny_lm`` (its ``attn_chunk`` of 64 is an XLA layout knob the
+    port does not have)."""
+    pat = tuple((64 if w is not None else None) for w in cfg.window_pattern)
+    return dataclasses.replace(
+        cfg, n_layers=2 * len(pat), d_model=128, n_heads=4, n_kv=2, head_dim=32,
+        d_ff=256 if not cfg.is_moe else 128, vocab=1024,
+        moe_experts=4 if cfg.is_moe else 0, moe_top_k=2 if cfg.is_moe else 0,
+        window_pattern=pat, dtype=torch.float32, remat=False)
+
+
+def _lm_init(cfg: tf.TransformerConfig, device: torch.device):
+    """The tiny LM's initial weights, drawn on the CPU (seed 0)."""
+    return tf.init(cfg, torch.Generator().manual_seed(0), device=device)
 
 
 def main(argv=None) -> loop.TrainResult:
@@ -43,16 +62,19 @@ def main(argv=None) -> loop.TrainResult:
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
-    if arch.family == "lm":
-        raise NotImplementedError(f"{args.arch}: the LM family trains in the next slice "
-                                  "(ROADMAP Queue 1, item 6)")
     device = torch.device(args.device)
-    field = "n_rows" if args.arch == "dlrm-rm2" else "n_items"
-    cfg = dataclasses.replace(arch.cfg, **{field: TINY_ROWS})
-    params = arch.mod.init(cfg, device=device)
-    stream = SyntheticClickStream(TINY_ROWS, args.batch, getattr(cfg, "seq_len", 50))
-    loss_fn = arch.loss_fn()
-    grad_fn = value_and_grad(lambda p, b: loss_fn(p, b, cfg))
+    if arch.family == "lm":
+        cfg = _tiny_lm(arch.cfg)
+        params = _lm_init(cfg, device)
+        stream = SyntheticLMStream(cfg.vocab, args.batch, args.seq)
+        grad_fn = value_and_grad(lambda p, b: tf.lm_loss(p, b, cfg))
+    else:
+        field = "n_rows" if args.arch == "dlrm-rm2" else "n_items"
+        cfg = dataclasses.replace(arch.cfg, **{field: TINY_ROWS})
+        params = arch.mod.init(cfg, device=device)
+        stream = SyntheticClickStream(TINY_ROWS, args.batch, getattr(cfg, "seq_len", 50))
+        loss_fn = arch.loss_fn()
+        grad_fn = value_and_grad(lambda p, b: loss_fn(p, b, cfg))
 
     state = {"params": params, "opt": adamw_init(params)}
 

@@ -7,7 +7,8 @@ Queue 1); one card has no mesh.
 
 Attention runs on ``kernels.flash_attn.flash_attention``: the CUDA kernel
 (fp32, or bf16 on the tensor cores) for tensors on the card, its plain
-version for tensors on the CPU.  JAX's query chunking (``attn_chunk``) and
+version for tensors on the CPU; where a gradient is needed, with its
+backward kernel.  JAX's query chunking (``attn_chunk``) and
 its flash / dense-block switch only change the order of a sum, so they do
 not carry over.
 
@@ -73,13 +74,49 @@ def dense_stack(layers, x: torch.Tensor, act: Callable = F.relu,
 # ---------------------------------------------------------------------------
 
 
+VJP_COLS = 1 << 15  # columns of ``b`` a step of matmul_f32_vjp (its fp32 copies)
+
+
+def matmul_f32_vjp(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor):
+    """The VJP of ``matmul_f32`` at ``a [n, k]``, ``b [k, m]`` for the fp32
+    cotangent ``g [n, m]``, as JAX transposes a product with
+    ``preferred_element_type=jnp.float32``: fp32 products of ``g`` with the
+    upcast operands, each result rounded once to its operand's type.  The
+    products go in steps of VJP_COLS columns of ``b``, so the fp32 copies of
+    ``b`` and of its gradient stay that wide (gemma's tied 262,144-row
+    embedding would take 4 GB each); ``dx`` sums the steps in fp32."""
+    af = a.float()
+    dx = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    db = torch.empty_like(b)
+    for j in range(0, b.shape[1], VJP_COLS):
+        gj = g[:, j:j + VJP_COLS]
+        dx.addmm_(gj, b[:, j:j + VJP_COLS].float().T)
+        db[:, j:j + VJP_COLS] = af.T @ gj
+    return dx.to(a.dtype), db
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 ``a [n, k] @ b [k, m]`` on the card as one bf16 GEMM with an fp32
+    output (``torch.mm(out_dtype=)``, which has no derivative of its own);
+    its backward is ``matmul_f32_vjp``: the fp32 cotangent is not rounded
+    to bf16 before the products."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return matmul_f32_vjp(*ctx.saved_tensors, g)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [..., k] @ b [k, n]`` accumulated and returned in fp32 (JAX's
     ``preferred_element_type=jnp.float32``): bf16 operands on the card by
     one bf16 GEMM with an fp32 output, elsewhere in fp32."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        return torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32).view(
-            *a.shape[:-1], b.shape[-1])
+        return _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b).view(*a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
 
 

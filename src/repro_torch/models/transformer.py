@@ -10,17 +10,21 @@ n_rep is a Python loop over views of the stacked leaves.
 Entry points (``mesh`` must be None: the mesh tools are ROADMAP Queue 1's):
   init(cfg, generator, device=)          -> params
   forward(params, tokens, cfg)           -> (logits, aux_loss)
-  lm_loss(params, batch, cfg)            -> scalar loss (the value; no
-                                            gradient on the card yet)
+  lm_loss(params, batch, cfg)            -> scalar loss (differentiable:
+                                            attention's backward is the
+                                            flash_attn backward kernel)
   init_cache(cfg, batch, max_len)        -> per-pattern KV caches
   serve_prefill(params, tokens, cfg, ..) -> (logits, caches)
   serve_step(params, caches, token, off) -> (logits, caches), the caches
                                             written in place
 
 JAX's XLA layout knobs (``seq_parallel``, ``flash``, ``kv_chunk``,
-``attn_chunk``, ``remat``) do not carry over: one ``flash_attention`` call
-takes a layer's whole sequence, and nothing is rematerialized without a
-backward pass.
+``attn_chunk``) do not carry over: one ``flash_attention`` call takes a
+layer's whole sequence.  ``remat`` does: where a gradient is needed, each
+pattern cycle (JAX's ``rep_body``) runs under
+``torch.utils.checkpoint.checkpoint`` and keeps only its input, and so does
+each chunk of the chunked cross-entropy (JAX's ``@jax.checkpoint
+chunk_nll``).
 """
 from __future__ import annotations
 
@@ -28,10 +32,11 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.train.tree import leaves, tree_map
+from repro_torch.train.tree import leaves, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +59,7 @@ class TransformerConfig:
     capacity_factor: float = 1.25
     tied_embed: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True      # checkpoint each pattern cycle where a gradient is needed
     loss_chunk: int = 1024  # 0 = materialize the full [B, S, V] logits
 
     @property
@@ -153,11 +159,23 @@ def abstract_params(cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 
+def _block_trees(params, cfg: TransformerConfig):
+    """The stacked blocks as n_rep lists of P block trees.  Each stacked leaf
+    is unbound once: under autograd one backward a leaf stacks the layers'
+    gradients, where a view ``a[r, p]`` a layer would build a zero tensor of
+    the whole stacked leaf for each layer."""
+    blocks = params["blocks"]
+    flat = [a.flatten(0, 1).unbind(0) for a in leaves(blocks)]
+    n = cfg.pattern_len
+    return [[unflatten(blocks, [f[r * n + p] for f in flat]) for p in range(n)]
+            for r in range(cfg.n_rep)]
+
+
 def _layers(params, cfg: TransformerConfig):
-    """(rep, pattern index, window, block params as views) in depth order."""
-    for r in range(cfg.n_rep):
-        for p, window in enumerate(cfg.window_pattern):
-            yield r, p, window, tree_map(lambda a: a[r, p], params["blocks"])
+    """(rep, pattern index, window, block params) in depth order."""
+    for r, rep in enumerate(_block_trees(params, cfg)):
+        for p, (window, bp) in enumerate(zip(cfg.window_pattern, rep)):
+            yield r, p, window, bp
 
 
 def _block_apply(bp, x, positions, cfg: TransformerConfig, window, kv_cache=None, q_offset=0):
@@ -179,17 +197,41 @@ def _unembed(params, cfg: TransformerConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tied_embed else params["unembed"]
 
 
-def hidden_states(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
-    """The forward up to and with the final norm: ([B, S, d], aux_loss)."""
-    _no_mesh(mesh)
-    s = tokens.shape[1]
-    x = params["embed"][tokens.long()]
-    positions = torch.arange(s, device=x.device)
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` [B, S]: one ``index_select``, whose
+    backward is one ``index_add_`` into the table's gradient (no read-back;
+    ``embed[tokens]``'s is a sorting ``index_put_``, and ``F.embedding``'s
+    reads a segment count back past 3,072 tokens)."""
+    table = params["embed"]
+    return torch.index_select(table, 0, tokens.reshape(-1).long()).view(*tokens.shape, -1)
+
+
+def _rep_apply(x, rep, positions, cfg: TransformerConfig):
+    """One pattern cycle, JAX's ``rep_body``: (x, the cycle's aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, _, window, bp in _layers(params, cfg):
+    for window, bp in zip(cfg.window_pattern, rep):
         x, _, a = _block_apply(bp, x, positions, cfg, window)
         if a is not None:
             aux = aux + a
+    return x, aux
+
+
+def hidden_states(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
+    """The forward up to and with the final norm: ([B, S, d], aux_loss).
+    With ``cfg.remat`` and a gradient enabled, each pattern cycle is
+    checkpointed (recomputed in the backward)."""
+    _no_mesh(mesh)
+    s = tokens.shape[1]
+    x = _embed(params, tokens)
+    positions = torch.arange(s, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for rep in _block_trees(params, cfg):
+        if remat:
+            x, a = checkpoint(_rep_apply, x, rep, positions, cfg, use_reentrant=False)
+        else:
+            x, a = _rep_apply(x, rep, positions, cfg)
+        aux = aux + a
     return L.rmsnorm(x, params["final_ln"]), aux
 
 
@@ -199,32 +241,32 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
     return L.matmul_f32(x, _unembed(params, cfg)), aux
 
 
-def _needs_grad_on_card(params) -> bool:
-    return torch.is_grad_enabled() and any(
-        t.is_cuda and t.requires_grad for t in leaves(params))
+def _chunk_nll(x, labels, unembed):
+    """The summed next-token NLL of one [B, c] chunk, JAX's ``chunk_nll``."""
+    logits = L.matmul_f32(x, unembed)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return torch.sum(logz - gold)
 
 
 def lm_loss(params, batch, cfg: TransformerConfig, mesh=None, aux_weight: float = 0.01):
     """batch = {"tokens": [B, S] int, "labels": [B, S] int} -> the mean
     next-token NLL + aux_weight * aux.  With ``loss_chunk`` dividing S
     (and smaller), the cross-entropy runs in sequence chunks of
-    [B, loss_chunk, V] fp32 logits.  The value only: on the card a call
-    that needs a gradient raises until attention has its backward."""
-    if _needs_grad_on_card(params):
-        raise NotImplementedError("lm_loss's gradient on the card comes with the LM training "
-                                  "slice (ROADMAP Queue 1, item 6): attention has no backward "
-                                  "kernel yet")
+    [B, loss_chunk, V] fp32 logits, each checkpointed where a gradient is
+    enabled (its logits recomputed in the backward)."""
     tokens, labels = batch["tokens"], batch["labels"].long()
     b, s = tokens.shape
     unembed = _unembed(params, cfg)
     if cfg.loss_chunk and s % cfg.loss_chunk == 0 and s > cfg.loss_chunk:
         x, aux = hidden_states(params, tokens, cfg, mesh)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(0, s, cfg.loss_chunk):
-            logits = L.matmul_f32(x[:, i:i + cfg.loss_chunk], unembed)
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, labels[:, i:i + cfg.loss_chunk, None])[..., 0]
-            tot = tot + torch.sum(logz - gold)
+        grad = torch.is_grad_enabled()
+        for xi, li in zip(x.split(cfg.loss_chunk, dim=1), labels.split(cfg.loss_chunk, dim=1)):
+            if grad:
+                tot = tot + checkpoint(_chunk_nll, xi, li, unembed, use_reentrant=False)
+            else:
+                tot = tot + _chunk_nll(xi, li, unembed)
         nll = tot / (b * s)
     else:
         logits, aux = forward(params, tokens, cfg, mesh)
@@ -267,7 +309,7 @@ def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=Non
     _no_mesh(mesh)
     b, s = tokens.shape
     max_len = max_len or s
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens)
     positions = torch.arange(s, device=x.device)
     caches = init_cache(cfg, b, max_len, device=x.device)
     for r, p, window, bp in _layers(params, cfg):
@@ -294,7 +336,7 @@ def serve_step(params, caches, token: torch.Tensor, q_offset: int, cfg: Transfor
     Returns (logits [B, V] fp32, caches)."""
     _no_mesh(mesh)
     q_offset = int(q_offset)
-    x = params["embed"][token.long()]
+    x = _embed(params, token)
     positions = torch.full((1,), q_offset, dtype=torch.int64, device=x.device)
     for r, p, window, bp in _layers(params, cfg):
         kv = (caches[p][0][r], caches[p][1][r])

@@ -5,11 +5,12 @@ from repro_torch.train.optimizer import (
     AdamWState,
     adamw_init,
     adamw_update,
+    adamw_update_,
     cosine_schedule,
     global_norm,
 )
 from repro_torch.train import checkpoint, loop
 from repro_torch.train.tree import value_and_grad
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "checkpoint", "cosine_schedule",
-           "global_norm", "loop", "value_and_grad"]
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "adamw_update_", "checkpoint",
+           "cosine_schedule", "global_norm", "loop", "value_and_grad"]

@@ -8,6 +8,11 @@ clip factor is ``min(1, clip / max(norm, 1e-9))``, bias correction uses
 ``b ** step`` in fp32, ``delta = mhat / (sqrt(vhat) + eps) + wd * p`` and
 weight decay applies to every leaf.  ``lr`` may be a 0-dim tensor on the
 device: a step reads nothing back.
+
+``adamw_update_`` is the same update written into the params and moments in
+place, a slice at a time: the port's counterpart of the JAX cell's donated
+params and optimizer state (``donate=(0, 1)``).  Without it the old and new
+params and moments live at once at the update.
 """
 from __future__ import annotations
 
@@ -71,6 +76,40 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9, b2: f
     return (unflatten(params, [o[0] for o in out]),
             AdamWState(step=step, mu=unflatten(state.mu, [o[1] for o in out]),
                        nu=unflatten(state.nu, [o[2] for o in out])))
+
+
+# elements of a leaf updated at once by adamw_update_ (its fp32 temporaries
+# are a few times this many: 128 MiB each)
+UPDATE_SLICE = 1 << 25
+
+
+@torch.no_grad()
+def adamw_update_(grads, state: AdamWState, params, *, lr, b1: float = 0.9, b2: float = 0.95,
+                  eps: float = 1e-8, weight_decay: float = 0.1, clip: float = 1.0):
+    """``adamw_update`` written in place: each leaf of ``params``,
+    ``state.mu`` and ``state.nu`` is updated in slices of UPDATE_SLICE
+    elements (a stacked leaf in slices along its flattened layers), with
+    ``_update_leaf``'s arithmetic, so the values are ``adamw_update``'s bit
+    for bit.  Returns ``(params, new_state)``: the same params tree, and a
+    state with the new step around the same moment tensors."""
+    gn = global_norm(grads)
+    scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
+    step = state.step + 1
+    sf = step.to(torch.float32)
+    c1 = 1.0 - b1 ** sf
+    c2 = 1.0 - b2 ** sf
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu), leaves(state.nu)):
+        if not (p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
+            raise ValueError("adamw_update_ writes contiguous params and moments in place")
+        for ps, gs, ms, vs in zip(*(x.reshape(-1).split(UPDATE_SLICE) for x in (p, g, m, v))):
+            new_p, new_m, new_v = _update_leaf(ps, gs, ms, vs, scale=scale, c1=c1, c2=c2, lr=lr,
+                                               b1=b1, b2=b2, eps=eps,
+                                               weight_decay=weight_decay)
+            ps.copy_(new_p)
+            ms.copy_(new_m)
+            vs.copy_(new_v)
+            del new_p, new_m, new_v
+    return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 
 def cosine_schedule(step, *, base_lr: float, warmup: int, total: int, min_frac: float = 0.1):

@@ -16,7 +16,8 @@ from repro_torch.kernels import _lib
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "train_and_serve_torch.py",
-    ROOT / "examples" / "lm_decode_torch.py", ROOT / "scripts" / "lm_conditioning.py"]
+    ROOT / "examples" / "lm_decode_torch.py", ROOT / "scripts" / "lm_conditioning.py",
+    ROOT / "scripts" / "lm_grad_conditioning.py"]
 
 
 def _imported_modules(path):
@@ -67,7 +68,8 @@ def test_wrappers_check_the_device():
 
 @pytest.mark.parametrize("entry", ["ipnsw", "ipnsw_plus", "serve", "mutable", "serve_loop",
                                    "sharded", "sharded_mutable", "serve_shards", "hnsw", "lsh",
-                                   "norm_filter", "train", "recsys_cell", "lm_cell"])
+                                   "norm_filter", "train", "recsys_cell", "lm_cell",
+                                   "lm_train"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("checks a host without CUDA")
@@ -113,6 +115,10 @@ def test_default_device_raises_without_cuda(entry):
             from repro_torch.configs import get_arch
 
             get_arch("granite-3-2b").build_cell("decode_32k")
+        elif entry == "lm_train":
+            from repro_torch.launch import train
+
+            train.main(["--arch", "granite-3-2b", "--steps", "1", "--batch", "2"])
         else:
             (IpNSW if entry == "ipnsw" else IpNSWPlus)().build(items)
 

@@ -31,6 +31,7 @@ from repro_torch.configs.common import LM_SHAPES
 from repro_torch.convert import params_from_arrays
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as ttf
 from repro_torch.train import checkpoint as ckpt
@@ -175,15 +176,23 @@ def test_ring_decode_matches_jax(window, t, q_offset):
 
 
 def test_flash_attention_refuses_a_gradient_on_the_card(monkeypatch):
-    """The kernel has no backward: a CUDA input that needs a gradient
-    raises before any launch (``on_cuda`` faked for CPU tensors)."""
+    """A CUDA input that needs a gradient goes through ``_FlashAttention``
+    (the forward with lse, the backward kernel) once the kernel's input
+    checks pass; a head dim the kernels do not take raises before it, with
+    or without a gradient (``on_cuda`` faked for CPU tensors)."""
     monkeypatch.setattr(_lib, "on_cuda", lambda x: True)
+    calls = []
+    monkeypatch.setattr(flash_ops._FlashAttention, "apply",
+                        lambda *args: calls.append(args) or "routed")
     q = torch.zeros((1, 4, 2, 64), requires_grad=True)
     k = torch.zeros((1, 4, 2, 64))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        flash_attention(q, k, k)
+    assert flash_attention(q, k, k, window=3) == "routed"
+    assert len(calls) == 1 and calls[0][3:] == (0, 3)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(*(torch.zeros((1, 4, 2, 48), requires_grad=True),) * 3)
     with torch.no_grad(), pytest.raises(ValueError, match="head dim 48"):
         flash_attention(*(torch.zeros((1, 4, 2, 48)),) * 3)
+    assert len(calls) == 1
 
 
 # ------------------------------------------------------------------- archs
@@ -295,17 +304,13 @@ def test_published_config_and_tree_match_jax(arch_id):
 
 
 def test_lm_cells():
-    """Every LM cell JAX lists builds (its meta JAX's keys and values) but
-    train_4k, which waits for the training slice; a mesh raises."""
+    """Every LM cell JAX lists builds, train_4k included, its meta JAX's
+    keys and values; a mesh raises."""
     assert LM_SHAPES == JAX_LM_SHAPES
     for aid in LM_ARCHS:
         arch, jarch = get_arch(aid), jax_get_arch(aid)
         assert arch.shape_names() == jarch.shape_names()
         for shape in arch.shape_names():
-            if shape == "train_4k":
-                with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6"):
-                    arch.build_cell(shape, device="cpu")
-                continue
             cell = arch.build_cell(shape, device="cpu")
             sh = LM_SHAPES[shape]
             b, s = sh["batch"], sh["seq"]
@@ -319,6 +324,12 @@ def test_lm_cells():
                 for (ck, _), w in zip(caches, arch.cfg.window_pattern):
                     assert tuple(ck.shape) == (arch.cfg.n_rep, b, s if w is None else min(w, s),
                                                arch.cfg.n_kv, arch.cfg.head_dim)
+            elif sh["kind"] == "train":
+                params, opt, batch = cell.args
+                assert sorted(batch) == ["labels", "tokens"]
+                assert all(tuple(x.shape) == (b, s) and x.dtype == torch.int32
+                           for x in batch.values())
+                assert [n for n, _ in named_leaves(opt.mu)] == [n for n, _ in named_leaves(params)]
             else:
                 assert tuple(cell.args[1].shape) == (b, s)
     tcfg = _setup("granite-3-2b")[1]

@@ -1,0 +1,395 @@
+"""LM training in the port against the JAX package, on the CPU: the plain
+FlashAttention backward against JAX's custom VJP (``_attend_flash_bwd``)
+and its dense path, ``flash_attention``'s autograd, the five archs' loss
+gradients (reduced as ``tests/test_arch_smoke.py`` reduces them, with
+JAX's flash attention and remat on its path), the in-place AdamW update,
+the train_4k cell and the train launcher's LM branch with a resume.
+Inputs are seeded numpy draws; JAX's parameters are carried across
+(``convert.params_from_arrays``).
+
+Tolerances: attention gradients within 2e-5 of each tensor's largest
+|value| (fp32; JAX keeps (m, l) a row, the port one lse: the rounding
+differs).  Each block's VJP on JAX's own block input and loss cotangent
+within the same 2e-5 of a leaf's largest, every block of the five archs
+(gemma's included).  An arch's loss within 1e-6 relative (gemma 1e-5).
+Its whole-model gradient leaves within ARCH_GRAD_RTOL of their largest
+|value|: there each package runs its own forward, and the two fp32
+forwards differ by up to 1e-5 of a logit (3.4e-4 for gemma, whose tied
+N(0, 1) embedding makes JAX's own fp32 logits 3e-3 from float64;
+tests/test_torch_lm.py); a block's gradient on the two inputs then
+differs by what its VJP amplifies that drift by, measured up to 8.7e-5 of
+the largest (qwen3's embedding) and 2.3e-3 for gemma, while on one input
+the blocks agree within 2e-5.  The same gradients through the port's flash
+attention and through autograd of its dense plain attention agree within
+2e-5 of each leaf's largest (measured 6e-6), as JAX's flash and dense
+paths agree with each other (4e-6; 2.8e-4 for gemma).  The bf16 head
+product's VJP (``matmul_f32_vjp``) within one bf16 rounding of JAX's.
+The launcher's losses within 1e-4 relative, as the recsys loop's
+(tests/test_torch_train.py)."""
+import dataclasses
+import functools
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.launch.train as jax_train_launcher
+from repro.configs import get_arch as jax_get_arch
+from repro.models import layers as JL
+from repro.models import transformer as jtf
+from repro_torch.configs import get_arch
+from repro_torch.kernels.flash_attn import (
+    flash_attention,
+    flash_attention_bwd_ref,
+    flash_attention_fwd_ref,
+    flash_attention_ref,
+)
+from repro_torch.launch import train as train_launcher
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as ttf
+from repro_torch.train import adamw_init, adamw_update, adamw_update_, value_and_grad
+from repro_torch.train import optimizer as topt
+from repro_torch.train.tree import leaves, named_leaves, tree_map, unflatten
+from test_arch_smoke import LM_ARCHS, _reduced_lm
+from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
+from test_torch_lm import _t, port_cfg
+
+ATTN_RTOL = 2e-5
+LOSS_RTOL = {"gemma3-12b": 1e-5}
+LOSS_RTOL_DEFAULT = 1e-6
+ARCH_GRAD_RTOL = {"gemma3-12b": 5e-3}
+ARCH_GRAD_RTOL_DEFAULT = 2e-4
+LAUNCHER_RTOL = 1e-4
+
+J_VALUE_AND_GRAD = jax.jit(jax.value_and_grad(jtf.lm_loss), static_argnums=(2,))
+
+
+def _within(got, want, rtol, what):
+    """max |got - want| <= rtol * max |want|."""
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got.astype(np.float32) - want).max())
+    assert err <= rtol * scale, f"{what}: {err / max(scale, 1e-30):.3g} of the largest"
+
+
+# -------------------------------------------------------------- attention
+
+
+def _attn_inputs(b, s, kvh, g, hd, seed):
+    rng = np.random.default_rng(seed)
+    draw = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    return draw(b, s, kvh * g, hd), draw(b, s, kvh, hd), draw(b, s, kvh, hd), \
+        draw(b, s, kvh * g, hd)
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 8])
+def test_flash_bwd_ref_matches_jax(window, g, hd):
+    """dq, dk, dv of the plain backward against jax.vjp of JAX's
+    ``_attend_flash`` (its custom backward) at S = 32 with kv_chunk 8, and
+    against its dense path ``_attend_block`` at a ragged S of 27."""
+    b, kvh = 2, 2
+    for s, kv_chunk in ((32, 8), (27, None)):
+        q, k, v, dout = _attn_inputs(b, s, kvh, g, hd, seed=s + g + hd)
+        pos = jnp.arange(s, dtype=jnp.int32)
+        qg = jnp.asarray(q).reshape(b, s, kvh, g, hd)
+        if kv_chunk:
+            fn = lambda qg, k, v: JL._attend_flash(qg, k, v, pos, pos, window, kv_chunk)  # noqa
+        else:
+            fn = lambda qg, k, v: JL._attend_block(qg, k, v, pos, pos, window)  # noqa: E731
+        _, vjp = jax.vjp(fn, qg, jnp.asarray(k), jnp.asarray(v))
+        jdq, jdk, jdv = vjp(jnp.asarray(dout).reshape(b, s, kvh, g, hd))
+        tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, dout))
+        out, lse = flash_attention_fwd_ref(tq, tk, tv, window=window)
+        assert lse.shape == (b, kvh * g, s) and lse.dtype == torch.float32
+        dq, dk, dv = flash_attention_bwd_ref(tq, tk, tv, out, tdo, lse, window=window,
+                                             kv_chunk=8)
+        what = f"S {s} window {window} G {g} hd {hd}"
+        _within(dq, np.asarray(jdq).reshape(b, s, kvh * g, hd), ATTN_RTOL, f"dq {what}")
+        _within(dk, jdk, ATTN_RTOL, f"dk {what}")
+        _within(dv, jdv, ATTN_RTOL, f"dv {what}")
+
+
+@pytest.mark.parametrize("shape", [(2, 20, 20, 4, 2, 16, 0, None), (1, 24, 24, 4, 1, 32, 0, 5),
+                                   (2, 9, 30, 2, 2, 16, 21, None), (1, 6, 12, 2, 1, 16, 0, 4)])
+def test_flash_attention_grad_on_cpu_equals_autograd_of_ref(shape):
+    """A gradient-needing call on the CPU goes through ``_FlashAttention``
+    (the plain forward with lse, the plain backward): its output equals
+    ``flash_attention_ref``'s and its gradients autograd's of it.  The last
+    shape has rows with no key in their window (gradients 0 there)."""
+    b, s, t, h, kvh, hd, off, win = shape
+    rng = np.random.default_rng(sum(shape[:6]))
+    q, k, v = (torch.tensor(rng.normal(size=sh).astype(np.float32), requires_grad=True)
+               for sh in ((b, s, h, hd), (b, t, kvh, hd), (b, t, kvh, hd)))
+    dout = torch.from_numpy(rng.normal(size=(b, s, h, hd)).astype(np.float32))
+    out = flash_attention(q, k, v, q_offset=off, window=win)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    ref = flash_attention_ref(q, k, v, q_offset=off, window=win)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    assert torch.equal(out.detach(), ref.detach())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _within(a, w.numpy(), ATTN_RTOL, f"{name} {shape}")
+    assert bool(torch.isfinite(torch.cat([x.flatten() for x in got])).all())
+
+
+# ------------------------------------------------------------------ archs
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_setup(arch_id):
+    """(JAX's config, the port's, JAX's params, the port's copy); shared by
+    the tests, which do not modify them."""
+    jcfg = dataclasses.replace(_reduced_lm(arch_id), flash=True, kv_chunk=8, remat=True)
+    jp, _ = jtf.init(jax.random.PRNGKey(0), jcfg)
+    return jcfg, port_cfg(jcfg), jp, _t(jp)
+
+
+def _lm_batch(vocab, seed, b=2, s=16):
+    toks = np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+    return toks, np.roll(toks, -1, 1)
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_loss_gradients_match_jax(arch_id, monkeypatch):
+    """value_and_grad(lm_loss) against jax.value_and_grad(lm_loss), JAX
+    with flash attention (kv_chunk 8, its custom VJP) and remat on: the loss
+    and every gradient leaf, JAX's cross-entropy by loss_chunk 8, the
+    port's whole and by loss_chunk 8; in the port, remat on and off give the same bits, and
+    the gradients through the flash attention's backward equal autograd's
+    through the dense plain attention."""
+    jcfg, tcfg, jp, tp = _lm_setup(arch_id)
+    assert tcfg.remat
+    rtol = ARCH_GRAD_RTOL.get(arch_id, ARCH_GRAD_RTOL_DEFAULT)
+    toks, labels = _lm_batch(jcfg.vocab, seed=11)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+    grad_fn = value_and_grad(ttf.lm_loss)
+    jloss, jgrads = J_VALUE_AND_GRAD(jp, jb, dataclasses.replace(jcfg, loss_chunk=8))
+    want = {jax.tree_util.keystr(p): np.asarray(x)
+            for p, x in jax.tree_util.tree_flatten_with_path(jgrads)[0]}
+    for chunk in (0, 8):  # the port's whole and chunked cross-entropy, JAX's chunked
+        loss, grads = grad_fn(tp, tb, dataclasses.replace(tcfg, loss_chunk=chunk))
+        np.testing.assert_allclose(float(loss), float(jloss),
+                                   rtol=LOSS_RTOL.get(arch_id, LOSS_RTOL_DEFAULT))
+        got = dict(named_leaves(grads))
+        assert list(got) == list(want)
+        for name, g in got.items():
+            _within(g, want[name], rtol, f"{arch_id} loss_chunk {chunk} grad {name}")
+    _, no_remat = grad_fn(tp, tb, dataclasses.replace(tcfg, remat=False, loss_chunk=8))
+    for (name, a), (_, b) in zip(named_leaves(grads), named_leaves(no_remat)):
+        assert torch.equal(a, b), f"{arch_id}: remat changed the gradient of {name}"
+    monkeypatch.setattr(TL, "flash_attention", flash_attention_ref)
+    _, dense = grad_fn(tp, tb, dataclasses.replace(tcfg, loss_chunk=8))
+    for (name, a), (_, b) in zip(named_leaves(grads), named_leaves(dense)):
+        _within(a, b.numpy(), ATTN_RTOL, f"{arch_id} flash vs dense attention, grad {name}")
+
+
+def _jax_blocks(blocks, cfg):
+    return [(jax.tree.map(lambda a, r=r, p=p: a[r, p], blocks), w)
+            for r in range(cfg.n_rep) for p, w in enumerate(cfg.window_pattern)]
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _jax_block(bp, x, cfg, window):
+    pos = jnp.arange(x.shape[1], dtype=jnp.int32)
+    return jtf._block_apply(bp, x, pos, cfg, window, None)[0]
+
+
+@functools.partial(jax.jit, static_argnums=(3, 4))
+def _jax_block_vjp(bp, x, dy, cfg, window):
+    """jax.vjp of JAX's ``_block_apply`` at ``x`` for the cotangents (``dy``,
+    0.01 for the aux loss, as lm_loss weighs it): (dx, the params')."""
+    pos = jnp.arange(x.shape[1], dtype=jnp.int32)
+    block = lambda x, bp: jtf._block_apply(bp, x, pos, cfg, window, None)[::2]  # noqa: E731
+    return jax.vjp(block, x, bp)[1]((dy, jnp.float32(0.01)))
+
+
+@functools.partial(jax.jit, static_argnums=(3,))
+def _jax_head_cotangent(x, jp, labels, cfg):
+    """The loss's cotangent at the last block's output (JAX's final norm and
+    cross-entropy)."""
+    def nll(x):
+        h = JL.rmsnorm(x, jp["final_ln"])
+        unembed = jp["embed"].T if cfg.tied_embed else jp["unembed"]
+        logits = jnp.einsum("bsd,dv->bsv", h, unembed, preferred_element_type=jnp.float32)
+        gold = jnp.take_along_axis(logits, labels[..., None], axis=-1)[..., 0]
+        return jnp.mean(jax.nn.logsumexp(logits, axis=-1) - gold)
+    return jax.grad(nll)(x)
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_block_vjps_match_jax(arch_id):
+    """Each block's VJP on JAX's own block input and loss cotangent: the
+    port's (autograd through its flash attention's backward) against
+    jax.vjp of JAX's ``_block_apply`` (flash, kv_chunk 8: its custom VJP),
+    the input's gradient and every parameter's within 2e-5 of the tensor's
+    largest |value|, a MoE block's aux loss weighed 0.01 as lm_loss weighs
+    it.  On the same input the backward agrees as tightly as the attention
+    alone; the whole-model gradients above differ more only because the two
+    forwards drift apart."""
+    jcfg, tcfg, jp, tp = _lm_setup(arch_id)
+    toks, labels = _lm_batch(jcfg.vocab, seed=11)
+    jblocks = _jax_blocks(jp["blocks"], jcfg)
+    ins = [jnp.take(jp["embed"], jnp.asarray(toks), axis=0)]
+    for bp, window in jblocks:
+        ins.append(_jax_block(bp, ins[-1], jcfg, window))
+    dy = _jax_head_cotangent(ins.pop(), jp, jnp.asarray(labels), jcfg)
+    layers = list(ttf._layers(tp, tcfg))
+    for i in reversed(range(len(jblocks))):  # a block's dx is the cotangent of the one before
+        (jbp, window), x = jblocks[i], ins[i]
+        jdx, jdbp = _jax_block_vjp(jbp, x, dy, jcfg, window)
+        want = {jax.tree_util.keystr(p): np.asarray(g)
+                for p, g in jax.tree_util.tree_flatten_with_path(jdbp)[0]}
+        _, _, twindow, tbp = layers[i]
+        assert twindow == window
+        tx = torch.from_numpy(np.array(x)).requires_grad_(True)
+        own = [p.detach().requires_grad_(True) for p in leaves(tbp)]
+        y, _, aux = ttf._block_apply(unflatten(tbp, own), tx, torch.arange(toks.shape[1]),
+                                     tcfg, window)
+        outs, cots = [y], [torch.from_numpy(np.array(dy))]
+        if aux is not None:
+            outs.append(aux)
+            cots.append(torch.full_like(aux, 0.01))
+        grads = torch.autograd.grad(outs, [tx, *own], cots, allow_unused=True)
+        _within(grads[0], jdx, ATTN_RTOL, f"{arch_id} block {i} dx")
+        got = dict(named_leaves(unflatten(tbp, grads[1:])))
+        assert list(got) == list(want)
+        for name, g in got.items():
+            _within(torch.zeros(()) if g is None else g, want[name], ATTN_RTOL,
+                    f"{arch_id} block {i} grad {name}")
+        dy = jdx
+
+
+def test_matmul_f32_vjp_matches_jax(monkeypatch):
+    """The bf16 head product's VJP (what ``_MatmulF32`` runs on the card)
+    against jax.vjp of JAX's ``einsum(..., preferred_element_type=f32)``:
+    the fp32 cotangent enters fp32 products unrounded, each gradient is
+    rounded once to bf16.  In steps of 128 columns of ``b``, with ``b`` a
+    transposed view (a tied embedding): within one bf16 rounding of JAX's
+    (2**-8 of a value, plus 1e-6 of the largest for the sums' order)."""
+    monkeypatch.setattr(TL, "VJP_COLS", 128)
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(48, 64)).astype(np.float32)
+    b = rng.normal(size=(300, 64)).astype(np.float32).T
+    g = rng.normal(size=(48, 300)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, w: jnp.einsum("sd,dv->sv", x, w,
+                                             preferred_element_type=jnp.float32),
+                     jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16))
+    ta = torch.from_numpy(a).bfloat16()
+    tb = torch.from_numpy(np.ascontiguousarray(b.T)).bfloat16().T
+    got = TL.matmul_f32_vjp(ta, tb, torch.from_numpy(g))
+    assert got[1].shape == tb.shape and got[1].stride() == tb.stride()
+    for name, t, w in zip(("dx", "db"), got, vjp(jnp.asarray(g))):
+        assert t.dtype == torch.bfloat16
+        t, w = t.float().numpy(), np.asarray(w, np.float32)
+        assert (np.abs(t - w) <= 2**-8 * np.abs(w) + 1e-6 * np.abs(w).max()).all(), name
+
+
+def test_adamw_update_in_place_is_adamw_update_bit_for_bit(monkeypatch):
+    """adamw_update_ on the reduced qwen3 tree (stacked blocks, experts, the
+    fp32 router) in slices of 1,000 elements: params and moments equal
+    adamw_update's bit for bit over two steps, written into the same
+    tensors."""
+    monkeypatch.setattr(topt, "UPDATE_SLICE", 1000)
+    tcfg = dataclasses.replace(_lm_setup("qwen3-moe-235b-a22b")[1], dtype=torch.bfloat16)
+    params = ttf.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g).to(p.dtype), params)
+    want_p, want_o = params, adamw_init(params)
+    own_p = tree_map(torch.clone, params)
+    own_o = adamw_init(own_p)
+    before = [id(x) for _, x in named_leaves((own_p, own_o.mu, own_o.nu))]
+    for lr in (1e-3, 2e-3):
+        want_p, want_o = adamw_update(grads, want_o, want_p, lr=torch.tensor(lr))
+        own_p, own_o = adamw_update_(grads, own_o, own_p, lr=torch.tensor(lr))
+    assert [id(x) for _, x in named_leaves((own_p, own_o.mu, own_o.nu))] == before
+    assert int(own_o.step) == int(want_o.step) == 2
+    for (name, a), (_, b) in zip(named_leaves((own_p, own_o)), named_leaves((want_p, want_o))):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("arch_id", ["granite-3-2b", "qwen3-moe-235b-a22b"])
+def test_train_cell_steps_on_the_cpu_at_a_reduced_size(arch_id):
+    """The train_4k cell's step at a reduced size, driven as chip_smoke.py
+    drives the published one: the loss finite, params and moments written
+    in place, and the step's values those of value_and_grad(lm_loss) then
+    adamw_update at JAX's schedule (base 3e-4, warmup 2,000, total
+    100,000) on copies."""
+    tcfg = _lm_setup(arch_id)[1]
+    arch = dataclasses.replace(get_arch(arch_id), cfg=tcfg)
+    cell = arch.build_cell("train_4k", device="cpu")
+    assert cell.meta["kind"] == "train" and cell.meta["tokens"] == 256 * 4096
+    params = arch.init(torch.Generator().manual_seed(0), device="cpu")
+    opt = adamw_init(params)
+    copy_p = tree_map(torch.clone, params)
+    toks, labels = _lm_batch(tcfg.vocab, seed=3)
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+    loss0, grads = value_and_grad(ttf.lm_loss)(copy_p, batch, tcfg)
+    want_p, want_o = adamw_update(grads, adamw_init(copy_p), copy_p,
+                                  lr=topt.cosine_schedule(torch.tensor(0, dtype=torch.int32),
+                                                          base_lr=3e-4, warmup=2000,
+                                                          total=100_000))
+    new_p, new_o, loss = cell.step_fn(params, opt, batch)
+    assert new_p is params and bool(torch.isfinite(loss)) and float(loss) == float(loss0)
+    for (name, a), (_, b) in zip(named_leaves((new_p, new_o)), named_leaves((want_p, want_o))):
+        assert torch.equal(a, b), name
+    _, _, loss2 = cell.step_fn(new_p, new_o, batch)
+    assert bool(torch.isfinite(loss2)) and int(new_o.step) == 1
+    with pytest.raises(ValueError, match="runs on"):
+        cell.step_fn(params, opt, {k: x.to("meta") for k, x in batch.items()})
+
+
+# --------------------------------------------------------------- launcher
+
+
+class _Preempted(Exception):
+    pass
+
+
+def test_lm_train_launcher_matches_jax_and_resumes(monkeypatch, tmp_path, capsys):
+    """``repro_torch.launch.train --arch granite-3-2b --device cpu --steps 3
+    --batch 2`` against the JAX launcher on JAX's initial weights (its
+    ``_tiny_lm`` at PRNGKey(0), carried across): each step's loss within
+    1e-4 relative.  Then a run checkpointing every 2 steps is cut at step 2
+    (the stream raises) and the same command resumes from its checkpoint:
+    the resumed step's loss equals the uninterrupted run's."""
+    arch_id = "granite-3-2b"
+    jcfg = jax_train_launcher._tiny_lm(jax_get_arch(arch_id).cfg)
+    assert port_cfg(jcfg) == train_launcher._tiny_lm(get_arch(arch_id).cfg)
+    jparams, _ = jtf.init(jax.random.PRNGKey(0), jcfg)
+    runs = []
+    run = jax_train_launcher.loop.run
+    monkeypatch.setattr(jax_train_launcher.loop, "run",
+                        lambda *a, **kw: runs.append(run(*a, **kw)) or runs[-1])
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", arch_id, "--steps", "3", "--batch", "2"])
+    jax_train_launcher.main()
+    want = [h["loss"] for h in runs[0].history]
+
+    monkeypatch.setattr(train_launcher, "_lm_init", lambda cfg, device: _t(jparams))
+    argv = ["--arch", arch_id, "--device", "cpu", "--steps", "3", "--batch", "2"]
+    got = [h["loss"] for h in train_launcher.main(argv).history]
+    np.testing.assert_allclose(got, want, rtol=LAUNCHER_RTOL)
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(f"[train] {arch_id}: loss ")
+
+    stream_cls = train_launcher.SyntheticLMStream
+
+    class CutAtStep2(stream_cls):
+        def batch_at(self, step):
+            if step == 2:
+                raise _Preempted()
+            return super().batch_at(step)
+
+    ckpt_argv = argv + ["--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "2"]
+    monkeypatch.setattr(train_launcher, "SyntheticLMStream", CutAtStep2)
+    with pytest.raises(_Preempted):
+        train_launcher.main(ckpt_argv)
+    monkeypatch.setattr(train_launcher, "SyntheticLMStream", stream_cls)
+    resumed = train_launcher.main(ckpt_argv)
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert [h["loss"] for h in resumed.history] == got[2:]
