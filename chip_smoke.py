@@ -53,7 +53,8 @@ Phases (each one that fails ends the run with a non-zero exit):
      A "roofline" line gives each
      redesigned kernel's TFLOP/s, share of its bound and ms over
      library_ms; phase 2 counts the tensor-core instructions of the bf16
-     kernel's SASS (cuobjdump).  beam_walk, the whole walk in one launch,
+     attention kernels' SASS (cuobjdump): the forward and the backward's
+     dK / dV and dQ kernels must have wgmma (HGMMA).  beam_walk, the whole walk in one launch,
      runs in every variant (f32, int8, each with and without a tombstone
      mask) at the main path's walks (WALK_SHAPES; the hierarchy's descent,
      a pool of one, and its upper levels' build walk among them), at pad
@@ -598,9 +599,12 @@ def ptxas_usage(name: str) -> dict:
 
 
 # SASS opcodes counted in the attention kernels: the tensor-core products of
-# the bf16 kernel (HGMMA: wgmma, HMMA: mma.sync); the fp32 kernel's FMAs and
-# shared-memory traffic (LDS.128: float4 reads)
-SASS_OPS = {"flash_attn_bf16_kernel": ("HGMMA", "HMMA"),
+# the bf16 kernels (HGMMA: wgmma, HMMA: mma.sync), the forward and the
+# backward's dK / dV and dQ kernels (tc::dkv_kernel, tc::dq_kernel, by their
+# mangled names); the fp32 kernel's FMAs and shared-memory traffic (LDS.128:
+# float4 reads)
+TC_KERNELS = ("flash_attn_bf16_kernel", "2tc10dkv_kernel", "2tc9dq_kernel")
+SASS_OPS = {**{k: ("HGMMA", "HMMA") for k in TC_KERNELS},
             "flash_attn_f32_kernel": ("FFMA", "LDS.128", "LDS", "STS.128", "STS", "SHFL",
                                       "MUFU.EX2")}
 
@@ -618,8 +622,8 @@ def _is_op(word: str, op: str) -> bool:
 def log_kernel_sass(library: Path) -> None:
     """Counts SASS_OPS in the attention kernels' SASS (static counts: the
     unrolled loop bodies), by cuobjdump where the toolkit has it.  The bf16
-    kernel must have tensor-core instructions; for the fp32 kernel the FFMAs
-    per shared-memory read instruction are logged."""
+    kernels (TC_KERNELS) must have tensor-core instructions; for the fp32
+    kernel the FFMAs per shared-memory read instruction are logged."""
     import shutil
 
     from repro_torch.kernels import _lib
@@ -647,8 +651,8 @@ def log_kernel_sass(library: Path) -> None:
         log(f"sass {fn}: {line}")
         if "HGMMA" in c:
             assert c["HGMMA"] + c["HMMA"] > 0, f"{fn} has no tensor-core instruction"
-    assert any("flash_attn_bf16_kernel" in fn for fn in counts), (
-        "no flash_attn_bf16_kernel in the library's SASS")
+    for k in TC_KERNELS:
+        assert any(k in fn for fn in counts), f"no {k} in the library's SASS"
 
 
 def _int_or_float(shape, integer: bool, g):

@@ -1,10 +1,10 @@
 """flash_attn wrappers: a CPU tensor runs the plain version, a CUDA tensor
 launches a kernel of ``csrc/flash_attn.cu`` (forward) or
 ``csrc/flash_attn_bwd.cu`` (backward) or raises.  fp32 inputs go to the
-fp32-unit kernels, bf16 ones to the tensor-core forward (wgmma, TMA) and a
-backward on the fp32 units; q, k and v of one type, hd in {32, 64, 128,
-256}; any sequence lengths (the Pallas kernel's ``bq`` / ``bk`` tiling knobs
-are gone).
+fp32-unit kernels, bf16 ones to the tensor-core kernels (wgmma fed by TMA),
+forward and backward; q, k and v of one type, hd in {32, 64, 128, 256}; any
+sequence lengths (the Pallas kernel's ``bq`` / ``bk`` tiling knobs are
+gone).
 
 ``flash_attention`` is differentiable: when a gradient is needed it runs
 ``_FlashAttention``, whose forward also writes each row's log-sum-exp and
@@ -90,9 +90,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, q_offset: int = 0,
                         window: Optional[int] = None):
     """(dq, dk, dv) of ``flash_attention`` from its inputs, its output, the
     output's gradient and the forward's ``lse`` [B, H, S]; equals
-    ``flash_attention_bwd_ref``.  On the card: a delta pass, the dK / dV
-    kernel and the dQ kernel of ``csrc/flash_attn_bwd.cu``, deterministic
-    (no atomics)."""
+    ``flash_attention_bwd_ref`` (bf16: but for p rounded to bf16 before
+    the dv product).  On the card: a delta pass, the dK / dV kernel and the
+    dQ kernel of ``csrc/flash_attn_bwd.cu``, deterministic (no atomics)."""
     if not _lib.on_cuda(q):
         return flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=q_offset, window=window)
     check_bwd_inputs(q, k, v, out, dout, lse)

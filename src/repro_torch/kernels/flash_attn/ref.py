@@ -19,7 +19,9 @@ kv head.  JAX keeps the pair (m, l) a row and forms ``p = exp(s - m) / l``;
 here one fp32 ``lse = m + log l`` does, ``p = exp(s - lse)``, which changes
 only the rounding (within the fp32 tests' 2e-5).  It loops over kv chunks
 as JAX's scan does, so no [S, T] matrix is built whole.  It defines what
-``csrc/flash_attn_bwd.cu`` computes.
+``csrc/flash_attn_bwd.cu`` computes; the bf16 kernels' products take bf16
+operands, so they round p to bf16 before the dv product, one rounding this
+version does not have.
 """
 from __future__ import annotations
 

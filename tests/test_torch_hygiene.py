@@ -57,7 +57,7 @@ def test_nvcc_commands_target_sm90a(tmp_path):
     assert "-shared" in link
     assert all({"-O3", "-std=c++17", "-fPIC"} <= set(c) for c in cmds)
     assert _lib.library_path().name.endswith(f"{_lib.source_hash()}.so")
-    assert all((_lib.CSRC / s).exists() for s in (*_lib.SOURCES, "select.cuh"))
+    assert all((_lib.CSRC / s).exists() for s in (*_lib.SOURCES, "select.cuh", "hopper.cuh"))
 
 
 def test_wrappers_check_the_device():

@@ -138,6 +138,129 @@ def test_flash_attention_grad_on_cpu_equals_autograd_of_ref(shape):
     assert bool(torch.isfinite(torch.cat([x.flatten() for x in got])).all())
 
 
+# bf16: the card's backward is held to the plain version per tensor by
+# |got - want| <= 2**-7 |want| + 2**-8 max |want| (chip_smoke.py's
+# FLASH_BWD_TOL["bfloat16"]): 2**-7 for the two outputs' roundings to bf16
+# (2**-8 of a value each), 2**-8 of the largest for a ds at a rounding
+# boundary that rounds the other way in one of the two, moving one term of a
+# sum by an ulp of that term.  The same limit holds the plain version to JAX.
+BF16_BWD_RTOL, BF16_BWD_ATOL = 2**-7, 2**-8
+
+
+def _within_bf16(got, want, what, atol=BF16_BWD_ATOL):
+    got, want = (x.detach().float() if isinstance(x, torch.Tensor)
+                 else torch.from_numpy(np.array(x, np.float32)) for x in (got, want))
+    assert bool(torch.isfinite(got).all()), f"{what}: not finite"
+    top = float(want.abs().max())
+    bad = (got - want).abs() > BF16_BWD_RTOL * want.abs() + atol * top
+    assert not bool(bad.any()), (f"{what}: {int(bad.sum())} values outside the bf16 limit, "
+                                 f"max err {float((got - want).abs().max()):.3g} of {top:.3g}")
+
+
+def _bf16(x):
+    """A seeded fp32 draw as bf16 (torch), and its exact fp32 values (numpy)."""
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    return t, t.float().numpy()
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 8])
+def test_flash_bwd_ref_bf16_matches_jax(window, g, hd):
+    """The plain backward on bf16 inputs against jax.vjp of JAX's
+    ``_attend_flash`` on the same bf16 values and cotangent, kv_chunk 8: the
+    bf16 semantics (fp32 scores and sums, ds rounded to bf16, dv from fp32
+    p, outputs rounded once) that the card's kernel is held to.  Given
+    JAX's residuals, the fp32 output of ``_flash_fwd_scan`` and lse = m +
+    log l, it is within the bf16 limit.  The card's backward reads the
+    forward's bf16 output for delta instead: that rounding (half a bf16 ulp
+    of each output element) moves delta, and so ds before its rounding,
+    which then rounds the other way in many places; with the output rounded
+    to bf16 the limit's atol is 2**-7 of the largest, twice the
+    kernel-against-plain one."""
+    b, s, kvh = 2, 32, 2
+    arrays = _attn_inputs(b, s, kvh, g, hd, seed=100 + s + g + hd)
+    (tq, q), (tk, k), (tv, v), (tdo, dout) = map(_bf16, arrays)
+    pos = jnp.arange(s, dtype=jnp.int32)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    qg = jq.reshape(b, s, kvh, g, hd)
+    fn = lambda qg, k, v: JL._attend_flash(qg, k, v, pos, pos, window, 8)  # noqa: E731
+    _, vjp = jax.vjp(fn, qg, jk, jv)
+    jdq, jdk, jdv = vjp(jnp.asarray(dout).astype(jnp.bfloat16).reshape(b, s, kvh, g, hd))
+    assert jdq.dtype == jnp.bfloat16
+    want = (np.asarray(jdq.astype(jnp.float32)).reshape(b, s, kvh * g, hd),
+            np.asarray(jdk.astype(jnp.float32)), np.asarray(jdv.astype(jnp.float32)))
+    jout, jm, jl = JL._flash_fwd_scan(qg, jk, jv, pos, pos, window, 8)   # [B, KV, G, S, ...]
+    out = torch.from_numpy(np.array(jout)).permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, hd)
+    lse = torch.from_numpy(np.array(jm + jnp.log(jl))).reshape(b, kvh * g, s)
+    for o, atol in ((out, BF16_BWD_ATOL), (out.to(torch.bfloat16), 2**-7)):
+        got = flash_attention_bwd_ref(tq, tk, tv, o, tdo, lse, window=window, kv_chunk=8)
+        assert got[0].dtype == torch.bfloat16
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            _within_bf16(a, w, f"{name} window {window} G {g} hd {hd} out {o.dtype}", atol)
+
+
+def _tensor_core_bwd_model(q, k, v, out, dout, lse, q_offset, window):
+    """The arithmetic of csrc/flash_attn_bwd.cu's bf16 kernels (tc::dkv_kernel,
+    tc::dq_kernel), in torch: s and dp as fp32 sums of exact bf16 products,
+    p = exp2(s scale log2(e) - lse log2(e)) with the kernel's fp32 constants
+    (0 where masked), ds = p (dp - delta) rounded to bf16, and the products'
+    bf16 A operands: dv from p rounded to bf16 (the one rounding the plain
+    version does not have), dk and dq from ds; fp32 sums, each output rounded
+    to bf16 once after its scale."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    scale = f32(1.0 / hd ** 0.5)
+    scale_log2 = scale * f32(1.4426950408889634)
+    qf, dof, of = (x.float().transpose(1, 2) for x in (q, dout, out))      # [B, H, S, hd]
+    kf, vf = (x.float().repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    delta = (dof * of).sum(-1)                                            # [B, H, S]
+    sc = qf @ kf.transpose(-1, -2)                                        # [B, H, S, T]
+    dp = dof @ vf.transpose(-1, -2)
+    qi = q_offset + torch.arange(s)[:, None]
+    ti = torch.arange(t)[None, :]
+    ok = (ti <= qi) & ((ti > qi - window) if window else True)
+    p = torch.exp2(sc * scale_log2 - (lse * f32(1.4426950408889634))[..., None])
+    p = torch.where(ok, p, 0.0)
+    ds = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    pb = p.to(torch.bfloat16).float()
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale                              # [B, H, T, hd]
+    dv = pb.transpose(-1, -2) @ dof
+    group = lambda x: x.view(b, kvh, g, t, hd).sum(2).transpose(1, 2)     # noqa: E731
+    return (dq.transpose(1, 2).to(torch.bfloat16), group(dk).to(torch.bfloat16),
+            group(dv).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", [(1, 96, 96, 4, 1, 64, 0, None), (2, 80, 80, 2, 2, 256, 0, 17),
+                                   (1, 64, 100, 2, 1, 64, 110, 20), (2, 128, 128, 8, 2, 64, 0, 9),
+                                   (1, 72, 72, 4, 4, 256, 0, None)])
+def test_tensor_core_bwd_rounding_fits_the_bf16_limit(shape):
+    """The bf16 kernel's arithmetic (``_tensor_core_bwd_model``: p rounded to
+    bf16 before dv, ds rounded as the plain version rounds it) against
+    ``flash_attention_bwd_ref`` on the same bf16 inputs, within the bf16
+    limit: windows, G 1 and 4, hd 64 and 256, and rows with no key (the third
+    shape: their dq is 0)."""
+    b, s, t, h, kvh, hd, off, win = shape
+    rng = np.random.default_rng(sum(shape[:6]))
+    draw = lambda *sh: torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(  # noqa
+        torch.bfloat16)
+    q, k, v, dout = draw(b, s, h, hd), draw(b, t, kvh, hd), draw(b, t, kvh, hd), draw(b, s, h, hd)
+    out, lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(), q_offset=off, window=win)
+    out = out.to(torch.bfloat16)  # what the card's bf16 forward gives the backward
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=off, window=win)
+    got = _tensor_core_bwd_model(q, k, v, out, dout, lse, off, win)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _within_bf16(a, w, f"{name} {shape}")
+    empty = ~torch.isfinite(lse)                                          # [B, H, S]
+    pos = off + torch.arange(s)
+    no_key = pos - win + 1 >= t if win else torch.zeros(s, dtype=torch.bool)
+    assert torch.equal(empty, no_key.expand_as(empty)), shape
+    assert bool((got[0].transpose(1, 2)[empty] == 0).all())
+
+
 # ------------------------------------------------------------------ archs
 
 
