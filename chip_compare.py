@@ -5,6 +5,7 @@
   python3 chip_compare.py --walk --variants walk_prefetch_rows,walk_prefetch_adj
   python3 chip_compare.py --scorers --variants score_rows_2,score_rows_8,gather_bulk_copy
   python3 chip_compare.py --attn-merge --parent build/parent/src --variants f32_stages_2
+  python3 chip_compare.py --attn-bwd --parent build/parent/src --variants x3_no_split
   python3 chip_compare.py --faults [score_skips_last_row,quant_scale_before_sum]
 
 Each variant or fault is a named edit of a source (EDITS below), applied
@@ -21,7 +22,11 @@ int8) and in an IpNSW search of 256 queries at Yahoo!Music's size; with
 cells (float inputs) beside their witness, the previous one-warp-a-row
 kernel, in the same process; with ``--attn-merge`` it times the fp32
 ``flash_attention`` at phase 3's three model cells and ``topk_merge`` at
-its walk, throughput and ef-400 cells.  ``--parent`` adds the ``src/`` of
+its walk, throughput and ef-400 cells; with ``--attn-bwd`` the fp32
+and bf16 attention backward at phase 11's five train cells (or those
+BWD_CELLS names, comma-separated), and the device time of each of its
+three kernels, after phase 11 (a)'s fp32 check at its edges (a parent tree
+whose entry points take other arguments is timed, not checked).  ``--parent`` adds the ``src/`` of
 another commit, unpacked where the build ignores it (``git archive <commit>
 src | tar -x -C build/parent``), to the turns as ``parent``: how a kernel
 compares with its previous design on the same card.  ``--faults`` runs each planted fault
@@ -600,10 +605,38 @@ EDITS.update({
           "  return __uint_as_float(w == 0x7fffffffu ? 0x80000000u : w == 0x80000000u ? 0u\n"
           "                         : w >> 31 ? w : w ^ 0x7fffffffu);")]),
 })
+BWD = f"{CSRC}/flash_attn_bwd.cu"
+EDITS.update({
+    "x3_no_transpose": (
+        "fp32 backward whose producer warps skip the transposed copies (answers wrong; "
+        "timing only: what the copies cost)",
+        [(BWD, "    if constexpr (TR) {\n", "    if constexpr (TR && HD < 0) {\n")]),
+    "x3_no_split": (
+        "fp32 backward whose producer warps split nothing (answers wrong; timing only: the "
+        "consumers' pace alone)",
+        [(BWD, "  for (int u = h; u < (R / 4) * CG; u += kHelpers) {\n",
+          "  for (int u = h; u < 0; u += kHelpers) {\n")]),
+    "x3_one_pass": (
+        "fault: the fp32 backward's s and dp products in one tf32 pass (big . big only), "
+        "hd 32 and 64",
+        [(BWD, """  for (int i = 0; i < NK; ++i) {  // the small terms first
+    wgmma_tf32<N>(d, as[i], nat_desc<N>(bb, i));
+    wgmma_tf32<N>(d, ab[i], nat_desc<N>(bs, i));
+  }
+""", """  for (int i = 0; i < 0; ++i) {
+  }
+""")]),
+    "x3m_one_pass": (
+        "fault: the fp32 backward's s products in one tf32 pass (big . big only), hd 128 and 256",
+        [(BWD, "        mma_3xtf32(ps + 4 * j, ab, as, bb, bs);",
+          "        mma_tf32(ps + 4 * j, ab, bb);")]),
+})
+
 FAULTS = ("dropped_kv_tile", "ragged_depth", "select_drops_bin_key", "commit_keeps_repeated_slot",
           "commit_skips_round_2", "score_skips_last_row", "quant_scale_before_sum",
           "quant_scores_minus_one", "f32_dropped_kv_tile", "f32_skips_corr",
-          "f32_unmasked_diagonal", "merge_last_occurrence", "merge_neg_zero_first")
+          "f32_unmasked_diagonal", "merge_last_occurrence", "merge_neg_zero_first",
+          "x3_one_pass", "x3m_one_pass")
 
 TIMING = r'''
 import torch, repro_torch, chip_smoke as cs
@@ -724,7 +757,53 @@ for cell, shape in {**cs.MERGE_SHAPES, **cs.MERGE_WIDE_SHAPES}.items():
 print("RESULT", " ".join(out), flush=True)
 '''
 
+ATTN_BWD_TIMING = r'''
+import os, torch, repro_torch, chip_smoke as cs
+from repro_torch.kernels.flash_attn import flash_attention_bwd, ops
+cs.phase_env()
+cs.warm_up_profiler()
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+out = []
+for edge in cs.FLASH_BWD_EDGES:  # phase 11 (a)'s check, fp32
+    try:
+        cs.check_flash_bwd_cell(edge, cs.FLASH_BWD_EDGES[edge], torch.float32, g)
+        out.append(f"{edge}=ok")
+    except AssertionError as e:
+        out.append(f"{edge}=FAILS({str(e)[:80]!r})")
+    except (TypeError, ValueError) as e:  # a parent tree of another API: timed, not checked
+        out.append(f"{edge}=unchecked({type(e).__name__})")
+for cell in os.environ.get("BWD_CELLS", ",".join(cs.FLASH_BWD_CELLS)).split(","):
+    shape = cs._bwd_shape(cell)
+    b, s, t, h, kv, hd, off, win = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = cs._flash_inputs(shape, dtype, g)
+        dout = torch.randn((b, s, h, hd), generator=g, device="cuda").to(dtype)
+        _, lse, *res = ops._forward_kernel(q, k, v, off, win, with_lse=True)
+        res = res[0] if res else _  # a tree before the fp32 residual: fp32 out is its own
+        run = lambda: flash_attention_bwd(q, k, v, res, dout, lse, q_offset=off, window=win)
+        ms = cs.cuda_ms(run, reps=3, warmup=1)
+        parts = {n: cs.device_ms(run, reps=2, only=f"{n}_kernel", once=True)
+                 for n in ("delta", "dkv", "dq")}
+        out.append(f"flash_attn_bwd[{str(dtype)[6:]}]/{cell}={ms:.4f}("
+                   + ",".join(f"{n}={v:.3f}" for n, v in parts.items()) + ")")
+        del q, k, v, dout, lse, res
+        torch.cuda.empty_cache()
+print("RESULT", " ".join(out), flush=True)
+'''
+
 FAULT_CHECKS = {
+    "x3_one_pass": r'''
+import torch, repro_torch, chip_smoke as cs
+cs.phase_env()
+g = torch.Generator(device="cuda"); g.manual_seed(0)
+for cell in ("g1", "window_17"):
+    shape = cs.FLASH_BWD_EDGES[cell]
+    try:
+        cs.check_flash_bwd_cell(cell, shape, torch.float32, g)
+        print("RESULT not caught", cell, flush=True)
+    except AssertionError as e:
+        print("RESULT caught", cell, str(e)[:200], flush=True)
+''',
     "dropped_kv_tile": r'''
 import torch, repro_torch, chip_smoke as cs
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
@@ -779,6 +858,8 @@ except AssertionError as e:
     print("RESULT caught", str(e)[:200], flush=True)
 ''',
 }
+FAULT_CHECKS["x3m_one_pass"] = FAULT_CHECKS["x3_one_pass"].replace(
+    '("g1", "window_17")', '("hd256", "hd256_window_17", "ragged_s")')
 FAULT_CHECKS["commit_keeps_repeated_slot"] = FAULT_CHECKS["commit_merge"]
 FAULT_CHECKS["commit_skips_round_2"] = FAULT_CHECKS.pop("commit_merge")
 FAULT_CHECKS["score_skips_last_row"] = r'''
@@ -865,6 +946,8 @@ def main() -> int:
                     help="time gather_score and quant_score (and their witness), not the scans")
     ap.add_argument("--attn-merge", action="store_true",
                     help="time flash_attn fp32 and topk_merge, not the scans")
+    ap.add_argument("--attn-bwd", action="store_true",
+                    help="time the fp32 attention backward (and its kernels), not the scans")
     ap.add_argument("--parent", default="",
                     help="a src/ tree of another commit (git archive), timed in turns as 'parent'")
     args = ap.parse_args()
@@ -882,7 +965,8 @@ def main() -> int:
                  + ([("parent", (ROOT / args.parent).resolve())] if args.parent else [])
                  + [(n, tree(n)) for n in names])
         code = (WALK_TIMING if args.walk else SCORER_TIMING if args.scorers
-                else ATTN_MERGE_TIMING if args.attn_merge else TIMING)
+                else ATTN_MERGE_TIMING if args.attn_merge
+                else ATTN_BWD_TIMING if args.attn_bwd else TIMING)
         for label, src in trees + trees[::-1]:
             lines = run(src, code)
             phases = [ln for ln in lines if ln.startswith("phases")]

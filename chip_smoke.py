@@ -52,9 +52,10 @@ Phases (each one that fails ends the run with a non-zero exit):
      torch.cuda.set_sync_debug_mode("error"): no read-back from the card.
      A "roofline" line gives each
      redesigned kernel's TFLOP/s, share of its bound and ms over
-     library_ms; phase 2 counts the tensor-core instructions of the bf16
-     attention kernels' SASS (cuobjdump): the forward and the backward's
-     dK / dV and dQ kernels must have wgmma (HGMMA).  beam_walk, the whole walk in one launch,
+     library_ms; phase 2 counts the tensor-core instructions of the
+     attention kernels' SASS (cuobjdump): the bf16 forward and the bf16 and
+     fp32 backwards' dK / dV and dQ kernels must have wgmma (HGMMA) or, the
+     fp32 ones at hd 128 and 256, mma.sync (HMMA).  beam_walk, the whole walk in one launch,
      runs in every variant (f32, int8, each with and without a tombstone
      mask) at the main path's walks (WALK_SHAPES; the hierarchy's descent,
      a pool of one, and its upper levels' build walk among them), at pad
@@ -274,15 +275,18 @@ nothing then, and are not counted): ``count_graph_launches``.
      train/optimizer.py adamw_update_, configs train_4k, launch/train.py):
      (a) the flash_attn backward (its delta, dK / dV and dQ kernels) against
      flash_attention_bwd_ref on the same inputs (q, k, v, the forward
-     kernel's out and lse, a seeded dout) at its edges (FLASH_BWD_EDGES:
+     kernel's fp32 output -- bf16: the residual it writes beside its bf16
+     output -- and lse, a seeded dout) at its edges (FLASH_BWD_EDGES:
      ragged S, hd 32 and 256, G 1, a window of 17, a q_offset, rows with no
-     key, whose gradients must be 0; fp32 and bf16) and at each train
-     cell's attention (FLASH_BWD_CELLS at LM_TRAIN_CUTS' batch: granite,
-     gemma local and global, internlm2, qwen3; bf16, granite also fp32)
-     within FLASH_BWD_TOL, the forward's lse within LSE_ATOL of the plain
-     version's on fp32 values, two runs bit-identical; each cell timed
-     beside its plain version, SDPA's backward and a bound of 10 hd flops a
-     pair; (b) every train_4k cell through LMArch.build_cell at the
+     key, whose gradients must be 0, and the last three again at hd 256;
+     fp32 and bf16) and at each train cell's attention (FLASH_BWD_CELLS at
+     LM_TRAIN_CUTS' batch: granite, gemma local and global, internlm2,
+     qwen3; bf16, granite, internlm2 and gemma global also fp32) within
+     FLASH_BWD_TOL, the forward's lse within LSE_ATOL of the plain
+     version's on fp32 values, two runs
+     bit-identical; each cell timed beside its plain version, SDPA's
+     backward and a bound of 10 hd flops a pair (fp32: 3 x 10 hd on the
+     tensor cores in 3xTF32, with the fp32-unit bound beside); (b) every train_4k cell through LMArch.build_cell at the
      published widths cut by LM_TRAIN_CUTS (bf16, seeded weights drawn on
      the card): LM_TRAIN_STEPS steps (ms a step as the mean of steps 2-3,
      tokens/s, model-flops share of 989 TFLOP/s, peak memory, the batch
@@ -307,7 +311,8 @@ nothing then, and are not counted): ``count_graph_launches``.
      run, each loss within LM_LAUNCHER_RTOL.  Every layer call that needs
      a gradient is one backward launch, and under remat two forward
      launches ((b): bf16) or one without ((d): fp32): the launches of (b)
-     and (d) must equal those calls, and are added to the kernels line.
+     and (d) must equal those calls; they and (c)'s fp32 launches (its
+     block VJPs and free run) are added to the kernels line.
 The line before the last is the JSON list of kernels; the last line is the
 JSON result the run is read by.
 """
@@ -364,6 +369,7 @@ PROFILER_SESSIONS = 8      # sessions device_ms tries before it gives up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
+TF32_FLOP_PER_S = 495e12   # H100 SXM dense tf32 on the tensor cores
 
 N_FULL, D_FULL = 136_736, 300  # Yahoo!Music (paper §5 dataset table)
 # the full-size loop: 4,096 queries at 2,000 QPS on _build_ladder(256, 40)
@@ -601,9 +607,12 @@ def ptxas_usage(name: str) -> dict:
 # SASS opcodes counted in the attention kernels: the tensor-core products of
 # the bf16 kernels (HGMMA: wgmma, HMMA: mma.sync), the forward and the
 # backward's dK / dV and dQ kernels (tc::dkv_kernel, tc::dq_kernel, by their
-# mangled names); the fp32 kernel's FMAs and shared-memory traffic (LDS.128:
+# mangled names), and of the fp32 backward's 3xTF32 kernels (x3::dkv_kernel,
+# x3::dq_kernel on wgmma; x3m::dkv_kernel, x3m::dq_kernel on mma.sync, hd
+# 128 and 256); the fp32 forward's FMAs and shared-memory traffic (LDS.128:
 # float4 reads)
-TC_KERNELS = ("flash_attn_bf16_kernel", "2tc10dkv_kernel", "2tc9dq_kernel")
+TC_KERNELS = ("flash_attn_bf16_kernel", "2tc10dkv_kernel", "2tc9dq_kernel", "2x310dkv_kernel",
+              "2x39dq_kernel", "3x3m10dkv_kernel", "3x3m9dq_kernel")
 SASS_OPS = {**{k: ("HGMMA", "HMMA") for k in TC_KERNELS},
             "flash_attn_f32_kernel": ("FFMA", "LDS.128", "LDS", "STS.128", "STS", "SHFL",
                                       "MUFU.EX2")}
@@ -5222,12 +5231,20 @@ FLASH_BWD_EDGES = {"ragged_s": (2, 1000, 1000, 4, 2, 128, 0, None),
                    "g1": (2, 300, 300, 4, 4, 64, 0, None),
                    "window_17": (2, 700, 700, 8, 2, 64, 0, 17),
                    "q_offset": (1, 200, 600, 4, 2, 64, 400, None),
-                   "rows_without_keys": (1, 64, 100, 2, 1, 64, 110, 20)}
+                   "rows_without_keys": (1, 64, 100, 2, 1, 64, 110, 20),
+                   # the mask's edges again at hd 256 (x3m's fp32 tiles: 32 rows)
+                   "hd256_window_17": (1, 300, 300, 4, 2, 256, 0, 17),
+                   "hd256_q_offset": (1, 200, 600, 4, 2, 256, 400, None),
+                   "hd256_rows_without_keys": (1, 64, 100, 2, 1, 256, 110, 20)}
 # (a) the train shapes, from each arch's attention and its LM_TRAIN_CUTS batch
 FLASH_BWD_CELLS = {"granite": ("granite-3-2b", None), "gemma_local": ("gemma3-12b", 1024),
                    "gemma_global": ("gemma3-12b", None), "internlm2": ("internlm2-20b", None),
                    "qwen3": ("qwen3-moe-235b-a22b", None)}
+# fp32 too: one cell for each tiling of the fp32 kernels (x3 at hd 64, x3m at
+# hd 128 and 256)
+FLASH_BWD_F32_CELLS = ("granite", "internlm2", "gemma_global")
 BWD_FLOPS_PER_PAIR = 10  # a pair's five hd-long products (s, dp, dq, dk, dv), 2 hd each
+TF32_PASSES = 3          # fp32 backward: 3xTF32, three tensor-core products a product
 PLAIN_KV_CHUNK = 256     # the plain backward's keys a step on the card
 # (c) card against CPU: one pattern cycle of each arch at the published
 # widths, fp32, batch 1, 256 tokens, loss_chunk 128: LM_CPU_LAYERS, but
@@ -5337,7 +5354,9 @@ def check_flash_bwd_cell(name: str, shape, dtype, g, timed: bool = False) -> dic
     dname = str(dtype).split(".")[-1]
     q, k, v = _flash_inputs(shape, dtype, g)
     dout = torch.randn((b, s, h, hd), generator=g, device="cuda").to(dtype)
-    out, lse = ops._forward_kernel(q, k, v, off, win, with_lse=True)
+    out, lse, res = ops._forward_kernel(q, k, v, off, win, with_lse=True)
+    if dtype == torch.bfloat16:  # the residual is what out was rounded from
+        assert torch.equal(res.to(dtype), out), f"flash_attn {name}: residual is not out's source"
     lse_err = None
     if not timed:
         _, want_lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(), q_offset=off,
@@ -5346,10 +5365,10 @@ def check_flash_bwd_cell(name: str, shape, dtype, g, timed: bool = False) -> dic
         assert bool((torch.isfinite(lse) == seen).all()), f"lse {name}/{dname}: -inf rows differ"
         lse_err = float((lse - want_lse)[seen].abs().max()) if bool(seen.any()) else 0.0
         assert lse_err <= LSE_ATOL, f"lse {name}/{dname}: {lse_err:.3g} from the plain version"
-    run = lambda: flash_attention_bwd(q, k, v, out, dout, lse, q_offset=off, window=win)  # noqa
+    run = lambda: flash_attention_bwd(q, k, v, res, dout, lse, q_offset=off, window=win)  # noqa
     got = run()
     again = run()
-    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=off, window=win,
+    want = flash_attention_bwd_ref(q, k, v, res, dout, lse, q_offset=off, window=win,
                                    kv_chunk=PLAIN_KV_CHUNK)
     torch.cuda.synchronize()
     same = all(torch.equal(a, w) for a, w in zip(got, again))
@@ -5359,7 +5378,7 @@ def check_flash_bwd_cell(name: str, shape, dtype, g, timed: bool = False) -> dic
     assert bool((got[0][:, empty] == 0).all()), f"flash_attn_bwd {name}: a row with no key moved"
     del want, again
     torch.cuda.empty_cache()
-    res = dict(max_abs_err=err)
+    result = dict(max_abs_err=err)
     line = (f"kernel=flash_attn_bwd {'cell' if timed else 'edge'}={name} dtype={dname} B={b} "
             f"S={s} T={t} H={h} KV={kv} hd={hd} q_offset={off} window={win} "
             f"err_of_largest={err:.3g} (rtol, atol={FLASH_BWD_TOL[dname]}) deterministic=True"
@@ -5370,36 +5389,46 @@ def check_flash_bwd_cell(name: str, shape, dtype, g, timed: bool = False) -> dic
         # share is nil, and in a long process torch.profiler's sessions lose
         # these launches' events (8 sessions in a row at gemma's global cell)
         ms = cuda_ms(run, reps=3, warmup=1)
-        plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=off,
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, res, dout, lse, q_offset=off,
                                                            window=win, kv_chunk=PLAIN_KV_CHUNK),
                            reps=1, warmup=1)
         torch.cuda.empty_cache()
         library_ms = cuda_ms(_sdpa_bwd(q, k, v, dout, off, win), reps=3, warmup=1)
         torch.cuda.empty_cache()
         itemsize = q.element_size()
-        nbytes = (4 * q.numel() + 4 * k.numel()) * itemsize + lse.numel() * 4
+        # q, dout, dq, and the fp32 residual; k, v, dk, dv; lse
+        nbytes = (3 * q.numel() + 2 * k.numel() * 2) * itemsize + res.numel() * 4 \
+            + lse.numel() * 4
         pairs = _flash_pairs(s, t, off, win) * b * h
         flops = float(BWD_FLOPS_PER_PAIR * hd * pairs)
-        rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
-        bound_ms, by = bound(nbytes, flops, rate)
-        res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=by)
+        if dtype == torch.float32:  # 3xTF32 on the tensor cores; the fp32 units' bound beside
+            passes, rate = TF32_PASSES, TF32_FLOP_PER_S
+            fma_ms, _ = bound(nbytes, flops, FP32_FLOP_PER_S)
+            beside = f" fp32_fma_bound_ms={fma_ms:.4f}"
+            result.update(fp32_fma_bound_ms=fma_ms)
+        else:
+            passes, rate, beside = 1, BF16_FLOP_PER_S, ""
+        bound_ms, by = bound(nbytes, passes * flops, rate)
+        result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                      bound_by=by)
         line += (f" pairs={pairs:.4g} ms={ms:.3f} plain_ms={plain_ms:.3f} (both CUDA events) "
                  f"library_ms={library_ms:.3f} (SDPA backward, CUDA events) "
                  f"bound_ms={bound_ms:.4f} bound_by={by} (rate {rate / 1e12:.0f} TFLOP/s, "
-                 f"{BWD_FLOPS_PER_PAIR} hd flops a pair) share_of_bound={bound_ms / ms:.4f} "
-                 f"tflops_at_14hd={14 * hd * pairs / ms / 1e9:.2f}")
+                 f"{passes} x {BWD_FLOPS_PER_PAIR} hd flops a pair){beside} "
+                 f"share_of_bound={bound_ms / ms:.4f} "
+                 f"tflops_at_14hd={passes * 14 * hd * pairs / ms / 1e9:.2f}"
+                 + (" (tf32 flops: 3 passes)" if passes > 1 else ""))
     log(line)
-    del q, k, v, dout, out, lse, got
+    del q, k, v, dout, out, lse, res, got
     torch.cuda.empty_cache()
-    return res
+    return result
 
 
 def phase_lm_train_kernels(g) -> dict:
     """(a) The backward kernel at its edges (fp32 and bf16) and at each
-    train cell's attention (bf16; granite's also fp32), each timed beside
-    its plain version, SDPA's backward and its bound.  Returns the timings
-    of the kernels line (granite's attention)."""
+    train cell's attention (bf16; FLASH_BWD_F32_CELLS' also fp32),
+    each timed beside its plain version, SDPA's backward and its bound.
+    Returns the timings of the kernels line (granite's attention)."""
     import torch
 
     for cell, shape in FLASH_BWD_EDGES.items():
@@ -5407,7 +5436,8 @@ def phase_lm_train_kernels(g) -> dict:
             check_flash_bwd_cell(cell, shape, dtype, g)
     out = {}
     for cell in FLASH_BWD_CELLS:
-        dtypes = (torch.float32, torch.bfloat16) if cell == "granite" else (torch.bfloat16,)
+        dtypes = ((torch.float32, torch.bfloat16) if cell in FLASH_BWD_F32_CELLS
+                  else (torch.bfloat16,))
         for dtype in dtypes:
             res = check_flash_bwd_cell(cell, _bwd_shape(cell), dtype, g, timed=True)
             if cell == "granite":
@@ -5734,10 +5764,11 @@ def phase_lm_train_launcher() -> int:
 
 
 def phase_lm_train() -> tuple:
-    """Phase 11: LM training on the card.  Returns (the launches of (b) and
-    (d), the backward kernels' timings for the kernels line).  Every layer
-    call that needs a gradient is one backward launch and, under remat, two
-    forward launches (bf16, (b)); without remat one ((d), fp32)."""
+    """Phase 11: LM training on the card.  Returns (the launches of (b), (c)
+    and (d), the backward kernels' timings for the kernels line).  In (b)
+    and (d) every layer call that needs a gradient is one backward launch
+    and, under remat, two forward launches (bf16, (b)); without remat one
+    ((d), fp32)."""
     import torch
 
     gc.collect()
@@ -5754,19 +5785,22 @@ def phase_lm_train() -> tuple:
     bf16_calls = sum(phase_lm_train_cell(aid, g) for aid in LM_TRAIN_CUTS)
     f32_calls = phase_lm_train_launcher()
     counts = _read_counts()
-    t2 = time.perf_counter()
-    with uncounted():
-        for aid in LM_ARCHS:
-            phase_lm_train_cpu(aid)
-    log(f"lm train phase: kernels {t1 - t0:.1f} s, cells and launcher {t2 - t1:.1f} s, card vs "
-        f"CPU {time.perf_counter() - t2:.1f} s; launches={ {n: counts[n] for n in TRAIN_KERNELS} } "
-        f"(bf16 layer calls with a gradient {bf16_calls}, fp32 {f32_calls})")
     want = {"flash_attn_bwd_bf16": bf16_calls, "flash_attn_bf16": 2 * bf16_calls,
             "flash_attn_bwd": f32_calls, "flash_attn": f32_calls}
     assert all(counts[n] == want[n] for n in want), \
         f"lm train: attention ran other than its kernels once a layer call: {counts} {want}"
-    _assert_path("lm train", counts, TRAIN_KERNELS)
-    return counts, timings
+    t2 = time.perf_counter()
+    for aid in LM_ARCHS:  # (c): the fp32 block VJPs and free runs launch on the main path too
+        phase_lm_train_cpu(aid)
+    with_c = _read_counts()
+    c_launches = {n: with_c[n] - counts[n] for n in TRAIN_KERNELS}
+    log(f"lm train phase: kernels {t1 - t0:.1f} s, cells and launcher {t2 - t1:.1f} s, card vs "
+        f"CPU {time.perf_counter() - t2:.1f} s; launches of (b) and (d)="
+        f"{ {n: counts[n] for n in TRAIN_KERNELS} } (bf16 layer calls with a gradient "
+        f"{bf16_calls}, fp32 {f32_calls}); of (c)={c_launches}")
+    assert c_launches["flash_attn_bwd"] > 0, f"lm train (c): no fp32 backward launch: {c_launches}"
+    _assert_path("lm train", with_c, TRAIN_KERNELS)
+    return with_c, timings
 
 
 # kernel -> (its source, the TPU kernel it replaces)

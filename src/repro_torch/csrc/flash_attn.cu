@@ -15,8 +15,10 @@
 // (training: the backward of csrc/flash_attn_bwd.cu recomputes p from it)
 // both kernels also write each row's log-sum-exp of its scaled scores,
 // lse = ln sum_t exp(s_t / sqrt(hd)) = (m + log2 l) ln 2 with m in log2
-// units, fp32 [B, H, S], -inf for a row with no key; with a null pointer the
-// serving path is unchanged.  The semantics of a row
+// units, fp32 [B, H, S], -inf for a row with no key, and the bf16 kernel
+// given an ``out_f32`` pointer writes acc / max(l, 1e-30) in fp32 too (the
+// backward's delta reads it, as JAX's reads its fp32 residual); with null
+// pointers the serving path is unchanged.  The semantics of a row
 // with no key in its window are the plain reference's
 // (src/repro/kernels/flash_attn/ref.py:19): it is 0.  The Pallas kernel's
 // finite -1e30 mask gives every masked p the value 1 there and returns the
@@ -29,10 +31,13 @@
 // and writes out once, far fewer bytes than that at these shapes (causal
 // S = T = 4096, hd 64: 6.9e10 flops against 84 MB in fp32).
 //
-// fp32: the CUDA cores' fp32 FMAs (67 TFLOP/s); TF32 tensor cores would
-// break the fp32 contract (2e-5).  Both products are register-tiled, so the
-// FMAs and not shared memory set the pace.  One block of 8 warps per (q tile,
-// head, batch), the q tiles with the most keys launched first.  A warp holds
+// fp32: the CUDA cores' fp32 FMAs (67 TFLOP/s).  One TF32 tensor-core pass
+// would break the fp32 contract (2e-5): it keeps 10 of an operand's 23
+// mantissa bits.  3xTF32 (three passes on split operands, about 2^-22 of a
+// product) would not: csrc/flash_attn_bwd.cu's fp32 backward runs so.
+// Both products are register-tiled, so the FMAs and not shared memory set
+// the pace.  One block of 8 warps per (q tile, head, batch), the q tiles
+// with the most keys launched first.  A warp holds
 // two row groups of 16 lanes; a thread owns kTR query rows of its group
 // (rows 2i + g of the warp's 2 kTR) and keeps their running max, its own
 // partial denominator and kTR x hd/16 accumulators in registers:
@@ -444,8 +449,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, Cfg<HD>::kBlocksPerSm) flash_attn_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int S, int T_, int H, int KV, float scale_log2, int q_offset,
-    int window) {
+    float* __restrict__ lse, float* __restrict__ out_f32, int S, int T_, int H, int KV,
+    float scale_log2, int q_offset, int window) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
@@ -618,12 +623,15 @@ __global__ void __launch_bounds__(kThreads, Cfg<HD>::kBlocksPerSm) flash_attn_bf
           sum > 0.f ? (m[hf] * scale_log2 + log2f(sum)) * kLn2 : -INFINITY;
     }
     if (row < S) {
-      __nv_bfloat16* orow =
-          out + ((static_cast<size_t>(b) * S + row) * H + h) * HD + cq;
+      const size_t at = ((static_cast<size_t>(b) * S + row) * H + h) * HD + cq;
 #pragma unroll
       for (int i = 0; i < HD / 8; ++i) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
-            __floats2bfloat162_rn(o[4 * i + 2 * hf] * inv, o[4 * i + 2 * hf + 1] * inv);
+        const float x0 = o[4 * i + 2 * hf] * inv, x1 = o[4 * i + 2 * hf + 1] * inv;
+        *reinterpret_cast<__nv_bfloat162*>(out + at + 8 * i) = __floats2bfloat162_rn(x0, x1);
+        // training: the fp32 value the bf16 one was rounded from (the backward's delta)
+        if (out_f32 != nullptr) {
+          *reinterpret_cast<float2*>(out_f32 + at + 8 * i) = make_float2(x0, x1);
+        }
       }
     }
   }
@@ -638,10 +646,14 @@ __global__ void fill_kernel(float* __restrict__ x, size_t n, float value) {
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, int B, int S, int T_, int H, int KV,
-           float scale, int q_offset, int window, void* out, float* lse, cudaStream_t stream) {
+           float scale, int q_offset, int window, void* out, float* lse, float* out_f32,
+           cudaStream_t stream) {
   using C = Cfg<HD>;
   if (T_ == 0) {  // no key: every row is 0, its lse -inf
     cudaMemsetAsync(out, 0, static_cast<size_t>(B) * S * H * HD * 2, stream);
+    if (out_f32 != nullptr) {
+      cudaMemsetAsync(out_f32, 0, static_cast<size_t>(B) * S * H * HD * 4, stream);
+    }
     if (lse != nullptr) {
       fill_kernel<<<64, 256, 0, stream>>>(lse, static_cast<size_t>(B) * H * S, -INFINITY);
     }
@@ -661,7 +673,7 @@ int launch(const void* q, const void* k, const void* v, int B, int S, int T_, in
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_attn_bf16_kernel<HD><<<grid, kThreads, C::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, S, T_, H, KV,
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, out_f32, S, T_, H, KV,
       scale * 1.4426950408889634f, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -693,17 +705,24 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v, int B
   }
 }
 
-// The same for bf16 q, k, v (16-byte aligned: TMA reads them) and out.
+// The same for bf16 q, k, v (16-byte aligned: TMA reads them) and out;
+// out_f32: [B, S, H, hd] fp32, the values out was rounded from, or null (the
+// serving path).
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v, int B, int S,
                                int T, int H, int KV, int hd, float scale, int q_offset,
-                               int window, void* out, void* lse, void* stream) {
+                               int window, void* out, void* lse, void* out_f32, void* stream) {
   float* lf = static_cast<float*>(lse);
+  float* of = static_cast<float*>(out_f32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return tc::launch<32>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
-    case 64: return tc::launch<64>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
-    case 128: return tc::launch<128>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
-    case 256: return tc::launch<256>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, st);
+    case 32:
+      return tc::launch<32>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, of, st);
+    case 64:
+      return tc::launch<64>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, of, st);
+    case 128:
+      return tc::launch<128>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, of, st);
+    case 256:
+      return tc::launch<256>(q, k, v, B, S, T, H, KV, scale, q_offset, window, out, lf, of, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

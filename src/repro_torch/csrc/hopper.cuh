@@ -1,10 +1,12 @@
 // hopper.cuh: the Hopper building blocks of the tensor-core attention kernels
-// (csrc/flash_attn.cu's forward, csrc/flash_attn_bwd.cu's bf16 backward):
+// (csrc/flash_attn.cu's forward, csrc/flash_attn_bwd.cu's backward):
 // mbarriers, TMA tile loads and their tensor maps, wgmma shared-memory
-// descriptors, the wgmma products (SS: both operands in shared memory; RS: A
-// from registers) and their fences, bf16 packing.  Every tile is a TMA box of
-// kBoxRows positions x (swizzle bytes / 2) columns of one head, in the 128- or
-// 64-byte swizzle that the descriptors name.
+// descriptors, the wgmma products (bf16 SS: both operands in shared memory;
+// bf16 and tf32 RS: A from registers) and their fences, bf16 packing, the
+// 3xTF32 split and the tf32 mma.sync product (both operands from
+// registers).  A TMA tile is a box of kBoxRows (or box_rows) positions x
+// (swizzle bytes / element size) columns of one head, in the 128- or 64-byte
+// swizzle that the descriptors name.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
@@ -232,6 +234,156 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 256) wgmma_rs_n256(d, a, desc);
 }
 
+// D[64 x 8] += A[64 x 8] . B[8 x 8], tf32: A from registers (four values a
+// thread), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n8(float (&d)[4],
+                                                const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 16] += A[64 x 8] . B[8 x 16], tf32: A from registers (four values a
+// thread), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
+                                                const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 8] . B[8 x 32], tf32: A from registers (four values a
+// thread), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                                const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] . B[8 x 64], tf32: A from registers (four values a
+// thread), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                                const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 8] . B[8 x 128], tf32: A from registers (four values a
+// thread), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                                const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x N] += A[64 x 8] . B[8 x N] in tf32, N in {8, 16, 32, 64, 128}.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128, "no tf32 wrapper for N");
+  if constexpr (N == 8) wgmma_tf32_n8(d, a, desc);
+  if constexpr (N == 16) wgmma_tf32_n16(d, a, desc);
+  if constexpr (N == 32) wgmma_tf32_n32(d, a, desc);
+  if constexpr (N == 64) wgmma_tf32_n64(d, a, desc);
+  if constexpr (N == 128) wgmma_tf32_n128(d, a, desc);
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from zero;
+// the low 13 bits of the result are 0.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split: x = big + small + O(2^-22 |x|), big = tf32(x), small =
+// tf32(x - big) (x - big is exact in fp32).  Both parts are rounded
+// explicitly: the tensor cores are not relied on to drop an operand's low bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// D[16 x 8] += A[16 x 8] . B[8 x 8] in tf32 on the tensor cores by mma.sync
+// (both operands from registers): the m16n8k8 fragments, with g = lane / 4,
+// t = lane % 4: a = (row g, column t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
+// b = (row t, column g), (t + 4, g); d = (g, 2 t), (g, 2 t + 1), (g + 8, 2 t),
+// (g + 8, 2 t + 1).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b in 3xTF32 from split fragments: small . big and big . small,
+// then big . big.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big);
+  mma_tf32(d, a_big, b_small);
+  mma_tf32(d, a_big, b_big);
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma operands) and writes (TMA) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -257,19 +409,25 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a [batch, positions, heads, hd] bf16 tensor, boxes of kBoxRows
-// positions x box_cols columns of one head.
+// The map of a [batch, positions, heads, hd] tensor of T (bf16 or fp32),
+// boxes of box_rows positions x box_cols columns of one head.
+template <typename T = __nv_bfloat16>
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int positions, int heads,
-                       int hd, int box_cols, CUtensorMapSwizzle swizzle) {
+                       int hd, int box_cols, CUtensorMapSwizzle swizzle,
+                       int box_rows = kBoxRows) {
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or fp32");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * sizeof(T);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(positions), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {row, row * heads, row * heads * positions};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, kBoxRows, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+  const CUtensorMapDataType type =
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

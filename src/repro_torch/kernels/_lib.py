@@ -42,7 +42,7 @@ SIGNATURES = {
     "commit_merge_f32": [_P] * 5 + [_I] * 3 + [_P],
     "empty_launch": [_I] * 2 + [_P],
     "flash_attn_f32": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 2 + [_P],
-    "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 2 + [_P],
+    "flash_attn_bf16": [_P] * 3 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 3 + [_P],
     "flash_attn_bwd_f32": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 4 + [_P],
     "flash_attn_bwd_bf16": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 2 + [_P] * 4 + [_P],
     "gather_score_f32": [_P] * 3 + [_I] * 3 + [_P] + [_P],

@@ -1,18 +1,20 @@
 """flash_attn wrappers: a CPU tensor runs the plain version, a CUDA tensor
 launches a kernel of ``csrc/flash_attn.cu`` (forward) or
-``csrc/flash_attn_bwd.cu`` (backward) or raises.  fp32 inputs go to the
-fp32-unit kernels, bf16 ones to the tensor-core kernels (wgmma fed by TMA),
-forward and backward; q, k and v of one type, hd in {32, 64, 128, 256}; any
-sequence lengths (the Pallas kernel's ``bq`` / ``bk`` tiling knobs are
-gone).
+``csrc/flash_attn_bwd.cu`` (backward) or raises.  The fp32 forward runs on
+the fp32 units, the fp32 backward on the tensor cores in 3xTF32 (each
+operand split in two tf32 parts, three products a product: fp32's
+accuracy), bf16 forward and backward on the tensor cores (wgmma fed by
+TMA); q, k and v of one type, hd in {32, 64, 128, 256}; any sequence
+lengths (the Pallas kernel's ``bq`` / ``bk`` tiling knobs are gone).
 
 ``flash_attention`` is differentiable: when a gradient is needed it runs
 ``_FlashAttention``, whose forward also writes each row's log-sum-exp and
-whose backward is ``flash_attention_bwd`` (the JAX package's custom VJP,
-``models/layers.py: _attend_flash``).  ``flash_attention.launches`` and
-``launches_bf16`` count the fp32 and bf16 forward launches of both entry
-points, ``launches_bwd`` and ``launches_bwd_bf16`` the backward's (plain
-runs do not count)."""
+keeps the fp32 output (bf16: the values its output was rounded from, JAX's
+residual), and whose backward is ``flash_attention_bwd`` (the JAX
+package's custom VJP, ``models/layers.py: _attend_flash``).
+``flash_attention.launches`` and ``launches_bf16`` count the fp32 and bf16
+forward launches of both entry points, ``launches_bwd`` and
+``launches_bwd_bf16`` the backward's (plain runs do not count)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -23,6 +25,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attn.ref import (
     flash_attention_bwd_ref,
     flash_attention_fwd_ref,
+    flash_attention_fwd_residual_ref,
     flash_attention_ref,
 )
 
@@ -47,11 +50,12 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
 
 
 def check_bwd_inputs(q, k, v, out, dout, lse) -> None:
-    """``check_kernel_inputs``, and out and dout [B, S, H, hd] of q's type,
-    lse [B, H, S] fp32, all on q's device and contiguous."""
+    """``check_kernel_inputs``, and out [B, S, H, hd] fp32 (the forward's
+    residual, for bf16 too), dout [B, S, H, hd] of q's type, lse [B, H, S]
+    fp32, all on q's device and contiguous."""
     check_kernel_inputs(q, k, v)
     b, s, h, _ = q.shape
-    _lib.expect(out, "out", q.dtype, q.shape, q.device)
+    _lib.expect(out, "out", torch.float32, q.shape, q.device)
     _lib.expect(dout, "dout", q.dtype, q.shape, q.device)
     _lib.expect(lse, "lse", torch.float32, (b, h, s), q.device)
 
@@ -67,32 +71,44 @@ def _count(name: str) -> None:
 
 
 def _forward_kernel(q, k, v, q_offset: int, window: Optional[int], with_lse: bool):
-    """One forward launch: out, and with ``with_lse`` (out, lse [B, H, S])."""
+    """One forward launch: out, and with ``with_lse`` (out, lse [B, H, S],
+    the fp32 residual: out itself for fp32, for bf16 the fp32 values out
+    was rounded from)."""
     check_kernel_inputs(q, k, v)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    res = (torch.empty(q.shape, dtype=torch.float32, device=q.device) if bf16 else out) \
+        if with_lse else None
     if out.numel() == 0:
-        return (out, lse) if with_lse else out
-    bf16 = q.dtype == torch.bfloat16
+        return (out, lse, res) if with_lse else out
     q, k, v = _aligned(q, k, v)
-    entry = _lib.lib().flash_attn_bf16 if bf16 else _lib.lib().flash_attn_f32
-    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, t, h, kvh, hd,
-               1.0 / hd ** 0.5, q_offset, window or 0, out.data_ptr(),
-               lse.data_ptr() if with_lse else None, _lib.stream(q.device))
+    if bf16:
+        rc = _lib.lib().flash_attn_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, t, h, kvh, hd, 1.0 / hd ** 0.5,
+            q_offset, window or 0, out.data_ptr(), lse.data_ptr() if with_lse else None,
+            res.data_ptr() if with_lse else None, _lib.stream(q.device))
+    else:
+        rc = _lib.lib().flash_attn_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, t, h, kvh, hd, 1.0 / hd ** 0.5,
+            q_offset, window or 0, out.data_ptr(), lse.data_ptr() if with_lse else None,
+            _lib.stream(q.device))
     _lib.check(rc, "flash_attention")
     _count("launches_bf16" if bf16 else "launches")
-    return (out, lse) if with_lse else out
+    return (out, lse, res) if with_lse else out
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, q_offset: int = 0,
                         window: Optional[int] = None):
-    """(dq, dk, dv) of ``flash_attention`` from its inputs, its output, the
-    output's gradient and the forward's ``lse`` [B, H, S]; equals
-    ``flash_attention_bwd_ref`` (bf16: but for p rounded to bf16 before
-    the dv product).  On the card: a delta pass, the dK / dV kernel and the
-    dQ kernel of ``csrc/flash_attn_bwd.cu``, deterministic (no atomics)."""
+    """(dq, dk, dv) of ``flash_attention`` from its inputs, its fp32 output
+    (bf16 inputs: the forward's fp32 residual), the output's gradient and
+    the forward's ``lse`` [B, H, S]; equals ``flash_attention_bwd_ref``
+    (bf16: but for p rounded to bf16 before the dv product).  On the card: a
+    delta pass, the dK / dV kernel and the dQ kernel of
+    ``csrc/flash_attn_bwd.cu`` (fp32: 3xTF32 tensor-core products),
+    deterministic (no atomics)."""
     if not _lib.on_cuda(q):
         return flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=q_offset, window=window)
     check_bwd_inputs(q, k, v, out, dout, lse)
@@ -116,16 +132,23 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, q_offset: int = 0,
 
 class _FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its backward: the forward keeps q, k, v, the
-    output and the row log-sum-exps; the backward is ``flash_attention_bwd``
-    on them.  On the CPU both run their plain versions."""
+    fp32 output (bf16: the values the output was rounded from) and the row
+    log-sum-exps; the backward is ``flash_attention_bwd`` on them.  On the
+    CPU both run their plain versions: bf16 ``flash_attention_fwd_residual_ref``
+    (the kernel's and JAX's arithmetic, which the residual needs), other
+    types ``flash_attention_fwd_ref``."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset: int, window: Optional[int]):
         if _lib.on_cuda(q):
-            out, lse = _forward_kernel(q, k, v, q_offset, window, with_lse=True)
+            out, lse, res = _forward_kernel(q, k, v, q_offset, window, with_lse=True)
+        elif q.dtype == torch.bfloat16:
+            out, lse, res = flash_attention_fwd_residual_ref(q, k, v, q_offset=q_offset,
+                                                             window=window)
         else:
             out, lse = flash_attention_fwd_ref(q, k, v, q_offset=q_offset, window=window)
-        ctx.save_for_backward(q, k, v, out, lse)
+            res = out
+        ctx.save_for_backward(q, k, v, res, lse)
         ctx.q_offset, ctx.window = q_offset, window
         return out
 

@@ -7,7 +7,10 @@ window``) masked to -inf; softmax; a row with no key in range gives 0;
 ``(p in v's type) @ v`` in v's type.  It defines the semantics that the CUDA
 kernel (``csrc/flash_attn.cu``) is held to.  ``flash_attention_fwd_ref``
 also returns each row's log-sum-exp, the statistic the backward recomputes
-the softmax from.
+the softmax from.  ``flash_attention_fwd_residual_ref`` is the training
+forward on bf16: JAX's ``_flash_fwd_scan`` arithmetic (the unnormalised p
+rounded to v's type, divided by l after the product), which the bf16
+kernel has too, with its fp32 output kept for the backward's delta.
 
 The backward (``flash_attention_bwd_ref``) is the JAX package's
 FlashAttention backward (``models/layers.py: _attend_flash_bwd``) with its
@@ -21,7 +24,9 @@ only the rounding (within the fp32 tests' 2e-5).  It loops over kv chunks
 as JAX's scan does, so no [S, T] matrix is built whole.  It defines what
 ``csrc/flash_attn_bwd.cu`` computes; the bf16 kernels' products take bf16
 operands, so they round p to bf16 before the dv product, one rounding this
-version does not have.
+version does not have; the fp32 kernels split every operand in two tf32
+parts (3xTF32), within about 2^-22 of a product.  ``out`` is read as fp32:
+the training forward's residual, for bf16 too.
 """
 from __future__ import annotations
 
@@ -76,6 +81,33 @@ def flash_attention_fwd_ref(q, k, v, *, q_offset: int = 0, window: Optional[int]
     ``reshape(b, s, kv, g, hd)`` groups them."""
     out, lse = _grouped(q, k, v, q_offset, window, True)
     return out.transpose(1, 2).contiguous(), lse
+
+
+def flash_attention_fwd_residual_ref(q, k, v, *, q_offset: int = 0,
+                                     window: Optional[int] = None):
+    """The training forward's arithmetic, JAX's ``_flash_fwd_scan`` at one kv
+    chunk and the bf16 kernel's: fp32 scores (exact products of the
+    inputs, fp32 sums) times ``1 / sqrt(hd)``, m the row max, p = exp(s - m)
+    rounded to v's type, fp32 sums with v, divided by max(l, 1e-30), l the
+    sum of the fp32 p.  Returns (out in v's type, lse = m + log l [B, H, S],
+    the fp32 values out was rounded from: the backward's residual).  A row
+    with no key is 0 (lse -inf), as ``flash_attention_fwd_ref`` has it."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qh = q.float().transpose(1, 2)                                     # [B, H, S, hd]
+    kh, vh = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    logits = (qh @ kh.float().transpose(-1, -2)) * _attention_scale(hd)
+    ok = _mask(s, 0, t, q_offset, window, q.device)
+    logits = logits.masked_fill(~ok, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    res = (p.to(v.dtype).float() @ vh.float()) / l.clamp_min(1e-30)
+    lse = (m + torch.log(l)).squeeze(-1)
+    res = res.transpose(1, 2).contiguous()
+    return res.to(v.dtype), lse, res
 
 
 def flash_attention_ref(q, k, v, *, q_offset: int = 0, window: Optional[int] = None):

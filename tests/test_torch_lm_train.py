@@ -45,6 +45,7 @@ from repro_torch.kernels.flash_attn import (
     flash_attention,
     flash_attention_bwd_ref,
     flash_attention_fwd_ref,
+    flash_attention_fwd_residual_ref,
     flash_attention_ref,
 )
 from repro_torch.launch import train as train_launcher
@@ -172,12 +173,12 @@ def test_flash_bwd_ref_bf16_matches_jax(window, g, hd):
     bf16 semantics (fp32 scores and sums, ds rounded to bf16, dv from fp32
     p, outputs rounded once) that the card's kernel is held to.  Given
     JAX's residuals, the fp32 output of ``_flash_fwd_scan`` and lse = m +
-    log l, it is within the bf16 limit.  The card's backward reads the
-    forward's bf16 output for delta instead: that rounding (half a bf16 ulp
-    of each output element) moves delta, and so ds before its rounding,
-    which then rounds the other way in many places; with the output rounded
-    to bf16 the limit's atol is 2**-7 of the largest, twice the
-    kernel-against-plain one."""
+    log l, it is within the bf16 limit.  Given the output rounded to bf16
+    instead (what the card's backward read for delta before it took the
+    forward's fp32 residual), that rounding (half a bf16 ulp of each output
+    element) moves delta, and so ds before its rounding, which then rounds
+    the other way in many places: the limit's atol is 2**-7 of the largest
+    there, twice the kernel-against-plain one."""
     b, s, kvh = 2, 32, 2
     arrays = _attn_inputs(b, s, kvh, g, hd, seed=100 + s + g + hd)
     (tq, q), (tk, k), (tv, v), (tdo, dout) = map(_bf16, arrays)
@@ -198,6 +199,64 @@ def test_flash_bwd_ref_bf16_matches_jax(window, g, hd):
         assert got[0].dtype == torch.bfloat16
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
             _within_bf16(a, w, f"{name} window {window} G {g} hd {hd} out {o.dtype}", atol)
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 8])
+def test_flash_attention_bf16_grad_on_cpu_matches_jax_at_one_chunk(window, g, hd):
+    """The port's bf16 training path on the CPU (``flash_attention`` with a
+    gradient: ``_FlashAttention``, whose forward keeps the fp32 residual of
+    ``flash_attention_fwd_residual_ref`` and whose backward reads it for
+    delta) against jax.vjp of JAX's ``_attend_flash`` at one kv chunk
+    (kv_chunk = S: the port has no kv_chunk, one call takes every key), on
+    the inputs of ``test_flash_bwd_ref_bf16_matches_jax``, within the bf16
+    limit (2**-7 relative, 2**-8 of the largest).  JAX's own bf16 gradient
+    moves with its kv chunk by about that much: at kv_chunk 8 and 32 it
+    differs in one element by 1.01 of this limit (G 1, hd 64, causal), so
+    the comparison is at one chunk.  The forward's output is the residual
+    rounded to bf16."""
+    b, s, kvh = 2, 32, 2
+    arrays = _attn_inputs(b, s, kvh, g, hd, seed=100 + s + g + hd)
+    (tq, q), (tk, k), (tv, v), (tdo, dout) = map(_bf16, arrays)
+    pos = jnp.arange(s, dtype=jnp.int32)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    qg = jq.reshape(b, s, kvh, g, hd)
+    fn = lambda qg, k, v: JL._attend_flash(qg, k, v, pos, pos, window, s)  # noqa: E731
+    _, vjp = jax.vjp(fn, qg, jk, jv)
+    jdq, jdk, jdv = vjp(jnp.asarray(dout).astype(jnp.bfloat16).reshape(b, s, kvh, g, hd))
+    want = (np.asarray(jdq.astype(jnp.float32)).reshape(b, s, kvh * g, hd),
+            np.asarray(jdk.astype(jnp.float32)), np.asarray(jdv.astype(jnp.float32)))
+    xs = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    out = flash_attention(*xs, window=window)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward" and out.dtype == torch.bfloat16
+    _, _, res = flash_attention_fwd_residual_ref(tq, tk, tv, window=window)
+    assert torch.equal(out.detach(), res.to(torch.bfloat16))
+    got = torch.autograd.grad(out, xs, tdo)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        _within_bf16(a, w, f"{name} window {window} G {g} hd {hd}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_inputs_take_the_fp32_residual(dtype):
+    """``check_bwd_inputs`` (what the backward kernels are given): out is the
+    forward's fp32 residual for both input types; dout of q's type, lse
+    fp32 [B, H, S].  Anything else raises before a launch."""
+    from repro_torch.kernels.flash_attn.ops import check_bwd_inputs
+
+    b, s, h, kvh, hd = 1, 8, 4, 2, 64
+    q, dout = torch.zeros((b, s, h, hd), dtype=dtype), torch.zeros((b, s, h, hd), dtype=dtype)
+    k = v = torch.zeros((b, s, kvh, hd), dtype=dtype)
+    lse = torch.zeros((b, h, s))
+    check_bwd_inputs(q, k, v, torch.zeros((b, s, h, hd)), dout, lse)
+    if dtype == torch.bfloat16:
+        with pytest.raises(TypeError, match="out has dtype"):
+            check_bwd_inputs(q, k, v, torch.zeros_like(q), dout, lse)
+    with pytest.raises(TypeError, match="dout has dtype"):
+        check_bwd_inputs(q, k, v, torch.zeros((b, s, h, hd)), dout.double(), lse)
+    with pytest.raises(ValueError, match="lse has shape"):
+        check_bwd_inputs(q, k, v, torch.zeros((b, s, h, hd)), dout, lse[:, :, :4])
 
 
 def _tensor_core_bwd_model(q, k, v, out, dout, lse, q_offset, window):
@@ -240,16 +299,16 @@ def _tensor_core_bwd_model(q, k, v, out, dout, lse, q_offset, window):
 def test_tensor_core_bwd_rounding_fits_the_bf16_limit(shape):
     """The bf16 kernel's arithmetic (``_tensor_core_bwd_model``: p rounded to
     bf16 before dv, ds rounded as the plain version rounds it) against
-    ``flash_attention_bwd_ref`` on the same bf16 inputs, within the bf16
-    limit: windows, G 1 and 4, hd 64 and 256, and rows with no key (the third
-    shape: their dq is 0)."""
+    ``flash_attention_bwd_ref`` on the same bf16 inputs and the forward's
+    fp32 residual, within the bf16 limit: windows, G 1 and 4, hd 64 and 256,
+    and rows with no key (the third shape: their dq is 0)."""
     b, s, t, h, kvh, hd, off, win = shape
     rng = np.random.default_rng(sum(shape[:6]))
     draw = lambda *sh: torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(  # noqa
         torch.bfloat16)
     q, k, v, dout = draw(b, s, h, hd), draw(b, t, kvh, hd), draw(b, t, kvh, hd), draw(b, s, h, hd)
-    out, lse = flash_attention_fwd_ref(q.float(), k.float(), v.float(), q_offset=off, window=win)
-    out = out.to(torch.bfloat16)  # what the card's bf16 forward gives the backward
+    # what the card's bf16 forward gives the backward: its fp32 residual
+    _, lse, out = flash_attention_fwd_residual_ref(q, k, v, q_offset=off, window=win)
     want = flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=off, window=win)
     got = _tensor_core_bwd_model(q, k, v, out, dout, lse, off, win)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -259,6 +318,150 @@ def test_tensor_core_bwd_rounding_fits_the_bf16_limit(shape):
     no_key = pos - win + 1 >= t if win else torch.zeros(s, dtype=torch.bool)
     assert torch.equal(empty, no_key.expand_as(empty)), shape
     assert bool((got[0].transpose(1, 2)[empty] == 0).all())
+
+
+# fp32: the card's backward runs its five products on the tensor cores in
+# 3xTF32 (csrc/flash_attn_bwd.cu: namespace x3 by wgmma at hd 32 and 64, x3m
+# by mma.sync at hd 128 and 256).  Their arithmetic, emulated
+# here, is held to the plain version within FLASH_BWD_TOL["float32"] of
+# chip_smoke.py: |got - want| <= 1e-4 max |want| a tensor.
+F32_BWD_ATOL = 1e-4
+BWD_SHAPES = [(1, 96, 96, 4, 1, 64, 0, None), (2, 80, 80, 2, 2, 256, 0, 17),
+              (1, 64, 100, 2, 1, 64, 110, 20), (2, 128, 128, 8, 2, 64, 0, 9),
+              (1, 72, 72, 4, 4, 256, 0, None)]
+
+
+def _tf32(x):
+    """x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero,
+    as cvt.rna.tf32.f32 does: half of the 13 dropped bits' weight is added
+    to the magnitude's bits, which are then cut."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """The 3xTF32 split: big = tf32(x), small = tf32(x - big)."""
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b as the tensor cores form it from tf32 operands, fp32 sums: one
+    pass tf32(a) tf32(b); three passes small . big + big . small + big . big."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    if passes == 1:
+        return ab @ bb
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _tf32_bwd_model(q, k, v, out, dout, lse, q_offset, window, passes=3):
+    """The arithmetic of csrc/flash_attn_bwd.cu's fp32 kernels (x3 and
+    x3m's dkv_kernel and dq_kernel) in torch: s, dp, and the dq, dk and dv
+    products each from tf32 operands (``passes`` 3: split, three products;
+    1: one rounding), fp32 sums, p = exp2(s scale log2(e) - lse log2(e))
+    with the kernel's fp32 constants (0 where masked), ds = p (dp - delta),
+    delta from the fp32 output."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    scale = f32(1.0 / hd ** 0.5)
+    scale_log2 = scale * f32(1.4426950408889634)
+    qf, dof, of = (x.transpose(1, 2) for x in (q, dout, out))               # [B, H, S, hd]
+    kf, vf = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    mm = functools.partial(_mm_tf32, passes=passes)
+    delta = (dof * of).sum(-1)
+    sc, dp = mm(qf, kf.transpose(-1, -2)), mm(dof, vf.transpose(-1, -2))  # [B, H, S, T]
+    qi = q_offset + torch.arange(s)[:, None]
+    ti = torch.arange(t)[None, :]
+    ok = (ti <= qi) & ((ti > qi - window) if window else True)
+    p = torch.where(ok, torch.exp2(sc * scale_log2 - (lse * f32(1.4426950408889634))[..., None]),
+                    0.0)
+    ds = p * (dp - delta[..., None])
+    dq = mm(ds, kf) * scale
+    dk = mm(ds.transpose(-1, -2), qf) * scale                               # [B, H, T, hd]
+    dv = mm(p.transpose(-1, -2), dof)
+    group = lambda x: x.view(b, kvh, g, t, hd).sum(2).transpose(1, 2)       # noqa: E731
+    return dq.transpose(1, 2), group(dk), group(dv)
+
+
+def _f32_bwd_case(shape, passes):
+    """(the model's (dq, dk, dv), the plain version's, lse) on seeded fp32
+    inputs of ``shape``, the forward's fp32 output and lse."""
+    b, s, t, h, kvh, hd, off, win = shape
+    rng = np.random.default_rng(sum(shape[:6]))
+    draw = lambda *sh: torch.from_numpy(rng.normal(size=sh).astype(np.float32))  # noqa: E731
+    q, k, v, dout = draw(b, s, h, hd), draw(b, t, kvh, hd), draw(b, t, kvh, hd), draw(b, s, h, hd)
+    out, lse = flash_attention_fwd_ref(q, k, v, q_offset=off, window=win)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, q_offset=off, window=win)
+    got = _tf32_bwd_model(q, k, v, out, dout, lse, off, win, passes)
+    return got, want, lse
+
+
+def _err_of_largest(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_3xtf32_bwd_fits_the_fp32_limit(shape):
+    """The fp32 kernel's arithmetic (``_tf32_bwd_model``, three passes)
+    against ``flash_attention_bwd_ref`` on the same fp32 inputs, within
+    FLASH_BWD_TOL["float32"] (1e-4 of each tensor's largest): the shapes of
+    the bf16 test (windows, G 1 and 4, hd 64 and 256, rows with no key,
+    whose dq is 0)."""
+    b, s, t, h, kvh, hd, off, win = shape
+    got, want, lse = _f32_bwd_case(shape, passes=3)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a).all()), f"{name} {shape}: not finite"
+        err = _err_of_largest(a, w)
+        assert err <= F32_BWD_ATOL, f"{name} {shape}: {err:.3g} of the largest"
+    empty = ~torch.isfinite(lse)                                          # [B, H, S]
+    pos = off + torch.arange(s)
+    no_key = pos - win + 1 >= t if win else torch.zeros(s, dtype=torch.bool)
+    assert torch.equal(empty, no_key.expand_as(empty)), shape
+    assert bool((got[0].transpose(1, 2)[empty] == 0).all())
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_one_tf32_pass_misses_the_fp32_limit(shape):
+    """One tf32 pass a product (each operand rounded once to 10 mantissa
+    bits) is not fp32's accuracy: at every shape some gradient tensor is
+    further than FLASH_BWD_TOL["float32"] from the plain version (4e-4 to
+    1e-3 of its largest).  So the kernel splits every operand."""
+    got, want, _ = _f32_bwd_case(shape, passes=1)
+    worst = max(_err_of_largest(a, w) for a, w in zip(got, want))
+    assert worst > F32_BWD_ATOL, f"{shape}: one pass is {worst:.3g} of the largest"
+
+
+def test_tf32_split():
+    """The split: big and small are tf32 values (low 13 bits 0); for a
+    normal x (one whose small part is normal too: |x| >= 2**-100 here), big +
+    small is within 2**-21 |x| of x (pi: 7.6e-8 relative);
+    +-0 splits into +-0 and +0; a tie goes away from zero (rna, not rne);
+    a subnormal keeps what 10 bits hold at its scale, so its error is
+    stated in absolute terms: within 2**-137, half a tf32 step there."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.integers(-30, 30, 4096))
+                         .astype(np.float32))
+    x = torch.cat([x, torch.tensor([np.pi, -np.pi, 1.0, 3.4e38, 1e-30], dtype=torch.float32)])
+    big, small = _split(x)
+    for part in (big, small):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    err = (big.double() + small.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+    pi = torch.tensor([np.pi], dtype=torch.float32)
+    assert float(err[-5]) / float(pi) < 1e-7
+    for z in (0.0, -0.0):
+        b0, s0 = _split(torch.tensor([z], dtype=torch.float32))
+        assert float(b0) == 0.0 and float(s0) == 0.0
+        assert np.signbit(float(b0)) == np.signbit(z) and not np.signbit(float(s0))
+    tie = torch.tensor([0x3F801000, 0x3F803000, -0x407FF000], dtype=torch.int32).view(
+        torch.float32)  # 1 + 2**-11, 1 + 3 * 2**-11, -(1 + 2**-11): halfway between tf32s
+    assert _tf32(tie).view(torch.int32).tolist() == [0x3F802000, 0x3F804000, -0x407FE000]
+    sub = torch.tensor([1e-40, -3e-42, 5e-39], dtype=torch.float32)
+    b1, s1 = _split(sub)
+    assert bool(((b1.double() + s1.double() - sub.double()).abs() <= 2.0 ** -137).all())
+    assert abs(float(b1[0] + s1[0]) / 1e-40 - 1) > 0.01  # 1e-40: 3.3% off
 
 
 # ------------------------------------------------------------------ archs
