@@ -260,7 +260,9 @@ nothing then, and are not counted): ``count_graph_launches``.
      a byte bound.  (a) every LM arch's prefill_32k and decode_32k, and
      gemma's long_500k, through LMArch.build_cell on the card at the
      published widths (bf16, seeded weights drawn on the card), cut by
-     LM_CUTS to fit 80 GB: ms a prefill, tokens/s, ms a decode step on
+     LM_CUTS to fit 80 GB (granite's, gemma's and internlm2's prefills
+     timed at an eighth of their layers, LM_PREFILL_LAYERS, with the peak
+     at full depth logged): ms a prefill, tokens/s, ms a decode step on
      caches of seeded draws (4 steps at q_offset seq - 4 ... seq - 1, each
      under sync debug mode "error"), peak memory, finite logits, and where
      one decode step's device time goes; (b) each arch at the published
@@ -291,8 +293,8 @@ nothing then, and are not counted): ``count_graph_launches``.
      the card): LM_TRAIN_STEPS steps (ms a step as the mean of steps 2-3,
      tokens/s, model-flops share of 989 TFLOP/s, peak memory, the batch
      that fits, losses finite; the last step under sync debug mode
-     "error"), then one profiled step's device time by flash_attn forward
-     / backward / GEMMs / rest, then the gradient norm (finite; float64
+     "error"; the first step, outside the mean, profiled for its device
+     time by flash_attn forward / backward / GEMMs / rest), then the gradient norm (finite; float64
      sums, the optimizer's fp32 norm, JAX's formula, logged beside) by a
      value_and_grad of its own; grok's cell builds and, 73.0 GiB of state
      at 12 bytes a parameter, is not stepped; (c) each arch at the
@@ -313,8 +315,25 @@ nothing then, and are not counted): ``count_graph_launches``.
      launches ((b): bf16) or one without ((d): fp32): the launches of (b)
      and (d) must equal those calls; they and (c)'s fp32 launches (its
      block VJPs and free run) are added to the kernels line.
-The line before the last is the JSON list of kernels; the last line is the
-JSON result the run is read by.
+  12. GNN (src/repro_torch/models/{gnn,sampler}.py, configs GNNArch,
+     launch/train.py's GNN branch): MeshGraphNet at the published widths
+     (15 layers, d_hidden 128, fp32), graphs from seeds: (a) the four cells
+     through GNNArch.build_cell, GNN_TRAIN_STEPS steps each (the last under
+     sync debug mode "error"; ms a step, edges/s, model flops over 67
+     TFLOP/s, peak memory, the losses finite), the first step profiled for
+     its device time by matrix products / index ops / the rest; ogb_products
+     cut by GNN_TRAIN_CUTS (nodes and edges by one factor), minibatch_lg
+     fed by the fanout sampler; (b) ogb_products' forward uncut (61,859,140
+     edges) by forward_chunked: ms beside its flop bound, peak memory,
+     outputs finite; (c) full_graph_sm whole on the card against the CPU:
+     output, loss and every gradient leaf within GNN_OUT_RTOL,
+     GNN_LOSS_RTOL and GNN_GRAD_RTOL (scripts/gnn_grad_conditioning.py);
+     (d) the train launcher's GNN branch on the card against its CPU run,
+     and each cut at step 2 and resumed, every loss within
+     LM_LAUNCHER_RTOL.  No TPU kernel is on this path (message passing is
+     index_add_): the phase launches no hand-written kernel.
+Each phase logs its seconds.  The line before the last is the JSON list
+of kernels; the last line is the JSON result the run is read by.
 """
 from __future__ import annotations
 
@@ -3404,12 +3423,18 @@ def phase_profile(items, queries, ipnsw) -> None:
                                                 insert_batch=512).build(items))
     for name, cls in (("ipnsw", IpNSW), ("ipnsw_plus", IpNSWPlus)):
         for driver in ("host", "scan"):
-            events = _profiled(
-                f"{name} build [{driver} driver]",
-                lambda: cls(max_degree=16, ef_construction=32, insert_batch=512,
-                            build_backend=driver).build(items), batches=batches)
-            walks = sum(e.count for e in events if "beam_walk_kernel" in e.key)
-            assert walks == (batches - 1) * (2 if name == "ipnsw_plus" else 1), \
+            want = (batches - 1) * (2 if name == "ipnsw_plus" else 1)
+            for _ in range(PROFILER_SESSIONS):  # a session may lose a replay's events
+                events = _profiled(
+                    f"{name} build [{driver} driver]",
+                    lambda: cls(max_degree=16, ef_construction=32, insert_batch=512,
+                                build_backend=driver).build(items), batches=batches)
+                walks = sum(e.count for e in events if "beam_walk_kernel" in e.key)
+                if walks >= want:
+                    break
+                log(f"profile {name} build [{driver}]: the trace shows {walks} of {want} walk "
+                    f"kernels; profiling again")
+            assert walks == want, \
                 f"profile {name} build [{driver}]: the trace shows {walks} walk kernels"
             if driver == "scan":
                 run = replay_schedule.last
@@ -4681,6 +4706,13 @@ LM_CUTS = {"granite-3-2b": (None, 16, 26),
            "qwen3-moe-235b-a22b": (10, 2, 36),
            "grok-1-314b": (5, 2, 36)}
 LM_DECODE_STEPS = 4
+# (a) the prefill_32k cells of the three deep archs are timed at an eighth of
+# their layers (whole pattern cycles; the weights of every layer held), the
+# rest at LM_CUTS' layers: a 32k prefill is one pass a layer, 15-18 s at full
+# depth (PERF.md §4), and the run's time limit pays for phase 12.  Each logs
+# the peak it would reach at full depth (the caches of the layers it skipped
+# added) and the batch that fits there.
+LM_PREFILL_LAYERS = {"granite-3-2b": 5, "gemma3-12b": 6, "internlm2-20b": 6}
 CARD_GIB = 72  # what a cell may plan to hold of the card's 79 GiB
 # (b) card against CPU: layers cut to one pattern cycle, all experts, fp32
 LM_CPU_LAYERS = {"granite-3-2b": 2, "gemma3-12b": 6, "internlm2-20b": 2,
@@ -4867,10 +4899,13 @@ def _fits(peak: float, weights: float, batch: int) -> int:
 
 
 def phase_lm_prefill(arch, params, batch: int, weights: float, g) -> None:
-    """(a) prefill_32k at ``batch``: a warm-up prompt of 1,024 tokens, then
-    one timed call (ms, tokens/s, peak); logits finite."""
+    """(a) prefill_32k at ``batch`` and LM_PREFILL_LAYERS' depth: a warm-up
+    prompt of 1,024 tokens, then one timed call (ms, tokens/s, peak, and the
+    peak at full depth); logits finite."""
     import torch
 
+    layers = arch.cfg.n_layers
+    arch = _lm_cut(arch.arch_id, LM_PREFILL_LAYERS.get(arch.arch_id, layers))
     cell = arch.build_cell("prefill_32k")
     s = cell.args[1].shape[1]
     warm = torch.randint(0, arch.cfg.vocab, (batch, 1024), generator=g, device="cuda")
@@ -4887,11 +4922,13 @@ def phase_lm_prefill(arch, params, batch: int, weights: float, g) -> None:
     peak = torch.cuda.max_memory_allocated()
     assert logits.shape == (batch, arch.cfg.vocab) and bool(torch.isfinite(logits).all()), \
         f"{cell.name}: logits not finite"
-    layers = arch.cfg.n_layers
-    log(f"lm {cell.name} layers={layers} B={batch} S={s} ms={wall:.1f} "
-        f"tokens_per_s={batch * s / wall * 1e3:.0f} peak_gib={_gib(peak):.2f} "
-        f"weights_gib={_gib(weights):.2f} batch_that_fits~{_fits(peak, weights, batch)} "
-        f"logits_finite=True")
+    cache = sum(c.numel() * c.element_size() for pair in caches for c in pair)
+    full = peak + cache * (layers / arch.cfg.n_layers - 1)  # the skipped layers' caches
+    log(f"lm {cell.name} layers={arch.cfg.n_layers} of {layers} B={batch} S={s} ms={wall:.1f} "
+        f"tokens_per_s={batch * s / wall * 1e3:.0f} ms_per_layer={wall / arch.cfg.n_layers:.1f} "
+        f"peak_gib={_gib(peak):.2f} cache_gib={_gib(cache):.2f} weights_gib={_gib(weights):.2f} "
+        f"peak_at_{layers}_layers_gib~{_gib(full):.2f} "
+        f"batch_that_fits~{_fits(full, weights, batch)} logits_finite=True")
     del logits, caches, tokens
     torch.cuda.empty_cache()
 
@@ -5179,8 +5216,9 @@ def phase_lm() -> dict:
     t1 = time.perf_counter()
     _zero_counts()
     phase_lm_cells()
-    bf16_calls = sum(_lm_cut(aid, LM_CUTS[aid][0]).cfg.n_layers
-                     * (2 + LM_DECODE_STEPS * (2 if aid == "gemma3-12b" else 1))
+    layers = {aid: _lm_cut(aid, LM_CUTS[aid][0]).cfg.n_layers for aid in LM_ARCHS}
+    bf16_calls = sum(2 * LM_PREFILL_LAYERS.get(aid, layers[aid])  # warm-up and timed prefill
+                     + layers[aid] * LM_DECODE_STEPS * (2 if aid == "gemma3-12b" else 1)
                      for aid in LM_ARCHS)
     f32_calls = phase_lm_example()
     counts = _read_counts()
@@ -5208,7 +5246,10 @@ def phase_lm() -> dict:
 # extrapolation, so the cuts keep that margin under CARD_GIB (PERF.md §4).
 # grok's one layer holds 6.53 B parameters, 73.0 GiB at 12 bytes: its cell
 # builds and is not stepped; it waits for the mesh tools (ROADMAP Queue 1).
-LM_TRAIN_CUTS = {"granite-3-2b": (None, 24),
+# granite fits whole at B 24 (64.79 GiB, PERF.md §4) and is timed at a
+# quarter of its layers, its 8.2 s steps at full depth being the longest of
+# the phase: the run's time limit pays for phase 12.
+LM_TRAIN_CUTS = {"granite-3-2b": (10, 24),
                  "gemma3-12b": (12, 4),
                  "internlm2-20b": (8, 10),
                  "qwen3-moe-235b-a22b": (1, 9),
@@ -5470,10 +5511,10 @@ KERNEL_GROUPS = (("attn_fwd", ("flash_attn_bf16_kernel", "flash_attn_f32_kernel"
                  ("gemm", ("gemm", "cutlass", "sm90_", "xmma", "nvjet")))
 
 
-def _train_breakdown(name: str, step) -> None:
-    """Where one profiled train step's device time goes: flash_attn forward,
-    its backward, matrix products, the rest; the largest kernels; the idle
-    share of the step's wall."""
+def _train_breakdown(name: str, step, kernel_groups=KERNEL_GROUPS) -> None:
+    """Where one profiled train step's device time goes: by
+    ``kernel_groups`` (flash_attn forward, its backward, matrix products),
+    the rest; the largest kernels; the idle share of the step's wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5487,15 +5528,15 @@ def _train_breakdown(name: str, step) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["other"] = 0.0
     for e in kernels:
         key = e.key.lower()
-        group = next((gname for gname, words in KERNEL_GROUPS
+        group = next((gname for gname, words in kernel_groups
                       if any(w.lower() in key for w in words)), "other")
         groups[group] += e.self_device_time_total / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"lm train breakdown {name}: busy_ms={total:.1f} wall_ms(profiled)={wall:.1f} "
+    log(f"train breakdown {name}: busy_ms={total:.1f} wall_ms(profiled)={wall:.1f} "
         f"idle_share={max(0.0, 1 - total / wall):.3f} "
         + " ".join(f"{k}_ms={v:.1f} ({v / max(total, 1e-9):.3f})" for k, v in groups.items())
         + " top: " + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.1f}ms"
@@ -5521,9 +5562,10 @@ def phase_lm_train_cell(aid: str, g) -> int:
     LM_TRAIN_CUTS: LM_TRAIN_STEPS steps, the last under sync debug mode
     "error" (ms a step as the mean of steps 2-3, tokens/s, model-flops
     share of 989 TFLOP/s, peak memory, the losses finite), all of the cell's
-    step as it stands; then one profiled step's breakdown, and the gradient
-    norm (finite) by a value_and_grad of its own.  Returns the layer calls
-    that needed a gradient (one backward launch each)."""
+    step as it stands, the first (outside the mean) profiled for its
+    breakdown; then the gradient norm (finite) by a value_and_grad of its
+    own.  Returns the layer calls that needed a gradient (one backward
+    launch each)."""
     import torch
 
     from repro_torch.train import adamw_init
@@ -5549,7 +5591,7 @@ def phase_lm_train_cell(aid: str, g) -> int:
     weights = sum(t.numel() * t.element_size() for t in leaves(params))
     fixed = weights + sum(t.numel() * t.element_size() for t in leaves(state))  # and gradients
     init_s = time.perf_counter() - t0
-    batches = [_train_batch(cfg.vocab, batch, s, g) for _ in range(LM_TRAIN_STEPS + 1)]
+    batches = [_train_batch(cfg.vocab, batch, s, g) for _ in range(LM_TRAIN_STEPS)]
     del params
 
     def step(i):
@@ -5564,14 +5606,16 @@ def phase_lm_train_cell(aid: str, g) -> int:
         if i == LM_TRAIN_STEPS - 1:  # a read-back in the step would raise
             torch.cuda.set_sync_debug_mode("error")
         try:
-            losses.append(step(i))
+            if i == 0:
+                _train_breakdown(cell.name, lambda: losses.append(step(0)))
+            else:
+                losses.append(step(i))
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t1) * 1e3)
     peak = torch.cuda.max_memory_allocated()
     with uncounted():
-        _train_breakdown(cell.name, lambda: step(-1))
         clip_norm, grad_norm = _grad_norms(state[0], batches[-1], cfg)
     losses = [float(x) for x in losses]
     assert all(x == x and abs(x) < float("inf") for x in losses + [grad_norm]), \
@@ -5803,6 +5847,312 @@ def phase_lm_train() -> tuple:
     return with_c, timings
 
 
+# ----------------------------------------------------------------- phase 12
+# MeshGraphNet's four cells at the published widths (15 layers, d_hidden
+# 128, 2-layer MLPs, sum, fp32; TF32 off).  No TPU kernel is on this path:
+# message passing is index_add_ on the card (the JAX package's segment_sum,
+# plain XLA), so the phase launches no hand-written kernel.
+GNN_TRAIN_STEPS = 3
+GNN_SEED = 12
+# (a) ogb_products cannot train whole on one card: under remat a step keeps
+# 16 carries of e (512 B an edge) and one layer's recomputed backward, 16.4
+# KB an edge measured (PERF.md §4), 1.0 TB for 61,859,140 edges.  Nodes and
+# edges are cut by one factor (the mean degree 25.26 kept), the smallest
+# whose peak stays near 65 GiB: 1/15 peaks at 63.03; the other three cells
+# run uncut.
+GNN_TRAIN_CUTS = {"ogb_products": 15}
+# minibatch_lg: 1,024 seeds sampled at fanouts (15, 10) and padded to
+# fanout_budget(1024, (15, 10)) = (169,984, 168,960), the cell's shape, from
+# a random_csr of Reddit's node count and mean degree (GraphSAGE, Hamilton
+# et al. 2017), whose 602 features the cell has; the features gathered by
+# node id from a [232,965, 602] table on the card
+GNN_SAMPLER = dict(nodes=232_965, degree=492, seeds=1_024, fanouts=(15, 10))
+GNN_MOLECULES = (128, 30, 64)  # molecule: graphs, nodes and edges a graph
+# (c) full_graph_sm on the card against the CPU, relative to the largest
+# |value|: fp32 on the CPU is 1.2e-6 (out), 8e-8 (loss) and up to 5.3e-3 (a
+# gradient leaf: node_enc's first weight) from float64 over seeds 0-2
+# (scripts/gnn_grad_conditioning.py), and the card and the CPU each carry
+# such an error
+GNN_OUT_RTOL, GNN_LOSS_RTOL, GNN_GRAD_RTOL = 1e-5, 1e-6, 1.5e-2
+GNN_LAUNCHER_ARGS = ["--arch", "meshgraphnet", "--steps", "3"]
+GNN_KERNEL_GROUPS = (KERNEL_GROUPS[2], ("index", ("index", "scatter", "gather")))
+
+
+def _gnn_study():
+    """scripts/gnn_grad_conditioning.py: the float64 study whose graph
+    recipe and case phase 12 uses."""
+    import importlib
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        return importlib.import_module("gnn_grad_conditioning")
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+
+
+def _gnn_forward_flops(cfg, n: int, e: int) -> float:
+    """fp32 flops of one forward: 2 a multiply-add of every MLP's products
+    (81,920 an edge and 65,536 a node a processor layer at d 128)."""
+    h, m = cfg.d_hidden, cfg.mlp_layers
+
+    def mlp(d_in, d_out):
+        return d_in * h + (m - 1) * h * h + h * d_out
+
+    per_edge = mlp(cfg.d_edge, h) + cfg.n_layers * mlp(3 * h, h)
+    per_node = mlp(cfg.d_feat, h) + cfg.n_layers * mlp(2 * h, h) + mlp(h, cfg.out_dim)
+    return 2.0 * (per_edge * e + per_node * n)
+
+
+def _gnn_graph(shape: str, cfg, g, cut: int = 1) -> tuple:
+    """(graph on the card, nodes, edges, padding edges, what made it):
+    the shape's graph from GNN_SEED, nodes and edges divided by ``cut``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.models.sampler import fanout_budget, random_csr, sample_subgraph
+
+    study = _gnn_study()
+    graph_edges, random_graph = study.graph_edges, study.random_graph
+    sh = GNN_SHAPES[shape]
+    n, e = -(-sh["n_nodes"] // cut), -(-sh["n_edges"] // cut)
+    rng = np.random.default_rng(GNN_SEED)
+    if shape == "molecule":
+        k, nm, em = GNN_MOLECULES
+        base = (np.arange(k, dtype=np.int32) * nm)[:, None]
+        src = (base + rng.integers(0, nm, (k, em))).astype(np.int32).ravel()
+        dst = (base + rng.integers(0, nm, (k, em))).astype(np.int32).ravel()
+        how = f"{k} disjoint graphs of {nm} nodes and {em} edges, block-diagonal"
+        return random_graph(n, src, dst, cfg, g, "cuda"), n, e, 0, how
+    if shape == "minibatch_lg":
+        sp = GNN_SAMPLER
+        t0 = time.perf_counter()
+        csr = random_csr(sp["nodes"], sp["degree"], rng)
+        t1 = time.perf_counter()
+        budget = fanout_budget(sp["seeds"], sp["fanouts"])
+        seeds = rng.choice(sp["nodes"], sp["seeds"], replace=False)
+        sub = sample_subgraph(csr, seeds, sp["fanouts"], rng, pad_to=budget)
+        t2 = time.perf_counter()
+        assert budget == (n, e), (budget, n, e)
+        graph = random_graph(n, sub["src"], sub["dst"], cfg, g, "cuda")
+        table = torch.randn((sp["nodes"], cfg.d_feat), generator=g, device="cuda")
+        graph["node_feat"] = table[torch.as_tensor(sub["node_ids"], device="cuda")]
+        del table
+        how = (f"sampled from a random_csr of {sp['nodes']} nodes, {len(csr.indices)} indices "
+               f"({csr.indices.nbytes / 2**30:.2f} GiB; {t1 - t0:.1f} s): {sp['seeds']} seeds, "
+               f"fanouts {sp['fanouts']}, {sub['n_nodes']} nodes and {sub['n_edges']} edges "
+               f"before padding ({t2 - t1:.1f} s)")
+        return graph, n, e, e - sub["n_edges"], how
+    t0 = time.perf_counter()
+    src, dst, pad = graph_edges(n, e, GNN_SEED)
+    how = (f"random_csr({n}, {-(-e // n)}), edges v -> u, {time.perf_counter() - t0:.1f} s on "
+           f"the host")
+    return random_graph(n, src, dst, cfg, g, "cuda"), n, e, pad, how
+
+
+def phase_gnn_train_cell(arch, shape: str, g) -> None:
+    """(a) the shape's train cell through GNNArch.build_cell at the published
+    widths (ogb_products cut by GNN_TRAIN_CUTS): GNN_TRAIN_STEPS steps, the
+    last under sync debug mode "error", the first (outside the mean)
+    profiled for its breakdown; ms a step (mean of steps 2-3), edges/s, the
+    model flops (forward and backward, 3 forwards) over 67 TFLOP/s, peak
+    memory, the losses finite."""
+    import torch
+
+    from repro_torch.models import gnn
+    from repro_torch.train import adamw_init
+    from repro_torch.train.tree import leaves
+
+    cut = GNN_TRAIN_CUTS.get(shape, 1)
+    cell = arch.build_cell(shape)
+    cfg = arch.config_for(shape)
+    graph, n, e, pad, how = _gnn_graph(shape, cfg, g, cut)
+    params = gnn.init(cfg, g, device="cuda")
+    state = [params, adamw_init(params)]
+    del params
+    n_params = sum(t.numel() for t in leaves(state[0]))
+    losses, walls = [], []
+
+    def step(graph):
+        state[0], state[1], loss = cell.step_fn(state[0], state[1], graph)
+        losses.append(loss)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(GNN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == GNN_TRAIN_STEPS - 1:  # a read-back in the step would raise
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if i == 0:
+                _train_breakdown(cell.name, lambda: step(graph), GNN_KERNEL_GROUPS)
+            else:
+                step(graph)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    assert all(x == x and abs(x) < float("inf") for x in losses), \
+        f"{cell.name}: loss not finite: {losses}"
+    ms = sum(walls[1:]) / len(walls[1:])
+    flops = 3 * _gnn_forward_flops(cfg, n, e)
+    cut_note = (f"cut 1/{cut} of {cell.meta['n_nodes']} nodes and {cell.meta['n_edges']} "
+                f"edges" if cut > 1 else "uncut")
+    log(f"gnn {cell.name} {cut_note}: N={n} E={e} padding_edges={pad} ({how}) "
+        f"layers={cfg.n_layers} d_hidden={cfg.d_hidden} d_feat={cfg.d_feat} params={n_params} "
+        f"steps_ms={'/'.join(f'{w:.1f}' for w in walls)} ms_per_step={ms:.2f} "
+        f"edges_per_s={e / ms * 1e3:.4g} model_tflop={flops / 1e12:.3f} "
+        f"fp32_share={flops / (ms / 1e3) / FP32_FLOP_PER_S:.4f} (of 67 TFLOP/s) "
+        f"peak_gib={_gib(peak):.2f} edges_at_65_gib~{int(e * 65 * 2**30 / peak)} "
+        f"losses={'/'.join(f'{x:.6f}' for x in losses)} last_step_sync_debug=error")
+    del state, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_gnn_forward_uncut(arch, g) -> None:
+    """(b) ogb_products' forward uncut (2,449,029 nodes, 61,859,140 edges)
+    by forward_chunked under no_grad: ms, peak memory, the flop bound,
+    the outputs finite."""
+    import torch
+
+    from repro_torch.models import gnn
+
+    cfg = arch.config_for("ogb_products")
+    graph, n, e, pad, how = _gnn_graph("ogb_products", cfg, g)
+    params = gnn.init(cfg, g, device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = gnn.forward_chunked(params, graph, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(out).all())
+    flops = _gnn_forward_flops(cfg, n, e)
+    bound_ms, by = bound(2 * e * cfg.d_hidden * 4 * cfg.n_layers, flops)
+    log(f"gnn meshgraphnet/ogb_products forward uncut: N={n} E={e} padding_edges={pad} ({how}) "
+        f"chunk={gnn.EDGE_CHUNK} ms={ms:.1f} bound_ms={bound_ms:.1f} ({by}: {flops:.4g} fp32 "
+        f"flops; bytes: e read and written a layer) share={bound_ms / ms:.3f} "
+        f"inputs_gib={_gib(held):.2f} peak_gib={_gib(peak):.2f} out={tuple(out.shape)} "
+        f"finite={finite}")
+    assert out.shape == (n, cfg.out_dim) and finite, "gnn ogb_products forward: not finite"
+    del graph, params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_gnn_cpu() -> None:
+    """(c) full_graph_sm at full size and width on the card against the CPU
+    on the same weights and graph (scripts/gnn_grad_conditioning.py's case):
+    the output, the loss and every gradient leaf within GNN_OUT_RTOL,
+    GNN_LOSS_RTOL and GNN_GRAD_RTOL of the CPU's largest |value|."""
+    from repro_torch.train.tree import tree_map
+
+    study = _gnn_study()
+    outputs = study.outputs
+    cfg, params, graph, pad = study.case("full_graph_sm", GNN_SEED)
+    t0 = time.perf_counter()
+    cpu = outputs(params, graph, cfg)
+    t1 = time.perf_counter()
+    card = outputs(tree_map(lambda t: t.cuda(), params), {k: v.cuda() for k, v in graph.items()},
+                   cfg)
+    errs = study.rel_errs(card, cpu)
+    grads = {k: v for k, v in errs.items() if k.startswith("grad")}
+    worst = max(grads, key=grads.get)
+    log(f"gnn meshgraphnet/full_graph_sm card vs CPU (seed {GNN_SEED}, padding_edges={pad}, "
+        f"CPU {t1 - t0:.1f} s): out {errs['out']:.3g} (limit {GNN_OUT_RTOL:g}) loss "
+        f"{errs['loss']:.3g} (limit {GNN_LOSS_RTOL:g}) gradient leaves {len(grads)}, worst "
+        f"{worst} {grads[worst]:.3g} (limit {GNN_GRAD_RTOL:g}); median "
+        f"{sorted(grads.values())[len(grads) // 2]:.3g}")
+    assert errs["out"] <= GNN_OUT_RTOL and errs["loss"] <= GNN_LOSS_RTOL, errs
+    assert grads[worst] <= GNN_GRAD_RTOL, grads
+
+
+def phase_gnn_launcher() -> None:
+    """(d) python -m repro_torch.launch.train --arch meshgraphnet on the card
+    and on the CPU, each loss within LM_LAUNCHER_RTOL relative; then each
+    device's run with a checkpoint every 2 steps, cut at step 2 and resumed
+    by the same command: the resumed losses, card against CPU, within the
+    same limit (a resumed run draws other edges than an uninterrupted one:
+    the launcher's one edge generator, a property of the JAX launcher)."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    class _Cut(Exception):
+        pass
+
+    class CutAtStep2(train.GraphStream):
+        def batch_at(self, step):
+            if step == 2:
+                raise _Cut()
+            return super().batch_at(step)
+
+    def losses(device, resume):
+        argv = GNN_LAUNCHER_ARGS + ["--device", device]
+        if not resume:
+            return [h["loss"] for h in train.main(argv).history]
+        d = ROOT / "build" / f"gnn_ckpt_{device}"
+        shutil.rmtree(d, ignore_errors=True)
+        argv += ["--ckpt-dir", str(d), "--ckpt-every", "2"]
+        stream = train.GraphStream
+        train.GraphStream = CutAtStep2
+        try:
+            train.main(argv)
+        except _Cut:
+            pass
+        finally:
+            train.GraphStream = stream
+        out = [h["loss"] for h in train.main(argv).history]
+        shutil.rmtree(d, ignore_errors=True)
+        return out
+
+    for resume in (False, True):
+        got, want = losses("cuda", resume), losses("cpu", resume)
+        errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        log(f"gnn train launcher {' '.join(GNN_LAUNCHER_ARGS)}{' resumed at step 2' * resume}: "
+            f"card losses {'/'.join(f'{x:.6f}' for x in got)} cpu "
+            f"{'/'.join(f'{x:.6f}' for x in want)} worst_rel_err={max(errs):.3g} "
+            f"(limit {LM_LAUNCHER_RTOL:g})")
+        assert len(got) == len(want) == (1 if resume else 3) and max(errs) <= LM_LAUNCHER_RTOL, \
+            (got, want)
+
+
+def phase_gnn() -> None:
+    """Phase 12: MeshGraphNet on the card.  It launches no hand-written
+    kernel: every launch count of the phase must stay 0."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"gnn phase: {_gib(torch.cuda.memory_allocated()):.2f} GiB held by earlier phases")
+    arch = get_arch("meshgraphnet")
+    g = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    _zero_counts()
+    t = [time.perf_counter()]
+    for shape in arch.shape_names():
+        phase_gnn_train_cell(arch, shape, g)
+    t.append(time.perf_counter())
+    phase_gnn_forward_uncut(arch, g)
+    t.append(time.perf_counter())
+    phase_gnn_cpu()
+    t.append(time.perf_counter())
+    phase_gnn_launcher()
+    t.append(time.perf_counter())
+    counts = _read_counts()
+    log(f"gnn phase: train cells {t[1] - t[0]:.1f} s, uncut forward {t[2] - t[1]:.1f} s, card "
+        f"vs CPU {t[3] - t[2]:.1f} s, launcher {t[4] - t[3]:.1f} s; kernel launches "
+        f"{sum(counts.values())}")
+    assert not any(counts.values()), f"gnn: a hand-written kernel ran: {counts}"
+
+
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "beam_step": ("src/repro_torch/csrc/beam_step.cu",
@@ -5849,6 +6199,15 @@ SOURCES = {
 }
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds logged under the phase's ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5858,32 +6217,34 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401 -- fails here when run without the repository
 
+    t0 = time.perf_counter()
     count_graph_launches()
-    card = phase_env()
-    phase_build()
-    timings, entry_counts = phase_kernels()
-    k33_counts = phase_serve_default()
-    phase_churn_default()
-    phase_serve_loop_default()
-    counts = phase_full_size()
-    loop_runs = phase_loop_full()
-    phase_observability(loop_runs)
+    card = timed("1 environment", phase_env)
+    timed("2 build", phase_build)
+    timings, entry_counts = timed("3 kernels", phase_kernels)
+    k33_counts = timed("4 serve default", phase_serve_default)
+    timed("4b churn default", phase_churn_default)
+    timed("4c serve loop default", phase_serve_loop_default)
+    counts = timed("5 full size", phase_full_size)
+    loop_runs = timed("5b loop full size", phase_loop_full)
+    timed("5d observability", phase_observability, loop_runs)
     # each kernel's launches on the full-size path that runs it
-    counts.update({name: n for name, n in phase_churn_full().items() if name.endswith("_live")})
+    counts.update({name: n for name, n in timed("6 churn full size", phase_churn_full).items()
+                   if name.endswith("_live")})
     counts.update(entry_counts)
     counts.update({name: k33_counts[name] for name in K33_PATH})
-    for name, n in phase_sharded().items():  # the sharded path's launches come on top
-        counts[name] += n
-    for name, n in phase_index_family().items():  # and the index family's
-        counts[name] += n
-    for name, n in phase_recsys().items():  # and the recsys cells'
-        counts[name] += n
-    for name, n in phase_lm().items():  # and the LM family's
-        counts[name] += n
-    train_counts, train_timings = phase_lm_train()
-    for name, n in train_counts.items():  # and LM training's
+    # the sharded path's launches come on top, and the index family's, the
+    # recsys cells', the LM family's and LM training's
+    for name, fn in (("7 sharded", phase_sharded), ("8 index family", phase_index_family),
+                     ("9 recsys", phase_recsys), ("10 LM", phase_lm)):
+        for kernel, n in timed(name, fn).items():
+            counts[kernel] += n
+    train_counts, train_timings = timed("11 LM training", phase_lm_train)
+    for name, n in train_counts.items():
         counts[name] += n
     timings.update(train_timings)
+    timed("12 GNN", phase_gnn)
+    log(f"all phases: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])
                for name, (src, rep) in SOURCES.items()]

@@ -1,5 +1,5 @@
 """Arch -> (step function, abstract inputs, metadata) cell builders, the
-LM and recsys parts of the JAX package's ``configs/common.py``.
+JAX package's ``configs/common.py`` for the LM, GNN and recsys families.
 
 ``LMArch.build_cell(shape_name, device=...)``: ``train_4k`` is one
 training step, ``value_and_grad(lm_loss)`` (attention's backward on the
@@ -13,6 +13,13 @@ last token's logits and the caches; ``decode_32k`` and gemma's
 ``window`` slots for sliding layers), with ``q_offset`` a host int.  The
 cells run at the published widths; the batch or layer cuts that fit one
 card are the caller's (``chip_smoke.py`` records its own).
+
+``GNNArch.build_cell(shape_name, device=...)``: each of the four
+``GNN_SHAPES`` is one training step on the shape's whole graph,
+``value_and_grad(mse_loss)`` (each processor layer checkpointed) then
+``adamw_update_`` in place at JAX's cosine schedule (base 1e-3, warmup 100,
+total 10,000).  The step takes a graph of any size; ``chip_smoke.py``
+records the cut that fits one card (``ogb_products``).
 
 ``RecsysArch.build_cell(shape_name, device=...)`` returns a ``Cell``: the
 step function, its inputs as ``meta`` tensors (the port's
@@ -44,6 +51,7 @@ import torch
 from repro_torch.core.brute_force import exact_topk
 from repro_torch.core.similarity import top_l
 from repro_torch.kernels.gather_score import gather_score
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models.recsys import dien as dien_mod
 from repro_torch.models.recsys import dlrm as dlrm_mod
 from repro_torch.models.recsys import mind as mind_mod
@@ -130,6 +138,60 @@ class LMArch:
         caches_abs = tf.init_cache(cfg, b, s, device="meta")
         return Cell(name, decode_step,
                     (params_abs, caches_abs, _abstract((b, 1), torch.int32), s - 1), meta)
+
+
+# ---------------------------------------------------------------------------
+# GNN (meshgraphnet)
+# ---------------------------------------------------------------------------
+
+GNN_SHAPES = {
+    # (n_nodes, n_edges, d_feat, note)
+    "full_graph_sm": dict(n_nodes=2_708, n_edges=10_556, d_feat=1_433),
+    "minibatch_lg": dict(n_nodes=169_984, n_edges=168_960, d_feat=602),
+    "ogb_products": dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100),
+    "molecule": dict(n_nodes=30 * 128, n_edges=64 * 128, d_feat=16),
+}
+
+
+@dataclasses.dataclass
+class GNNArch:
+    arch_id: str
+    base: gnn_mod.GNNConfig
+    family: str = "gnn"
+
+    def shape_names(self):
+        return list(GNN_SHAPES)
+
+    def config_for(self, shape_name: str) -> gnn_mod.GNNConfig:
+        return dataclasses.replace(self.base, d_feat=GNN_SHAPES[shape_name]["d_feat"])
+
+    def build_cell(self, shape_name: str, device="cuda") -> Cell:
+        """One training step on the shape's whole graph (one card: JAX's
+        counts rounded up to a multiple of one device)."""
+        sh = GNN_SHAPES[shape_name]
+        cfg = self.config_for(shape_name)
+        dev = torch.device(device)
+        torch.empty(0, device=dev)  # an absent device fails here, before any work
+        n, e = sh["n_nodes"], sh["n_edges"]
+        params_abs = gnn_mod.init(cfg, device="meta")
+        graph_abs = {"node_feat": _abstract((n, cfg.d_feat), torch.float32),
+                     "edge_feat": _abstract((e, cfg.d_edge), torch.float32),
+                     "src": _abstract((e,), torch.int32),
+                     "dst": _abstract((e,), torch.int32),
+                     "targets": _abstract((n, cfg.out_dim), torch.float32)}
+        grad_fn = value_and_grad(gnn_mod.mse_loss)
+
+        def train_step(params, opt, graph):
+            _check_device(dev, (params, opt, graph))
+            loss, grads = grad_fn(params, graph, cfg)
+            lr = cosine_schedule(opt.step, base_lr=1e-3, warmup=100, total=10_000)
+            new_p, new_o = adamw_update_(grads, opt, params, lr=lr)
+            return new_p, new_o, loss
+
+        meta = dict(family="gnn", arch=self.arch_id, shape=shape_name, kind="train",
+                    n_nodes=n, n_edges=e, d_hidden=cfg.d_hidden, n_layers=cfg.n_layers)
+        return Cell(f"{self.arch_id}/{shape_name}", train_step,
+                    (params_abs, adamw_init(params_abs), graph_abs), meta)
 
 
 # ---------------------------------------------------------------------------

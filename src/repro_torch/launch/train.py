@@ -1,5 +1,5 @@
 """Training launcher (the JAX package's ``python -m repro.launch.train``)
-for the LM and recsys families.
+for the LM, GNN and recsys families.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --steps 50 --ckpt-dir ckpt [--device cpu]
@@ -8,24 +8,28 @@ for the LM and recsys families.
 the JAX launcher's ``_tiny_lm`` reduces it (two pattern cycles at d 128,
 fp32, windows of 64, no remat) on ``SyntheticLMStream`` batches of
 ``--batch`` x ``--seq`` tokens, or a recsys arch's config with its tables
-cut to 10,000 rows on ``SyntheticClickStream`` batches: AdamW, the cosine
+cut to 10,000 rows on ``SyntheticClickStream`` batches, or MeshGraphNet
+reduced as the JAX launcher reduces it (4 layers at d_hidden 64, d_feat 32)
+on ``GraphStream``'s random graphs of 512 nodes and 2,048 edges: AdamW, the cosine
 schedule (warmup a tenth of the steps), a checkpoint every
 ``--ckpt-every`` steps and at the end; re-running the same command resumes
-from the last committed checkpoint.  The LM's initial weights are drawn
-from a CPU generator (seed 0), so a card run starts where a CPU run does.
-``--device`` defaults to the card.  The GNN id raises (not ported yet);
-``--arch mind`` fails as the JAX launcher does: the click stream's ``pos``
-is SASRec's [B, S], and MIND's loss takes [B].
+from the last committed checkpoint.  The LM's and the GNN's initial
+weights are drawn from a CPU generator (seed 0), so a card run starts where
+a CPU run does.  ``--device`` defaults to the card.  ``--arch mind`` fails
+as the JAX launcher does: the click stream's ``pos`` is SASRec's [B, S],
+and MIND's loss takes [B].
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.data import SyntheticClickStream, SyntheticLMStream
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import transformer as tf
 from repro_torch.train import adamw_init, adamw_update, cosine_schedule, loop, value_and_grad
 
@@ -48,6 +52,34 @@ def _lm_init(cfg: tf.TransformerConfig, device: torch.device):
     return tf.init(cfg, torch.Generator().manual_seed(0), device=device)
 
 
+def _gnn_init(cfg: gnn_mod.GNNConfig, device: torch.device):
+    """The reduced GNN's initial weights, drawn on the CPU (seed 0)."""
+    return gnn_mod.init(cfg, torch.Generator().manual_seed(0), device=device)
+
+
+class GraphStream:
+    """The JAX launcher's random graphs: each step's features and targets
+    from ``default_rng(step)``, its ``src`` and ``dst`` from one generator
+    made with the stream (``default_rng(0)``) and advanced at every call, so
+    a resumed run sees other edges than an uninterrupted one (a property of
+    the reference, kept)."""
+
+    def __init__(self, cfg: gnn_mod.GNNConfig, n_nodes: int = 512, n_edges: int = 2048):
+        self.cfg, self.n, self.e = cfg, n_nodes, n_edges
+        self.rng = np.random.default_rng(0)
+
+    def batch_at(self, step: int) -> dict:
+        r = np.random.default_rng(step)
+        n, e = self.n, self.e
+        return dict(
+            node_feat=r.normal(size=(n, self.cfg.d_feat)).astype(np.float32),
+            edge_feat=r.normal(size=(e, self.cfg.d_edge)).astype(np.float32),
+            src=self.rng.integers(0, n, e).astype(np.int32),
+            dst=self.rng.integers(0, n, e).astype(np.int32),
+            targets=r.normal(size=(n, self.cfg.out_dim)).astype(np.float32),
+        )
+
+
 def main(argv=None) -> loop.TrainResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -68,6 +100,11 @@ def main(argv=None) -> loop.TrainResult:
         params = _lm_init(cfg, device)
         stream = SyntheticLMStream(cfg.vocab, args.batch, args.seq)
         grad_fn = value_and_grad(lambda p, b: tf.lm_loss(p, b, cfg))
+    elif arch.family == "gnn":
+        cfg = dataclasses.replace(arch.base, n_layers=4, d_hidden=64, d_feat=32, d_edge=4)
+        params = _gnn_init(cfg, device)
+        stream = GraphStream(cfg)
+        grad_fn = value_and_grad(lambda p, b: gnn_mod.mse_loss(p, b, cfg))
     else:
         field = "n_rows" if args.arch == "dlrm-rm2" else "n_items"
         cfg = dataclasses.replace(arch.cfg, **{field: TINY_ROWS})

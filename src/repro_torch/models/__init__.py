@@ -1,4 +1,3 @@
-"""Model substrate.  Ported: the LM transformers (``transformer``, ``moe``,
-``layers``; serving, and the loss's value) and the recsys towers
-(``models.recsys``); the LM backward and the GNN wait for their slices
-(ROADMAP Queue 1)."""
+"""Model substrate: the LM transformers (``transformer``, ``moe``,
+``layers``), the recsys towers (``models.recsys``) and MeshGraphNet (``gnn``,
+with its fanout ``sampler``), each served and trained on the card."""

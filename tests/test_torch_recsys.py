@@ -303,10 +303,9 @@ def test_registry_covers_every_arch_id():
     from repro_torch.configs import ARCH_IDS
 
     assert ARCH_IDS == JAX_ARCH_IDS
-    assert sorted(PORTED_ARCH_IDS) == ["dien", "dlrm-rm2", "gemma3-12b", "granite-3-2b",
-                                       "grok-1-314b", "internlm2-20b", "mind",
-                                       "qwen3-moe-235b-a22b", "sasrec"]
-    assert len(all_cells()) == 16 + 5 * 3 + 1  # recsys 4 x 4; LM 5 x 3 and gemma's long_500k
-    for aid in set(ARCH_IDS) - set(PORTED_ARCH_IDS):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            get_arch(aid)
+    assert PORTED_ARCH_IDS == ARCH_IDS
+    assert get_arch("meshgraphnet").family == "gnn"
+    # recsys 4 x 4; LM 5 x 3 and gemma's long_500k; GNN 4
+    assert len(all_cells()) == 16 + 5 * 3 + 1 + 4 == 36
+    for aid in ARCH_IDS:
+        assert get_arch(aid).arch_id == aid

@@ -305,9 +305,13 @@ def test_train_launcher_mind_fails_in_both_packages(monkeypatch):
 
 
 def test_train_launcher_rejects_unported_families():
-    """The GNN id raises (the LM family trains: tests/test_torch_lm_train.py)."""
-    with pytest.raises(NotImplementedError, match="GNN family"):
-        get_arch("meshgraphnet")
+    """No family is left unported: the GNN id resolves (it trains:
+    tests/test_torch_gnn.py), as every id of the registry does."""
+    from repro_torch.configs import ARCH_IDS, PORTED_ARCH_IDS
+
+    assert get_arch("meshgraphnet").family == "gnn"
+    assert PORTED_ARCH_IDS == ARCH_IDS
+    assert {get_arch(a).family for a in ARCH_IDS} == {"lm", "gnn", "recsys"}
 
 
 # ------------------------------------------------------------------- example
