@@ -332,6 +332,29 @@ nothing then, and are not counted): ``count_graph_launches``.
      and each cut at step 2 and resumed, every loss within
      LM_LAUNCHER_RTOL.  No TPU kernel is on this path (message passing is
      index_add_): the phase launches no hand-written kernel.
+  13. mesh tools (src/repro_torch/launch/mesh.py, train/compress.py, the
+     sharded GNN layer, the MoE expert-parallel dispatch, the shard-local
+     retrieval, the cells' mesh branches): one process group of one rank
+     (NCCL for the card, gloo for host tensors, a FileStore under build/)
+     and make_host_mesh() on "cuda".  A one-rank mesh takes the entry points'
+     local branches, as JAX's do, so the collective bodies are called
+     directly on the group and held to the local path: (a) MeshGraphNet's
+     sharded layers on full_graph_sm whole at the published widths, forward
+     and gradient (GNN_OUT_RTOL, GNN_LOSS_RTOL, GNN_GRAD_RTOL); (b)
+     expert_parallel at qwen3's MoE widths, MESH_MOE_TOKENS tokens, fp32
+     (LM_BLOCK_RTOL) and bf16 (MESH_MOE_BF16_ULPS bf16 ulps of a row's
+     largest), aux bit-equal; (c) the int8 error-feedback all-reduce over
+     one granite layer's gradient shapes, bit-equal to the same call on
+     host copies, ms beside its byte bound; (d) sharded_topk at SASRec's
+     and MIND's retrieval_cand, ids equal to the unsharded cell's up to
+     near-ties, mips_topk's select route launched; (e) granite's train_4k
+     through build_cell(..., mesh=) (MESH_TRAIN: 2 layers, B 2, bf16):
+     loss equal to the cell's without a mesh, every gradient leaf but the
+     embedding's bit-equal, flash_attn_bf16 and its backward launched; (f)
+     examples/quickstart_torch.py, norm_bias_analysis_torch.py and
+     distributed_serving_torch.py at their defaults, tables printed,
+     quickstart launching beam_walk, commit_merge and mips_topk.  The
+     launches of (d)-(f) are added to the kernels line.
 Each phase logs its seconds.  The line before the last is the JSON list
 of kernels; the last line is the JSON result the run is read by.
 """
@@ -5074,10 +5097,10 @@ def _blocks(forced=None):
 
     original, seen = tf._block_apply, []
 
-    def block(bp, x, positions, cfg, window, kv_cache=None, q_offset=0):
+    def block(bp, x, *args, **kwargs):
         if forced is not None:
             x = forced[len(seen)][0].to(x.device)
-        y, kv, aux = original(bp, x, positions, cfg, window, kv_cache=kv_cache, q_offset=q_offset)
+        y, kv, aux = original(bp, x, *args, **kwargs)
         seen.append((x.cpu(), y.cpu()))
         if forced is not None:
             y = forced[len(seen) - 1][1].to(y.device)
@@ -5245,13 +5268,16 @@ def phase_lm() -> dict:
 # 71.4 GiB held and a 6.0 GiB logits chunk asked for, 10% past the
 # extrapolation, so the cuts keep that margin under CARD_GIB (PERF.md §4).
 # grok's one layer holds 6.53 B parameters, 73.0 GiB at 12 bytes: its cell
-# builds and is not stepped; it waits for the mesh tools (ROADMAP Queue 1).
+# builds and is not stepped.  The mesh tools do not make it fit one card:
+# a mesh has one rank here, and the dry-run (ROADMAP Queue 1, item 6b)
+# states what one rank of a 256-card mesh would hold.
 # granite fits whole at B 24 (64.79 GiB, PERF.md §4) and is timed at a
 # quarter of its layers, its 8.2 s steps at full depth being the longest of
-# the phase: the run's time limit pays for phase 12.
+# the phase: the run's time limit pays for phase 12.  internlm2 fits 8
+# layers at B 10 (65.13 GiB) and is timed at 4, which pays for phase 13.
 LM_TRAIN_CUTS = {"granite-3-2b": (10, 24),
                  "gemma3-12b": (12, 4),
-                 "internlm2-20b": (8, 10),
+                 "internlm2-20b": (4, 10),
                  "qwen3-moe-235b-a22b": (1, 9),
                  "grok-1-314b": (1, None)}
 LM_TRAIN_STEPS = 3
@@ -5581,8 +5607,8 @@ def phase_lm_train_cell(aid: str, g) -> int:
         log(f"lm {cell.name} layers={cfg.n_layers} params={n_params} state_gib="
             f"{_gib(TRAIN_BYTES_PER_PARAM * n_params):.2f} at {TRAIN_BYTES_PER_PARAM} B a "
             f"parameter (bf16 weights and gradients, fp32 moments) before any activation: does "
-            f"not fit one card (CARD_GIB {CARD_GIB}); not stepped, waits for the mesh tools; "
-            f"meta={cell.meta}")
+            f"not fit one card (CARD_GIB {CARD_GIB}); not stepped (a mesh has one rank on "
+            f"this card); meta={cell.meta}")
         return 0
     t0 = time.perf_counter()
     params = arch.init(g, device="cuda")
@@ -6153,6 +6179,288 @@ def phase_gnn() -> None:
     assert not any(counts.values()), f"gnn: a hand-written kernel ran: {counts}"
 
 
+# ----------------------------------------------------------------- phase 13
+# The mesh tools (src/repro_torch/launch/mesh.py, train/compress.py, the
+# sharded GNN layer, the MoE expert-parallel dispatch, the shard-local
+# retrieval, the cells' mesh branches) on the card: one process group of one
+# rank (NCCL for the card's tensors, gloo for the host's) and make_host_mesh()
+# on "cuda".  A mesh of one rank takes each entry point's local branch, as
+# JAX's does, so the collective bodies are also called directly on the
+# one-rank group and held to the local path.  The multi-rank behaviour is the
+# CPU tests' (tests/test_torch_mesh.py: eight gloo ranks against JAX's
+# sharded runs).
+MESH_MOE_TOKENS = 2_048   # (b) tokens through one qwen3 MoE layer
+# (b) bf16: a token's output row is the sum of its top_k gate-weighted expert
+# rows, added by bf16 atomics in no fixed order; two orders differ by the
+# roundings of at most top_k - 1 partial sums, each within a bf16 ulp (2**-8)
+# of the row's largest |value| here.  fp32 is held to phase 10's block limit.
+MESH_MOE_BF16_ULPS = 7
+MESH_RETRIEVAL = {"sasrec": 1, "mind": 4}  # (d) arch -> users (retrieval_cand; MIND's 4 interests)
+MESH_TRAIN = ("granite-3-2b", 2, 2)        # (e) arch, layers, batch (S 4,096, bf16)
+MESH_PATH = ("mips_topk_select", "flash_attn_bf16", "flash_attn_bwd_bf16", "beam_walk",
+             "commit_merge", "mips_topk")
+MESH_EXAMPLES = ("quickstart_torch", "norm_bias_analysis_torch", "distributed_serving_torch")
+
+
+def phase_mesh_gnn(group, g) -> None:
+    """(a) MeshGraphNet at the published widths on full_graph_sm whole:
+    forward_blocks / mse_loss_blocks (every layer sharded_layer: all-gather,
+    local segment sums, reduce-scatter) on the one-rank group, and the
+    gradient mean over it, against the local path."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import grad_mean
+    from repro_torch.models import gnn as G
+    from repro_torch.train.tree import named_leaves, value_and_grad
+
+    cfg = get_arch("meshgraphnet").config_for("full_graph_sm")
+    graph, n, e, pad, _ = _gnn_graph("full_graph_sm", cfg, g)
+    params = G.init(cfg, g, device="cuda")
+    with torch.no_grad():
+        out_b = G.forward_blocks(params, graph, cfg, group)
+        out_l = G.forward(params, graph, cfg)
+    out_err = _rel_err(out_b, out_l)
+    loss_b, grads_b = value_and_grad(lambda p, gr, c: G.mse_loss_blocks(p, gr, c, group))(
+        params, graph, cfg)
+    grad_mean(grads_b, group)
+    loss_l, grads_l = value_and_grad(G.mse_loss)(params, graph, cfg)
+    errs = {name: _rel_err(got, want) for (name, got), (_, want) in
+            zip(named_leaves(grads_b), named_leaves(grads_l))}
+    worst = max(errs, key=errs.get)
+    loss_err = _rel_err(loss_b, loss_l)
+    log(f"mesh (a) gnn full_graph_sm N={n} E={e} (pad {pad}) layers={cfg.n_layers} "
+        f"d_hidden={cfg.d_hidden}: sharded layers on the one-rank group against the local "
+        f"path: out {out_err:.3e} of its largest (limit {GNN_OUT_RTOL}), loss {loss_err:.3e} "
+        f"(limit {GNN_LOSS_RTOL}), worst gradient leaf {worst} {errs[worst]:.3e} (limit "
+        f"{GNN_GRAD_RTOL}, index_add_'s atomics reorder the sums)")
+    assert out_err <= GNN_OUT_RTOL and loss_err <= GNN_LOSS_RTOL, (out_err, loss_err)
+    assert errs[worst] <= GNN_GRAD_RTOL, errs
+
+
+def phase_mesh_moe(group, g) -> None:
+    """(b) one MoE layer at qwen3's widths (d 4,096, 128 experts of d_ff
+    1,536, top 8, capacity factor 1.25), MESH_MOE_TOKENS tokens: the
+    expert-parallel body on the one-rank group (its rank's experts all 128)
+    against the local dispatch, fp32 and bf16."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+
+    cfg = get_arch("qwen3-moe-235b-a22b").cfg
+    t, k = MESH_MOE_TOKENS, cfg.moe_top_k
+    capacity = max(8, int(t * k / cfg.moe_experts * cfg.capacity_factor))
+    for dtype, limit in ((torch.float32, LM_BLOCK_RTOL),
+                         (torch.bfloat16, MESH_MOE_BF16_ULPS * 2**-8)):
+        p = M.moe_init(g, cfg.d_model, cfg.d_ff, cfg.moe_experts, dtype,
+                       expert_split=cfg.moe_expert_split, device="cuda")
+        x = torch.randn((t, cfg.d_model), generator=g, device="cuda").to(dtype)
+        w = (p["router"], p["w_gate"], p["w_in"], p["w_out"])
+        kw = dict(top_k=k, capacity=capacity, split=cfg.moe_expert_split)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_p, aux_p = M.expert_parallel(x, *w, 0, group, None, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out_l, aux_l = M._dispatch_local(x, *w, 0, **kw)
+        err = _scaled_err(out_p.float(), out_l.float())
+        log(f"mesh (b) moe qwen3 widths {str(dtype).split('.')[-1]} T={t} capacity={capacity}: "
+            f"expert_parallel on the one-rank group against the local dispatch: out {err:.3e} "
+            f"of a row's largest (limit {limit:.3e}), aux {float(aux_p)!r} vs "
+            f"{float(aux_l)!r}; {ms:.1f} ms (wall, one call)")
+        assert torch.equal(aux_p, aux_l) and err <= limit, (err, float(aux_p), float(aux_l))
+        del p, w, x, out_p, out_l
+        torch.cuda.empty_cache()
+
+
+def phase_mesh_compress(group, g) -> None:
+    """(c) the int8 error-feedback all-reduce over one granite layer's
+    gradient shapes: the card's means and errors bit-equal to the same
+    function on the host's copies (gloo), and its ms beside its byte bound
+    (read g and e, write the mean and e', 16 bytes an element)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.compress import compressed_grad_mean
+    from repro_torch.train.tree import leaves
+
+    cfg = _lm_cut("granite-3-2b", 1).cfg
+    shapes = [tuple(t.shape[2:]) for t in leaves(tf.init(cfg, device="meta")["blocks"])]
+    grads = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+    errors = [torch.randn(s, generator=g, device="cuda") * 1e-3 for s in shapes]
+    mean_c, err_c = compressed_grad_mean(grads, errors, group)
+    mean_h, err_h = compressed_grad_mean([x.cpu() for x in grads], [x.cpu() for x in errors],
+                                         group)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(mean_c + err_c, mean_h + err_h))
+    n = sum(x.numel() for x in grads)
+    ms = cuda_ms(lambda: compressed_grad_mean(grads, errors, group), reps=10, warmup=2)
+    bound_ms = 16 * n / HBM_BYTES_PER_S * 1e3
+    log(f"mesh (c) compressed all-reduce over granite's {len(shapes)} layer tensors "
+        f"({n} elements): card == host bit for bit: {same}; {ms:.3f} ms (CUDA events, the "
+        f"one-rank all-reduces included) against a byte bound of {bound_ms:.4f} ms "
+        f"({ms / bound_ms:.1f}x)")
+    assert same
+
+
+def phase_mesh_retrieval(group, g) -> None:
+    """(d) the shard-local retrieval (``sharded_topk``: the rank's top 100
+    by mips_topk's select route, gathered over the one-rank group and
+    merged) at SASRec's and MIND's retrieval_cand, against the unsharded
+    cell's top 100."""
+    import torch
+
+    from repro_torch import testing
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import RETRIEVAL_K, sharded_topk
+
+    for aid, users in MESH_RETRIEVAL.items():
+        arch = get_arch(aid)
+        params = arch.init(g, device="cuda")
+        cell = arch.build_cell("retrieval_cand")
+        hist = _recsys_inputs(arch, cell.args[1], g, batch=users)
+        with torch.no_grad():
+            with uncounted():
+                want = cell.step_fn(params, hist)
+            before = _read_counts()["mips_topk_select"]
+            u = arch.user_vectors(params, hist)
+            vals, ids = sharded_topk(u, params["item_emb"], 0, group, RETRIEVAL_K,
+                                     interests=aid == "mind")
+            select = _read_counts()["mips_topk_select"] - before
+        ties = testing.assert_topk_match(ids.cpu().numpy(), vals.cpu().numpy(),
+                                         want["ids"].cpu().numpy(), want["scores"].cpu().numpy())
+        log(f"mesh (d) {aid} retrieval_cand B={users} N={arch.cfg.n_items} "
+            f"d={arch.cfg.embed_dim}: sharded_topk ids equal to the unsharded cell's "
+            f"(near-tie rows {len(ties)}); mips_topk select launches {select}")
+        assert select > 0, "the shard-local retrieval did not take mips_topk's select route"
+        del params
+
+
+def phase_mesh_train(mesh, g) -> None:
+    """(e) granite-3-2b's train_4k at the published widths, MESH_TRAIN's
+    layers and batch, bf16: the gradient by mesh_value_and_grad and one
+    step through build_cell(..., mesh=) against the same cell without a
+    mesh.  An all-reduce over one rank is exact: the loss and every
+    gradient leaf are equal but the embedding's (its backward is an
+    index_add_ of bf16 atomics, within a bf16 ulp of its largest)."""
+    import torch
+
+    from repro_torch.configs.common import mesh_value_and_grad
+    from repro_torch.launch.mesh import local_tree, spec_axes
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.tree import leaves, named_leaves, tree_map, value_and_grad
+
+    aid, layers, b = MESH_TRAIN
+    arch = _lm_cut(aid, layers)
+    cfg = arch.cfg
+    cell_m, cell = arch.build_cell("train_4k", mesh=mesh), arch.build_cell("train_4k")
+    held, _, bspecs = cell_m.in_specs
+    s = cell.args[2]["tokens"].shape[1]
+    params = arch.init(g, device="cuda")
+    batch = _train_batch(cfg.vocab, b, s, g)
+    blk = local_tree(batch, bspecs, mesh)
+    with uncounted():
+        loss_m, grads_m = mesh_value_and_grad(tf.lm_loss, mesh, spec_axes(bspecs["tokens"]))(
+            params, blk, cfg)
+        loss_l, grads_l = value_and_grad(tf.lm_loss)(params, batch, cfg)
+    errs = {name: _rel_err(a, c) for (name, a), (_, c) in
+            zip(named_leaves(grads_m), named_leaves(grads_l))}
+    unequal = [name for (name, a), (_, c) in zip(named_leaves(grads_m), named_leaves(grads_l))
+               if not torch.equal(a, c)]
+    p_m = local_tree(params, held, mesh)
+    p_l = tree_map(torch.clone, params)
+    torch.cuda.synchronize()
+    before = _read_counts()
+    t0 = time.perf_counter()
+    _, _, step_m = cell_m.step_fn(p_m, adamw_init(p_m), blk)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v - before[k] for k, v in _read_counts().items()}
+    with uncounted():
+        _, _, step_l = cell.step_fn(p_l, adamw_init(p_l), batch)
+    new_err = max(_rel_err(a, c) for a, c in zip(leaves(p_m), leaves(p_l)))
+    log(f"mesh (e) {aid} train_4k layers={cfg.n_layers} B={b} S={s} bf16 under "
+        f"make_host_mesh() (batch axes {spec_axes(bspecs['tokens'])}): loss {float(loss_m)!r} "
+        f"vs {float(loss_l)!r} without a mesh; gradient leaves not bit-equal {unequal} (worst "
+        f"{max(errs.values()):.3e} of its largest); one cell step {ms:.1f} ms (wall, first), "
+        f"loss {float(step_m)!r} vs {float(step_l)!r}, new params within {new_err:.3e}; "
+        f"launches flash_attn_bf16 {counts['flash_attn_bf16']} flash_attn_bwd_bf16 "
+        f"{counts['flash_attn_bwd_bf16']}")
+    assert torch.equal(loss_m, loss_l) and torch.equal(step_m, step_l)
+    assert set(unequal) <= {"['embed']"} and max(errs.values()) <= 2**-8, (unequal, errs)
+    assert new_err <= 2**-7, new_err
+    assert counts["flash_attn_bf16"] > 0 and counts["flash_attn_bwd_bf16"] > 0, counts
+
+
+def phase_mesh_examples() -> None:
+    """(f) the three examples the port gained, at their defaults (JAX's
+    sizes) on the card, their tables printed; quickstart must launch
+    beam_walk, commit_merge and mips_topk and no per-step kernel."""
+    import importlib
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        for name in MESH_EXAMPLES:
+            before = _read_counts()
+            t0 = time.perf_counter()
+            table = importlib.import_module(name).main([])
+            seconds = time.perf_counter() - t0
+            counts = {k: v - before[k] for k, v in _read_counts().items()}
+            log(f"mesh (f) examples/{name}.py on the card: {seconds:.1f} s; table "
+                f"{json.dumps(table, default=float)}; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if name == "quickstart_torch":
+                _assert_path(name, counts, ("beam_walk", "commit_merge", "mips_topk"))
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+
+
+def phase_mesh() -> dict:
+    """Phase 13: the mesh tools on one card.  Returns the launches of its
+    paths ((d)'s shard-local retrieval, (e)'s mesh train step, (f)'s
+    examples) for the kernels line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_group, make_host_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = ROOT / "build" / "mesh_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    t = [time.perf_counter()]
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        group = axis_group(mesh, ("model",))
+        log(f"mesh phase: world {dist.get_world_size()}, backend {dist.get_backend()}, "
+            f"mesh {mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
+        g = torch.Generator(device="cuda").manual_seed(13)
+        _zero_counts()
+        t.append(time.perf_counter())
+        for fn, args in ((phase_mesh_gnn, (group, g)), (phase_mesh_moe, (group, g)),
+                         (phase_mesh_compress, (group, g)), (phase_mesh_retrieval, (group, g)),
+                         (phase_mesh_train, (mesh, g)), (phase_mesh_examples, ())):
+            fn(*args)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t.append(time.perf_counter())
+        counts = _read_counts()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    log("mesh phase: " + ", ".join(f"{name} {b - a:.1f} s" for name, a, b in zip(
+        ("init", "(a) gnn", "(b) moe", "(c) compress", "(d) retrieval", "(e) train",
+         "(f) examples"), t, t[1:])))
+    _assert_path("mesh", counts, MESH_PATH)
+    return counts
+
+
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "beam_step": ("src/repro_torch/csrc/beam_step.cu",
@@ -6244,6 +6552,8 @@ def main() -> int:
         counts[name] += n
     timings.update(train_timings)
     timed("12 GNN", phase_gnn)
+    for name, n in timed("13 mesh", phase_mesh).items():
+        counts[name] += n
     log(f"all phases: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])

@@ -135,9 +135,8 @@ def captured_blocks():
     run must not checkpoint its blocks)."""
     original, seen = tf._block_apply, []
 
-    def block(bp, x, positions, cfg, window, kv_cache=None, q_offset=0):
-        y, kv, aux = original(bp, x, positions, cfg, window, kv_cache=kv_cache,
-                              q_offset=q_offset)
+    def block(bp, x, *args, **kwargs):
+        y, kv, aux = original(bp, x, *args, **kwargs)
         x.retain_grad()
         y.retain_grad()
         seen.append((x, y))

@@ -38,8 +38,27 @@ raises: every tensor it is given must lie there.
     ``interest_topk``; DLRM ranks its 10^6 candidate rows with its forward
     pass and ``top_l``.
 
-The PartitionSpec trees and the sharded retrieval branch are the mesh
-tools' (ROADMAP Queue 1); one card has no mesh.
+Under a mesh (``build_cell(shape_name, device, mesh=)``, a ``DeviceMesh``
+with JAX's axis names) a step takes what a rank holds: ``Cell.in_specs``
+are the PartitionSpec trees by which a rank cuts the global inputs
+(``launch.mesh.local_tree``), and the step gives the rank's outputs.
+
+  * LM ``train_4k``: the batch over the batch axes (a dense arch on a mesh
+    without ``pod``: over ``data`` and ``model``, JAX's pure FSDP), the
+    experts over ``model`` (``transformer.held_specs``), the dense weights
+    whole; ``lm_loss(mesh=)``, the gradient mean over the batch axes
+    (``mesh_value_and_grad``), AdamW clipped by the whole tree's norm.
+    Prefill and decode pass the mesh to the MoE layers.
+  * GNN: N and E padded to multiples of the rank count, the graph in row
+    blocks over every axis (``gnn.data_specs``), the parameters whole;
+    ``mse_loss(mesh=)``, the gradient mean over every axis, AdamW.
+  * recsys retrieval (SASRec, MIND, DIEN): with a ``model`` axis of P > 1
+    ranks dividing ``n_items``, JAX's shard-local top k (``sharded_topk``):
+    each rank its block of the item table, the per-rank top 100 gathered
+    over ``model`` and merged.  The parameters are whole on every rank (the
+    user tower reads the whole table).  The train and serve cells and
+    DLRM's retrieval under a mesh are not ported: a row-sharded table needs
+    a masked gather and an all-reduce for a lookup (ROADMAP).
 """
 from __future__ import annotations
 
@@ -51,14 +70,18 @@ import torch
 from repro_torch.core.brute_force import exact_topk
 from repro_torch.core.similarity import top_l
 from repro_torch.kernels.gather_score import gather_score
+from repro_torch.launch.mesh import (MODEL_AXIS, P, axis_group, axis_size, batch_axes_of,
+                                     check_mesh, gather_rows, grad_mean, local_shard)
 from repro_torch.models import gnn as gnn_mod
+from repro_torch.models import layers as layers_mod
 from repro_torch.models.recsys import dien as dien_mod
 from repro_torch.models.recsys import dlrm as dlrm_mod
 from repro_torch.models.recsys import mind as mind_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import sasrec as sasrec_mod
-from repro_torch.train.optimizer import adamw_init, adamw_update, adamw_update_, cosine_schedule
-from repro_torch.train.tree import leaves, value_and_grad
+from repro_torch.train.optimizer import (adamw_init, adamw_specs, adamw_update, adamw_update_,
+                                         cosine_schedule, global_norm)
+from repro_torch.train.tree import leaves, tree_map, value_and_grad
 
 
 class Cell(NamedTuple):
@@ -66,6 +89,23 @@ class Cell(NamedTuple):
     step_fn: Callable
     args: tuple               # the inputs, as meta tensors (a decode's q_offset: an int)
     meta: dict
+    in_specs: Any = None      # under a mesh: how a rank cuts ``args`` (PartitionSpec trees)
+
+
+def mesh_value_and_grad(loss_fn: Callable, mesh, axes) -> Callable:
+    """``value_and_grad(loss_fn)`` of a loss taking ``mesh``, then the
+    gradient mean over the data-parallel ``axes``.  The loss is the mean
+    over those axes of each rank's term, and each rank backpropagates its
+    own term (``launch.mesh.mean_out``): the mean of the ranks' gradients is
+    the gradient of the loss.  Without a mesh or axes, ``value_and_grad``."""
+    grad_fn = value_and_grad(loss_fn)
+    group = axis_group(mesh, axes) if mesh is not None and axes else None
+
+    def wrapped(params, batch, cfg):
+        loss, grads = grad_fn(params, batch, cfg, mesh)
+        return loss, grads if group is None else grad_mean(grads, group)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +135,27 @@ class LMArch:
     def init(self, generator=None, *, device="cuda"):
         return tf.init(self.cfg, generator, device=device)
 
-    def build_cell(self, shape_name: str, device="cuda") -> "Cell":
+    def _train_layout(self, mesh):
+        """(the batch axes of ``train_4k``, the held parameter specs).  JAX's
+        rule: a dense arch on a mesh without ``pod`` is pure FSDP (the batch
+        over ``data`` and ``model``); an MoE arch keeps its tokens
+        replicated over ``model`` for the expert dispatch, its experts cut
+        there when the axis has more than one rank."""
+        if mesh is None:
+            return (), None
+        layers_mod.set_batch_axes_for_mesh(mesh)
+        names = mesh.mesh_dim_names
+        if not self.cfg.is_moe and "pod" not in names:
+            axes = tuple(a for a in ("data", MODEL_AXIS) if a in names)
+        else:
+            axes = batch_axes_of(mesh)
+        layers_mod.set_batch_axes(axes)
+        cut = self.cfg.is_moe and MODEL_AXIS in names and axis_size(mesh, (MODEL_AXIS,)) > 1
+        held = tf.held_specs(self.cfg)
+        return axes, held if cut else tree_map(lambda _: P(), held)
+
+    def build_cell(self, shape_name: str, device="cuda", mesh=None) -> "Cell":
+        check_mesh(mesh)
         if shape_name not in self.shape_names():
             raise KeyError(f"{self.arch_id} has no cell {shape_name!r}; "
                            f"it has {self.shape_names()}")
@@ -111,29 +171,39 @@ class LMArch:
         params_abs = tf.abstract_params(cfg)
 
         if sh["kind"] == "train":
-            grad_fn = value_and_grad(tf.lm_loss)
+            axes, held = self._train_layout(mesh)
+            grad_fn = mesh_value_and_grad(tf.lm_loss, mesh, axes)
 
             def train_step(params, opt, batch):
                 _check_device(dev, (params, opt, batch))
+                if mesh is not None:
+                    layers_mod.set_batch_axes(axes)
                 loss, grads = grad_fn(params, batch, cfg)
                 lr = cosine_schedule(opt.step, base_lr=3e-4, warmup=2000, total=100_000)
-                new_p, new_o = adamw_update_(grads, opt, params, lr=lr)
+                norm = None if mesh is None else global_norm(grads, held, mesh)
+                new_p, new_o = adamw_update_(grads, opt, params, lr=lr, grad_norm=norm)
                 return new_p, new_o, loss
 
             batch_abs = {"tokens": _abstract((b, s), torch.int32),
                          "labels": _abstract((b, s), torch.int32)}
-            return Cell(name, train_step, (params_abs, adamw_init(params_abs), batch_abs), meta)
+            bspec = P(axes, None)
+            return Cell(name, train_step, (params_abs, adamw_init(params_abs), batch_abs), meta,
+                        None if mesh is None else (held, adamw_specs(held),
+                                                   {"tokens": bspec, "labels": bspec}))
+
+        if mesh is not None:
+            layers_mod.set_batch_axes_for_mesh(mesh)
 
         if sh["kind"] == "prefill":
             def prefill_step(params, tokens):
                 _check_device(dev, (params, tokens))
-                return tf.serve_prefill(params, tokens, cfg, max_len=tokens.shape[1])
+                return tf.serve_prefill(params, tokens, cfg, mesh, max_len=tokens.shape[1])
 
             return Cell(name, prefill_step, (params_abs, _abstract((b, s), torch.int32)), meta)
 
         def decode_step(params, caches, token, q_offset: int):
             _check_device(dev, (params, caches, token))
-            return tf.serve_step(params, caches, token, q_offset, cfg)
+            return tf.serve_step(params, caches, token, q_offset, cfg, mesh)
 
         caches_abs = tf.init_cache(cfg, b, s, device="meta")
         return Cell(name, decode_step,
@@ -165,21 +235,25 @@ class GNNArch:
     def config_for(self, shape_name: str) -> gnn_mod.GNNConfig:
         return dataclasses.replace(self.base, d_feat=GNN_SHAPES[shape_name]["d_feat"])
 
-    def build_cell(self, shape_name: str, device="cuda") -> Cell:
-        """One training step on the shape's whole graph (one card: JAX's
-        counts rounded up to a multiple of one device)."""
+    def build_cell(self, shape_name: str, device="cuda", mesh=None) -> Cell:
+        """One training step on the shape's whole graph, JAX's node and edge
+        counts rounded up to a multiple of the mesh's ranks (one without a
+        mesh); under a mesh the step takes this rank's row blocks."""
+        check_mesh(mesh)
         sh = GNN_SHAPES[shape_name]
         cfg = self.config_for(shape_name)
         dev = torch.device(device)
         torch.empty(0, device=dev)  # an absent device fails here, before any work
-        n, e = sh["n_nodes"], sh["n_edges"]
+        ranks = 1 if mesh is None else mesh.size()
+        n, e = _round_up(sh["n_nodes"], ranks), _round_up(sh["n_edges"], ranks)
         params_abs = gnn_mod.init(cfg, device="meta")
         graph_abs = {"node_feat": _abstract((n, cfg.d_feat), torch.float32),
                      "edge_feat": _abstract((e, cfg.d_edge), torch.float32),
                      "src": _abstract((e,), torch.int32),
                      "dst": _abstract((e,), torch.int32),
                      "targets": _abstract((n, cfg.out_dim), torch.float32)}
-        grad_fn = value_and_grad(gnn_mod.mse_loss)
+        axes = () if mesh is None else gnn_mod.mesh_axes(mesh)
+        grad_fn = mesh_value_and_grad(gnn_mod.mse_loss, mesh, axes)
 
         def train_step(params, opt, graph):
             _check_device(dev, (params, opt, graph))
@@ -190,8 +264,11 @@ class GNNArch:
 
         meta = dict(family="gnn", arch=self.arch_id, shape=shape_name, kind="train",
                     n_nodes=n, n_edges=e, d_hidden=cfg.d_hidden, n_layers=cfg.n_layers)
+        pspecs = gnn_mod.specs(cfg)
         return Cell(f"{self.arch_id}/{shape_name}", train_step,
-                    (params_abs, adamw_init(params_abs), graph_abs), meta)
+                    (params_abs, adamw_init(params_abs), graph_abs), meta,
+                    None if mesh is None else (pspecs, adamw_specs(pspecs),
+                                               gnn_mod.data_specs(axes)))
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +290,10 @@ _RECSYS_MODS = {
     "mind": mind_mod,
     "dien": dien_mod,
 }
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def _abstract(shape, dtype) -> torch.Tensor:
@@ -257,6 +338,26 @@ def interest_topk(interests: torch.Tensor, items: torch.Tensor, k: int = RETRIEV
     s = s.masked_fill(repeat, float("-inf"))
     vals, pos = top_l(s, kk)
     return vals, i.gather(-1, pos)
+
+
+def sharded_topk(u: torch.Tensor, block: torch.Tensor, rank: int, group, k: int = RETRIEVAL_K,
+                 *, interests: bool = False):
+    """JAX's shard-local top k over the ``model`` group: this rank's top k
+    of its block of the item table (``exact_topk``, or ``interest_topk``
+    over u's K interests), its ids offset by ``rank * rows``; the group's
+    values and ids all-gathered into [B, P k] in rank order and the top k
+    kept by ``lax.top_k``'s rule, the first occurrence winning, so the lower
+    rank wins a tie.  u [B, K, d] -> (scores [B, k], ids [B, k] int32)."""
+    if interests:
+        vals, ids = interest_topk(u, block, k)
+    else:
+        vals, ids = exact_topk(u[:, 0], block, k=k)
+    ids = ids + rank * block.shape[0]
+    b, kk = vals.shape
+    allv = gather_rows(vals, group).view(-1, b, kk).transpose(0, 1).reshape(b, -1)
+    alli = gather_rows(ids, group).view(-1, b, kk).transpose(0, 1).reshape(b, -1)
+    vals, sel = top_l(allv, k)
+    return vals, alli.gather(-1, sel)
 
 
 @dataclasses.dataclass
@@ -318,9 +419,13 @@ class RecsysArch:
             return sasrec_mod.user_embedding(params, hist, self.cfg)[:, None]
         return dien_mod.user_vector(params, hist, self.cfg)[:, None]
 
-    def build_cell(self, shape_name: str, device="cuda") -> Cell:
+    def build_cell(self, shape_name: str, device="cuda", mesh=None) -> Cell:
+        check_mesh(mesh)
         sh = RECSYS_SHAPES[shape_name]
         cfg = self.cfg
+        if mesh is not None and (sh["kind"] != "retrieval" or self.arch_id == "dlrm-rm2"):
+            raise NotImplementedError(f"{self.arch_id}/{shape_name} under a mesh: a row-sharded "
+                                      f"table's lookups are not ported (ROADMAP)")
         dev = torch.device(device)
         torch.empty(0, device=dev)  # an absent device fails here, before any work
         params_abs = self.init(device="meta")
@@ -382,17 +487,29 @@ class RecsysArch:
 
             args = (params_abs, batch_abs)
         else:
+            interests = self.arch_id == "mind"
+            msize = axis_size(mesh, (MODEL_AXIS,)) if mesh is not None and \
+                MODEL_AXIS in mesh.mesh_dim_names else 1
+            if msize > 1 and cfg.n_items % msize == 0:
+                group, rank = axis_group(mesh, (MODEL_AXIS,)), mesh.get_local_rank(MODEL_AXIS)
+
+                def top(u, items):
+                    block = local_shard(items, P(MODEL_AXIS, None), mesh)
+                    return sharded_topk(u, block, rank, group, RETRIEVAL_K, interests=interests)
+            else:
+                def top(u, items):
+                    if interests:
+                        return interest_topk(u, items, RETRIEVAL_K)
+                    return exact_topk(u[:, 0], items, k=RETRIEVAL_K)
+
             def retrieval_step(params, hist):
                 _check_device(dev, (params, hist))
-                u = self.user_vectors(params, hist)
-                if self.arch_id == "mind":
-                    vals, ids = interest_topk(u, params["item_emb"], RETRIEVAL_K)
-                else:
-                    vals, ids = exact_topk(u[:, 0], params["item_emb"], k=RETRIEVAL_K)
+                vals, ids = top(self.user_vectors(params, hist), params["item_emb"])
                 return {"scores": vals, "ids": ids}
 
             args = (params_abs, _abstract((b, cfg.seq_len), torch.int32))
-        return Cell(name, torch.no_grad()(retrieval_step), args, meta)
+        in_specs = None if mesh is None else (tree_map(lambda _: P(), params_abs), P())
+        return Cell(name, torch.no_grad()(retrieval_step), args, meta, in_specs)
 
 
 def _make_rerank(mod, arch_id, cfg):

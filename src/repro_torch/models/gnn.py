@@ -18,14 +18,27 @@ a gradient enabled each layer runs under ``torch.utils.checkpoint`` (JAX's
 A graph is ``{node_feat [N, d_feat], edge_feat [E, d_edge], src [E],
 dst [E]}`` (int32, -1 padding; ``targets [N, out_dim]`` for the loss).
 
-Entry points (``mesh`` must be None: the mesh tools are ROADMAP Queue 1's):
+Entry points:
   init(cfg, generator, device=)          -> params
-  forward(params, graph, cfg)            -> [N, out_dim]
-  mse_loss(params, graph, cfg)           -> scalar loss
+  forward(params, graph, cfg, mesh)      -> [N, out_dim]
+  mse_loss(params, graph, cfg, mesh)     -> scalar loss
   forward_chunked(params, graph, cfg)    -> [N, out_dim] without a gradient,
                                             the edges in chunks and the edge
                                             state updated in place (a graph
-                                            whose edge activations do not fit)
+                                            whose edge activations do not fit;
+                                            no mesh)
+  specs(cfg), data_specs(axes)           -> JAX's PartitionSpec trees
+
+With a mesh of more than one rank (JAX's branch rule), the graph tensors
+are this rank's row blocks over every mesh axis (``data_specs``; N and E
+padded to multiples of the rank count), the parameters whole on every
+rank.  The encoders and the decoder are row-wise; each processor layer is
+JAX's ``shard_map`` body (``sharded_layer``): an all-gather of the node
+state, the edge MLP on the local edges with global ``src`` / ``dst``, the
+local segment sums, a reduce-scatter of the partial [N, d] to the owner
+blocks, the node MLP on the block.  ``mse_loss`` is then the global mean
+over all N nodes, and each rank's backward its own block's term:
+``launch.mesh.grad_mean`` over every axis completes the gradient.
 """
 from __future__ import annotations
 
@@ -36,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import (ALL_AXES, P, axis_group, check_mesh, gather_rows, mean_out,
+                                     scatter_rows_sum)
 from repro_torch.models.layers import _dense_init, make_generator
 from repro_torch.train.tree import leaves, tree_map
 
@@ -56,12 +71,6 @@ class GNNConfig:
     aggregator: str = "sum"
     dtype: Any = torch.float32
     remat: bool = True
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a mesh is the mesh tools' (ROADMAP Queue 1, item 6); "
-                                  "the port runs on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +132,23 @@ def init(cfg: GNNConfig, generator=None, *, device="cuda"):
     }
 
 
+def specs(cfg: GNNConfig):
+    """Every parameter replicated (JAX's: they are a few MB)."""
+    return tree_map(lambda _: P(), init(cfg, device="meta"))
+
+
+def data_specs(axes=ALL_AXES):
+    """The graph tensors row-sharded over every mesh axis."""
+    a = tuple(axes)
+    return {"node_feat": P(a, None), "edge_feat": P(a, None), "src": P(a), "dst": P(a),
+            "targets": P(a, None)}
+
+
+def mesh_axes(mesh) -> tuple:
+    """The axes a graph is cut over: JAX's ALL_AXES that the mesh has."""
+    return tuple(a for a in ALL_AXES if a in mesh.mesh_dim_names)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -176,30 +202,71 @@ def _layer(hn, e, lp, src, dst, aggregator):
     return hn + _mlp_ln(lp["node"], torch.cat([hn, agg], dim=-1)), e_new
 
 
+def sharded_layer(hn, e, lp, src, dst, aggregator, group):
+    """One processor layer on this rank's blocks (JAX's ``shard_map``
+    body): hn [N / R, h], e / src / dst this rank's edges, src / dst global
+    node ids.  The reduce-scatter sums the ranks' partial aggregates, so the
+    aggregator must be "sum" (JAX's ``psum_scatter`` would add partial
+    maxima)."""
+    if aggregator != "sum":
+        raise ValueError(f"the sharded layer sums partial aggregates; got {aggregator!r}")
+    e_new, agg = _proc_layer_local(lp, gather_rows(hn, group), e, src, dst, aggregator)
+    agg_blk = scatter_rows_sum(agg, group)
+    return hn + _mlp_ln(lp["node"], torch.cat([hn, agg_blk], dim=-1)), e_new
+
+
 def _layer_params(params):
     """Each processor layer's tree: views of the stacked leaves."""
     n_layers = leaves(params["proc"])[0].shape[0]
     return [tree_map(lambda t, i=i: t[i], params["proc"]) for i in range(n_layers)]
 
 
+def _graph_group(mesh):
+    """The group a graph is sharded over (a mesh of more than one rank, JAX's
+    rule), or None for the local path."""
+    check_mesh(mesh)
+    if mesh is None or mesh.size() <= 1:
+        return None
+    return axis_group(mesh, mesh_axes(mesh))
+
+
 def forward(params, graph, cfg: GNNConfig, mesh=None) -> torch.Tensor:
-    """graph -> node outputs [N, out_dim]."""
-    _no_mesh(mesh)
+    """graph -> node outputs [N, out_dim] (with a mesh: this rank's block)."""
+    return forward_blocks(params, graph, cfg, _graph_group(mesh))
+
+
+def mse_loss(params, graph, cfg: GNNConfig, mesh=None) -> torch.Tensor:
+    """The mean squared error over all N nodes (with a mesh: the mean over
+    the ranks of each block's mean, the blocks equal in size)."""
+    return mse_loss_blocks(params, graph, cfg, _graph_group(mesh))
+
+
+def forward_blocks(params, graph, cfg: GNNConfig, group=None) -> torch.Tensor:
+    """``forward`` on this rank's row blocks with every processor layer
+    ``sharded_layer`` over ``group`` (any size, one rank included), or the
+    local path for None.  With remat and a gradient enabled each layer is
+    checkpointed: the backward recomputes its all-gather instead of keeping
+    it."""
     hn = _mlp_ln(params["node_enc"], graph["node_feat"].to(cfg.dtype))
     e = _mlp_ln(params["edge_enc"], graph["edge_feat"].to(cfg.dtype))
     src, dst = graph["src"], graph["dst"]
     remat = cfg.remat and torch.is_grad_enabled()
+    layer, extra = (_layer, ()) if group is None else (sharded_layer, (group,))
     for lp in _layer_params(params):
         if remat:
-            hn, e = checkpoint(_layer, hn, e, lp, src, dst, cfg.aggregator, use_reentrant=False)
+            hn, e = checkpoint(layer, hn, e, lp, src, dst, cfg.aggregator, *extra,
+                               use_reentrant=False)
         else:
-            hn, e = _layer(hn, e, lp, src, dst, cfg.aggregator)
+            hn, e = layer(hn, e, lp, src, dst, cfg.aggregator, *extra)
     return _mlp_ln(params["dec"], hn)
 
 
-def mse_loss(params, graph, cfg: GNNConfig, mesh=None) -> torch.Tensor:
-    out = forward(params, graph, cfg, mesh)
-    return torch.mean((out - graph["targets"].to(out.dtype)) ** 2)
+def mse_loss_blocks(params, graph, cfg: GNNConfig, group=None) -> torch.Tensor:
+    """``mse_loss`` of ``forward_blocks``: each block's mean, averaged over
+    ``group`` (``mean_out``: each rank's backward is its own block's)."""
+    out = forward_blocks(params, graph, cfg, group)
+    loss = torch.mean((out - graph["targets"].to(out.dtype)) ** 2)
+    return loss if group is None else mean_out(loss, group)
 
 
 def _rows_into(out: torch.Tensor, fn, *xs: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -216,7 +283,9 @@ def forward_chunked(params, graph, cfg: GNNConfig, mesh=None, chunk: int = EDGE_
     state written in place.  Exact: an edge's update reads only its own state
     and the layer's node state, so the chunks change only the order of the
     segment sums."""
-    _no_mesh(mesh)
+    if mesh is not None:
+        raise NotImplementedError("forward_chunked runs on one device: a mesh's ranks would "
+                                  "each chunk their own edges (ROADMAP)")
     nf, ef = graph["node_feat"], graph["edge_feat"]
     src, dst = graph["src"], graph["dst"]
     n, h = nf.shape[0], cfg.d_hidden

@@ -1,9 +1,12 @@
 """Shared layers, the JAX package's ``models/layers.py``: initializers, the
 dense MLP stack of the recsys towers, and the transformer's RMSNorm, rotary
 embedding, grouped-query attention (train / prefill, and decode on a
-ring-buffer cache) and SwiGLU MLP.  The mesh pieces (``shard``, the
-``*_specs`` trees, ``set_batch_axes*``) are the mesh tools' (ROADMAP
-Queue 1); one card has no mesh.
+ring-buffer cache) and SwiGLU MLP, with JAX's mesh pieces: the batch axes
+(``BATCH_AXES``, ``set_batch_axes``, ``batch_axes``,
+``set_batch_axes_for_mesh``), the activation hint ``shard`` and the
+PartitionSpec trees ``attention_specs`` and ``mlp_specs``.  The port places
+tensors explicitly (``launch.mesh.local_shard``), so ``shard`` resolves
+JAX's spec and returns its input: JAX's hint never changes a value.
 
 Attention runs on ``kernels.flash_attn.flash_attention``: the CUDA kernel
 (fp32, or bf16 on the tensor cores) for tensors on the card, its plain
@@ -27,6 +30,50 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.launch.mesh import MODEL_AXIS, P
+
+BATCH_AXES = ("pod", "data")
+
+# The batch ("data-parallel") axes depend on the mesh: ("pod", "data") on the
+# multi-pod mesh, ("data",) on a single pod, ("data", "model") for pure-FSDP
+# dense training.  The cells set them; "batch" in a spec resolves to them,
+# and an LM loss under a mesh is averaged over them.
+_BATCH_AXES = BATCH_AXES
+
+
+def set_batch_axes(axes) -> None:
+    global _BATCH_AXES
+    _BATCH_AXES = tuple(axes)
+
+
+def batch_axes() -> tuple:
+    return _BATCH_AXES
+
+
+def set_batch_axes_for_mesh(mesh) -> None:
+    set_batch_axes(tuple(a for a in mesh.mesh_dim_names if a != MODEL_AXIS))
+
+
+def resolve_spec(*spec) -> P:
+    """JAX's ``shard`` resolution: "batch" becomes the batch axes; in pure
+    FSDP ("model" among the batch axes) a standalone "model" entry becomes
+    None, there being no tensor-parallel activation axis."""
+    fsdp = MODEL_AXIS in _BATCH_AXES
+    resolved = []
+    for s in spec:
+        if s == "batch":
+            resolved.append(_BATCH_AXES)
+        elif fsdp and (s == MODEL_AXIS or (isinstance(s, tuple) and MODEL_AXIS in s)):
+            resolved.append(None)
+        else:
+            resolved.append(s)
+    return P(*resolved)
+
+
+def shard(x: torch.Tensor, *spec) -> torch.Tensor:
+    """JAX's activation sharding hint: ``x`` unchanged (``resolve_spec``
+    gives the spec JAX would constrain it to)."""
+    return x
 
 
 def make_generator(device="cuda", seed: int = 0) -> Optional[torch.Generator]:
@@ -145,6 +192,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def attention_specs():
+    """2-D sharding: the q heads and the output projection's head axis over
+    "model"; d_model FSDP-cut over "data" for storage (kv projections over
+    "data" only: n_kv <= 8 < the model axis)."""
+    return {
+        "wq": P("data", MODEL_AXIS, None),
+        "wk": P("data", None, None),
+        "wv": P("data", None, None),
+        "wo": P(MODEL_AXIS, None, "data"),
+    }
+
+
 def attention_init(generator, d_model, n_heads, n_kv, head_dim, dtype=torch.bfloat16,
                    device="cuda"):
     return {
@@ -201,6 +260,15 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, *, n_kv: int,
         ctx = flash_attention(q, k, v, q_offset=0, window=window)
     out = ctx.reshape(b, s, h * hd).to(x.dtype) @ params["wo"].reshape(h * hd, -1)
     return out, (k, v)
+
+
+def mlp_specs():
+    """Megatron TP on the ffn dim, FSDP storage on d_model."""
+    return {
+        "w_gate": P("data", MODEL_AXIS),
+        "w_in": P("data", MODEL_AXIS),
+        "w_out": P(MODEL_AXIS, "data"),
+    }
 
 
 def mlp_init(generator, d_model, d_ff, dtype=torch.bfloat16, device="cuda"):

@@ -1,8 +1,12 @@
 """Mixture-of-Experts layer (GShard top-k routing with capacity), the JAX
-package's ``models/moe.py`` without its mesh: ``moe_apply`` is JAX's
-unsharded path, ``_dispatch_local`` over all experts.  The ``shard_map``
-branch (experts over the ``model`` axis, a ``psum`` of the partial outputs)
-is the mesh tools' (ROADMAP Queue 1).
+package's ``models/moe.py``.  Without a mesh, or with a ``model`` axis of
+one rank, ``moe_apply`` is JAX's unsharded oracle: ``_dispatch_local``
+over all experts.  With a ``model`` axis of P > 1 ranks it is JAX's
+expert-parallel ``shard_map`` body (``expert_parallel``): tokens sharded
+over the batch axes and replicated over ``model``; each rank holds its E/P
+experts (its ``model`` shard, ``held_specs``), routes its tokens, runs its
+own experts, and the partial outputs are summed over ``model`` -- one
+[T_local, d] all-reduce a layer, no all-to-all.
 
 The dispatch sorts the flat (token, choice) list by expert (stable), ranks
 each choice inside its expert's segment, keeps the first ``capacity`` of a
@@ -13,12 +17,36 @@ token's top-k sum differs from the CPU's: hold it to a tolerance.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.similarity import top_l
+from repro_torch.launch.mesh import (MODEL_AXIS, P, axis_group, axis_size, check_mesh, copy_in,
+                                     mean_out, sum_out)
 from repro_torch.models.layers import FFN_CHUNK_VALUES, _dense_init, swiglu
+
+
+def moe_specs():
+    """JAX's: experts over "model" (expert parallelism), d_model FSDP over
+    "data" (gathered just in time by JAX's dispatch)."""
+    return {
+        "router": P("data", None),
+        "w_gate": P(MODEL_AXIS, "data", None),
+        "w_in": P(MODEL_AXIS, "data", None),
+        "w_out": P(MODEL_AXIS, None, "data"),
+    }
+
+
+def held_specs():
+    """What a rank of the port holds: its ``model`` shard of the experts,
+    the router and the d_model dimension whole (JAX's FSDP storage of
+    "data" gathers the same numbers)."""
+    return {
+        "router": P(),
+        "w_gate": P(MODEL_AXIS),
+        "w_in": P(MODEL_AXIS),
+        "w_out": P(MODEL_AXIS),
+    }
 
 
 def moe_init(generator, d_model, d_ff, n_experts, dtype=torch.bfloat16, expert_split: int = 1,
@@ -124,15 +152,57 @@ def _dispatch_local(x2d: torch.Tensor, router, w_gate, w_in, w_out, expert_lo: i
     return out, aux
 
 
+def expert_parallel(x2d: torch.Tensor, router, w_gate, w_in, w_out, model_rank: int,
+                    model_group, batch_group=None, *, top_k: int, capacity: int,
+                    split: int = 1):
+    """JAX's ``shard_map`` body over one rank's experts: its local tokens
+    (replicated over the model group) dispatched to its ``w_*`` (the
+    (split-)experts from ``model_rank * E_local``), the partial outputs
+    summed over the model group; aux averaged over the model group, then
+    over ``batch_group`` (the batch axes; None for none).
+
+    Gradients: the tokens and the router enter through ``copy_in`` (each
+    rank's cotangent covers only its own experts, so the group sums them)
+    and the output leaves through ``sum_out`` (the computation after it is
+    replicated over the group: its cotangent passes unchanged).  aux, the
+    same on every rank, is ``sum_out`` / P, so the sums of ``copy_in`` count
+    its gradient once."""
+    p = dist.get_world_size(model_group)
+    x_in, router_in = copy_in(x2d, model_group), copy_in(router, model_group)
+    out, aux = _dispatch_local(x_in, router_in, w_gate, w_in, w_out,
+                               model_rank * w_gate.shape[0], top_k=top_k, capacity=capacity,
+                               split=split)
+    out = sum_out(out, model_group)
+    aux = sum_out(aux, model_group) / p
+    if batch_group is not None:
+        aux = mean_out(aux, batch_group)
+    return out, aux
+
+
 def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25, expert_split: int = 1, mesh: Optional[object] = None):
+              capacity_factor: float = 1.25, expert_split: int = 1, mesh=None):
     """x [B, S, d] -> (out [B, S, d], aux_loss).  ``capacity`` is JAX's host
-    formula, ``max(8, int(B S top_k / n_experts * capacity_factor))``."""
-    if mesh is not None:
-        raise NotImplementedError("the MoE shard_map dispatch is the mesh tools' "
-                                  "(ROADMAP Queue 1, item 6)")
+    formula, ``max(8, int(T top_k / n_experts * capacity_factor))`` over the
+    T tokens a rank routes.  With a mesh whose "model" axis has P > 1 ranks
+    (JAX's branch rule), ``x`` is this rank's batch shard, ``params`` its
+    held shard (E/P experts) and the dispatch ``expert_parallel``."""
+    check_mesh(mesh)
     b, s, d = x.shape
     capacity = max(8, int(b * s * top_k / n_experts * capacity_factor))
+    if (mesh is not None and MODEL_AXIS in mesh.mesh_dim_names
+            and axis_size(mesh, (MODEL_AXIS,)) > 1):
+        p = axis_size(mesh, (MODEL_AXIS,))
+        e_eff = n_experts * expert_split
+        if e_eff % p or params["w_gate"].shape[0] != e_eff // p:
+            raise ValueError(f"a rank holds {e_eff} // {p} experts of the {MODEL_AXIS} axis; "
+                             f"got {params['w_gate'].shape[0]}")
+        batch = tuple(a for a in mesh.mesh_dim_names if a != MODEL_AXIS)
+        out, aux = expert_parallel(
+            x.reshape(-1, d), params["router"], params["w_gate"], params["w_in"],
+            params["w_out"], mesh.get_local_rank(MODEL_AXIS), axis_group(mesh, (MODEL_AXIS,)),
+            axis_group(mesh, batch) if batch else None, top_k=top_k, capacity=capacity,
+            split=expert_split)
+        return out.view(b, s, d), aux
     out, aux = _dispatch_local(x.reshape(-1, d), params["router"], params["w_gate"],
                                params["w_in"], params["w_out"], 0, top_k=top_k,
                                capacity=capacity, split=expert_split)

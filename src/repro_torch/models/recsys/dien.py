@@ -16,6 +16,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import (
     _dense_init,
     dense_stack,
@@ -23,7 +24,8 @@ from repro_torch.models.layers import (
     make_generator,
     normal,
 )
-from repro_torch.models.recsys.embedding import take
+from repro_torch.models.recsys.embedding import table_spec, take
+from repro_torch.train.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,13 @@ def init(cfg: DIENConfig, generator=None, *, device="cuda"):
         # final features: [h_T (g), target (d)]
         "mlp": dense_stack_init(g, [h + d, *cfg.mlp, 1], cfg.dtype, device),
     }
+
+
+def specs(cfg):
+    """JAX's spec tree: every leaf replicated but the item table, row-sharded over "model"."""
+    s = tree_map(lambda _: P(), init(cfg, device="meta"))
+    s["item_emb"] = table_spec()
+    return s
 
 
 def _concat(p):

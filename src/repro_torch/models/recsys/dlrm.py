@@ -12,8 +12,10 @@ from typing import Any
 
 import torch
 
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import dense_stack, dense_stack_init, make_generator, normal
-from repro_torch.models.recsys.embedding import multi_table_lookup
+from repro_torch.models.recsys.embedding import multi_table_lookup, table_spec
+from repro_torch.train.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +44,13 @@ def init(cfg: DLRMConfig, generator=None, *, device="cuda"):
         "top": dense_stack_init(g, [cfg.n_interact + cfg.embed_dim, *cfg.top_mlp], cfg.dtype,
                                 device),
     }
+
+
+def specs(cfg):
+    """JAX's spec tree: every leaf replicated but the embedding tables, row-sharded over "model"."""
+    s = tree_map(lambda _: P(), init(cfg, device="meta"))
+    s["tables"] = table_spec(stacked=True)
+    return s
 
 
 def forward(params, batch, cfg: DLRMConfig) -> torch.Tensor:

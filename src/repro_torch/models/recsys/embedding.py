@@ -4,11 +4,21 @@ sums); ids of -1 are padding.
   * padded bags  [B, L] int32 (-1 pad)     -> masked gather + sum / mean
   * ragged bags  flat_ids [T] + offsets [B+1] -> gather + segment sums
     (``searchsorted`` for each element's bag, ``index_add_`` for the sums)
+
+``table_spec`` is JAX's row sharding of a table over "model".
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import MODEL_AXIS, P
+
+
+def table_spec(stacked: bool = False) -> P:
+    """Tables shard by row over "model" (the stacked field tables of DLRM:
+    dimension 1)."""
+    return P(None, MODEL_AXIS, None) if stacked else P(MODEL_AXIS, None)
 
 
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

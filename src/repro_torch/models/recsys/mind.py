@@ -12,8 +12,10 @@ from typing import Any
 
 import torch
 
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import _dense_init, make_generator, normal
-from repro_torch.models.recsys.embedding import take
+from repro_torch.models.recsys.embedding import table_spec, take
+from repro_torch.train.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,13 @@ def init(cfg: MINDConfig, generator=None, *, device="cuda"):
         # a param so that a checkpoint is self-contained
         "routing_init": normal((cfg.seq_len, cfg.n_interests), g, device, 1.0, cfg.dtype),
     }
+
+
+def specs(cfg):
+    """JAX's spec tree: every leaf replicated but the item table, row-sharded over "model"."""
+    s = tree_map(lambda _: P(), init(cfg, device="meta"))
+    s["item_emb"] = table_spec()
+    return s
 
 
 def _squash(z, eps=1e-9):

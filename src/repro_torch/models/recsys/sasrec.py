@@ -13,8 +13,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import _dense_init, make_generator, normal
-from repro_torch.models.recsys.embedding import take
+from repro_torch.models.recsys.embedding import table_spec, take
+from repro_torch.train.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +48,13 @@ def init(cfg: SASRecConfig, generator=None, *, device="cuda"):
         blk["ln2"] = torch.ones((d,), dtype=cfg.dtype, device=device)
         params["blocks"].append(blk)
     return params
+
+
+def specs(cfg):
+    """JAX's spec tree: every leaf replicated but the item table, row-sharded over "model"."""
+    s = tree_map(lambda _: P(), init(cfg, device="meta"))
+    s["item_emb"] = table_spec()
+    return s
 
 
 def _ln(x, g, eps=1e-6):

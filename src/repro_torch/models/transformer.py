@@ -7,16 +7,26 @@ attention cycle; gemma3: 5 sliding + 1 global) with JAX's leaf names, so
 checkpoint format take an LM tree as they are.  JAX's ``lax.scan`` over
 n_rep is a Python loop over views of the stacked leaves.
 
-Entry points (``mesh`` must be None: the mesh tools are ROADMAP Queue 1's):
+Entry points:
   init(cfg, generator, device=)          -> params
-  forward(params, tokens, cfg)           -> (logits, aux_loss)
-  lm_loss(params, batch, cfg)            -> scalar loss (differentiable:
+  forward(params, tokens, cfg, mesh)     -> (logits, aux_loss)
+  lm_loss(params, batch, cfg, mesh)      -> scalar loss (differentiable:
                                             attention's backward is the
                                             flash_attn backward kernel)
   init_cache(cfg, batch, max_len)        -> per-pattern KV caches
   serve_prefill(params, tokens, cfg, ..) -> (logits, caches)
   serve_step(params, caches, token, off) -> (logits, caches), the caches
                                             written in place
+  specs(cfg), cache_specs(cfg, ..)       -> JAX's PartitionSpec trees
+  held_specs(cfg)                        -> what a rank of the port holds
+
+``mesh`` (a ``DeviceMesh``, or None) reaches each MoE layer as JAX's
+``_block`` passes it: the tokens are this rank's batch shard, the experts
+its ``model`` shard (``held_specs``), the dense weights whole on every
+rank.  ``lm_loss`` under a mesh is the mean over the batch axes
+(``layers.batch_axes()``) of each rank's loss, and each rank's backward is
+its own term's: ``launch.mesh.grad_mean`` over those axes completes the
+gradient (``configs.common.mesh_value_and_grad``).
 
 JAX's XLA layout knobs (``seq_parallel``, ``flash``, ``kv_chunk``,
 ``attn_chunk``) do not carry over: one ``flash_attention`` call takes a
@@ -34,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import MODEL_AXIS, P, axis_group, check_mesh, mean_out
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.train.tree import leaves, tree_map, unflatten
@@ -99,12 +110,6 @@ class TransformerConfig:
         return self.n_layers * per_layer + embed + self.d_model
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a mesh is the mesh tools' (ROADMAP Queue 1, item 6); "
-                                  "the port runs on one device")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -149,6 +154,36 @@ def init(cfg: TransformerConfig, generator=None, *, device="cuda"):
     return params
 
 
+def _layer_specs(cfg: TransformerConfig):
+    return {"attn": L.attention_specs(), "ffn": M.moe_specs() if cfg.is_moe else L.mlp_specs(),
+            "ln1": P(None), "ln2": P(None)}
+
+
+def _stacked(layer_specs):
+    """A layer's specs for the blocks stacked [n_rep, P, ...]."""
+    return tree_map(lambda s: P(None, None, *s), layer_specs)
+
+
+def specs(cfg: TransformerConfig):
+    """JAX's PartitionSpec tree of the parameters."""
+    out = {"embed": P(MODEL_AXIS, None), "blocks": _stacked(_layer_specs(cfg)),
+           "final_ln": P(None)}
+    if not cfg.tied_embed:
+        out["unembed"] = P(None, MODEL_AXIS)
+    return out
+
+
+def held_specs(cfg: TransformerConfig):
+    """The parameters a rank of the port holds under a mesh: the experts
+    cut over "model" (``moe.held_specs``), everything else whole."""
+    layer = {"attn": {k: P() for k in L.attention_specs()}, "ln1": P(), "ln2": P(),
+             "ffn": M.held_specs() if cfg.is_moe else {k: P() for k in L.mlp_specs()}}
+    out = {"embed": P(), "blocks": _stacked(layer), "final_ln": P()}
+    if not cfg.tied_embed:
+        out["unembed"] = P()
+    return out
+
+
 def abstract_params(cfg: TransformerConfig):
     """The parameter tree as meta tensors (no allocation)."""
     return init(cfg, device="meta")
@@ -178,7 +213,8 @@ def _layers(params, cfg: TransformerConfig):
             yield r, p, window, bp
 
 
-def _block_apply(bp, x, positions, cfg: TransformerConfig, window, kv_cache=None, q_offset=0):
+def _block_apply(bp, x, positions, cfg: TransformerConfig, window, mesh=None, kv_cache=None,
+                 q_offset=0):
     h, new_kv = L.attention(bp["attn"], L.rmsnorm(x, bp["ln1"]), positions, n_kv=cfg.n_kv,
                             window=window, kv_cache=kv_cache, q_offset=q_offset,
                             rope_theta=cfg.rope_theta)
@@ -187,7 +223,7 @@ def _block_apply(bp, x, positions, cfg: TransformerConfig, window, kv_cache=None
     if cfg.is_moe:
         ff, aux = M.moe_apply(bp["ffn"], h2, n_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
                               capacity_factor=cfg.capacity_factor,
-                              expert_split=cfg.moe_expert_split)
+                              expert_split=cfg.moe_expert_split, mesh=mesh)
     else:
         ff, aux = L.mlp(bp["ffn"], h2), None
     return x + ff, new_kv, aux
@@ -206,11 +242,11 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return torch.index_select(table, 0, tokens.reshape(-1).long()).view(*tokens.shape, -1)
 
 
-def _rep_apply(x, rep, positions, cfg: TransformerConfig):
+def _rep_apply(x, rep, positions, cfg: TransformerConfig, mesh=None):
     """One pattern cycle, JAX's ``rep_body``: (x, the cycle's aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for window, bp in zip(cfg.window_pattern, rep):
-        x, _, a = _block_apply(bp, x, positions, cfg, window)
+        x, _, a = _block_apply(bp, x, positions, cfg, window, mesh)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -219,8 +255,8 @@ def _rep_apply(x, rep, positions, cfg: TransformerConfig):
 def hidden_states(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
     """The forward up to and with the final norm: ([B, S, d], aux_loss).
     With ``cfg.remat`` and a gradient enabled, each pattern cycle is
-    checkpointed (recomputed in the backward)."""
-    _no_mesh(mesh)
+    checkpointed (recomputed in the backward, its collectives with it)."""
+    check_mesh(mesh)
     s = tokens.shape[1]
     x = _embed(params, tokens)
     positions = torch.arange(s, device=x.device)
@@ -228,9 +264,9 @@ def hidden_states(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=Non
     remat = cfg.remat and torch.is_grad_enabled()
     for rep in _block_trees(params, cfg):
         if remat:
-            x, a = checkpoint(_rep_apply, x, rep, positions, cfg, use_reentrant=False)
+            x, a = checkpoint(_rep_apply, x, rep, positions, cfg, mesh, use_reentrant=False)
         else:
-            x, a = _rep_apply(x, rep, positions, cfg)
+            x, a = _rep_apply(x, rep, positions, cfg, mesh)
         aux = aux + a
     return L.rmsnorm(x, params["final_ln"]), aux
 
@@ -254,7 +290,9 @@ def lm_loss(params, batch, cfg: TransformerConfig, mesh=None, aux_weight: float 
     next-token NLL + aux_weight * aux.  With ``loss_chunk`` dividing S
     (and smaller), the cross-entropy runs in sequence chunks of
     [B, loss_chunk, V] fp32 logits, each checkpointed where a gradient is
-    enabled (its logits recomputed in the backward)."""
+    enabled (its logits recomputed in the backward).  Under a mesh the
+    batch is this rank's shard and the loss the mean over the batch axes."""
+    check_mesh(mesh)
     tokens, labels = batch["tokens"], batch["labels"].long()
     b, s = tokens.shape
     unembed = _unembed(params, cfg)
@@ -273,7 +311,9 @@ def lm_loss(params, batch, cfg: TransformerConfig, mesh=None, aux_weight: float 
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[..., None])[..., 0]
         nll = torch.mean(logz - gold)
-    return nll + aux_weight * aux
+    loss = nll + aux_weight * aux
+    axes = () if mesh is None else tuple(a for a in L.batch_axes() if a in mesh.mesh_dim_names)
+    return mean_out(loss, axis_group(mesh, axes)) if axes else loss
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +338,16 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, *, 
     return tuple(caches)
 
 
+def cache_specs(cfg: TransformerConfig, batch=("data",), seq=(MODEL_AXIS,)):
+    """JAX's shardings of the caches [n_rep, B, T, kv, hd]: batch over
+    ``batch``, the sequence over ``seq`` (flash-decoding style); for batch-1
+    long-context decode JAX passes batch=() and seq=(every axis,)."""
+    b = tuple(batch) if batch else None
+    s = tuple(seq) if seq else None
+    return tuple((P(None, b, s, None, None), P(None, b, s, None, None))
+                 for _ in cfg.window_pattern)
+
+
 @torch.inference_mode()
 def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None,
                   max_len: Optional[int] = None):
@@ -306,14 +356,14 @@ def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=Non
     the prompt's last T positions at slots 0..T-1 (zeros past S when S < T):
     a ring at its natural slots (position mod T) only when S % T == 0, as
     in the JAX package."""
-    _no_mesh(mesh)
+    check_mesh(mesh)
     b, s = tokens.shape
     max_len = max_len or s
     x = _embed(params, tokens)
     positions = torch.arange(s, device=x.device)
     caches = init_cache(cfg, b, max_len, device=x.device)
     for r, p, window, bp in _layers(params, cfg):
-        x, (k, v), _ = _block_apply(bp, x, positions, cfg, window)
+        x, (k, v), _ = _block_apply(bp, x, positions, cfg, window, mesh)
         t = cache_len(cfg, window, max_len)
         ck, cv = caches[p][0][r], caches[p][1][r]
         if s >= t:
@@ -334,12 +384,13 @@ def serve_step(params, caches, token: torch.Tensor, q_offset: int, cfg: Transfor
     position, a host int (a step reads nothing back).  Each layer writes
     its new k / v into its cache in place at slot ``q_offset % T``.
     Returns (logits [B, V] fp32, caches)."""
-    _no_mesh(mesh)
+    check_mesh(mesh)
     q_offset = int(q_offset)
     x = _embed(params, token)
     positions = torch.full((1,), q_offset, dtype=torch.int64, device=x.device)
     for r, p, window, bp in _layers(params, cfg):
         kv = (caches[p][0][r], caches[p][1][r])
-        x, _, _ = _block_apply(bp, x, positions, cfg, window, kv_cache=kv, q_offset=q_offset)
+        x, _, _ = _block_apply(bp, x, positions, cfg, window, mesh, kv_cache=kv,
+                               q_offset=q_offset)
     x = L.rmsnorm(x, params["final_ln"])
     return L.matmul_f32(x, _unembed(params, cfg))[:, 0], caches

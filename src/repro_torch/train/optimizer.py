@@ -21,6 +21,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.launch.mesh import P, axis_group, spec_axes, sum_out
 from repro_torch.train.tree import leaves, tree_map, unflatten
 
 
@@ -38,12 +39,23 @@ def adamw_init(params) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def adamw_specs(param_specs) -> AdamWState:
+    """The optimizer state's PartitionSpecs mirror the parameters'."""
+    return AdamWState(step=P(), mu=param_specs, nu=param_specs)
+
+
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, summed leaf by leaf in
-    flattening order, in fp32."""
+    flattening order, in fp32.  With ``specs`` (a PartitionSpec tree) and a
+    mesh, a leaf's sum of squares is first summed over the axes its spec
+    cuts: the norm of the whole tree whose blocks the ranks hold."""
     sq = None
-    for g in leaves(tree):
+    own = leaves(tree)
+    cuts = [()] * len(own) if specs is None else [spec_axes(s) for s in leaves(specs)]
+    for g, axes in zip(own, cuts):
         term = torch.sum(torch.square(g.to(torch.float32)))
+        if axes:
+            term = sum_out(term, axis_group(mesh, axes))
         sq = term if sq is None else sq + term
     return torch.sqrt(sq if sq is not None else torch.zeros(()))
 
@@ -85,14 +97,16 @@ UPDATE_SLICE = 1 << 25
 
 @torch.no_grad()
 def adamw_update_(grads, state: AdamWState, params, *, lr, b1: float = 0.9, b2: float = 0.95,
-                  eps: float = 1e-8, weight_decay: float = 0.1, clip: float = 1.0):
+                  eps: float = 1e-8, weight_decay: float = 0.1, clip: float = 1.0,
+                  grad_norm=None):
     """``adamw_update`` written in place: each leaf of ``params``,
     ``state.mu`` and ``state.nu`` is updated in slices of UPDATE_SLICE
     elements (a stacked leaf in slices along its flattened layers), with
     ``_update_leaf``'s arithmetic, so the values are ``adamw_update``'s bit
     for bit.  Returns ``(params, new_state)``: the same params tree, and a
-    state with the new step around the same moment tensors."""
-    gn = global_norm(grads)
+    state with the new step around the same moment tensors.  ``grad_norm``
+    replaces ``global_norm(grads)`` in the clip (a sharded tree's norm)."""
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
     step = state.step + 1
     sf = step.to(torch.float32)

@@ -2,10 +2,12 @@
 in the JAX package's order and named by its ``keystr`` paths.
 
 A dict's children come in sorted key order, a NamedTuple's in field order,
-a list's or tuple's by position; ``None`` is an empty subtree.  A leaf's
-name is the concatenation of ``['key']``, ``.field`` and ``[i]`` along its
-path, so a train state's leaves are named ``"['opt'].mu['blocks'][0]['wq']"``,
-``"['opt'].step"``, ``"['params']['item_emb']"`` as in a JAX checkpoint.
+a list's or tuple's by position; ``None`` is an empty subtree, and a
+tuple type marked ``tree_leaf`` (``launch.mesh.P``, a PartitionSpec) is a
+leaf.  A leaf's name is the concatenation of ``['key']``, ``.field`` and
+``[i]`` along its path, so a train state's leaves are named
+``"['opt'].mu['blocks'][0]['wq']"``, ``"['opt'].step"``,
+``"['params']['item_emb']"`` as in a JAX checkpoint.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ def _children(node):
     """[(path part, child)] of an inner node, or None for a leaf."""
     if node is None:
         return []
+    if getattr(node, "tree_leaf", False):
+        return None
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
     if _is_namedtuple(node):
@@ -57,6 +61,8 @@ def unflatten(template, new_leaves) -> Any:
     def build(node):
         if node is None:
             return None
+        if getattr(node, "tree_leaf", False):
+            return next(it)
         if isinstance(node, dict):
             filled = {k: build(node[k]) for k in sorted(node)}
             return {k: filled[k] for k in node}

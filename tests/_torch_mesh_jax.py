@@ -1,0 +1,90 @@
+"""The JAX package's sharded runs that tests/test_torch_mesh.py holds the
+port to, on 8 forced host devices, each jitted:
+
+  XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
+      python tests/_torch_mesh_jax.py INPUTS OUT
+
+The configs are tests/_torch_mesh_ranks.py's; the inputs (an .npz keyed by
+the leaves' keystr names) the test's.
+"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from repro.launch.mesh import make_mesh_compat
+from repro.models import gnn as G
+from repro.models import layers as L
+from repro.models import moe as M
+from repro.models import transformer as T
+from repro.train.compress import make_compressed_allreduce
+
+GNN_CFG = G.GNNConfig(n_layers=2, d_hidden=16, d_feat=8, d_edge=4, remat=True)
+LM_CFG = T.TransformerConfig(name="t", n_layers=2, d_model=32, n_heads=4, n_kv=2, head_dim=8,
+                             d_ff=64, vocab=64, dtype=jnp.float32, attn_chunk=8, remat=False,
+                             moe_experts=4, moe_top_k=2)
+MOE_CAPACITIES = (16.0, 1.25)
+COMPRESS_STEPS = 20
+
+
+def tree_from(inputs, prefix, abstract):
+    paths, treedef = jax.tree_util.tree_flatten_with_path(abstract)
+    return jax.tree_util.tree_unflatten(
+        treedef, [jnp.asarray(inputs[prefix + jax.tree_util.keystr(p)]) for p, _ in paths])
+
+
+def put(out, prefix, tree):
+    for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out[prefix + jax.tree_util.keystr(p)] = np.asarray(leaf)
+
+
+def main(inputs_path, out_path):
+    inputs = dict(np.load(inputs_path))
+    mesh = make_mesh_compat((2, 4), ("data", "model"))
+    out = {}
+
+    params = {k: jnp.asarray(inputs["moe/" + k]) for k in ("router", "w_gate", "w_in", "w_out")}
+    x = jnp.asarray(inputs["moe/x"])
+    for cf in MOE_CAPACITIES:
+        o, aux = jax.jit(lambda p, x, cf=cf: M.moe_apply(
+            p, x, n_experts=8, top_k=2, capacity_factor=cf, mesh=mesh))(params, x)
+        out[f"moe/{cf}/out"], out[f"moe/{cf}/aux"] = np.asarray(o), np.asarray(aux)
+
+    params = tree_from(inputs, "gnn/params",
+                       jax.eval_shape(lambda k: G._init_params(k, GNN_CFG), jax.random.PRNGKey(0)))
+    graph = {k: jnp.asarray(inputs["gnn/" + k])
+             for k in ("node_feat", "edge_feat", "src", "dst", "targets")}
+    out["gnn/out"] = np.asarray(jax.jit(lambda p, g: G.forward(p, g, GNN_CFG, mesh))(params, graph))
+    loss, grads = jax.jit(jax.value_and_grad(lambda p, g: G.mse_loss(p, g, GNN_CFG, mesh)))(
+        params, graph)
+    out["gnn/loss"] = np.asarray(loss)
+    put(out, "gnn/grad/", grads)
+
+    mesh8 = make_mesh_compat((8,), ("data",))
+    f = jax.jit(make_compressed_allreduce(mesh8, ("data",)))
+    x = jnp.asarray(inputs["compress/x"])
+    e = jnp.zeros_like(x)
+    means, errors = [], []
+    for _ in range(COMPRESS_STEPS):
+        m, e = f(x, e)
+        means.append(np.asarray(m))
+        errors.append(np.asarray(e))
+    out["compress/mean"], out["compress/error"] = np.stack(means), np.stack(errors)
+
+    L.set_batch_axes_for_mesh(mesh)
+    params = tree_from(inputs, "lm/params", T.abstract_params(LM_CFG))
+    params = jax.device_put(params, jax.tree.map(lambda s: NamedSharding(mesh, s),
+                                                 T.specs(LM_CFG),
+                                                 is_leaf=lambda s: isinstance(s, P)))
+    toks = jnp.asarray(inputs["lm/tokens"])
+    batch = {"tokens": toks, "labels": jnp.roll(toks, -1, 1)}
+    with mesh:
+        loss = jax.jit(lambda p, b: T.lm_loss(p, b, LM_CFG, mesh))(params, batch)
+    out["lm/loss"] = np.asarray(loss)
+    np.savez(out_path, **out)
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

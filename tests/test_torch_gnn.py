@@ -341,12 +341,16 @@ def test_init_matches_jax_tree():
 
 
 def test_forward_rejects_a_mesh():
+    """forward and mse_loss take a DeviceMesh and raise TypeError, before any
+    work, for anything else; forward_chunked refuses any mesh."""
     _, cfg = _cfgs()
     params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     g = _tg(_graph(np.random.default_rng(0), 10, 20, 12))
-    for fn in (T.forward, T.mse_loss, T.forward_chunked):
-        with pytest.raises(NotImplementedError, match="mesh tools"):
-            fn(params, g, cfg, mesh=object())
+    for fn in (T.forward, T.mse_loss):
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            fn(params, {}, cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="one device"):
+        T.forward_chunked(params, g, cfg, mesh=object())
 
 
 # ------------------------------------------------------------- cells

@@ -16,8 +16,10 @@ from repro_torch.kernels import _lib
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "train_and_serve_torch.py",
-    ROOT / "examples" / "lm_decode_torch.py", ROOT / "scripts" / "lm_conditioning.py",
-    ROOT / "scripts" / "lm_grad_conditioning.py"]
+    ROOT / "examples" / "lm_decode_torch.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "norm_bias_analysis_torch.py",
+    ROOT / "examples" / "distributed_serving_torch.py", ROOT / "scripts" / "lm_conditioning.py",
+    ROOT / "scripts" / "lm_grad_conditioning.py", ROOT / "tests" / "_torch_mesh_ranks.py"]
 
 
 def _imported_modules(path):
@@ -40,7 +42,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.core.mutation, repro_torch.launch.serve_loop, repro_torch.core.norms, "
             "repro_torch.kernels.topk_merge, repro_torch.kernels.flash_attn, repro_torch.train, "
             "repro_torch.models.recsys, repro_torch.configs, repro_torch.configs.common, "
-            "repro_torch.launch.train, repro_torch.models.transformer, repro_torch.models.moe; "
+            "repro_torch.launch.train, repro_torch.models.transformer, repro_torch.models.moe, "
+            "repro_torch.launch.mesh, repro_torch.train.compress, repro_torch.models.gnn; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -332,10 +332,10 @@ def test_lm_cells():
                 assert [n for n, _ in named_leaves(opt.mu)] == [n for n, _ in named_leaves(params)]
             else:
                 assert tuple(cell.args[1].shape) == (b, s)
+    # a mesh that is not a DeviceMesh raises before any work (no params read)
     tcfg = _setup("granite-3-2b")[1]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttf.forward(ttf.init(tcfg, torch.Generator().manual_seed(0), device="cpu"),
-                    torch.zeros((1, 4), dtype=torch.int32), tcfg, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ttf.forward({}, torch.zeros((1, 4), dtype=torch.int32), tcfg, mesh=object())
 
 
 def test_cell_steps_run_on_the_cpu_at_a_reduced_size():

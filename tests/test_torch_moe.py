@@ -119,5 +119,5 @@ def test_expert_chunks_keep_each_expert(monkeypatch):
     bf = {k: (v if k == "router" else v.to(torch.bfloat16)) for k, v in tp.items()}
     out, _ = TM.moe_apply(bf, x.to(torch.bfloat16), n_experts=e, top_k=2)
     assert out.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TM.moe_apply(tp, x, n_experts=e, top_k=2, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):  # before any work
+        TM.moe_apply({}, x, n_experts=e, top_k=2, mesh=object())
