@@ -353,8 +353,25 @@ nothing then, and are not counted): ``count_graph_launches``.
      embedding's bit-equal, flash_attn_bf16 and its backward launched; (f)
      examples/quickstart_torch.py, norm_bias_analysis_torch.py and
      distributed_serving_torch.py at their defaults, tables printed,
-     quickstart launching beam_walk, commit_merge and mips_topk.  The
-     launches of (d)-(f) are added to the kernels line.
+     quickstart launching beam_walk, commit_merge and mips_topk; (g) every
+     recsys train and serve cell and DLRM's retrieval_cand at the published
+     widths through build_cell(..., mesh=make_host_mesh()) (row-sharded
+     tables: a masked gather and an all-reduce a lookup), batches cut by
+     MESH_RECSYS_BATCH, against the same cell without a mesh: the loss
+     bit-equal, each parameter and AdamW moment after a step from drawn
+     moments at step RECSYS_MIDWAY_STEP within RECSYS_GRAD_RTOL of its
+     leaf's largest, serve outputs within RECSYS_SCORE_RTOL, retrieval
+     ids equal but at near-ties.  The launches of (d)-(g) are added to the
+     kernels line.
+  14. dry-run (src/repro_torch/launch/{dryrun,roofline}.py): DRYRUN_CELLS
+     (SASRec's serve_p99 on both production meshes, granite's train_4k on
+     the single pod) traced as rank 0 of a fake process group of 256 / 512
+     ranks in a subprocess with CUDA_VISIBLE_DEVICES="", and priced by the
+     roofline's model of an H100 SXM (each row logged: modelled figures,
+     not measurements); then the memory model: the dry-run's peak of
+     SASRec's serve_p99 and of phase 11's granite cut without a mesh (meta
+     tensors) against the card's max_memory_allocated on the same cells,
+     within MEMORY_MODEL_RTOL.  It launches no kernel.
 Each phase logs its seconds.  The line before the last is the JSON list
 of kernels; the last line is the JSON result the run is read by.
 """
@@ -408,10 +425,12 @@ JAX_LOOP_CHURN = {"mutation_events": 255, "health_live_fraction": 1.000,
                   "health_dead_edge_frac": 0.000, "health_relink_debt": 0.0}  # as printed
 
 PROFILER_SESSIONS = 8      # sessions device_ms tries before it gives up
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
-TF32_FLOP_PER_S = 495e12   # H100 SXM dense tf32 on the tensor cores
+# the H100 SXM's rates, the dry-run's roofline model (stdlib only: no torch at import)
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
+
+FP32_FLOP_PER_S = PEAK_FLOPS["fp32"]  # outside the tensor cores
+BF16_FLOP_PER_S = PEAK_FLOPS["bf16"]  # dense, on the tensor cores
+TF32_FLOP_PER_S = PEAK_FLOPS["tf32"]  # dense, on the tensor cores
 
 N_FULL, D_FULL = 136_736, 300  # Yahoo!Music (paper §5 dataset table)
 # the full-size loop: 4,096 queries at 2,000 QPS on _build_ladder(256, 40)
@@ -1181,14 +1200,20 @@ def _cold(fn):
 def _scorer_bound(name: str, ids, d: int):
     """(ms, by): each distinct row read once -- a -1 id reads no row of the
     int8 store (quant_score) or row 0 (gather_score clamps) -- plus ids,
-    scores and queries; 2 d flops a scored slot."""
+    scores and queries; 2 d flops a scored slot (each kernel's
+    ``launch_cost``, given this run's distinct rows and scored slots)."""
     import torch
 
+    from repro_torch.kernels.gather_score.ops import launch_cost as gather_cost
+    from repro_torch.kernels.quant_score.ops import launch_cost as quant_cost
+
     b, w = ids.shape
-    distinct = torch.unique(ids[ids >= 0] if name == "quant_score" else ids.clamp_min(0))
-    row_bytes = d + 4 if name == "quant_score" else d * 4
-    n_scored = int((ids >= 0).sum()) if name == "quant_score" else b * w
-    return bound(b * w * 8 + distinct.numel() * row_bytes + b * d * 4, 2.0 * d * n_scored)
+    if name == "gather_score":
+        flops, nbytes = gather_cost(b, w, d, distinct=torch.unique(ids.clamp_min(0)).numel())
+    else:
+        flops, nbytes = quant_cost(b, w, d, distinct=torch.unique(ids[ids >= 0]).numel(),
+                                   scored=int((ids >= 0).sum()))
+    return bound(nbytes, flops)
 
 
 def phase_scorers(items_by_kind, stores_by_kind, g) -> dict:
@@ -1400,7 +1425,7 @@ def phase_mips_topk(g) -> dict:
     import torch
 
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref, mips_topk_select
-    from repro_torch.kernels.mips_topk.ops import select_plan
+    from repro_torch.kernels.mips_topk.ops import launch_cost, select_cost, select_plan
 
     out = {}
     for variant in ("f32", "int8"):
@@ -1425,9 +1450,8 @@ def phase_mips_topk(g) -> dict:
                 call_ms = cuda_ms(run)
                 plain_ms = device_ms(plain)
                 library_ms = device_ms(library) if library is not None else None
-                row_bytes = d * 4 if variant == "f32" else d + 4
-                flops = 2.0 * b * n * d + (b * n if variant == "int8" else 0)
-                bound_ms, by = bound(b * d * 4 + n * row_bytes + b * k * 8, flops)
+                flops, nbytes = launch_cost(b, n, d, k, int8=variant == "int8")
+                bound_ms, by = bound(nbytes, flops)
                 launches = mips_topk.launches if variant == "f32" else mips_topk.launches_int8
                 log(f"kernel=mips_topk variant={variant} cell={cell} inputs={kind} B={b} N={n} "
                     f"d={d} k={k} ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
@@ -1486,11 +1510,10 @@ def phase_mips_topk(g) -> dict:
                     call_ms = cuda_ms(run)
                     plain_ms = device_ms(plain)
                     library_ms = device_ms(library) if library is not None else None
-                    row_bytes = d * 4 if variant == "f32" else d + 4
-                    flops = 2.0 * b * n * d + (b * n if variant == "int8" else 0)
-                    bound_ms, by = bound(b * d * 4 + n * row_bytes + b * k * 8, flops)
+                    flops, nbytes = launch_cost(b, n, d, k, int8=variant == "int8")
+                    bound_ms, by = bound(nbytes, flops)
                     # the select alone: two reads of the scratch, candidates and out written
-                    select_bound_ms, _ = bound(2 * b * n * 4 + cands.sum().item() * 8 + b * k * 8, 0)
+                    select_bound_ms, _ = bound(select_cost(b, n, k, cands.sum().item())[1], 0)
                     line += (f" ms={ms:.4f} select_ms={select_ms:.4f} "
                              f"select_bound_ms={select_bound_ms:.5f} call_ms={call_ms:.4f} "
                              f"plain_ms={plain_ms:.4f} "
@@ -1539,6 +1562,7 @@ def phase_recsys_kernels(g) -> None:
 
     from repro_torch.kernels.gather_score import gather_score, gather_score_ref
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref, mips_topk_select
+    from repro_torch.kernels.mips_topk.ops import launch_cost
 
     for cell, (b, n, d, k) in MIPS_RECSYS_SHAPES.items():
         for kind in ("int", "float"):
@@ -1561,7 +1585,8 @@ def phase_recsys_kernels(g) -> None:
                 call_ms = cuda_ms(run)
                 plain_ms = _device_ms_or_none(plain)
                 library_ms = _device_ms_or_none(library)
-                bound_ms, by = bound(b * d * 4 + n * d * 4 + b * k * 8, 2.0 * b * n * d)
+                flops, nbytes = launch_cost(b, n, d, k)
+                bound_ms, by = bound(nbytes, flops)
                 line += (f" ms={_ms(ms)} select_ms={_ms(select_ms)} call_ms={call_ms:.4f} "
                          f"plain_ms={_ms(plain_ms)} library_ms={_ms(library_ms)} "
                          f"bound_ms={bound_ms:.5f} bound_by={by}")
@@ -1716,17 +1741,6 @@ def phase_topk_merge(g) -> dict:
     return out
 
 
-def _flash_pairs(s: int, t: int, q_offset: int, window) -> int:
-    """(query, key) pairs inside the causal (and window) mask: the work the
-    inputs need."""
-    import numpy as np
-
-    pos = q_offset + np.arange(s)
-    hi = np.minimum(pos, t - 1)
-    lo = np.zeros_like(pos) if window is None else np.maximum(pos - window + 1, 0)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def _sdpa_mask(q, k, q_offset: int, window):
     """None where the mask is plain causal (SDPA's flag), else the [S, T]
     boolean mask."""
@@ -1878,6 +1892,7 @@ def phase_flash_attn(g) -> dict:
     import torch
 
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attn.ops import forward_cost
 
     out = {}
     for cell, shape in FLASH_SHAPES.items():
@@ -1894,9 +1909,7 @@ def phase_flash_attn(g) -> dict:
             plain_ms = device_ms(plain, reps=5)
             library_ms = device_ms(library, reps=5)
             call_ms = cuda_ms(run, reps=5)
-            itemsize = q.element_size()
-            nbytes = 2 * q.numel() * itemsize + (k.numel() + v.numel()) * itemsize
-            flops = 4.0 * hd * _flash_pairs(s, t, off, win) * b * h
+            flops, nbytes = forward_cost(b, s, t, h, kv, hd, off, win, q.element_size())
             rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
             bound_ms, by = bound(nbytes, flops, rate)
             usage = ""
@@ -4169,6 +4182,7 @@ def phase_family_lsh(items, queries, gt) -> None:
     from repro_torch.core.lsh import augment_items, augment_queries, sign_codes
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_select
     from repro_torch.kernels.mips_topk.ops import select_plan
+    from repro_torch.kernels.mips_topk.ops import launch_cost as mips_launch_cost
     from repro_torch.obs.recall import recall_at_k
     from repro_torch.testing import assert_topk_match
 
@@ -4203,7 +4217,8 @@ def phase_family_lsh(items, queries, gt) -> None:
             split = ((q_codes.cpu() @ cpu.codes.T == kth).sum(1) > (s_p == kth).sum(1))
             cands = mips_topk_select(q_codes, lsh.codes, k=t)[2].float()
             b, d = q_codes.shape
-            bound_ms, by = bound(b * d * 4 + n * d * 4 + b * t * 8, 2.0 * b * n * d)
+            flops, nbytes = mips_launch_cost(b, n, d, t)
+            bound_ms, by = bound(nbytes, flops)
             # by CUDA events: the library call's gemm kernel varies between
             # calls, so device_ms cannot count it a call
             call_ms = cuda_ms(hamming)
@@ -4852,6 +4867,7 @@ def phase_lm_kernels(g) -> None:
     import torch
 
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attn.ops import forward_cost
 
     for cell, shape in FLASH_DECODE_EDGES.items():
         b, s, t, h, kv, hd, off, win = shape
@@ -4876,9 +4892,7 @@ def phase_lm_kernels(g) -> None:
                 torch.cuda.empty_cache()
             library_ms = cuda_ms(_lm_sdpa(q, k, v, off, win), reps=3, warmup=1)
             torch.cuda.empty_cache()
-            itemsize = q.element_size()
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * itemsize
-            flops = 4.0 * hd * _flash_pairs(s, t, off, win) * b * h
+            flops, nbytes = forward_cost(b, s, t, h, kv, hd, off, win, q.element_size())
             rate = FP32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
             bound_ms, by = bound(nbytes, flops, rate)
             rows = 128 if dtype == torch.bfloat16 else 64
@@ -5269,15 +5283,17 @@ def phase_lm() -> dict:
 # extrapolation, so the cuts keep that margin under CARD_GIB (PERF.md §4).
 # grok's one layer holds 6.53 B parameters, 73.0 GiB at 12 bytes: its cell
 # builds and is not stepped.  The mesh tools do not make it fit one card:
-# a mesh has one rank here, and the dry-run (ROADMAP Queue 1, item 6b)
-# states what one rank of a 256-card mesh would hold.
-# granite fits whole at B 24 (64.79 GiB, PERF.md §4) and is timed at a
-# quarter of its layers, its 8.2 s steps at full depth being the longest of
-# the phase: the run's time limit pays for phase 12.  internlm2 fits 8
-# layers at B 10 (65.13 GiB) and is timed at 4, which pays for phase 13.
-LM_TRAIN_CUTS = {"granite-3-2b": (10, 24),
-                 "gemma3-12b": (12, 4),
-                 "internlm2-20b": (4, 10),
+# a mesh has one rank here, and the dry-run (phase 14) states what one rank
+# of a 256-card mesh would hold.
+# granite fits whole at B 24 (64.79 GiB, PERF.md §4) and is timed at an
+# eighth of its layers, its 8.2 s steps at full depth being the longest of
+# the phase: the run's time limit pays for phases 12 and 14.  gemma is
+# timed at one 5:1 pattern cycle (two fit at B 4: 65.17 GiB).  internlm2
+# fits 8 layers at B 10 (65.13 GiB) and is timed at 2, which pays for
+# phase 13.
+LM_TRAIN_CUTS = {"granite-3-2b": (5, 24),
+                 "gemma3-12b": (6, 4),
+                 "internlm2-20b": (2, 10),
                  "qwen3-moe-235b-a22b": (1, 9),
                  "grok-1-314b": (1, None)}
 LM_TRAIN_STEPS = 3
@@ -5310,8 +5326,6 @@ FLASH_BWD_CELLS = {"granite": ("granite-3-2b", None), "gemma_local": ("gemma3-12
 # fp32 too: one cell for each tiling of the fp32 kernels (x3 at hd 64, x3m at
 # hd 128 and 256)
 FLASH_BWD_F32_CELLS = ("granite", "internlm2", "gemma_global")
-BWD_FLOPS_PER_PAIR = 10  # a pair's five hd-long products (s, dp, dq, dk, dv), 2 hd each
-TF32_PASSES = 3          # fp32 backward: 3xTF32, three tensor-core products a product
 PLAIN_KV_CHUNK = 256     # the plain backward's keys a step on the card
 # (c) card against CPU: one pattern cycle of each arch at the published
 # widths, fp32, batch 1, 256 tokens, loss_chunk 128: LM_CPU_LAYERS, but
@@ -5416,6 +5430,8 @@ def check_flash_bwd_cell(name: str, shape, dtype, g, timed: bool = False) -> dic
     from repro_torch.kernels.flash_attn import (flash_attention_bwd, flash_attention_bwd_ref,
                                                 flash_attention_fwd_ref)
     from repro_torch.kernels.flash_attn import ops
+    from repro_torch.kernels.flash_attn.ops import (BWD_FLOPS_PER_PAIR, TF32_PASSES,
+                                                    backward_cost, causal_pairs)
 
     b, s, t, h, kv, hd, off, win = shape
     dname = str(dtype).split(".")[-1]
@@ -5462,12 +5478,9 @@ def check_flash_bwd_cell(name: str, shape, dtype, g, timed: bool = False) -> dic
         torch.cuda.empty_cache()
         library_ms = cuda_ms(_sdpa_bwd(q, k, v, dout, off, win), reps=3, warmup=1)
         torch.cuda.empty_cache()
-        itemsize = q.element_size()
         # q, dout, dq, and the fp32 residual; k, v, dk, dv; lse
-        nbytes = (3 * q.numel() + 2 * k.numel() * 2) * itemsize + res.numel() * 4 \
-            + lse.numel() * 4
-        pairs = _flash_pairs(s, t, off, win) * b * h
-        flops = float(BWD_FLOPS_PER_PAIR * hd * pairs)
+        flops, nbytes = backward_cost(b, s, t, h, kv, hd, off, win, q.element_size())
+        pairs = causal_pairs(s, t, off, win) * b * h
         if dtype == torch.float32:  # 3xTF32 on the tensor cores; the fp32 units' bound beside
             passes, rate = TF32_PASSES, TF32_FLOP_PER_S
             fma_ms, _ = bound(nbytes, flops, FP32_FLOP_PER_S)
@@ -5579,7 +5592,9 @@ def _train_batch(vocab: int, b: int, s: int, g) -> dict:
 def _model_flops(cfg, b: int, s: int) -> float:
     """A train step's model flops: 6 N_active a token for the matrices and,
     for attention, 3 x 4 hd a (query, key) pair in the mask, a head."""
-    pairs = sum(_flash_pairs(s, s, 0, w) for w in cfg.window_pattern) * cfg.n_rep
+    from repro_torch.kernels.flash_attn.ops import causal_pairs
+
+    pairs = sum(causal_pairs(s, s, 0, w) for w in cfg.window_pattern) * cfg.n_rep
     return 6.0 * cfg.active_param_count() * b * s + 12.0 * cfg.head_dim * cfg.n_heads * pairs * b
 
 
@@ -5611,6 +5626,9 @@ def phase_lm_train_cell(aid: str, g) -> int:
             f"this card); meta={cell.meta}")
         return 0
     t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     params = arch.init(g, device="cuda")
     state = [params, adamw_init(params)]
     torch.cuda.synchronize()
@@ -5641,6 +5659,7 @@ def phase_lm_train_cell(aid: str, g) -> int:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t1) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    MEASURED_PEAKS[aid] = (layers, batch, peak - base)
     with uncounted():
         clip_norm, grad_norm = _grad_norms(state[0], batches[-1], cfg)
     losses = [float(x) for x in losses]
@@ -6394,6 +6413,124 @@ def phase_mesh_train(mesh, g) -> None:
     assert counts["flash_attn_bf16"] > 0 and counts["flash_attn_bwd_bf16"] > 0, counts
 
 
+# (g) the recsys cells under the mesh: rows cut from the published batches
+# (train_batch 65,536, serve_bulk 262,144) to keep two steps of each cell
+# short; serve_p99 and DLRM's retrieval_cand at theirs
+MESH_RECSYS_BATCH = {"train_batch": 8_192, "serve_bulk": 16_384}
+
+
+# the AdamW step (g)'s train cells start from: past their warmup of 500, so
+# the step's learning rate is not 0 and the parameters move
+RECSYS_MIDWAY_STEP = 600
+
+
+def _adamw_midway(params, g):
+    """AdamW moments as mid-way through training, drawn from ``g``, at step
+    RECSYS_MIDWAY_STEP: with nu away from 0 the update is smooth in the
+    gradient (from zero moments it is the gradient's sign), and mu and nu
+    after the step carry the clipped gradient."""
+    import torch
+
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.tree import leaves, tree_map
+
+    def draw(p, scale, positive):
+        x = torch.randn(p.shape, generator=g, device=p.device, dtype=torch.float32)
+        return (x.abs_().add_(1.0) if positive else x).mul_(scale)
+
+    return AdamWState(step=torch.tensor(RECSYS_MIDWAY_STEP, dtype=torch.int32,
+                                        device=leaves(params)[0].device),
+                      mu=tree_map(lambda p: draw(p, 1e-3, False), params),
+                      nu=tree_map(lambda p: draw(p, 1e-4, True), params))
+
+
+def phase_mesh_recsys(mesh, g) -> None:
+    """(g) every recsys train and serve cell, and DLRM's retrieval_cand, at
+    the published widths through build_cell(..., mesh=make_host_mesh())
+    (tables row-sharded over the one-rank "model" axis: a masked gather and
+    an all-reduce a lookup; the batch over the mesh's batch axes, none
+    here) against the same cell without a mesh on the same inputs: the
+    train step's loss bit-equal and, after one step from drawn moments at
+    step RECSYS_MIDWAY_STEP (past the warmup: the parameters move), each
+    parameter and each AdamW moment (which carry the clipped gradient)
+    within RECSYS_GRAD_RTOL of its leaf's largest (the table gradient is an
+    index_add_ of atomics), serve outputs within RECSYS_SCORE_RTOL of their
+    largest, retrieval ids equal but at near-ties.  The mesh steps'
+    launches are the path's; the comparisons' are not."""
+    import torch
+
+    from repro_torch import testing
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.launch.mesh import local_tree
+    from repro_torch.train.tree import leaves
+
+    for aid in RECSYS_ARCHS:
+        arch = get_arch(aid)
+        params = arch.init(g, device="cuda")
+        for shape in RECSYS_SHAPES:
+            if shape == "retrieval_cand" and aid != "dlrm-rm2":  # (d) holds the others
+                continue
+            cell_m, cell = arch.build_cell(shape, mesh=mesh), arch.build_cell(shape)
+            inputs = _recsys_inputs(arch, cell.args[-1], g, batch=MESH_RECSYS_BATCH.get(shape, 0))
+            rows = next(iter(leaves(inputs))).shape[0]
+            p_m = local_tree(params, cell_m.in_specs[0], mesh)
+            b_m = local_tree(inputs, cell_m.in_specs[-1], mesh)
+            opt = _adamw_midway(params, g) if shape == "train_batch" else None
+            o_m = None if opt is None else local_tree(opt, cell_m.in_specs[1], mesh)
+            before = _read_counts()["gather_score"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if shape == "train_batch":
+                got = cell_m.step_fn(p_m, o_m, b_m)
+            else:
+                got = cell_m.step_fn(p_m, b_m)
+            torch.cuda.synchronize()
+            ms_m = (time.perf_counter() - t0) * 1e3
+            gathers = _read_counts()["gather_score"] - before
+            del p_m, b_m, o_m
+            with uncounted():
+                t0 = time.perf_counter()
+                if shape == "train_batch":
+                    want = cell.step_fn(params, opt, inputs)
+                else:
+                    want = cell.step_fn(params, inputs)
+                torch.cuda.synchronize()
+                ms_l = (time.perf_counter() - t0) * 1e3
+            if shape == "train_batch":
+                errs = {part: max(_rel_err(a, c) for a, c in zip(leaves(x), leaves(y)))
+                        for part, x, y in (("params", got[0], want[0]),
+                                           ("mu", got[1].mu, want[1].mu),
+                                           ("nu", got[1].nu, want[1].nu))}
+                moved = all(not torch.equal(a, c) for a, c in zip(leaves(got[0]),
+                                                                 leaves(params)))
+                check = (f"loss {float(got[2])!r} vs {float(want[2])!r}, after one step from "
+                         f"step {RECSYS_MIDWAY_STEP} new params, mu and nu within "
+                         + ", ".join(f"{e:.3e}" for e in errs.values())
+                         + f" of a leaf's largest; every parameter moved: {moved}")
+                assert (torch.equal(got[2], want[2]) and moved
+                        and max(errs.values()) <= RECSYS_GRAD_RTOL), check
+                del opt
+            elif shape == "retrieval_cand":
+                ties = testing.assert_topk_match(
+                    got["ids"][None].cpu().numpy(), got["scores"][None].cpu().numpy(),
+                    want["ids"][None].cpu().numpy(), want["scores"][None].cpu().numpy())
+                check = f"top {got['ids'].shape[0]} ids equal (near-tie rows {len(ties)})"
+            else:
+                err = _rel_err(got, want)
+                check = f"outputs {list(got.shape)} within {err:.3e} of the largest"
+                assert err <= RECSYS_SCORE_RTOL, check
+            log(f"mesh (g) {cell_m.name} rows={rows} under make_host_mesh(): {check}; first "
+                f"call {ms_m:.1f} ms with the mesh, {ms_l:.1f} ms without (wall); gather_score "
+                f"launches {gathers}")
+            if aid in ("sasrec", "mind") and shape != "train_batch":
+                assert gathers == 1, f"{cell_m.name}: gather_score launches {gathers}"
+            del got, want, inputs
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+
+
 def phase_mesh_examples() -> None:
     """(f) the three examples the port gained, at their defaults (JAX's
     sizes) on the card, their tables printed; quickstart must launch
@@ -6420,7 +6557,7 @@ def phase_mesh_examples() -> None:
 def phase_mesh() -> dict:
     """Phase 13: the mesh tools on one card.  Returns the launches of its
     paths ((d)'s shard-local retrieval, (e)'s mesh train step, (f)'s
-    examples) for the kernels line."""
+    examples, (g)'s recsys cells) for the kernels line."""
     import torch
     import torch.distributed as dist
 
@@ -6445,7 +6582,8 @@ def phase_mesh() -> dict:
         t.append(time.perf_counter())
         for fn, args in ((phase_mesh_gnn, (group, g)), (phase_mesh_moe, (group, g)),
                          (phase_mesh_compress, (group, g)), (phase_mesh_retrieval, (group, g)),
-                         (phase_mesh_train, (mesh, g)), (phase_mesh_examples, ())):
+                         (phase_mesh_train, (mesh, g)), (phase_mesh_examples, ()),
+                         (phase_mesh_recsys, (mesh, g))):
             fn(*args)
             gc.collect()
             torch.cuda.empty_cache()
@@ -6456,9 +6594,123 @@ def phase_mesh() -> dict:
         store.unlink(missing_ok=True)
     log("mesh phase: " + ", ".join(f"{name} {b - a:.1f} s" for name, a, b in zip(
         ("init", "(a) gnn", "(b) moe", "(c) compress", "(d) retrieval", "(e) train",
-         "(f) examples"), t, t[1:])))
+         "(f) examples", "(g) recsys"), t, t[1:])))
     _assert_path("mesh", counts, MESH_PATH)
     return counts
+
+
+# ------------------------------------------------------------------ phase 14
+# the dry-run (launch/dryrun.py) and its roofline (launch/roofline.py) in a
+# process without CUDA: (arch, shape, meshes)
+DRYRUN_CELLS = (("sasrec", "serve_p99", "both"), ("granite-3-2b", "train_4k", "single"))
+# the memory model's peak against the card's max_memory_allocated on the
+# same cell without a mesh
+MEMORY_MODEL_RTOL = 0.10
+MEASURED_PEAKS = {}  # phase 11 (b): arch -> (layers, batch, bytes its step held at most)
+
+
+def _card_peak(run, setup) -> int:
+    """The most bytes the card held for ``run(*setup())``: its arguments
+    (made by ``setup``) and everything the call allocates beside them."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = setup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del args, out
+    return peak
+
+
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+DRYRUN_TABLE = ROOT / "build" / "roofline_torch.json"
+
+
+def start_dryrun() -> subprocess.Popen:
+    """DRYRUN_CELLS through ``repro_torch.launch.dryrun`` and the roofline
+    over their records, in a subprocess with CUDA_VISIBLE_DEVICES="" that
+    must not initialize CUDA.  It uses the host's CPU only, so main starts
+    it beside phase 13."""
+    import os
+    import shutil
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_TABLE.unlink(missing_ok=True)
+    calls = [f"dryrun.main({['--arch', a, '--shape', s, '--mesh', m, '--out', str(DRYRUN_OUT)]!r})"
+             for a, s, m in DRYRUN_CELLS]
+    table_args = ["--dryrun-dir", str(DRYRUN_OUT), "--mesh", "both", "--out", str(DRYRUN_TABLE)]
+    code = ("import time, torch; t0 = time.perf_counter(); "
+            "from repro_torch.launch import dryrun, roofline; "
+            + "; ".join(calls) + f"; roofline.main({table_args!r})"
+            + "; assert not torch.cuda.is_initialized(), 'CUDA initialized'"
+            + "; print(f'dry-run subprocess: {time.perf_counter() - t0:.1f} s after its imports "
+              "of torch')")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_dryrun(proc: "subprocess.Popen | None" = None) -> None:
+    """Phase 14: the dry-run subprocess (``start_dryrun``; started here
+    unless ``proc`` is given) and its rows logged.  Then the memory model:
+    the dry-run's trace of SASRec's serve_p99 and of phase 11's granite cut
+    without a mesh, on meta tensors, against the card's peak for the same
+    cells (serve_p99 run here, granite's from phase 11 (b)), within
+    MEMORY_MODEL_RTOL."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.train import adamw_init
+
+    proc = proc or start_dryrun()
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    for line in stdout.splitlines():
+        log(f"dryrun | {line}")
+    assert proc.returncode == 0, f"the dry-run failed ({proc.returncode}):\n{stderr[-4000:]}"
+    rows = json.loads(DRYRUN_TABLE.read_text())
+    records = sorted(DRYRUN_OUT.glob("*.json"))
+    assert len(rows) == len(records) == 3 and not any("error" in r for r in rows), rows
+    for r in rows:
+        log(f"roofline (a model of an H100 SXM, not a measurement) {r['cell']} mesh={r['mesh']} "
+            f"n_devices={r['n_devices']} flops={r['flops']:.4e} {r['flops_by_dtype']} "
+            f"bytes={r['bytes']:.4e} wire={r['wire_bytes']:.4e} compute_s={r['compute_s']:.4e} "
+            f"memory_s={r['memory_s']:.4e} collective_s={r['collective_s']:.4e} "
+            f"dominant={r['dominant']} roofline_fraction={r['roofline_fraction']:.4f} "
+            f"mem_gib_per_dev={r['mem_gib_per_dev']}")
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    arch = get_arch("sasrec")
+    cell, meta_cell = arch.build_cell("serve_p99"), arch.build_cell("serve_p99", device="meta")
+    with uncounted():
+        card = _card_peak(cell.step_fn, lambda: (arch.init(g, device="cuda"),
+                                                 _recsys_inputs(arch, cell.args[1], g)))
+        model = trace_step(meta_cell.step_fn, meta_cell.args)["memory"]["peak_bytes_per_device"]
+    checks = [("sasrec/serve_p99", model, card)]
+    layers, batch, card = MEASURED_PEAKS["granite-3-2b"]
+    meta_cell = _lm_cut("granite-3-2b", layers).build_cell("train_4k", device="meta")
+    params = meta_cell.args[0]
+    tokens = torch.empty((batch, meta_cell.args[2]["tokens"].shape[1]), dtype=torch.int32,
+                         device="meta")
+    with uncounted():
+        model = trace_step(meta_cell.step_fn, (params, adamw_init(params),
+                                               {"tokens": tokens, "labels": tokens.clone()})
+                           )["memory"]["peak_bytes_per_device"]
+    checks.append((f"granite-3-2b/train_4k layers={layers} B={batch}", model, card))
+    for name, model, card in checks:
+        rel = abs(model - card) / card
+        log(f"memory model {name}: dry-run peak {model} B ({_gib(model):.3f} GiB) vs the card's "
+            f"max_memory_allocated {card} B ({_gib(card):.3f} GiB): {rel:.4f} apart "
+            f"(limit {MEMORY_MODEL_RTOL})")
+        assert rel <= MEMORY_MODEL_RTOL, (name, model, card)
 
 
 # kernel -> (its source, the TPU kernel it replaces)
@@ -6552,8 +6804,10 @@ def main() -> int:
         counts[name] += n
     timings.update(train_timings)
     timed("12 GNN", phase_gnn)
+    dryrun = start_dryrun()  # phase 14's CPU-only subprocess, beside phase 13
     for name, n in timed("13 mesh", phase_mesh).items():
         counts[name] += n
+    timed("14 dry-run", phase_dryrun, dryrun)
     log(f"all phases: {time.perf_counter() - t0:.1f} s")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name], **timings[name])

@@ -48,17 +48,30 @@ are the PartitionSpec trees by which a rank cuts the global inputs
     experts over ``model`` (``transformer.held_specs``), the dense weights
     whole; ``lm_loss(mesh=)``, the gradient mean over the batch axes
     (``mesh_value_and_grad``), AdamW clipped by the whole tree's norm.
-    Prefill and decode pass the mesh to the MoE layers.
+    Prefill and decode pass the mesh to the MoE layers; their specs say
+    what a rank holds: the parameters as ``train_4k``'s, the tokens and
+    the caches' rows over the batch axes, the sequence whole (no cache is
+    cut over ``model``), and ``long_500k`` at B 1 everything whole.
   * GNN: N and E padded to multiples of the rank count, the graph in row
     blocks over every axis (``gnn.data_specs``), the parameters whole;
     ``mse_loss(mesh=)``, the gradient mean over every axis, AdamW.
+  * recsys ``train_batch``: the batch over the batch axes, the tables and
+    their AdamW moments row-sharded over ``model`` (``mod.specs``), the
+    dense leaves whole; a lookup is a masked gather of the rank's rows and
+    a sum over ``model`` (``embedding.take``); the loss through
+    ``mesh_value_and_grad`` over the batch axes, AdamW clipped by the whole
+    tree's norm (``global_norm`` over the specs).
+  * recsys serve: the batch over the batch axes; SASRec, MIND and DIEN hold
+    ``item_emb`` whole (JAX replicates it to serve: local lookups), DLRM
+    its tables row-sharded (sharded lookups).
   * recsys retrieval (SASRec, MIND, DIEN): with a ``model`` axis of P > 1
     ranks dividing ``n_items``, JAX's shard-local top k (``sharded_topk``):
     each rank its block of the item table, the per-rank top 100 gathered
     over ``model`` and merged.  The parameters are whole on every rank (the
-    user tower reads the whole table).  The train and serve cells and
-    DLRM's retrieval under a mesh are not ported: a row-sharded table needs
-    a masked gather and an all-reduce for a lookup (ROADMAP).
+    user tower reads the whole table).  DLRM: the 10^6 candidate rows over
+    the batch axes, scored with sharded lookups; each rank's top 100 (ids
+    offset by its block's start) gathered over the batch axes and merged
+    by ``top_l``, the lower id winning a tie.
 """
 from __future__ import annotations
 
@@ -66,6 +79,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.brute_force import exact_topk
 from repro_torch.core.similarity import top_l
@@ -89,7 +103,8 @@ class Cell(NamedTuple):
     step_fn: Callable
     args: tuple               # the inputs, as meta tensors (a decode's q_offset: an int)
     meta: dict
-    in_specs: Any = None      # under a mesh: how a rank cuts ``args`` (PartitionSpec trees)
+    in_specs: Any = None      # under a mesh: how a rank cuts ``args`` (PartitionSpec trees;
+    #                           None for an argument that is not a tensor)
 
 
 def mesh_value_and_grad(loss_fn: Callable, mesh, axes) -> Callable:
@@ -191,15 +206,20 @@ class LMArch:
                         None if mesh is None else (held, adamw_specs(held),
                                                    {"tokens": bspec, "labels": bspec}))
 
+        held = None
         if mesh is not None:
+            _, held = self._train_layout(mesh)
             layers_mod.set_batch_axes_for_mesh(mesh)
+        # the rows over the batch axes; long_500k (B 1) holds everything whole
+        rows = () if mesh is None or b == 1 else batch_axes_of(mesh)
 
         if sh["kind"] == "prefill":
             def prefill_step(params, tokens):
                 _check_device(dev, (params, tokens))
                 return tf.serve_prefill(params, tokens, cfg, mesh, max_len=tokens.shape[1])
 
-            return Cell(name, prefill_step, (params_abs, _abstract((b, s), torch.int32)), meta)
+            return Cell(name, prefill_step, (params_abs, _abstract((b, s), torch.int32)), meta,
+                        None if mesh is None else (held, P(rows, None)))
 
         def decode_step(params, caches, token, q_offset: int):
             _check_device(dev, (params, caches, token))
@@ -207,7 +227,9 @@ class LMArch:
 
         caches_abs = tf.init_cache(cfg, b, s, device="meta")
         return Cell(name, decode_step,
-                    (params_abs, caches_abs, _abstract((b, 1), torch.int32), s - 1), meta)
+                    (params_abs, caches_abs, _abstract((b, 1), torch.int32), s - 1), meta,
+                    None if mesh is None else (held, tf.cache_specs(cfg, batch=rows, seq=()),
+                                               P(rows, None), None))
 
 
 # ---------------------------------------------------------------------------
@@ -423,9 +445,6 @@ class RecsysArch:
         check_mesh(mesh)
         sh = RECSYS_SHAPES[shape_name]
         cfg = self.cfg
-        if mesh is not None and (sh["kind"] != "retrieval" or self.arch_id == "dlrm-rm2"):
-            raise NotImplementedError(f"{self.arch_id}/{shape_name} under a mesh: a row-sharded "
-                                      f"table's lookups are not ported (ROADMAP)")
         dev = torch.device(device)
         torch.empty(0, device=dev)  # an absent device fails here, before any work
         params_abs = self.init(device="meta")
@@ -433,29 +452,39 @@ class RecsysArch:
         meta = dict(family="recsys", arch=self.arch_id, shape=shape_name, kind=sh["kind"],
                     batch=b, n_cand=sh.get("n_cand", 0))
         name = f"{self.arch_id}/{shape_name}"
+        axes = () if mesh is None else batch_axes_of(mesh)
+        pspecs = None if mesh is None else self.mod.specs(cfg)
+
+        def rows(batch):
+            """Each input's rows over the batch axes."""
+            return tree_map(lambda a: P(axes, *[None] * (a.dim() - 1)), batch)
 
         if sh["kind"] == "train":
-            loss_fn = self.loss_fn()
+            grad_fn = mesh_value_and_grad(self.loss_fn(), mesh, axes)
 
             def train_step(params, opt, batch):
                 _check_device(dev, (params, opt, batch))
-                loss, grads = value_and_grad(loss_fn)(params, batch, cfg)
+                loss, grads = grad_fn(params, batch, cfg)
                 lr = cosine_schedule(opt.step, base_lr=1e-3, warmup=500, total=50_000)
-                new_p, new_o = adamw_update(grads, opt, params, lr=lr)
+                norm = None if mesh is None else global_norm(grads, pspecs, mesh)
+                new_p, new_o = adamw_update(grads, opt, params, lr=lr, grad_norm=norm)
                 return new_p, new_o, loss
 
-            return Cell(name, train_step, (params_abs, adamw_init(params_abs),
-                                           self._train_batch(b)), meta)
+            batch_abs = self._train_batch(b)
+            return Cell(name, train_step, (params_abs, adamw_init(params_abs), batch_abs), meta,
+                        None if mesh is None else (pspecs, adamw_specs(pspecs), rows(batch_abs)))
 
         if sh["kind"] == "serve":
             nc = sh["n_cand"]
+            if pspecs is not None and self.arch_id != "dlrm-rm2":
+                pspecs["item_emb"] = P()  # JAX replicates the item table to serve
             if self.arch_id == "dlrm-rm2":
                 batch_abs = {"dense": _abstract((b, cfg.n_dense), torch.float32),
                              "sparse": _abstract((b, cfg.n_sparse), torch.int32)}
 
                 def serve_step(params, batch):
                     _check_device(dev, (params, batch))
-                    return dlrm_mod.forward(params, batch, cfg)
+                    return dlrm_mod.forward(params, batch, cfg, mesh)
             elif self.arch_id == "dien":
                 batch_abs = {"hist": _abstract((b, cfg.seq_len), torch.int32),
                              "target": _abstract((b,), torch.int32)}
@@ -472,20 +501,29 @@ class RecsysArch:
                     _check_device(dev, (params, batch))
                     return rerank(params, batch)
 
-            return Cell(name, torch.no_grad()(serve_step), (params_abs, batch_abs), meta)
+            return Cell(name, torch.no_grad()(serve_step), (params_abs, batch_abs), meta,
+                        None if mesh is None else (pspecs, rows(batch_abs)))
 
         nc = sh["n_cand"]
         if self.arch_id == "dlrm-rm2":
-            # bulk candidate scoring through the ranker: 10^6 candidate rows
+            # bulk candidate scoring through the ranker: 10^6 candidate rows,
+            # under a mesh this rank's block of them
             batch_abs = {"dense": _abstract((nc, cfg.n_dense), torch.float32),
                          "sparse": _abstract((nc, cfg.n_sparse), torch.int32)}
+            group = axis_group(mesh, axes) if axes else None
 
             def retrieval_step(params, batch):
                 _check_device(dev, (params, batch))
-                vals, ids = top_l(dlrm_mod.forward(params, batch, cfg), RETRIEVAL_K)
+                scores = dlrm_mod.forward(params, batch, cfg, mesh)
+                vals, ids = top_l(scores, RETRIEVAL_K)
+                if group is not None:  # the blocks' top k in rank order, merged
+                    ids = ids + dist.get_rank(group) * scores.shape[0]
+                    vals, sel = top_l(gather_rows(vals, group), RETRIEVAL_K)
+                    ids = gather_rows(ids, group)[sel]
                 return {"scores": vals, "ids": ids.to(torch.int32)}
 
             args = (params_abs, batch_abs)
+            in_specs = None if mesh is None else (pspecs, rows(batch_abs))
         else:
             interests = self.arch_id == "mind"
             msize = axis_size(mesh, (MODEL_AXIS,)) if mesh is not None and \
@@ -508,7 +546,7 @@ class RecsysArch:
                 return {"scores": vals, "ids": ids}
 
             args = (params_abs, _abstract((b, cfg.seq_len), torch.int32))
-        in_specs = None if mesh is None else (tree_map(lambda _: P(), params_abs), P())
+            in_specs = None if mesh is None else (tree_map(lambda _: P(), params_abs), P())
         return Cell(name, torch.no_grad()(retrieval_step), args, meta, in_specs)
 
 

@@ -11,9 +11,19 @@ Each exported function takes device pointers, ints (flash_attn also a float
 scale) and the current CUDA stream, allocates nothing and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.  Nothing here runs at import: the library is built
 and loaded by the first wrapper that launches a kernel.
+
+``recording()`` is the dry-run's stand-in for the card (``launch/dryrun.py``):
+inside its ``with`` block a meta tensor counts as the card's, the stream is
+0, the SM count is an H100 SXM's, and ``lib()`` is a recorder whose every
+entry records the launch's flops and bytes by the kernel's cost function
+(``COSTS``, filled by each kernel's ``ops.py``) and launches nothing.  An
+entry without a cost function raises there, so no kernel is counted as
+free.  Outside the block nothing changes; the card's path never enters it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -21,7 +31,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Sequence
+from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import torch
 
@@ -125,9 +135,15 @@ def build_log() -> str:
     return (BUILD_DIR / library_path().stem / "build.log").read_text()
 
 
+def lib():
+    """The loaded kernel library, built first if needed; inside
+    ``recording()`` the recorder."""
+    recorder = _RECORDING.get()
+    return _library() if recorder is None else recorder
+
+
 @functools.cache
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+def _library() -> ctypes.CDLL:
     handle = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(handle, name)
@@ -137,7 +153,17 @@ def lib() -> ctypes.CDLL:
 
 
 def stream(device: torch.device) -> int:
+    if _RECORDING.get() is not None:
+        return 0
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (an H100 SXM's inside
+    ``recording()``)."""
+    if _RECORDING.get() is not None:
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, name: str) -> None:
@@ -159,11 +185,88 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Sequence[int],
         raise ValueError(f"{name} must be contiguous")
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """True for the tensors that take the card's path: a CUDA tensor, or
+    inside ``recording()`` a meta tensor.  Inside ``recording()`` a CUDA
+    tensor raises: the recorder would launch nothing and leave its outputs
+    unwritten."""
+    if _RECORDING.get() is None:
+        return t.device.type == "cuda"
+    if t.device.type == "cuda":
+        raise RuntimeError("a CUDA tensor inside recording(): the dry-run's recorder takes "
+                           "meta tensors and launches nothing")
+    return t.device.type == "meta"
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one (run
-    the plain version); any other device raises."""
-    if t.device.type == "cuda":
+    the plain version); any other device raises, but a meta tensor inside
+    ``recording()``, which counts as the card's (and there a CUDA tensor
+    raises)."""
+    if on_card(t):
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+# --------------------------------------------------------------------- dry-run recorder
+
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+class Launch(NamedTuple):
+    """One recorded launch: the C entry, its flops (of ``dtype``: "bf16",
+    "fp32" or "tf32", the type the card computes them in) and the bytes it
+    must move (each input read once, each output written once)."""
+    name: str
+    flops: float
+    nbytes: float
+    dtype: str
+
+
+# C entry -> its cost: a function of the entry's C arguments giving
+# (flops, bytes, flop type); each kernel's ops.py adds its entries
+COSTS: Dict[str, Callable[..., tuple]] = {}
+
+# the active recorder, inside recording() (in this thread or task)
+_RECORDING: contextvars.ContextVar = contextvars.ContextVar("recording", default=None)
+
+
+class Recorder:
+    """``lib()`` inside ``recording()``: an entry records its launch in
+    ``launches`` and returns 0 (no error) without launching anything."""
+
+    def __init__(self) -> None:
+        self.launches: List[Launch] = []
+
+    def __getattr__(self, name: str):
+        if name not in SIGNATURES:
+            raise AttributeError(name)
+        if name not in COSTS:
+            raise NotImplementedError(f"{name} has no cost function (kernels/*/ops.py): the "
+                                      f"dry-run cannot count its launch")
+        cost = COSTS[name]
+
+        def record(*args) -> int:
+            flops, nbytes, dtype = cost(*args)
+            self.launches.append(Launch(name, float(flops), float(nbytes), dtype))
+            return 0
+
+        return record
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block: meta tensors count as the card's, ``stream()`` is
+    0, ``sm_count()`` 132, and ``lib()`` a ``Recorder`` (yielded) that
+    counts each launch's cost and launches nothing.  A tool of the
+    dry-run; it does not nest."""
+    if _RECORDING.get() is not None:
+        raise RuntimeError("recording() does not nest")
+    recorder = Recorder()
+    token = _RECORDING.set(recorder)
+    try:
+        yield recorder
+    finally:
+        _RECORDING.reset(token)

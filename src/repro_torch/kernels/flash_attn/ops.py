@@ -14,11 +14,15 @@ residual), and whose backward is ``flash_attention_bwd`` (the JAX
 package's custom VJP, ``models/layers.py: _attend_flash``).
 ``flash_attention.launches`` and ``launches_bf16`` count the fp32 and bf16
 forward launches of both entry points, ``launches_bwd`` and
-``launches_bwd_bf16`` the backward's (plain runs do not count)."""
+``launches_bwd_bf16`` the backward's (plain runs do not count).
+
+``forward_cost`` and ``backward_cost`` give a launch's flops and the bytes
+it must move (the dry-run's ``_lib.COSTS`` and ``chip_smoke.py``'s bounds)."""
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _lib
@@ -30,6 +34,66 @@ from repro_torch.kernels.flash_attn.ref import (
 )
 
 HEAD_DIMS = (32, 64, 128, 256)
+FWD_FLOPS_PER_PAIR = 4   # a (query, key) pair's two hd-long products (s, p v), 2 hd each
+BWD_FLOPS_PER_PAIR = 10  # a pair's five hd-long products (s, dp, dq, dk, dv), 2 hd each
+TF32_PASSES = 3          # the fp32 backward's 3xTF32: three tf32 products a product
+
+
+def causal_pairs(s: int, t: int, q_offset: int, window: Optional[int]) -> int:
+    """(query, key) pairs inside the causal (and window) mask of S queries
+    at positions ``q_offset + i`` over T keys: the work the inputs need."""
+    pos = q_offset + np.arange(s)
+    hi = np.minimum(pos, t - 1)
+    lo = np.zeros_like(pos) if window is None else np.maximum(pos - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def forward_cost(b: int, s: int, t: int, h: int, kvh: int, hd: int, q_offset: int,
+                 window: Optional[int], itemsize: int, lse: bool = False,
+                 residual: bool = False):
+    """(flops, bytes) of one forward launch: q read and out written
+    [B, S, H, hd], k and v read [B, T, KV, hd], with ``lse`` the row
+    log-sum-exps written [B, H, S] fp32 and with ``residual`` the fp32
+    output written [B, S, H, hd] (bf16's residual); 4 hd flops a pair inside
+    the mask, for each batch row and head."""
+    nbytes = (2 * b * s * h * hd + 2 * b * t * kvh * hd) * itemsize
+    nbytes += (b * h * s * 4 if lse else 0) + (b * s * h * hd * 4 if residual else 0)
+    return float(FWD_FLOPS_PER_PAIR * hd * causal_pairs(s, t, q_offset, window) * b * h), nbytes
+
+
+def backward_cost(b: int, s: int, t: int, h: int, kvh: int, hd: int, q_offset: int,
+                  window: Optional[int], itemsize: int):
+    """(flops, bytes) of one backward launch: q, dout and dq; k, v, dk and
+    dv; the fp32 residual and lse read; 10 hd flops a pair inside the mask
+    (the fp32 kernel computes each as ``TF32_PASSES`` tf32 products)."""
+    nbytes = (3 * b * s * h * hd + 4 * b * t * kvh * hd) * itemsize + b * s * h * hd * 4 \
+        + b * h * s * 4
+    return float(BWD_FLOPS_PER_PAIR * hd * causal_pairs(s, t, q_offset, window) * b * h), nbytes
+
+
+def _forward_entry_cost(itemsize: int, dtype: str):
+    """A forward entry's cost; its lse and (bf16) residual pointers are None
+    unless the launch writes them (a meta tensor's pointer is 0)."""
+    def cost(q, k, v, b, s, t, h, kvh, hd, scale, q_offset, window, out, lse, *rest):
+        residual = len(rest) == 2 and rest[0] is not None  # bf16: (res, stream)
+        return (*forward_cost(b, s, t, h, kvh, hd, q_offset, window or None, itemsize,
+                              lse=lse is not None, residual=residual), dtype)
+    return cost
+
+
+def _backward_entry_cost(itemsize: int, dtype: str, passes: int):
+    """A backward entry's cost: ``backward_cost``, and the delta buffer
+    [B, H, S] fp32 its first pass writes and its two kernels read."""
+    def cost(q, k, v, out, dout, lse, b, s, t, h, kvh, hd, scale, q_offset, window, *rest):
+        flops, nbytes = backward_cost(b, s, t, h, kvh, hd, q_offset, window or None, itemsize)
+        return passes * flops, nbytes + 3 * b * h * s * 4, dtype
+    return cost
+
+
+_lib.COSTS.update(flash_attn_f32=_forward_entry_cost(4, "fp32"),
+                  flash_attn_bf16=_forward_entry_cost(2, "bf16"),
+                  flash_attn_bwd_f32=_backward_entry_cost(4, "tf32", TF32_PASSES),
+                  flash_attn_bwd_bf16=_backward_entry_cost(2, "bf16", 1))
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

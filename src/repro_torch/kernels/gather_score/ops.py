@@ -5,13 +5,27 @@ its int8 rerank with: ids of -1 are scored against row 0 and the caller
 masks them.
 
 ``gather_score.launches`` counts kernel launches (plain runs do not count);
-``gather_score.launches_by_width`` counts them by W, the ids' width."""
+``gather_score.launches_by_width`` counts them by W, the ids' width.
+``launch_cost`` gives a launch's flops and the bytes it must move."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.gather_score.ref import gather_score_ref
+
+
+def launch_cost(b: int, w: int, d: int, distinct: "int | None" = None):
+    """(flops, bytes) of scoring B queries against W ids each: the ids read
+    and the scores written (8 bytes a slot), each distinct row read once
+    (``distinct``; unknown, as on meta tensors: every id's row) and the
+    queries; 2 d flops a slot."""
+    rows = b * w if distinct is None else distinct
+    return 2.0 * d * b * w, b * w * 8 + rows * d * 4 + b * d * 4
+
+
+_lib.COSTS["gather_score_f32"] = lambda q, items, ids, b, w, d, *rest: (
+    *launch_cost(b, w, d), "fp32")
 
 
 def check_gather_inputs(queries: torch.Tensor, items: torch.Tensor, ids: torch.Tensor) -> None:

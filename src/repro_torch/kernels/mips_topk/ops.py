@@ -11,7 +11,8 @@ in a candidate buffer (``select_plan``), and a block per query sorts them.
 With ``scales`` the items are the int8 store's codes (the ``*_i8``
 entries).  ``mips_topk.launches`` and ``mips_topk.launches_int8`` count the
 fp32 and int8 kernels of the k <= 32 route, ``launches_select`` and
-``launches_select_int8`` those of the select route."""
+``launches_select_int8`` those of the select route.  ``launch_cost`` and
+``select_cost`` give a launch's flops and the bytes it must move."""
 from __future__ import annotations
 
 import torch
@@ -73,6 +74,43 @@ def check_kernel_inputs(queries: torch.Tensor, items: torch.Tensor,
         raise ValueError(f"mips_topk takes 1 <= k <= N={n}, got {k}")
 
 
+def launch_cost(b: int, n: int, d: int, k: int, int8: bool = False):
+    """(flops, bytes) of the top k of B queries over N items: the queries
+    and the items (int8: codes and scales) read once, scores and ids
+    written; 2 d flops a score, and one more for an int8 scale."""
+    row_bytes = d + 4 if int8 else d * 4
+    return 2.0 * b * n * d + (b * n if int8 else 0), b * d * 4 + n * row_bytes + b * k * 8
+
+
+def select_cost(b: int, n: int, k: int, candidates: int):
+    """(flops, bytes) of the select route's selection after its scan: the
+    score scratch read twice, ``candidates`` keys (8 bytes each) and the
+    top k written."""
+    return 0.0, 2 * b * n * 4 + candidates * 8 + b * k * 8
+
+
+def _topk_entry_cost(int8: bool):
+    def cost(*args):
+        b, n, d, k = args[3:7] if int8 else args[2:6]
+        return (*launch_cost(b, n, d, k, int8), "fp32")
+    return cost
+
+
+def _select_entry_cost(int8: bool):
+    """The scan, then the selection with every row's candidate buffer full
+    (``select_plan``'s cap: the kernel's count is data)."""
+    def cost(*args):
+        b, n, d, k, _, _, _, _, cap = args[3:12] if int8 else args[2:11]
+        flops, nbytes = launch_cost(b, n, d, k, int8)
+        return flops, nbytes + select_cost(b, n, k, b * cap)[1], "fp32"
+    return cost
+
+
+_lib.COSTS.update(mips_topk_f32=_topk_entry_cost(False), mips_topk_i8=_topk_entry_cost(True),
+                  mips_topk_select_f32=_select_entry_cost(False),
+                  mips_topk_select_i8=_select_entry_cost(True))
+
+
 def select_rows(b: int, n: int) -> int:
     """Queries a pass of the select route scores at once: as many as fit
     the scratch, at least one."""
@@ -105,7 +143,7 @@ def mips_topk_select(queries: torch.Tensor, items: torch.Tensor,
     counts = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return out_s, out_i, counts
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _lib.sm_count(dev)
     rows = select_rows(b, n)
     chunks, per_chunk = chunking(rows, n, 1, sms)
     per, cap = select_plan(n, k)
@@ -145,7 +183,7 @@ def mips_topk(queries: torch.Tensor, items: torch.Tensor,
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_s, out_i
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _lib.sm_count(dev)
     chunks, per_chunk = chunking(b, n, k, sms)
     part_s = torch.empty((b, chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, chunks, k), dtype=torch.int32, device=dev)

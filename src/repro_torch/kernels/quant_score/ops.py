@@ -2,13 +2,30 @@
 launches the kernel of ``csrc/quant_score.cu`` or raises.
 
 ``quant_score.launches`` counts kernel launches (plain runs do not count);
-``quant_score.launches_by_width`` counts them by W, the ids' width."""
+``quant_score.launches_by_width`` counts them by W, the ids' width.
+``launch_cost`` gives a launch's flops and the bytes it must move."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.quant_score.ref import quant_score_ref
+
+
+def launch_cost(b: int, w: int, d: int, distinct: "int | None" = None,
+                scored: "int | None" = None):
+    """(flops, bytes) of scoring B queries against W ids each: the ids read
+    and the scores written (8 bytes a slot), each distinct row's d codes
+    and its scale read once (``distinct``; unknown, as on meta tensors:
+    every id's row) and the queries; 2 d flops a scored slot (``scored``,
+    the ids that are not -1; unknown: every slot)."""
+    rows = b * w if distinct is None else distinct
+    slots = b * w if scored is None else scored
+    return 2.0 * d * slots, b * w * 8 + rows * (d + 4) + b * d * 4
+
+
+_lib.COSTS["quant_score_i8"] = lambda q, codes, scales, ids, b, w, d, *rest: (
+    *launch_cost(b, w, d), "fp32")  # the codes widened to fp32 products
 
 
 def check_quant_inputs(queries: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,

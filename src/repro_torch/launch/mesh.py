@@ -325,11 +325,19 @@ def mean_out(x: torch.Tensor, group) -> torch.Tensor:
 @torch.no_grad()
 def grad_mean(grads, group):
     """The mean over the group of each leaf of a gradient tree (an
-    all-reduce a leaf, then a division by the group's size), in place."""
-    from repro_torch.train.tree import leaves
+    all-reduce a leaf, then a division by the group's size), in place where
+    a leaf is contiguous.  A strided leaf is copied out first: DIEN's gate
+    weights' gradients are column slices of one gradient of their
+    concatenation, and gloo's all-reduce of such a slice sums its
+    neighbours' columns too (each leaf P times over, P the group's size)."""
+    from repro_torch.train.tree import tree_map
 
     n = dist.get_world_size(group)
-    for g in leaves(grads):
+
+    def mean(g):
+        if not g.is_contiguous():
+            g = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
-        g.div_(n)
-    return grads
+        return g.div_(n)
+
+    return tree_map(mean, grads)

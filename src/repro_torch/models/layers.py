@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.launch.mesh import MODEL_AXIS, P
 
@@ -161,8 +162,9 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [..., k] @ b [k, n]`` accumulated and returned in fp32 (JAX's
     ``preferred_element_type=jnp.float32``): bf16 operands on the card by
-    one bf16 GEMM with an fp32 output, elsewhere in fp32."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    one bf16 GEMM with an fp32 output (and in the dry-run's trace of the
+    card, ``kernels._lib.on_card``), elsewhere in fp32."""
+    if _lib.on_card(a) and a.dtype == b.dtype == torch.bfloat16:
         return _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b).view(*a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
 

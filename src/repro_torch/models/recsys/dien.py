@@ -7,6 +7,9 @@ package's ``lax.scan`` over the sequence is a loop over it here, in
 time-major layout ([S, B, .]) so that each step reads contiguous rows; the
 three gates' input weights and the r and z gates' hidden weights are
 concatenated once a sequence (the same sums, fewer products).
+
+``mesh``: as SASRec's (``item_emb`` this rank's row block over "model", the
+batch this rank's block over the batch axes); None, every tensor whole.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import P
+from repro_torch.launch.mesh import P, check_mesh
 from repro_torch.models.layers import (
     _dense_init,
     dense_stack,
@@ -24,7 +27,7 @@ from repro_torch.models.layers import (
     make_generator,
     normal,
 )
-from repro_torch.models.recsys.embedding import table_spec, take
+from repro_torch.models.recsys.embedding import batch_mean, batch_ratio, table_spec, take
 from repro_torch.train.tree import tree_map
 
 
@@ -104,14 +107,15 @@ def _run_gru(p, xs, mask, att=None):
     return torch.stack(states)
 
 
-def forward(params, batch, cfg: DIENConfig):
+def forward(params, batch, cfg: DIENConfig, mesh=None):
     """batch = {hist [B, S] int32 (-1 pad), target [B] int32} -> (logit [B],
     gru1 states [B, S, g]); the states feed the auxiliary loss."""
+    check_mesh(mesh)
     hist, target = batch["hist"], batch["target"]
     hist_t = hist.t()
     mask_t = hist_t >= 0                                               # [S, B]
-    e_t = take(params["item_emb"], hist_t)                            # [S, B, d]
-    te = take(params["item_emb"], target)                             # [B, d]
+    e_t = take(params["item_emb"], hist_t, mesh)                      # [S, B, d]
+    te = take(params["item_emb"], target, mesh)                       # [B, d]
 
     states_t = _run_gru(params["gru1"], e_t, mask_t)                     # [S, B, g]
 
@@ -128,23 +132,23 @@ def forward(params, batch, cfg: DIENConfig):
     return logit, states_t.transpose(0, 1)
 
 
-def bce_loss(params, batch, cfg: DIENConfig) -> torch.Tensor:
+def bce_loss(params, batch, cfg: DIENConfig, mesh=None) -> torch.Tensor:
     """The CTR loss plus DIEN's auxiliary next-behaviour loss; batch needs
     hist, target, labels [B] and aux_neg [B, S] (negative items)."""
-    logit, states = forward(params, batch, cfg)
+    logit, states = forward(params, batch, cfg, mesh)
     y = batch["labels"].to(torch.float32)
-    main = torch.mean(torch.clamp(logit, min=0) - logit * y
-                      + torch.log1p(torch.exp(-torch.abs(logit))))
+    main = batch_mean(torch.clamp(logit, min=0) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))), mesh)
 
     hist = batch["hist"]
     mask = (hist >= 0)[:, 1:]
-    e_next = take(params["item_emb"], hist[:, 1:])
-    e_neg = take(params["item_emb"], batch["aux_neg"][:, 1:])
+    e_next = take(params["item_emb"], hist[:, 1:], mesh)
+    e_neg = take(params["item_emb"], batch["aux_neg"][:, 1:], mesh)
     h = states[:, :-1] @ params["attn_w"].T              # project g -> d
     pos_s = torch.sum(h * e_next, -1)
     neg_s = torch.sum(h * e_neg, -1)
     aux = -(F.logsigmoid(pos_s) + torch.log1p(-torch.sigmoid(neg_s) + 1e-7))
-    aux = torch.sum(aux * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    aux = batch_ratio(torch.sum(aux * mask), torch.sum(mask), mesh)
     return main + cfg.aux_weight * aux
 
 

@@ -4,6 +4,10 @@ dense [B, 13] -> bottom MLP -> [B, 64]
 sparse [B, 26] -> 26 embedding tables -> [B, 26, 64]
 dot interaction over the 27 vectors -> 351 pairwise dots, beside the bottom
 output -> top MLP -> CTR logit.
+
+``mesh``: a ``DeviceMesh`` under which ``tables`` is this rank's block of
+rows over "model" (``table_spec(stacked=True)``) and the batch this rank's
+block over the batch axes; None, every tensor whole.
 """
 from __future__ import annotations
 
@@ -12,9 +16,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch.mesh import P
+from repro_torch.launch.mesh import P, check_mesh
 from repro_torch.models.layers import dense_stack, dense_stack_init, make_generator, normal
-from repro_torch.models.recsys.embedding import multi_table_lookup, table_spec
+from repro_torch.models.recsys.embedding import batch_mean, multi_table_lookup, table_spec
 from repro_torch.train.tree import tree_map
 
 
@@ -53,10 +57,11 @@ def specs(cfg):
     return s
 
 
-def forward(params, batch, cfg: DLRMConfig) -> torch.Tensor:
+def forward(params, batch, cfg: DLRMConfig, mesh=None) -> torch.Tensor:
     """batch = {dense [B, 13] f32, sparse [B, 26] int32} -> logits [B]."""
+    check_mesh(mesh)
     bot = dense_stack(params["bot"], batch["dense"].to(cfg.dtype), final_act=True)
-    emb = multi_table_lookup(params["tables"], batch["sparse"])   # [B, 26, d]
+    emb = multi_table_lookup(params["tables"], batch["sparse"], mesh)  # [B, 26, d]
     feats = torch.cat([bot[:, None, :], emb], dim=1)              # [B, 27, d]
 
     # dot interaction: the strict lower triangle of feats @ feats^T, row-major
@@ -70,8 +75,8 @@ def forward(params, batch, cfg: DLRMConfig) -> torch.Tensor:
     return dense_stack(params["top"], top_in)[:, 0]
 
 
-def bce_loss(params, batch, cfg: DLRMConfig) -> torch.Tensor:
-    logits = forward(params, batch, cfg)
+def bce_loss(params, batch, cfg: DLRMConfig, mesh=None) -> torch.Tensor:
+    logits = forward(params, batch, cfg, mesh)
     y = batch["labels"].to(torch.float32)
-    return torch.mean(torch.clamp(logits, min=0) - logits * y
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return batch_mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))), mesh)

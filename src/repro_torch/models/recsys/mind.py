@@ -4,6 +4,9 @@
 A user's behaviour sequence is routed into ``n_interests`` capsules; serving
 scores an item by the MAX inner product over the interests, so every user
 issues ``n_interests`` MIPS queries.
+
+``mesh``: as SASRec's (``item_emb`` this rank's row block over "model", the
+batch this rank's block over the batch axes); None, every tensor whole.
 """
 from __future__ import annotations
 
@@ -12,9 +15,9 @@ from typing import Any
 
 import torch
 
-from repro_torch.launch.mesh import P
+from repro_torch.launch.mesh import P, check_mesh
 from repro_torch.models.layers import _dense_init, make_generator, normal
-from repro_torch.models.recsys.embedding import table_spec, take
+from repro_torch.models.recsys.embedding import batch_mean, table_spec, take
 from repro_torch.train.tree import tree_map
 
 
@@ -54,12 +57,13 @@ def _squash(z, eps=1e-9):
     return (n2 / (1.0 + n2)) * z * torch.rsqrt(n2 + eps)
 
 
-def interest_capsules(params, hist: torch.Tensor, cfg: MINDConfig) -> torch.Tensor:
+def interest_capsules(params, hist: torch.Tensor, cfg: MINDConfig, mesh=None) -> torch.Tensor:
     """hist [B, S] (-1 pad) -> interests [B, K, d], after ``capsule_iters``
     routing iterations."""
+    check_mesh(mesh)
     b, s = hist.shape
     mask = (hist >= 0).to(torch.float32)
-    e = take(params["item_emb"], hist)                               # [B, S, d]
+    e = take(params["item_emb"], hist, mesh)                               # [B, S, d]
     u_hat = torch.einsum("bsd,de->bse", e, params["bilinear"])       # [B, S, d]
     u_hat = u_hat * mask[..., None]
 
@@ -82,23 +86,24 @@ def label_aware_user(params, interests, target_emb, cfg: MINDConfig):
     return torch.einsum("bk,bkd->bd", w, interests)
 
 
-def sampled_softmax_loss(params, batch, cfg: MINDConfig) -> torch.Tensor:
+def sampled_softmax_loss(params, batch, cfg: MINDConfig, mesh=None) -> torch.Tensor:
     """batch = {hist [B, S], pos [B], neg [B, n_neg]}."""
+    check_mesh(mesh)
     pos, neg = batch["pos"], batch["neg"]
     if pos.dim() != 1 or neg.dim() != 2:
         # the JAX package's einsum fails on these shapes too (ValueError)
         raise ValueError(f"MIND's loss takes pos [B] and neg [B, n_neg]; got pos "
                          f"{list(pos.shape)} and neg {list(neg.shape)} (SyntheticClickStream "
                          f"gives SASRec's pos [B, S] and neg [B, S, 4])")
-    interests = interest_capsules(params, batch["hist"], cfg)
+    interests = interest_capsules(params, batch["hist"], cfg, mesh)
     emb = params["item_emb"]
-    pos_e = take(emb, pos)                                           # [B, d]
-    neg_e = take(emb, neg)                                           # [B, n, d]
+    pos_e = take(emb, pos, mesh)                                     # [B, d]
+    neg_e = take(emb, neg, mesh)                                     # [B, n, d]
     user = label_aware_user(params, interests, pos_e, cfg)
     pos_s = torch.sum(user * pos_e, -1, keepdim=True)                # [B, 1]
     neg_s = torch.einsum("bd,bnd->bn", user, neg_e)
     logits = torch.cat([pos_s, neg_s], dim=-1)
-    return -torch.mean(torch.log_softmax(logits, dim=-1)[:, 0])
+    return -batch_mean(torch.log_softmax(logits, dim=-1)[:, 0], mesh)
 
 
 def retrieval_scores(params, hist: torch.Tensor, cfg: MINDConfig, candidates=None):

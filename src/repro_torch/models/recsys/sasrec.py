@@ -4,6 +4,11 @@ recommendation.  embed_dim=50, 2 blocks, 1 head, seq_len=50.
 The tower's output is a user embedding; serving is MIPS over the item
 embedding table (``retrieval_cand``: ``mips_topk``), or ip-NSW+ over
 ``params["item_emb"]``.
+
+``mesh``: a ``DeviceMesh`` under which ``item_emb`` is this rank's row
+block over "model" (``table_spec``) and the batch this rank's block over
+the batch axes (``embedding.take``, ``batch_ratio``); None, every tensor
+whole.
 """
 from __future__ import annotations
 
@@ -13,9 +18,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import P
+from repro_torch.launch.mesh import P, check_mesh
 from repro_torch.models.layers import _dense_init, make_generator, normal
-from repro_torch.models.recsys.embedding import table_spec, take
+from repro_torch.models.recsys.embedding import batch_ratio, table_spec, take
 from repro_torch.train.tree import tree_map
 
 
@@ -62,11 +67,12 @@ def _ln(x, g, eps=1e-6):
     return F.layer_norm(x, (x.shape[-1],), g, None, eps)
 
 
-def user_tower(params, hist: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
+def user_tower(params, hist: torch.Tensor, cfg: SASRecConfig, mesh=None) -> torch.Tensor:
     """hist [B, S] item ids (-1 pad) -> sequence representation [B, S, d]."""
+    check_mesh(mesh)
     b, s = hist.shape
     mask = hist >= 0
-    x = take(params["item_emb"], hist)
+    x = take(params["item_emb"], hist, mesh)
     x = x * cfg.embed_dim**0.5 + params["pos_emb"][None, :s]
     x = x * mask[..., None].to(x.dtype)
 
@@ -89,25 +95,25 @@ def user_tower(params, hist: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
     return x * mask[..., None].to(x.dtype)
 
 
-def user_embedding(params, hist: torch.Tensor, cfg: SASRecConfig) -> torch.Tensor:
+def user_embedding(params, hist: torch.Tensor, cfg: SASRecConfig, mesh=None) -> torch.Tensor:
     """The last valid position's representation [B, d]."""
-    reps = user_tower(params, hist, cfg)
+    reps = user_tower(params, hist, cfg, mesh)
     lengths = torch.clamp(torch.sum(hist >= 0, dim=1) - 1, min=0)
     return reps[torch.arange(hist.shape[0], device=hist.device), lengths]
 
 
-def sampled_softmax_loss(params, batch, cfg: SASRecConfig) -> torch.Tensor:
+def sampled_softmax_loss(params, batch, cfg: SASRecConfig, mesh=None) -> torch.Tensor:
     """batch = {hist [B, S], pos [B, S], neg [B, S, n_neg]}: per-position
     next-item prediction (the paper's BCE over n_neg negatives)."""
-    reps = user_tower(params, batch["hist"], cfg)                 # [B, S, d]
+    reps = user_tower(params, batch["hist"], cfg, mesh)           # [B, S, d]
     emb = params["item_emb"]
-    pos_e = take(emb, batch["pos"])
-    neg_e = take(emb, batch["neg"])
+    pos_e = take(emb, batch["pos"], mesh)
+    neg_e = take(emb, batch["neg"], mesh)
     pos_s = torch.sum(reps * pos_e, -1)                           # [B, S]
     neg_s = torch.einsum("bsd,bsnd->bsn", reps, neg_e)
     valid = (batch["pos"] >= 0).to(torch.float32)
     loss = -F.logsigmoid(pos_s) - torch.sum(torch.log1p(-torch.sigmoid(neg_s) + 1e-7), dim=-1)
-    return torch.sum(loss * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return batch_ratio(torch.sum(loss * valid), torch.sum(valid), mesh)
 
 
 def retrieval_scores(params, hist: torch.Tensor, cfg: SASRecConfig, candidates=None):

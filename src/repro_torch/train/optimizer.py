@@ -73,9 +73,12 @@ def _update_leaf(p, g, m, v, *, scale, c1, c2, lr, b1, b2, eps, weight_decay):
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 0.1, clip: float = 1.0):
-    """Returns ``(new_params, new_state)``; the inputs are not modified."""
-    gn = global_norm(grads)
+                 eps: float = 1e-8, weight_decay: float = 0.1, clip: float = 1.0,
+                 grad_norm=None):
+    """Returns ``(new_params, new_state)``; the inputs are not modified.
+    ``grad_norm`` replaces ``global_norm(grads)`` in the clip (a sharded
+    tree's norm)."""
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
     step = state.step + 1
     sf = step.to(torch.float32)

@@ -4,9 +4,11 @@ port to, on 8 forced host devices, each jitted:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
       python tests/_torch_mesh_jax.py INPUTS OUT
 
-The configs are tests/_torch_mesh_ranks.py's; the inputs (an .npz keyed by
-the leaves' keystr names) the test's.
+The configs are tests/_torch_mesh_ranks.py's (the recsys cells'
+tests/_torch_mesh_cfgs.py's); the inputs (an .npz keyed by the leaves'
+keystr names) the test's.
 """
+import dataclasses
 import sys
 
 import jax
@@ -14,12 +16,16 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from _torch_mesh_cfgs import RECSYS_CFGS, RECSYS_STEP
+from repro.configs import get_arch
+from repro.configs.common import RECSYS_SHAPES, shardings
 from repro.launch.mesh import make_mesh_compat
 from repro.models import gnn as G
 from repro.models import layers as L
 from repro.models import moe as M
 from repro.models import transformer as T
 from repro.train.compress import make_compressed_allreduce
+from repro.train.optimizer import AdamWState
 
 GNN_CFG = G.GNNConfig(n_layers=2, d_hidden=16, d_feat=8, d_edge=4, remat=True)
 LM_CFG = T.TransformerConfig(name="t", n_layers=2, d_model=32, n_heads=4, n_kv=2, head_dim=8,
@@ -83,6 +89,37 @@ def main(inputs_path, out_path):
     with mesh:
         loss = jax.jit(lambda p, b: T.lm_loss(p, b, LM_CFG, mesh))(params, batch)
     out["lm/loss"] = np.asarray(loss)
+
+    # the recsys cells, jitted with their in_shardings on the (2, 4) mesh
+    for aid, small in RECSYS_CFGS.items():
+        arch = get_arch(aid)
+        arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, **small))
+        abstract = jax.eval_shape(lambda k: arch.mod._init_params(k, arch.cfg),
+                                  jax.random.PRNGKey(0))
+        params = tree_from(inputs, f"recsys/{aid}/params", abstract)
+        for shape in RECSYS_SHAPES:
+            if shape == "retrieval_cand" and aid != "dlrm-rm2":
+                continue
+            pre = f"recsys/{aid}/{shape}/"
+            batch = {k[len(pre + "in/"):]: jnp.asarray(v) for k, v in inputs.items()
+                     if k.startswith(pre + "in/")}
+            cell = arch.build_cell(shape, mesh)
+            opt = AdamWState(step=jnp.asarray(RECSYS_STEP, jnp.int32),
+                             mu=tree_from(inputs, f"recsys/{aid}/mu", abstract),
+                             nu=tree_from(inputs, f"recsys/{aid}/nu", abstract))
+            args = (params, opt, batch) if shape == "train_batch" else (params, batch)
+            with mesh:
+                res = jax.jit(cell.step_fn, in_shardings=shardings(mesh, cell.in_specs))(*args)
+            if shape == "train_batch":
+                put(out, pre + "new/", res[0])
+                put(out, pre + "mu/", res[1].mu)
+                put(out, pre + "nu/", res[1].nu)
+                out[pre + "loss"] = np.asarray(res[2])
+            elif shape == "retrieval_cand":
+                out[pre + "ids"], out[pre + "scores"] = np.asarray(res["ids"]), np.asarray(
+                    res["scores"])
+            else:
+                out[pre + "out"] = np.asarray(res)
     np.savez(out_path, **out)
 
 

@@ -16,17 +16,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.common import (GNNArch, LMArch, RecsysArch, mesh_value_and_grad,
-                                        sharded_topk)
-from repro_torch.launch.mesh import (MODEL_AXIS, P, axis_group, gather_rows, local_shard,
-                                     local_tree, spec_axes)
+from _torch_mesh_cfgs import RECSYS_CFGS, RECSYS_STEP
+from repro_torch.configs import get_arch
+from repro_torch.configs.common import (RECSYS_SHAPES, GNNArch, LMArch, RecsysArch,
+                                        mesh_value_and_grad, sharded_topk)
+from repro_torch.launch.mesh import (MODEL_AXIS, P, axis_group, batch_axes_of, gather_rows,
+                                     local_shard, local_tree, spec_axes)
 from repro_torch.models import gnn as G
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.recsys.mind import MINDConfig
 from repro_torch.models.recsys.sasrec import SASRecConfig
 from repro_torch.train.compress import error_init, make_compressed_allreduce
-from repro_torch.train.optimizer import adamw_init
+from repro_torch.train.optimizer import AdamWState, adamw_init
 from repro_torch.train.tree import named_leaves, tree_map, unflatten, value_and_grad
 
 MESH_SHAPE, MESH_AXES = (2, 4), ("data", "model")
@@ -42,6 +44,24 @@ LM_TOKENS = (4, 16)
 RETRIEVAL = dict(items=4096, dim=16, batch=8, k=100)
 RETRIEVAL_CFGS = {"sasrec": SASRecConfig(embed_dim=16, n_items=4096),
                   "mind": MINDConfig(embed_dim=16, n_items=4096)}
+# each recsys cell's batch (DLRM's retrieval: its candidate rows); the
+# configs and the starting step are tests/_torch_mesh_cfgs.py's
+RECSYS_BATCH = {"train_batch": 8, "serve_p99": 4, "serve_bulk": 8, "retrieval_cand": 512}
+RECSYS_CANDIDATES = 16  # SASRec's and MIND's serve: candidates a user
+
+
+def recsys_opt(inputs, aid: str, params) -> AdamWState:
+    """The drawn moments at step RECSYS_STEP."""
+    return AdamWState(step=torch.tensor(RECSYS_STEP, dtype=torch.int32),
+                      mu=tree_from(inputs, f"recsys/{aid}/mu", params),
+                      nu=tree_from(inputs, f"recsys/{aid}/nu", params))
+
+
+def recsys_cells():
+    """(arch id, shape) of every recsys cell the mesh runs here: all but
+    the SASRec, MIND and DIEN retrievals, which ``run_retrieval`` covers."""
+    return [(aid, shape) for aid in RECSYS_CFGS for shape in RECSYS_SHAPES
+            if shape != "retrieval_cand" or aid == "dlrm-rm2"]
 
 
 def tree_from(inputs, prefix: str, template):
@@ -196,6 +216,46 @@ def run_retrieval(inputs, mesh, out, rank):
         out[f"ties/{interests}/ids"], out[f"ties/{interests}/scores"] = i.numpy(), v.numpy()
 
 
+def run_recsys(inputs, mesh, out, rank):
+    """Each recsys cell's step on this rank's blocks (``Cell.in_specs``),
+    its outputs gathered whole; rank 0 also runs the cell without a mesh."""
+    rows = P(batch_axes_of(mesh))
+    for aid, shape in recsys_cells():
+        arch = RecsysArch(aid, dataclasses.replace(get_arch(aid).cfg, **RECSYS_CFGS[aid]))
+        params = tree_from(inputs, f"recsys/{aid}/params", arch.init(device="meta"))
+        pre = f"recsys/{aid}/{shape}/"
+        batch = {k[len(pre + "in/"):]: torch.as_tensor(v) for k, v in inputs.items()
+                 if k.startswith(pre + "in/")}
+        for where, cell in (("mesh", arch.build_cell(shape, device="cpu", mesh=mesh)),
+                            ("local", arch.build_cell(shape, device="cpu"))):
+            if where == "local" and rank != 0:
+                continue
+            p, b = tree_map(torch.clone, params), batch
+            o = recsys_opt(inputs, aid, params) if shape == "train_batch" else None
+            if where == "mesh":
+                p, b = local_tree(p, cell.in_specs[0], mesh), local_tree(b, cell.in_specs[-1], mesh)
+                o = None if o is None else local_tree(o, cell.in_specs[1], mesh)
+            if shape == "train_batch":
+                new_p, new_o, loss = cell.step_fn(p, o, b)
+                out[f"{pre}{where}/loss"] = loss.detach().numpy()
+                mu, nu = new_o.mu, new_o.nu
+                if where == "mesh":
+                    new_p = gather_tree(new_p, cell.in_specs[0], mesh)
+                    mu = gather_tree(mu, cell.in_specs[1].mu, mesh)
+                    nu = gather_tree(nu, cell.in_specs[1].nu, mesh)
+                put(out, f"{pre}{where}/new/", new_p)
+                put(out, f"{pre}{where}/mu/", mu)
+                put(out, f"{pre}{where}/nu/", nu)
+            elif shape == "retrieval_cand":
+                got = cell.step_fn(p, b)
+                out[f"{pre}{where}/ids"] = got["ids"].numpy()
+                out[f"{pre}{where}/scores"] = got["scores"].numpy()
+            else:
+                got = cell.step_fn(p, b)
+                out[f"{pre}{where}/out"] = (gather_spec(got, rows, mesh) if where == "mesh"
+                                            else got).numpy()
+
+
 def main(argv) -> None:
     rank, world, store, inputs_path, out_path = (int(argv[0]), int(argv[1]), *argv[2:])
     torch.set_num_threads(1)
@@ -212,6 +272,7 @@ def main(argv) -> None:
     run_compress(inputs, mesh8, out)
     run_lm(inputs, mesh, out, rank)
     run_retrieval(inputs, mesh, out, rank)
+    run_recsys(inputs, mesh, out, rank)
     dist.barrier()
     if rank == 0:
         np.savez(out_path, **out)

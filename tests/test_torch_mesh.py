@@ -1,6 +1,7 @@
 """The port's mesh tools (``repro_torch.launch.mesh``, ``train.compress``,
 the sharded GNN layer, the MoE expert-parallel dispatch, the shard-local
-retrieval and the cells' mesh branches) on the CPU.
+retrieval, the row-sharded recsys lookups and the cells' mesh branches) on
+the CPU.
 
 One module-scoped run starts, together, eight gloo ranks of the port
 (``tests/_torch_mesh_ranks.py``, a FileStore under tmp_path) and one JAX
@@ -27,12 +28,17 @@ from jax.sharding import PartitionSpec
 
 from repro_torch import testing
 from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.configs.common import RecsysArch
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.mesh import P
 from repro_torch.models import gnn as tgnn
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
+from repro_torch.models.recsys import dien as tdien
+from repro_torch.models.recsys import dlrm as tdlrm
 from repro_torch.models.recsys import embedding as temb
+from repro_torch.models.recsys import mind as tmind
+from repro_torch.models.recsys import sasrec as tsasrec
 from repro_torch.train import optimizer as topt
 from repro_torch.train.tree import named_leaves
 
@@ -92,6 +98,51 @@ def _inputs() -> dict:
     out["ties/block"] = rng.integers(-3, 4, (r["items"] // 4, r["dim"])).astype(np.float32)
     out["ties/u/False"] = rng.integers(-3, 4, (r["batch"], 1, r["dim"])).astype(np.float32)
     out["ties/u/True"] = rng.integers(-3, 4, (r["batch"], 4, r["dim"])).astype(np.float32)
+    for aid in R.RECSYS_CFGS:
+        leaves_ = named_leaves(_recsys_arch(aid).init(device="meta"))
+        _draw(rng, leaves_, f"recsys/{aid}/params", out)
+        # the train step's AdamW moments, as mid-way through training: with
+        # nu away from 0 the update is smooth in the gradient, not its sign
+        for name, t in leaves_:
+            shape = tuple(t.shape)
+            out[f"recsys/{aid}/mu{name}"] = (1e-3 * rng.normal(size=shape)).astype(np.float32)
+            out[f"recsys/{aid}/nu{name}"] = (
+                1e-4 * (1.0 + np.abs(rng.normal(size=shape)))).astype(np.float32)
+    for aid, shape in R.recsys_cells():
+        for k, v in _recsys_batch(aid, shape, _recsys_arch(aid).cfg, rng).items():
+            out[f"recsys/{aid}/{shape}/in/{k}"] = v
+    return out
+
+
+def _recsys_arch(aid: str) -> RecsysArch:
+    return RecsysArch(aid, dataclasses.replace(get_arch(aid).cfg, **R.RECSYS_CFGS[aid]))
+
+
+def _recsys_batch(aid: str, shape: str, cfg, rng) -> dict:
+    """A cell's inputs at ``R.RECSYS_BATCH`` rows (-1 pads in the
+    histories and candidates)."""
+    b = R.RECSYS_BATCH[shape]
+    rows = cfg.n_rows if aid == "dlrm-rm2" else cfg.n_items
+    ids = lambda *shape_: rng.integers(0, rows, shape_).astype(np.int32)  # noqa: E731
+    if aid == "dlrm-rm2":
+        out = dict(dense=rng.normal(size=(b, cfg.n_dense)).astype(np.float32),
+                   sparse=ids(b, cfg.n_sparse))
+        if shape == "train_batch":
+            out["labels"] = rng.integers(0, 2, b).astype(np.float32)
+        return out
+    out = dict(hist=rng.integers(-1, rows, (b, cfg.seq_len)).astype(np.int32))
+    if shape != "train_batch":
+        if aid == "dien":
+            out["target"] = ids(b)
+        else:
+            out["cand"] = rng.integers(-1, rows, (b, R.RECSYS_CANDIDATES)).astype(np.int32)
+    elif aid == "sasrec":
+        out.update(pos=ids(b, cfg.seq_len), neg=ids(b, cfg.seq_len, 4))
+    elif aid == "mind":
+        out.update(pos=ids(b), neg=ids(b, 20))
+    else:
+        out.update(target=ids(b), labels=rng.integers(0, 2, b).astype(np.float32),
+                   aux_neg=ids(b, cfg.seq_len))
     return out
 
 
@@ -275,6 +326,60 @@ def test_shard_local_merge_keeps_the_lower_rank_at_a_tie(runs, interests):
     assert len(np.unique(want // (table.shape[0] // 4))) > 1  # the top k spans shards
 
 
+# ------------------------------------------------------------- recsys cells
+
+# the sharded step's loss against JAX's sharded cell and the port's
+# unsharded one: a mean of the data ranks' means, and SASRec's and DIEN's
+# ratios of sums (their counts summed over the ranks), reorder fp32 sums
+RECSYS_LOSS_RTOL = 1e-5
+# each parameter and each AdamW moment after one step from drawn moments at
+# step RECSYS_STEP (past the warmup, so the learning rate is not 0),
+# relative to its leaf's largest element; JAX's XLA fusions and the ranks' sums reorder
+# the gradient's fp32 arithmetic.  The moments carry the clipped gradient
+# (a tenth of it into mu, a twentieth of its square into nu), so they hold
+# the gradient
+# path under the mesh: the tables' sum over model, the losses' means over
+# the batch ranks and the clip's norm over the specs
+RECSYS_PARAM_RTOL = 1e-5
+RECSYS_SERVE_RTOL = 1e-5  # serve outputs, relative to the largest
+
+
+@pytest.mark.parametrize("arch_id,shape", R.recsys_cells())
+def test_recsys_cell_under_the_mesh_matches_jax_and_unsharded(runs, arch_id, shape):
+    """The cell's step on the (2, 4) mesh (batch over data, tables over
+    model: masked gathers and a sum over model; JAX's serve replicates the
+    item table) against JAX's jitted cell with its in_shardings on 8
+    devices, and against the port's cell without a mesh."""
+    inputs, port, ref = runs
+    pre = f"recsys/{arch_id}/{shape}/"
+    if shape == "train_batch":
+        loss = float(port[pre + "mesh/loss"])
+        np.testing.assert_allclose(loss, float(ref[pre + "loss"]), rtol=RECSYS_LOSS_RTOL)
+        np.testing.assert_allclose(loss, float(port[pre + "local/loss"]), rtol=RECSYS_LOSS_RTOL)
+        names = [n for n, _ in named_leaves(_recsys_arch(arch_id).init(device="meta"))]
+        for part in ("new", "mu", "nu"):
+            got = _leaves(port, f"{pre}mesh/{part}/")
+            for want in (_leaves(ref, f"{pre}{part}/"), _leaves(port, f"{pre}local/{part}/")):
+                assert sorted(got) == sorted(want) == sorted(names)
+                for name in names:
+                    _within(got[name], want[name], RECSYS_PARAM_RTOL, f"{part} {name}")
+        # the step moved every parameter
+        moved = [n for n in names if not np.array_equal(_leaves(port, pre + "mesh/new/")[n],
+                                                         inputs[f"recsys/{arch_id}/params{n}"])]
+        assert moved == names, sorted(set(names) - set(moved))
+    elif shape == "retrieval_cand":
+        ids, scores = port[pre + "mesh/ids"][None], port[pre + "mesh/scores"][None]
+        assert ids.shape == (1, 100)
+        testing.assert_topk_match(ids, scores, ref[pre + "ids"][None], ref[pre + "scores"][None])
+        testing.assert_topk_match(ids, scores, port[pre + "local/ids"][None],
+                                  port[pre + "local/scores"][None])
+    else:
+        got = port[pre + "mesh/out"]
+        assert got.shape[0] == R.RECSYS_BATCH[shape]
+        _within(got, ref[pre + "out"], RECSYS_SERVE_RTOL, pre + "jax")
+        _within(got, port[pre + "local/out"], RECSYS_SERVE_RTOL, pre + "local")
+
+
 # ------------------------------------------------------------- spec trees
 
 
@@ -404,7 +509,10 @@ def test_host_mesh_helpers(fake_world):
 
 
 @pytest.mark.parametrize("entry", ["gnn_forward", "gnn_mse_loss", "moe_apply", "lm_forward",
-                                   "lm_loss", "serve_prefill", "serve_step", "lm_cell"])
+                                   "lm_loss", "serve_prefill", "serve_step", "lm_cell",
+                                   "sasrec_loss", "sasrec_user", "mind_loss", "dien_loss",
+                                   "dlrm_loss", "dlrm_forward", "recsys_train_cell",
+                                   "recsys_serve_cell", "dlrm_retrieval_cell"])
 def test_a_mesh_that_is_not_a_device_mesh_raises_before_any_work(entry):
     lm = ttf.TransformerConfig(name="t", n_layers=1, d_model=8, n_heads=2, n_kv=1, head_dim=4,
                                d_ff=16, vocab=16, dtype=torch.float32)
@@ -421,6 +529,22 @@ def test_a_mesh_that_is_not_a_device_mesh_raises_before_any_work(entry):
         "serve_step": lambda: ttf.serve_step({}, (), tokens[:, :1], 0, lm, mesh=object()),
         "lm_cell": lambda: get_arch("granite-3-2b").build_cell("train_4k", device="cpu",
                                                                 mesh=object()),
+        "sasrec_loss": lambda: tsasrec.sampled_softmax_loss({}, {"hist": tokens},
+                                                            tsasrec.SASRecConfig(),
+                                                            mesh=object()),
+        "sasrec_user": lambda: tsasrec.user_embedding({}, tokens, tsasrec.SASRecConfig(),
+                                                      mesh=object()),
+        "mind_loss": lambda: tmind.sampled_softmax_loss({}, {}, tmind.MINDConfig(),
+                                                        mesh=object()),
+        "dien_loss": lambda: tdien.bce_loss({}, {}, tdien.DIENConfig(), mesh=object()),
+        "dlrm_loss": lambda: tdlrm.bce_loss({}, {}, tdlrm.DLRMConfig(), mesh=object()),
+        "dlrm_forward": lambda: tdlrm.forward({}, {}, tdlrm.DLRMConfig(), mesh=object()),
+        "recsys_train_cell": lambda: get_arch("sasrec").build_cell("train_batch", device="cpu",
+                                                                   mesh=object()),
+        "recsys_serve_cell": lambda: get_arch("dien").build_cell("serve_p99", device="cpu",
+                                                                 mesh=object()),
+        "dlrm_retrieval_cell": lambda: get_arch("dlrm-rm2").build_cell(
+            "retrieval_cand", device="cpu", mesh=object()),
     }
     with pytest.raises(TypeError, match="DeviceMesh"):
         calls[entry]()
