@@ -267,7 +267,7 @@ nothing then, and are not counted): ``count_graph_launches``.
      under sync debug mode "error"), peak memory, finite logits, and where
      one decode step's device time goes; (b) each arch at the published
      widths, one pattern cycle of layers, fp32, batch 2, a 256-token
-     prompt and 8 decode steps, on the card against the CPU: logits within
+     prompt and 5 decode steps, on the card against the CPU: logits within
      1e-4 of the row's largest |logit|, argmax and MoE expert choices equal
      but at near-ties; (c) examples/lm_decode_torch.py on the card, its
      tokens equal to its CPU run's.  Every prefill and decode of an LM
@@ -348,9 +348,15 @@ nothing then, and are not counted): ``count_graph_launches``.
      host copies, ms beside its byte bound; (d) sharded_topk at SASRec's
      and MIND's retrieval_cand, ids equal to the unsharded cell's up to
      near-ties, mips_topk's select route launched; (e) granite's train_4k
-     through build_cell(..., mesh=) (MESH_TRAIN: 2 layers, B 2, bf16):
+     through build_cell(..., mesh=) (MESH_TRAIN: 2 layers, B 2, bf16) on a
+     one-rank mesh named (data, model), JAX's layouts (pure FSDP: every
+     weight held as its specs() shard, gathered a layer at a time): the
      loss equal to the cell's without a mesh, every gradient leaf but the
-     embedding's bit-equal, flash_attn_bf16 and its backward launched; (f)
+     embedding's bit-equal, one step from drawn AdamW moments at
+     MESH_LM_STEP (past the warmup) with the loss bit-equal and the new
+     parameters, mu and nu within MESH_LM_STEP_RTOL of a leaf's largest
+     (the embedding's bf16 atomics reach the clip's norm),
+     flash_attn_bf16 and its backward launched; (f)
      examples/quickstart_torch.py, norm_bias_analysis_torch.py and
      distributed_serving_torch.py at their defaults, tables printed,
      quickstart launching beam_walk, commit_merge and mips_topk; (g) every
@@ -361,8 +367,17 @@ nothing then, and are not counted): ``count_graph_launches``.
      bit-equal, each parameter and AdamW moment after a step from drawn
      moments at step RECSYS_MIDWAY_STEP within RECSYS_GRAD_RTOL of its
      leaf's largest, serve outputs within RECSYS_SCORE_RTOL, retrieval
-     ids equal but at near-ties.  The launches of (d)-(g) are added to the
-     kernels line.
+     ids equal but at near-ties; (h) the LM serve cells on the (data,
+     model) mesh with JAX's layouts (Megatron over "model", the caches'
+     sequence over "model": a slice attention with the row lse and the
+     slices' combine): granite's prefill_32k and decode_32k and gemma's
+     decode_32k at MESH_LM_SERVE's cuts, logits and caches bit-equal to the
+     cells without a mesh; (i) the slice attention and the combine on one
+     card over MESH_SLICES' slices of granite's decode_32k cache (16) and
+     gemma's long_500k global cache (256), at a position that leaves slices
+     empty and at the last, against the whole-cache flash_attn decode
+     within FLASH_TOL's bf16 limit, launches and ms logged.  The launches of
+     (d)-(i) are added to the kernels line.
   14. dry-run (src/repro_torch/launch/{dryrun,roofline}.py): DRYRUN_CELLS
      (SASRec's serve_p99 on both production meshes, granite's train_4k on
      the single pod) traced as rank 0 of a fake process group of 256 / 512
@@ -4755,7 +4770,8 @@ CARD_GIB = 72  # what a cell may plan to hold of the card's 79 GiB
 # (b) card against CPU: layers cut to one pattern cycle, all experts, fp32
 LM_CPU_LAYERS = {"granite-3-2b": 2, "gemma3-12b": 6, "internlm2-20b": 2,
                  "qwen3-moe-235b-a22b": 2, "grok-1-314b": 1}
-LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 256, 8
+# (b) 5 decode steps (8 before phase 13 (h)-(i), which their time pays for)
+LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 2, 256, 5
 LM_LOGIT_RTOL = 1e-4  # (b): a logit, relative to its row's largest |logit|
 # (b): a block's output on the card, relative to its row's largest |value|:
 # a block's fp32 output is up to 7.6e-5 of that from a float64 run on the
@@ -5151,8 +5167,8 @@ def _routes():
 def phase_lm_cpu(aid: str) -> None:
     """(b) The card against the CPU at the published widths and vocab, the
     layers cut to one pattern cycle (LM_CPU_LAYERS, all experts), fp32,
-    batch 2, a 256-token prompt and 8 decode steps (the CPU's greedy
-    tokens fed to both).  A random model at these widths is chaotic in
+    batch 2, a 256-token prompt and LM_CPU_STEPS decode steps (the CPU's
+    greedy tokens fed to both).  A random model at these widths is chaotic in
     fp32 (JAX's init draws the queries at H**-0.5, so scores run to
     hundreds): the CPU's own fp32 logits are 1e-5 to 0.2 of a row's
     largest from a float64 run of the same weights, and an error grows
@@ -5285,13 +5301,13 @@ def phase_lm() -> dict:
 # builds and is not stepped.  The mesh tools do not make it fit one card:
 # a mesh has one rank here, and the dry-run (phase 14) states what one rank
 # of a 256-card mesh would hold.
-# granite fits whole at B 24 (64.79 GiB, PERF.md §4) and is timed at an
-# eighth of its layers, its 8.2 s steps at full depth being the longest of
-# the phase: the run's time limit pays for phases 12 and 14.  gemma is
-# timed at one 5:1 pattern cycle (two fit at B 4: 65.17 GiB).  internlm2
+# granite fits whole at B 24 (64.79 GiB, PERF.md §4) and is timed at a
+# tenth of its layers, its 8.2 s steps at full depth being the longest of
+# the phase: the run's time limit pays for phases 12, 13 (h)-(i) and 14.
+# gemma is timed at one 5:1 pattern cycle (two fit at B 4: 65.17 GiB).  internlm2
 # fits 8 layers at B 10 (65.13 GiB) and is timed at 2, which pays for
 # phase 13.
-LM_TRAIN_CUTS = {"granite-3-2b": (5, 24),
+LM_TRAIN_CUTS = {"granite-3-2b": (4, 24),
                  "gemma3-12b": (6, 4),
                  "internlm2-20b": (2, 10),
                  "qwen3-moe-235b-a22b": (1, 9),
@@ -6216,12 +6232,29 @@ MESH_MOE_TOKENS = 2_048   # (b) tokens through one qwen3 MoE layer
 MESH_MOE_BF16_ULPS = 7
 MESH_RETRIEVAL = {"sasrec": 1, "mind": 4}  # (d) arch -> users (retrieval_cand; MIND's 4 interests)
 MESH_TRAIN = ("granite-3-2b", 2, 2)        # (e) arch, layers, batch (S 4,096, bf16)
+MESH_LM_STEP = 2400  # (e) the AdamW step the train cell starts from: past its 2,000-step warmup
+# (e) a new parameter, mu and nu against the cell without a mesh, relative
+# to its leaf's largest: the embedding's gradient is an index_add_ of bf16
+# atomics (within 2**-8 of its largest), and the clip's norm, which scales
+# every leaf's update, reads it
+MESH_LM_STEP_RTOL = 2**-7
+# (h) the LM serve cells under the (data, model) mesh: cell -> (arch,
+# layers, batch, the decode positions)
+MESH_LM_SERVE = {"granite-3-2b/prefill_32k": ("granite-3-2b", 2, 1, ()),
+                 "granite-3-2b/decode_32k": ("granite-3-2b", 2, 8, (20_000, 32_767)),
+                 "gemma3-12b/decode_32k": ("gemma3-12b", 6, 4, (20_000, 32_767))}
+# (i) the slice attention and the combine over a cache's slices on one card:
+# name -> (B, T, H, KV, hd, slices, positions): granite's decode_32k cache
+# over its 16 "model" ranks, gemma's long_500k global cache over the 256
+# ranks of 16 x 16; the first position leaves the last slices empty
+MESH_SLICES = {"granite_decode_32k": (4, 32_768, 32, 8, 64, 16, (20_000, 32_767)),
+               "gemma_long_500k": (1, 524_288, 16, 8, 256, 256, (300_000, 524_287))}
 MESH_PATH = ("mips_topk_select", "flash_attn_bf16", "flash_attn_bwd_bf16", "beam_walk",
              "commit_merge", "mips_topk")
 MESH_EXAMPLES = ("quickstart_torch", "norm_bias_analysis_torch", "distributed_serving_torch")
 
 
-def phase_mesh_gnn(group, g) -> None:
+def phase_mesh_gnn(mesh, g) -> None:
     """(a) MeshGraphNet at the published widths on full_graph_sm whole:
     forward_blocks / mse_loss_blocks (every layer sharded_layer: all-gather,
     local segment sums, reduce-scatter) on the one-rank group, and the
@@ -6229,10 +6262,11 @@ def phase_mesh_gnn(group, g) -> None:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.launch.mesh import grad_mean
+    from repro_torch.launch.mesh import axis_group, grad_mean
     from repro_torch.models import gnn as G
     from repro_torch.train.tree import named_leaves, value_and_grad
 
+    group = axis_group(mesh, ("model",))
     cfg = get_arch("meshgraphnet").config_for("full_graph_sm")
     graph, n, e, pad, _ = _gnn_graph("full_graph_sm", cfg, g)
     params = G.init(cfg, g, device="cuda")
@@ -6242,7 +6276,7 @@ def phase_mesh_gnn(group, g) -> None:
     out_err = _rel_err(out_b, out_l)
     loss_b, grads_b = value_and_grad(lambda p, gr, c: G.mse_loss_blocks(p, gr, c, group))(
         params, graph, cfg)
-    grad_mean(grads_b, group)
+    grads_b = grad_mean(grads_b, mesh, ("model",))
     loss_l, grads_l = value_and_grad(G.mse_loss)(params, graph, cfg)
     errs = {name: _rel_err(got, want) for (name, got), (_, want) in
             zip(named_leaves(grads_b), named_leaves(grads_l))}
@@ -6358,59 +6392,196 @@ def phase_mesh_retrieval(group, g) -> None:
 
 def phase_mesh_train(mesh, g) -> None:
     """(e) granite-3-2b's train_4k at the published widths, MESH_TRAIN's
-    layers and batch, bf16: the gradient by mesh_value_and_grad and one
-    step through build_cell(..., mesh=) against the same cell without a
-    mesh.  An all-reduce over one rank is exact: the loss and every
-    gradient leaf are equal but the embedding's (its backward is an
-    index_add_ of bf16 atomics, within a bf16 ulp of its largest)."""
+    layers and batch, bf16, on the one-rank (data, model) mesh with JAX's
+    layouts (pure FSDP: the parameters held as their specs() shards,
+    gathered a layer at a time; the batch over data x model): the gradient
+    by mesh_value_and_grad over the specs, and one step through
+    build_cell(..., mesh=) from drawn AdamW moments at MESH_LM_STEP, past
+    the warmup, against the same cell without a mesh.  A collective over
+    one rank is exact: the loss and every gradient leaf are equal but the
+    embedding's (its backward is an index_add_ of bf16 atomics, within a
+    bf16 ulp of its largest), whose norm the clip reads (MESH_LM_STEP_RTOL
+    for the new parameters, mu and nu)."""
     import torch
 
     from repro_torch.configs.common import mesh_value_and_grad
     from repro_torch.launch.mesh import local_tree, spec_axes
     from repro_torch.models import transformer as tf
-    from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.tree import leaves, named_leaves, tree_map, value_and_grad
 
     aid, layers, b = MESH_TRAIN
     arch = _lm_cut(aid, layers)
     cfg = arch.cfg
     cell_m, cell = arch.build_cell("train_4k", mesh=mesh), arch.build_cell("train_4k")
-    held, _, bspecs = cell_m.in_specs
+    pspecs, ospecs, bspecs = cell_m.in_specs
     s = cell.args[2]["tokens"].shape[1]
     params = arch.init(g, device="cuda")
     batch = _train_batch(cfg.vocab, b, s, g)
     blk = local_tree(batch, bspecs, mesh)
+    p_m = local_tree(params, pspecs, mesh)
     with uncounted():
-        loss_m, grads_m = mesh_value_and_grad(tf.lm_loss, mesh, spec_axes(bspecs["tokens"]))(
-            params, blk, cfg)
+        loss_m, grads_m = mesh_value_and_grad(tf.lm_loss, mesh, spec_axes(bspecs["tokens"]),
+                                              pspecs)(p_m, blk, cfg)
         loss_l, grads_l = value_and_grad(tf.lm_loss)(params, batch, cfg)
     errs = {name: _rel_err(a, c) for (name, a), (_, c) in
             zip(named_leaves(grads_m), named_leaves(grads_l))}
     unequal = [name for (name, a), (_, c) in zip(named_leaves(grads_m), named_leaves(grads_l))
                if not torch.equal(a, c)]
-    p_m = local_tree(params, held, mesh)
+    del grads_m, grads_l
+    opt = _adamw_midway(params, g, MESH_LM_STEP)
+    o_m = local_tree(opt, ospecs, mesh)
     p_l = tree_map(torch.clone, params)
     torch.cuda.synchronize()
     before = _read_counts()
     t0 = time.perf_counter()
-    _, _, step_m = cell_m.step_fn(p_m, adamw_init(p_m), blk)
+    _, new_o, step_m = cell_m.step_fn(p_m, o_m, blk)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     counts = {k: v - before[k] for k, v in _read_counts().items()}
     with uncounted():
-        _, _, step_l = cell.step_fn(p_l, adamw_init(p_l), batch)
-    new_err = max(_rel_err(a, c) for a, c in zip(leaves(p_m), leaves(p_l)))
-    log(f"mesh (e) {aid} train_4k layers={cfg.n_layers} B={b} S={s} bf16 under "
-        f"make_host_mesh() (batch axes {spec_axes(bspecs['tokens'])}): loss {float(loss_m)!r} "
-        f"vs {float(loss_l)!r} without a mesh; gradient leaves not bit-equal {unequal} (worst "
-        f"{max(errs.values()):.3e} of its largest); one cell step {ms:.1f} ms (wall, first), "
-        f"loss {float(step_m)!r} vs {float(step_l)!r}, new params within {new_err:.3e}; "
-        f"launches flash_attn_bf16 {counts['flash_attn_bf16']} flash_attn_bwd_bf16 "
-        f"{counts['flash_attn_bwd_bf16']}")
+        _, want_o, step_l = cell.step_fn(p_l, opt, batch)
+    step_errs = {part: max(_rel_err(a, c) for a, c in zip(leaves(x), leaves(y)))
+                 for part, x, y in (("params", p_m, p_l), ("mu", new_o.mu, want_o.mu),
+                                    ("nu", new_o.nu, want_o.nu))}
+    same = sum(torch.equal(a, c) for a, c in zip(leaves(p_m), leaves(p_l)))
+    # a bf16 norm weight of 1.0 holds still: the step's ~3e-4 is under half its ulp (2**-7)
+    moved = all(not torch.equal(a, c) for (name, a), c in zip(named_leaves(p_m), leaves(params))
+                if "ln" not in name)
+    log(f"mesh (e) {aid} train_4k layers={cfg.n_layers} B={b} S={s} bf16 under the one-rank "
+        f"{mesh.mesh_dim_names} mesh, JAX's layouts (batch axes {spec_axes(bspecs['tokens'])}, "
+        f"pure FSDP): loss {float(loss_m)!r} vs {float(loss_l)!r} without a mesh; gradient "
+        f"leaves not bit-equal {unequal} (worst {max(errs.values()):.3e} of its largest); one "
+        f"cell step from step {MESH_LM_STEP} {ms:.1f} ms (wall, first), loss {float(step_m)!r} vs "
+        f"{float(step_l)!r}, new params / mu / nu within "
+        + " / ".join(f"{e:.3e}" for e in step_errs.values())
+        + f" of a leaf's largest ({same} of {len(leaves(p_m))} parameters bit-equal), every "
+        f"matrix moved: {moved}; launches flash_attn_bf16 {counts['flash_attn_bf16']} "
+        f"flash_attn_bwd_bf16 {counts['flash_attn_bwd_bf16']}")
     assert torch.equal(loss_m, loss_l) and torch.equal(step_m, step_l)
     assert set(unequal) <= {"['embed']"} and max(errs.values()) <= 2**-8, (unequal, errs)
-    assert new_err <= 2**-7, new_err
+    assert max(step_errs.values()) <= MESH_LM_STEP_RTOL and moved, step_errs
     assert counts["flash_attn_bf16"] > 0 and counts["flash_attn_bwd_bf16"] > 0, counts
+
+
+def phase_mesh_lm_serve(mesh, g) -> None:
+    """(h) MESH_LM_SERVE's cells through build_cell(..., mesh=) on the
+    one-rank (data, model) mesh with JAX's layouts (the parameters as their
+    specs() shards; Megatron over "model": copy_in, the rank's heads and
+    d_ff, sum_out; the embedding's masked gather and the head's vocabulary
+    columns; prefill writing its sequence slice of each cache, decode
+    writing the new slot's owner and reading its slice by the slice
+    attention with the row lse and the combine) against the same cell
+    without a mesh on the same inputs: logits and caches bit-equal (one
+    slice's combine is exact: its weight e^0 is 1).  The mesh steps'
+    launches are the path's."""
+    import torch
+
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.launch.mesh import local_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves, tree_map
+
+    for name, (aid, layers, b, positions) in MESH_LM_SERVE.items():
+        arch = _lm_cut(aid, layers)
+        shape = name.split("/")[1]
+        cell_m, cell = arch.build_cell(shape, mesh=mesh), arch.build_cell(shape)
+        params = arch.init(g, device="cuda")
+        p_m = local_tree(params, cell_m.in_specs[0], mesh)
+        s = LM_SHAPES[shape]["seq"]
+        runs = []
+        if shape == "prefill_32k":
+            tokens = torch.randint(0, arch.cfg.vocab, (b, s), generator=g, device="cuda",
+                                   dtype=torch.int32)
+            args_m = [(p_m, local_tree(tokens, cell_m.in_specs[1], mesh))]
+            args_l = [(params, tokens)]
+        else:
+            caches = tf.init_cache(arch.cfg, b, s, device="cuda")
+            for c in leaves(caches):
+                c.normal_(generator=g)
+            token = torch.randint(0, arch.cfg.vocab, (b, 1), generator=g, device="cuda")
+            c_m = local_tree(caches, cell_m.in_specs[1], mesh)
+            c_l = tree_map(torch.clone, caches)
+            del caches
+            args_m = [(p_m, c_m, local_tree(token, cell_m.in_specs[2], mesh), q)
+                      for q in positions]
+            args_l = [(params, c_l, token, q) for q in positions]
+        for a_m, a_l in zip(args_m, args_l):
+            torch.cuda.synchronize()
+            before = _read_counts()["flash_attn_bf16"]
+            t0 = time.perf_counter()
+            got = cell_m.step_fn(*a_m)
+            torch.cuda.synchronize()
+            ms_m = (time.perf_counter() - t0) * 1e3
+            launches = _read_counts()["flash_attn_bf16"] - before
+            with uncounted():
+                t0 = time.perf_counter()
+                want = cell.step_fn(*a_l)
+                torch.cuda.synchronize()
+                ms_l = (time.perf_counter() - t0) * 1e3
+            same = [torch.equal(x, y) for x, y in zip(leaves(got), leaves(want))]
+            where = "" if shape == "prefill_32k" else f" q_offset={a_m[3]}"
+            log(f"mesh (h) {name} layers={layers} B={b}{where} under the one-rank "
+                f"{mesh.mesh_dim_names} mesh, JAX's layouts: logits bit-equal {same[0]}, caches "
+                f"bit-equal {sum(same[1:])} of {len(same) - 1} (logits within "
+                f"{_rel_err(got[0], want[0]):.3e} of the largest); first call {ms_m:.1f} ms "
+                f"with the mesh, {ms_l:.1f} ms without (wall); flash_attn_bf16 launches "
+                f"{launches}")
+            assert all(same), f"(h) {name}: outputs differ from the cell without a mesh"
+            assert launches == arch.cfg.n_layers, launches
+            runs.append(got)
+        del params, p_m, args_m, args_l, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_mesh_slices(g) -> None:
+    """(i) slice_attention over each of MESH_SLICES' cache slices (the
+    slice a rank holds, copied out) and combine_slices over them in one
+    process, bf16, against the whole-cache flash_attn decode on the same
+    inputs (FLASH_TOL's bf16 limit, spread from fp32 scores), at a
+    position that leaves the last slices empty (no launch) and at the last
+    slot; launches of the sliced path and ms of both logged (the timing
+    reps uncounted)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models.layers import combine_slices, slice_attention
+
+    for name, (b, t, h, kv, hd, n, positions) in MESH_SLICES.items():
+        q, k, v = _flash_inputs((b, 1, t, h, kv, hd), torch.bfloat16, g)
+        t_loc = t // n
+        ks = [k[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
+        vs = [v[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
+
+        def sliced(pos):
+            parts = [slice_attention(q, ks[r], vs[r], pos - r * t_loc) for r in range(n)]
+            return combine_slices(torch.stack([o for o, _ in parts]),
+                                  torch.stack([lse for _, lse in parts]))
+
+        for pos in positions:
+            before = _read_counts()["flash_attn_bf16"]
+            got = sliced(pos)
+            torch.cuda.synchronize()
+            launches = _read_counts()["flash_attn_bf16"] - before
+            with uncounted():
+                want = flash_attention(q, k, v, q_offset=pos)
+                spread = _flash_spread(q, k, v, pos, None)
+                err, _ = _check_flash(f"slices {name} pos={pos}", got, want, spread,
+                                      FLASH_TOL["bfloat16"])
+                ms = cuda_ms(lambda: sliced(pos), reps=5, warmup=1)
+                ms_whole = cuda_ms(lambda: flash_attention(q, k, v, q_offset=pos), reps=5,
+                                   warmup=1)
+            valid = min(pos // t_loc + 1, n)
+            log(f"mesh (i) {name} B={b} T={t} H={h} KV={kv} hd={hd} over {n} slices of {t_loc} "
+                f"at pos={pos}: {launches} flash_attn_bf16 launches ({n - valid} slices empty), "
+                f"combined in fp32 within bf16 tolerance of the whole-cache decode "
+                f"(max_abs_err={err:.3e}); sliced {ms:.3f} ms, whole {ms_whole:.3f} ms (CUDA "
+                f"events)")
+            assert launches == valid, (launches, valid)
+            del got, want, spread
+        del q, k, v, ks, vs
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # (g) the recsys cells under the mesh: rows cut from the published batches
@@ -6424,11 +6595,11 @@ MESH_RECSYS_BATCH = {"train_batch": 8_192, "serve_bulk": 16_384}
 RECSYS_MIDWAY_STEP = 600
 
 
-def _adamw_midway(params, g):
-    """AdamW moments as mid-way through training, drawn from ``g``, at step
-    RECSYS_MIDWAY_STEP: with nu away from 0 the update is smooth in the
-    gradient (from zero moments it is the gradient's sign), and mu and nu
-    after the step carry the clipped gradient."""
+def _adamw_midway(params, g, step: int = RECSYS_MIDWAY_STEP):
+    """AdamW moments as mid-way through training, drawn from ``g``, at
+    ``step``: with nu away from 0 the update is smooth in the gradient
+    (from zero moments it is the gradient's sign), and mu and nu after the
+    step carry the clipped gradient."""
     import torch
 
     from repro_torch.train.optimizer import AdamWState
@@ -6438,7 +6609,7 @@ def _adamw_midway(params, g):
         x = torch.randn(p.shape, generator=g, device=p.device, dtype=torch.float32)
         return (x.abs_().add_(1.0) if positive else x).mul_(scale)
 
-    return AdamWState(step=torch.tensor(RECSYS_MIDWAY_STEP, dtype=torch.int32,
+    return AdamWState(step=torch.tensor(step, dtype=torch.int32,
                                         device=leaves(params)[0].device),
                       mu=tree_map(lambda p: draw(p, 1e-3, False), params),
                       nu=tree_map(lambda p: draw(p, 1e-4, True), params))
@@ -6557,9 +6728,11 @@ def phase_mesh_examples() -> None:
 def phase_mesh() -> dict:
     """Phase 13: the mesh tools on one card.  Returns the launches of its
     paths ((d)'s shard-local retrieval, (e)'s mesh train step, (f)'s
-    examples, (g)'s recsys cells) for the kernels line."""
+    examples, (g)'s recsys cells, (h)'s LM serve cells, (i)'s slices) for
+    the kernels line."""
     import torch
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.mesh import axis_group, make_host_mesh
 
@@ -6575,15 +6748,17 @@ def phase_mesh() -> dict:
     try:
         mesh = make_host_mesh()
         group = axis_group(mesh, ("model",))
+        mesh2 = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
         log(f"mesh phase: world {dist.get_world_size()}, backend {dist.get_backend()}, "
             f"mesh {mesh.mesh_dim_names} {tuple(mesh.shape)} on {mesh.device_type}")
         g = torch.Generator(device="cuda").manual_seed(13)
         _zero_counts()
         t.append(time.perf_counter())
-        for fn, args in ((phase_mesh_gnn, (group, g)), (phase_mesh_moe, (group, g)),
+        for fn, args in ((phase_mesh_gnn, (mesh, g)), (phase_mesh_moe, (group, g)),
                          (phase_mesh_compress, (group, g)), (phase_mesh_retrieval, (group, g)),
-                         (phase_mesh_train, (mesh, g)), (phase_mesh_examples, ()),
-                         (phase_mesh_recsys, (mesh, g))):
+                         (phase_mesh_train, (mesh2, g)), (phase_mesh_examples, ()),
+                         (phase_mesh_recsys, (mesh, g)), (phase_mesh_lm_serve, (mesh2, g)),
+                         (phase_mesh_slices, (g,))):
             fn(*args)
             gc.collect()
             torch.cuda.empty_cache()
@@ -6594,7 +6769,7 @@ def phase_mesh() -> dict:
         store.unlink(missing_ok=True)
     log("mesh phase: " + ", ".join(f"{name} {b - a:.1f} s" for name, a, b in zip(
         ("init", "(a) gnn", "(b) moe", "(c) compress", "(d) retrieval", "(e) train",
-         "(f) examples", "(g) recsys"), t, t[1:])))
+         "(f) examples", "(g) recsys", "(h) lm serve", "(i) slices"), t, t[1:])))
     _assert_path("mesh", counts, MESH_PATH)
     return counts
 

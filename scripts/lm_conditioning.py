@@ -65,8 +65,8 @@ def main(argv=None):
             blocks.append(_row_err(tf._block_apply(b32, x.float(), pos, cfg, w)[0], y64))
             x = y64
         h = L.rmsnorm(x[:, -1:], p64["final_ln"])
-        head = _row_err(L.matmul_f32(h.float(), tf._unembed(p32, cfg)),
-                        h @ tf._unembed(p64, cfg64))
+        head = _row_err(L.matmul_f32(h.float(), tf._head(p32, cfg)[0]),
+                        h @ tf._head(p64, cfg64)[0])
         print(f"{aid} layers={cfg.n_layers}: fp32 logits from float64, prefill then "
               f"{STEPS} steps: {' '.join(f'{e:.3g}' for e in free)}; each block on the "
               f"float64 input: {' '.join(f'{e:.3g}' for e in blocks)}; the head on the "

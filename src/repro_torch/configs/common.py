@@ -43,15 +43,20 @@ with JAX's axis names) a step takes what a rank holds: ``Cell.in_specs``
 are the PartitionSpec trees by which a rank cuts the global inputs
 (``launch.mesh.local_tree``), and the step gives the rank's outputs.
 
-  * LM ``train_4k``: the batch over the batch axes (a dense arch on a mesh
-    without ``pod``: over ``data`` and ``model``, JAX's pure FSDP), the
-    experts over ``model`` (``transformer.held_specs``), the dense weights
-    whole; ``lm_loss(mesh=)``, the gradient mean over the batch axes
-    (``mesh_value_and_grad``), AdamW clipped by the whole tree's norm.
-    Prefill and decode pass the mesh to the MoE layers; their specs say
-    what a rank holds: the parameters as ``train_4k``'s, the tokens and
-    the caches' rows over the batch axes, the sequence whole (no cache is
-    cut over ``model``), and ``long_500k`` at B 1 everything whole.
+  * LM (JAX's layouts, line for line): the parameters and AdamW moments as
+    ``transformer.specs(cfg)`` shards (d_model over "data"; heads, d_ff
+    and the vocabulary over "model"; experts over "model").  ``train_4k``
+    of a dense arch on a mesh without ``pod`` is pure FSDP: the batch over
+    ``data`` and ``model``, every weight gathered a layer at a time; every
+    other ``train_4k`` (MoE, or two pods) batches over the batch axes and
+    is tensor-parallel over "model" (Megatron; the experts over "model"),
+    gathering only "data".  ``lm_loss(mesh=)``, the gradient by
+    ``mesh_value_and_grad`` over the specs, AdamW clipped by ``global_norm``
+    over the specs.  ``prefill_32k``: the prompts over the batch axes,
+    Megatron, the logits ``P(batch, "model")`` and the caches' sequence
+    over "model"; ``decode_32k``: the same caches and logits; ``long_500k``
+    (B 1): the token replicated, the caches' sequence over every axis, the
+    logits ``P(None, "model")``.
   * GNN: N and E padded to multiples of the rank count, the graph in row
     blocks over every axis (``gnn.data_specs``), the parameters whole;
     ``mse_loss(mesh=)``, the gradient mean over every axis, AdamW.
@@ -107,18 +112,21 @@ class Cell(NamedTuple):
     #                           None for an argument that is not a tensor)
 
 
-def mesh_value_and_grad(loss_fn: Callable, mesh, axes) -> Callable:
+def mesh_value_and_grad(loss_fn: Callable, mesh, axes, specs=None) -> Callable:
     """``value_and_grad(loss_fn)`` of a loss taking ``mesh``, then the
-    gradient mean over the data-parallel ``axes``.  The loss is the mean
-    over those axes of each rank's term, and each rank backpropagates its
-    own term (``launch.mesh.mean_out``): the mean of the ranks' gradients is
-    the gradient of the loss.  Without a mesh or axes, ``value_and_grad``."""
+    gradient mean over the data-parallel ``axes`` (``grad_mean``): the loss
+    is the mean over those axes of each rank's term, and each rank
+    backpropagates its own term (``launch.mesh.mean_out``).  ``specs`` (the
+    parameters' PartitionSpecs; None: every leaf whole) say which leaves
+    are cut over which of ``axes``: those were gathered in the forward,
+    whose backward already summed them there, so they are not summed
+    again.  Without a mesh or axes, ``value_and_grad``."""
     grad_fn = value_and_grad(loss_fn)
-    group = axis_group(mesh, axes) if mesh is not None and axes else None
+    axes = tuple(axes) if mesh is not None else ()
 
     def wrapped(params, batch, cfg):
         loss, grads = grad_fn(params, batch, cfg, mesh)
-        return loss, grads if group is None else grad_mean(grads, group)
+        return loss, grad_mean(grads, mesh, axes, specs) if axes else grads
 
     return wrapped
 
@@ -150,24 +158,15 @@ class LMArch:
     def init(self, generator=None, *, device="cuda"):
         return tf.init(self.cfg, generator, device=device)
 
-    def _train_layout(self, mesh):
-        """(the batch axes of ``train_4k``, the held parameter specs).  JAX's
-        rule: a dense arch on a mesh without ``pod`` is pure FSDP (the batch
-        over ``data`` and ``model``); an MoE arch keeps its tokens
-        replicated over ``model`` for the expert dispatch, its experts cut
-        there when the axis has more than one rank."""
-        if mesh is None:
-            return (), None
-        layers_mod.set_batch_axes_for_mesh(mesh)
+    def _train_axes(self, mesh) -> tuple:
+        """The batch axes of ``train_4k`` (JAX's rule): a dense arch on a
+        mesh without ``pod`` is pure FSDP, the batch over ``data`` and
+        ``model``; an MoE arch keeps its tokens replicated over ``model``
+        for the expert dispatch, and two pods keep TP."""
         names = mesh.mesh_dim_names
         if not self.cfg.is_moe and "pod" not in names:
-            axes = tuple(a for a in ("data", MODEL_AXIS) if a in names)
-        else:
-            axes = batch_axes_of(mesh)
-        layers_mod.set_batch_axes(axes)
-        cut = self.cfg.is_moe and MODEL_AXIS in names and axis_size(mesh, (MODEL_AXIS,)) > 1
-        held = tf.held_specs(self.cfg)
-        return axes, held if cut else tree_map(lambda _: P(), held)
+            return tuple(a for a in ("data", MODEL_AXIS) if a in names)
+        return batch_axes_of(mesh)
 
     def build_cell(self, shape_name: str, device="cuda", mesh=None) -> "Cell":
         check_mesh(mesh)
@@ -184,10 +183,12 @@ class LMArch:
                     tokens=b * s if sh["kind"] != "decode" else b)
         name = f"{self.arch_id}/{shape_name}"
         params_abs = tf.abstract_params(cfg)
+        pspecs = None if mesh is None else tf.specs(cfg)
+        batch_ax = () if mesh is None else batch_axes_of(mesh)
 
         if sh["kind"] == "train":
-            axes, held = self._train_layout(mesh)
-            grad_fn = mesh_value_and_grad(tf.lm_loss, mesh, axes)
+            axes = () if mesh is None else self._train_axes(mesh)
+            grad_fn = mesh_value_and_grad(tf.lm_loss, mesh, axes, pspecs)
 
             def train_step(params, opt, batch):
                 _check_device(dev, (params, opt, batch))
@@ -195,41 +196,53 @@ class LMArch:
                     layers_mod.set_batch_axes(axes)
                 loss, grads = grad_fn(params, batch, cfg)
                 lr = cosine_schedule(opt.step, base_lr=3e-4, warmup=2000, total=100_000)
-                norm = None if mesh is None else global_norm(grads, held, mesh)
+                norm = None if mesh is None else global_norm(grads, pspecs, mesh)
                 new_p, new_o = adamw_update_(grads, opt, params, lr=lr, grad_norm=norm)
                 return new_p, new_o, loss
 
+            if mesh is not None:
+                layers_mod.set_batch_axes(axes)
             batch_abs = {"tokens": _abstract((b, s), torch.int32),
                          "labels": _abstract((b, s), torch.int32)}
             bspec = P(axes, None)
             return Cell(name, train_step, (params_abs, adamw_init(params_abs), batch_abs), meta,
-                        None if mesh is None else (held, adamw_specs(held),
+                        None if mesh is None else (pspecs, adamw_specs(pspecs),
                                                    {"tokens": bspec, "labels": bspec}))
 
-        held = None
         if mesh is not None:
-            _, held = self._train_layout(mesh)
             layers_mod.set_batch_axes_for_mesh(mesh)
-        # the rows over the batch axes; long_500k (B 1) holds everything whole
-        rows = () if mesh is None or b == 1 else batch_axes_of(mesh)
 
         if sh["kind"] == "prefill":
             def prefill_step(params, tokens):
                 _check_device(dev, (params, tokens))
+                if mesh is not None:
+                    layers_mod.set_batch_axes_for_mesh(mesh)
                 return tf.serve_prefill(params, tokens, cfg, mesh, max_len=tokens.shape[1])
 
             return Cell(name, prefill_step, (params_abs, _abstract((b, s), torch.int32)), meta,
-                        None if mesh is None else (held, P(rows, None)))
+                        None if mesh is None else (pspecs, P(batch_ax, None)))
+
+        # decode; long_500k (B 1): the token replicated, the caches' sequence
+        # over every axis
+        long_ctx = b == 1
+        cache_seq = () if mesh is None else (
+            tuple(mesh.mesh_dim_names) if long_ctx else (MODEL_AXIS,))
 
         def decode_step(params, caches, token, q_offset: int):
             _check_device(dev, (params, caches, token))
-            return tf.serve_step(params, caches, token, q_offset, cfg, mesh)
+            if mesh is not None:
+                layers_mod.set_batch_axes_for_mesh(mesh)
+            return tf.serve_step(params, caches, token, q_offset, cfg, mesh, cache_axes=cache_seq)
 
         caches_abs = tf.init_cache(cfg, b, s, device="meta")
+        in_specs = None
+        if mesh is not None:
+            rows = () if long_ctx else batch_ax
+            in_specs = (pspecs, tf.cache_specs(cfg, batch=rows, seq=cache_seq), P(rows, None),
+                        None)
         return Cell(name, decode_step,
                     (params_abs, caches_abs, _abstract((b, 1), torch.int32), s - 1), meta,
-                    None if mesh is None else (held, tf.cache_specs(cfg, batch=rows, seq=()),
-                                               P(rows, None), None))
+                    in_specs)
 
 
 # ---------------------------------------------------------------------------

@@ -247,6 +247,26 @@ def flash_attention(
     return _forward_kernel(q, k, v, q_offset, window, with_lse=False)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        q_offset: int = 0, window: Optional[int] = None):
+    """The forward with each row's log-sum-exp, for a partial attention over
+    a slice of the keys (a sequence-sharded decode cache; the slices are
+    combined by their lse).  Returns (out [B, S, H, hd] fp32: for bf16 the
+    values the kernel's bf16 output is rounded from; lse [B, H, S] fp32).
+    No gradient.  On the card one forward launch that writes the lse (and
+    the bf16 residual), counted as ``flash_attention``'s; on the CPU its
+    plain version (bf16: ``flash_attention_fwd_residual_ref``, the kernel's
+    arithmetic)."""
+    if _lib.on_cuda(q):
+        _, lse, res = _forward_kernel(q, k, v, q_offset, window, with_lse=True)
+        return res, lse
+    if q.dtype == torch.bfloat16:
+        _, lse, res = flash_attention_fwd_residual_ref(q, k, v, q_offset=q_offset, window=window)
+        return res, lse
+    out, lse = flash_attention_fwd_ref(q, k, v, q_offset=q_offset, window=window)
+    return out.float(), lse
+
+
 flash_attention.launches = 0
 flash_attention.launches_bf16 = 0
 flash_attention.launches_bwd = 0

@@ -23,18 +23,25 @@ The collectives below are the ``shard_map`` bodies' ``all_gather``,
 ``psum_scatter`` and ``psum``, each with the adjoint its use needs under
 autograd (JAX's shard_map transpose picks it from the in / out specs):
 
-  gather_rows / scatter_rows_sum    tiled all-gather of dim 0, and the
-                                    reduce-scatter of dim 0 that is its
-                                    adjoint (each the other's backward)
+  gather_rows / scatter_rows_sum    tiled all-gather of a dimension (dim 0
+                                    by default), and the reduce-scatter of
+                                    it that is its adjoint (each the
+                                    other's backward)
+  gather_param                      a parameter held as its spec's shard,
+                                    whole along the dimensions cut over
+                                    the given axes (FSDP's just-in-time
+                                    gather; backward the reduce-scatter)
   copy_in / sum_out                 a tensor entering a computation split
                                     over the group (forward identity,
                                     backward sum) and the sum leaving it
                                     for a computation replicated over the
                                     group (forward sum, backward identity)
+  max_out                           the maximum over the group, outside
+                                    autograd (a log-sum-exp's shift)
   mean_out                          a loss averaged over data-parallel
                                     replicas; each rank backpropagates its
                                     own term and ``grad_mean`` over the
-                                    same group completes the gradient
+                                    same axes completes the gradient
 """
 from __future__ import annotations
 
@@ -211,18 +218,20 @@ def axis_group(mesh: DeviceMesh, axes: Sequence[str]):
 # ---------------------------------------------------------------------------
 
 
-def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    x = x.contiguous()
+def _all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's blocks of ``dim`` in group-rank order, contiguous."""
+    x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=group)
-    return out
+    return out.movedim(0, dim).contiguous()
 
 
-def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
-    x = x.contiguous()
+def _reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum over the group, this rank's block of ``dim``, contiguous."""
+    x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // dist.get_world_size(group), *x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
-    return out
+    return out.movedim(0, dim).contiguous()
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -233,24 +242,24 @@ def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_gather(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.group), None
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
 class _ScatterRowsSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _reduce_scatter(x, group)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.group), None
+        return _all_gather(g, ctx.group, ctx.dim), None, None
 
 
 class _CopyIn(torch.autograd.Function):
@@ -284,16 +293,37 @@ class _MeanOut(torch.autograd.Function):
         return g, None
 
 
-def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """``all_gather(x, axes, axis=0, tiled=True)``: the group's blocks of
-    dim 0 in group-rank order; backward reduce-scatters the cotangent."""
-    return _GatherRows.apply(x, group)
+def gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``all_gather(x, axes, axis=dim, tiled=True)``: the group's blocks of
+    ``dim`` in group-rank order; backward reduce-scatters the cotangent."""
+    return _GatherRows.apply(x, group, dim)
 
 
-def scatter_rows_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """``psum_scatter(x, axes, scatter_dimension=0, tiled=True)``: the sum
-    over the group, this rank's block of dim 0; backward all-gathers."""
-    return _ScatterRowsSum.apply(x, group)
+def scatter_rows_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``: the sum
+    over the group, this rank's block of ``dim``; backward all-gathers."""
+    return _ScatterRowsSum.apply(x, group, dim)
+
+
+def gather_param(shard: torch.Tensor, spec: P, mesh: DeviceMesh, axes: Sequence[str]):
+    """A parameter held as ``local_shard(w, spec, mesh)``, made whole along
+    every dimension that ``spec`` cuts over ``axes`` (``gather_rows`` a
+    dimension) and left cut along the others: the all-gather JAX's GSPMD
+    inserts for FSDP storage.  Backward reduce-scatters the cotangent (a
+    sum over those axes' ranks) back to the shard, so the gradient of a
+    weight gathered over batch axes is the sum of the ranks' terms
+    (``grad_mean`` divides it; it does not sum it again).  A dimension cut
+    over several axes is gathered over all of them or none."""
+    for dim, entry in enumerate(spec):
+        names = _names(entry)
+        cut = tuple(a for a in names if a in axes)
+        if not cut:
+            continue
+        if cut != names:
+            raise ValueError(f"{spec}: dimension {dim} is cut over {names}; gather all or none "
+                             f"of them, not {cut}")
+        shard = gather_rows(shard, axis_group(mesh, cut), dim)
+    return shard
 
 
 def copy_in(x: torch.Tensor, group) -> torch.Tensor:
@@ -314,30 +344,46 @@ def sum_out(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOut.apply(x, group)
 
 
+@torch.no_grad()
+def max_out(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over the group, detached: a log-sum-exp's
+    shift, whose gradient cancels."""
+    return _all_reduce(x.detach(), group, op=dist.ReduceOp.MAX)
+
+
 def mean_out(x: torch.Tensor, group) -> torch.Tensor:
     """The mean over the group of each rank's ``x`` (a loss of its own data
     shard).  Backward is the identity: each rank backpropagates its own
-    term, and ``grad_mean`` over the same group turns the ranks' gradients
+    term, and ``grad_mean`` over the same axes turns the ranks' gradients
     into the gradient of the mean."""
     return _MeanOut.apply(x, group)
 
 
 @torch.no_grad()
-def grad_mean(grads, group):
-    """The mean over the group of each leaf of a gradient tree (an
-    all-reduce a leaf, then a division by the group's size), in place where
-    a leaf is contiguous.  A strided leaf is copied out first: DIEN's gate
+def grad_mean(grads, mesh: DeviceMesh, axes: Sequence[str], specs=None):
+    """The gradient of a loss that is the mean over the data-parallel
+    ``axes`` of each rank's term, from each rank's gradient of its own term
+    (``mean_out``): each leaf summed over the axes of ``axes`` that its
+    spec (in ``specs``, a PartitionSpec tree; none: every leaf whole) does
+    not cut, then divided by the size of all of ``axes``.  A leaf cut over
+    one of ``axes`` was gathered there in the forward (``gather_param``),
+    whose backward already summed it over that axis.  In place where a
+    leaf is contiguous; a strided leaf is copied out first: DIEN's gate
     weights' gradients are column slices of one gradient of their
     concatenation, and gloo's all-reduce of such a slice sums its
     neighbours' columns too (each leaf P times over, P the group's size)."""
-    from repro_torch.train.tree import tree_map
+    from repro_torch.train.tree import leaves, unflatten
 
-    n = dist.get_world_size(group)
-
-    def mean(g):
-        if not g.is_contiguous():
-            g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
-        return g.div_(n)
-
-    return tree_map(mean, grads)
+    axes = tuple(axes)
+    n = axis_size(mesh, axes)
+    own = leaves(grads)
+    cuts = [()] * len(own) if specs is None else [spec_axes(s) for s in leaves(specs)]
+    out = []
+    for g, cut in zip(own, cuts):
+        rest = tuple(a for a in axes if a not in cut)
+        if rest:
+            if not g.is_contiguous():
+                g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=axis_group(mesh, rest))
+        out.append(g.div_(n))
+    return unflatten(grads, out)

@@ -8,6 +8,30 @@ PartitionSpec trees ``attention_specs`` and ``mlp_specs``.  The port places
 tensors explicitly (``launch.mesh.local_shard``), so ``shard`` resolves
 JAX's spec and returns its input: JAX's hint never changes a value.
 
+Under a mesh (``attention`` / ``mlp(..., mesh=)``) the weights are this
+rank's shards of ``attention_specs`` / ``mlp_specs``, and the layer does
+what JAX's GSPMD lowers those specs into.  The FSDP axes (every mesh
+axis but the tensor-parallel one) are gathered just in time (``gathered``,
+``launch.mesh.gather_param``; backward a reduce-scatter), inside the
+caller's checkpointed cycle, so the recompute gathers again.  The
+tensor-parallel axis (``model_axis``: "model" where ``resolve_spec`` keeps
+it, None under pure FSDP, where "model" carries batch) stays cut: Megatron.
+The input enters through ``copy_in`` over "model", each rank computes its
+q heads (and the kv heads they read, ``kv_heads``) or its ``d_ff`` columns,
+and ``sum_out`` over "model" follows ``wo`` / ``w_out``.  k and v are
+projected for every kv head, as JAX's replicated ``wk`` / ``wv`` give
+them (the caches hold them all); ``wk`` and ``wv`` enter through
+``copy_in`` too, each rank's gradient covering only its kv heads' share.
+
+A decode step under a mesh reads a sequence-sharded cache: rank r of the
+cache's axes holds slots [r t_loc, (r + 1) t_loc) of every cache (ring
+layers too), the new token's slot is written by its owner, q is gathered
+over "model" (a rank needs every head of its slice), ``slice_attention``
+runs the ``flash_attn`` forward over the rank's slice with its row
+log-sum-exp, ``combine_slices`` merges the slices over the cache's axes in
+fp32, and the rank's heads go through its ``wo``: the partial reductions
+GSPMD makes of JAX's masked softmax over a sharded sequence.
+
 Attention runs on ``kernels.flash_attn.flash_attention``: the CUDA kernel
 (fp32, or bf16 on the tensor cores) for tensors on the card, its plain
 version for tensors on the CPU; where a gradient is needed, with its
@@ -27,11 +51,13 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attn import flash_attention
-from repro_torch.launch.mesh import MODEL_AXIS, P
+from repro_torch.kernels.flash_attn import flash_attention, flash_attention_lse
+from repro_torch.launch.mesh import (MODEL_AXIS, P, axis_group, axis_size, copy_in, gather_param,
+                                     gather_rows, max_out, sum_out)
 
 BATCH_AXES = ("pod", "data")
 
@@ -75,6 +101,34 @@ def shard(x: torch.Tensor, *spec) -> torch.Tensor:
     """JAX's activation sharding hint: ``x`` unchanged (``resolve_spec``
     gives the spec JAX would constrain it to)."""
     return x
+
+
+def model_axis(mesh) -> Optional[str]:
+    """The tensor-parallel axis of a layer under ``mesh``: "model" where the
+    mesh has it and ``resolve_spec`` keeps it (not among the batch axes),
+    None without a mesh or under pure FSDP."""
+    if mesh is None or MODEL_AXIS not in mesh.mesh_dim_names:
+        return None
+    return resolve_spec(MODEL_AXIS)[0]
+
+
+def gathered(w: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """A weight held as ``spec``'s shard, as the layer uses it: whole along
+    the FSDP axes (every mesh axis but the tensor-parallel one), its
+    tensor-parallel cut kept (``w`` itself without a mesh)."""
+    if mesh is None:
+        return w
+    tp = model_axis(mesh)
+    return gather_param(w, spec, mesh, tuple(a for a in mesh.mesh_dim_names if a != tp))
+
+
+def tp_group(mesh):
+    """(the "model" group, this rank's index in it, its size) when "model"
+    is tensor-parallel under ``mesh``, else None."""
+    tp = model_axis(mesh)
+    if tp is None:
+        return None
+    return axis_group(mesh, (tp,)), mesh.get_local_rank(tp), axis_size(mesh, (tp,))
 
 
 def make_generator(device="cuda", seed: int = 0) -> Optional[torch.Generator]:
@@ -222,9 +276,87 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, n * h)).view(*x.shape[:-1], n, h)
 
 
+def kv_heads(n_heads: int, n_kv: int, ranks: int, rank: int) -> tuple:
+    """The kv heads [lo, hi) that q heads [rank H / P, (rank + 1) H / P)
+    read (head h reads kv head h // (H / KV)).  Raises unless the heads
+    divide over the ranks and a rank's heads are whole groups or lie
+    inside one group: then they read a contiguous run of kv heads, each by
+    the same number of heads, as the kernel groups them."""
+    if n_heads % ranks or n_heads % n_kv:
+        raise ValueError(f"{n_heads} q heads over {n_kv} kv heads do not divide over "
+                         f"{ranks} model ranks")
+    local, group = n_heads // ranks, n_heads // n_kv
+    if local % group and group % local:
+        raise ValueError(f"{local} q heads a rank of groups of {group} do not map onto whole "
+                         f"kv heads")
+    return rank * local // group, ((rank + 1) * local - 1) // group + 1
+
+
+def slice_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, q_offset: int):
+    """One cache slice's part of a decode step: (o [B, S, H, hd] fp32, lse
+    [B, H, S] fp32) of q over the slice's keys 0..``q_offset`` (the
+    slice-local causal offset, a host int, clamped to the slice), by
+    ``flash_attention_lse``.  A slice with no valid key (``q_offset`` < 0)
+    launches nothing: o 0, lse -inf."""
+    b, s, h, hd = q.shape
+    t = ck.shape[1]
+    if q_offset < 0 or t == 0:
+        return (torch.zeros((b, s, h, hd), dtype=torch.float32, device=q.device),
+                torch.full((b, h, s), float("-inf"), dtype=torch.float32, device=q.device))
+    return flash_attention_lse(q, ck, cv, q_offset=min(q_offset, t - 1))
+
+
+def combine_slices(o: torch.Tensor, lse: torch.Tensor, group=None) -> torch.Tensor:
+    """Attention over keys cut in slices, from each slice's
+    ``slice_attention``: ``o`` [n, B, S, H, hd] and ``lse`` [n, B, H, S] of
+    the n slices this process holds, ``group`` the ranks holding the others
+    (None: none).  With m the max over every slice of lse, the sum of
+    e^(lse - m) o over the sum of e^(lse - m), in fp32: [B, S, H, hd]."""
+    m = lse.amax(dim=0)
+    if group is not None:
+        m = max_out(m, group)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(lse - m)
+    num = (w.transpose(-1, -2)[..., None] * o).sum(dim=0)
+    den = w.sum(dim=0)
+    if group is not None:
+        num, den = sum_out(num, group), sum_out(den, group)
+    return num / den.transpose(-1, -2)[..., None]
+
+
+def _decode(q, k, v, kv_cache, q_offset: int, mesh, cache_axes, tp):
+    """The attention of one new token over its cache, the token's k / v
+    written in place first (module docstring)."""
+    if q.shape[1] != 1:
+        raise ValueError(f"decode takes one token at a time, got S = {q.shape[1]}")
+    ck, cv = kv_cache
+    t_loc = ck.shape[1]
+    if mesh is None:
+        slot = q_offset % t_loc
+        ck[:, slot:slot + 1].copy_(k)
+        cv[:, slot:slot + 1].copy_(v)
+        return flash_attention(q.to(ck.dtype), ck, cv, q_offset=min(q_offset, t_loc - 1))
+    group = axis_group(mesh, cache_axes) if cache_axes else None
+    r, n = (dist.get_rank(group), dist.get_world_size(group)) if group else (0, 1)
+    t = t_loc * n
+    slot = q_offset % t - r * t_loc
+    if 0 <= slot < t_loc:
+        ck[:, slot:slot + 1].copy_(k)
+        cv[:, slot:slot + 1].copy_(v)
+    if tp is not None:
+        q = gather_rows(q, tp[0], dim=2)
+    o, lse = slice_attention(q.to(ck.dtype), ck, cv, min(q_offset, t - 1) - r * t_loc)
+    ctx = combine_slices(o[None], lse[None], group).to(ck.dtype)
+    if tp is not None:
+        local = q.shape[2] // tp[2]
+        ctx = ctx[:, :, tp[1] * local:(tp[1] + 1) * local]
+    return ctx
+
+
 def attention(params, x: torch.Tensor, positions: torch.Tensor, *, n_kv: int,
               window: Optional[int] = None, kv_cache: Optional[tuple] = None,
-              q_offset: int = 0, rope_theta: float = 10000.0):
+              q_offset: int = 0, rope_theta: float = 10000.0, mesh=None,
+              cache_axes: Sequence[str] = (MODEL_AXIS,)):
     """x: [B, S, d].  Returns (out [B, S, d], (k, v)).
 
     Train / prefill (``kv_cache=None``): ``positions`` is ``arange(S)``;
@@ -241,27 +373,36 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor, *, n_kv: int,
     the kernel's causal mask at ``q_offset = min(q_offset, T - 1)``, with no
     window, computes the same function for global and sliding layers,
     before and after the ring wraps.
+
+    Under ``mesh`` the weights are this rank's shards (module docstring);
+    a decode cache is this rank's slice of T along ``cache_axes`` (JAX's
+    ``cache_specs`` seq; rank r of them holds slots [r T / n, (r + 1) T /
+    n)), and the (k, v) returned for a prefill hold every kv head.
     """
     b, s, _ = x.shape
-    h, hd = params["wq"].shape[1:]
-    q = rope(_project(x, params["wq"]), positions, rope_theta)
-    k = rope(_project(x, params["wk"]), positions, rope_theta)
-    v = _project(x, params["wv"])
+    spec = attention_specs()
+    w = {name: gathered(params[name], spec[name], mesh) for name in spec}
+    local, hd = w["wq"].shape[1:]
+    tp = tp_group(mesh)
+    lo, hi = 0, n_kv
+    if tp is not None:
+        lo, hi = kv_heads(local * tp[2], n_kv, tp[2], tp[1])
+        x = copy_in(x, tp[0])
+        w["wk"], w["wv"] = copy_in(w["wk"], tp[0]), copy_in(w["wv"], tp[0])
+    q = rope(_project(x, w["wq"]), positions, rope_theta)
+    k = rope(_project(x, w["wk"]), positions, rope_theta)
+    v = _project(x, w["wv"])
 
     if kv_cache is not None:
-        if s != 1:
-            raise ValueError(f"decode takes one token at a time, got S = {s}")
-        ck, cv = kv_cache
-        t = ck.shape[1]
-        slot = q_offset % t
-        ck[:, slot:slot + 1].copy_(k)
-        cv[:, slot:slot + 1].copy_(v)
-        ctx = flash_attention(q.to(ck.dtype), ck, cv, q_offset=min(q_offset, t - 1))
-        k, v = ck, cv
-    else:
+        ctx = _decode(q, k, v, kv_cache, q_offset, mesh, cache_axes, tp)
+        k, v = kv_cache
+    elif (lo, hi) == (0, n_kv):
         ctx = flash_attention(q, k, v, q_offset=0, window=window)
-    out = ctx.reshape(b, s, h * hd).to(x.dtype) @ params["wo"].reshape(h * hd, -1)
-    return out, (k, v)
+    else:
+        ctx = flash_attention(q, k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous(),
+                              q_offset=0, window=window)
+    out = ctx.reshape(b, s, local * hd).to(x.dtype) @ w["wo"].reshape(local * hd, -1)
+    return (out if tp is None else sum_out(out, tp[0])), (k, v)
 
 
 def mlp_specs():
@@ -295,14 +436,22 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
     return h @ w_out
 
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
-    """The SwiGLU MLP over [B, S, d], in row chunks of FFN_CHUNK_VALUES."""
+def mlp(params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The SwiGLU MLP over [B, S, d], in row chunks of FFN_CHUNK_VALUES;
+    under ``mesh`` over this rank's shards (module docstring)."""
+    spec = mlp_specs()
+    w_gate, w_in, w_out = (gathered(params[name], spec[name], mesh)
+                           for name in ("w_gate", "w_in", "w_out"))
+    tp = tp_group(mesh)
+    if tp is not None:
+        x = copy_in(x, tp[0])
     x2d = x.reshape(-1, x.shape[-1])
-    rows = max(1, FFN_CHUNK_VALUES // params["w_gate"].shape[-1])
+    rows = max(1, FFN_CHUNK_VALUES // w_gate.shape[-1])
     if x2d.shape[0] <= rows:
-        return swiglu(x2d, params["w_gate"], params["w_in"], params["w_out"]).view(x.shape)
-    out = torch.empty_like(x2d)
-    for i in range(0, x2d.shape[0], rows):
-        out[i:i + rows] = swiglu(x2d[i:i + rows], params["w_gate"], params["w_in"],
-                                 params["w_out"])
-    return out.view(x.shape)
+        out = swiglu(x2d, w_gate, w_in, w_out).view(x.shape)
+    else:
+        out = torch.empty_like(x2d)
+        for i in range(0, x2d.shape[0], rows):
+            out[i:i + rows] = swiglu(x2d[i:i + rows], w_gate, w_in, w_out)
+        out = out.view(x.shape)
+    return out if tp is None else sum_out(out, tp[0])

@@ -4,9 +4,13 @@ one rank, ``moe_apply`` is JAX's unsharded oracle: ``_dispatch_local``
 over all experts.  With a ``model`` axis of P > 1 ranks it is JAX's
 expert-parallel ``shard_map`` body (``expert_parallel``): tokens sharded
 over the batch axes and replicated over ``model``; each rank holds its E/P
-experts (its ``model`` shard, ``held_specs``), routes its tokens, runs its
-own experts, and the partial outputs are summed over ``model`` -- one
-[T_local, d] all-reduce a layer, no all-to-all.
+experts (its ``model`` shard), routes its tokens, runs its own experts,
+and the partial outputs are summed over ``model`` -- one [T_local, d]
+all-reduce a layer, no all-to-all.  Under any mesh a rank holds
+``moe_specs``' shards: the router and the experts' d_model dimension cut
+over "data" too, gathered just in time over the mesh's other axes
+(``launch.mesh.gather_param``, as JAX's ``shard_map`` in_specs gather
+them; backward a reduce-scatter).
 
 The dispatch sorts the flat (token, choice) list by expert (stable), ranks
 each choice inside its expert's segment, keeps the first ``capacity`` of a
@@ -22,7 +26,7 @@ import torch.distributed as dist
 
 from repro_torch.core.similarity import top_l
 from repro_torch.launch.mesh import (MODEL_AXIS, P, axis_group, axis_size, check_mesh, copy_in,
-                                     mean_out, sum_out)
+                                     gather_param, mean_out, sum_out)
 from repro_torch.models.layers import FFN_CHUNK_VALUES, _dense_init, swiglu
 
 
@@ -34,18 +38,6 @@ def moe_specs():
         "w_gate": P(MODEL_AXIS, "data", None),
         "w_in": P(MODEL_AXIS, "data", None),
         "w_out": P(MODEL_AXIS, None, "data"),
-    }
-
-
-def held_specs():
-    """What a rank of the port holds: its ``model`` shard of the experts,
-    the router and the d_model dimension whole (JAX's FSDP storage of
-    "data" gathers the same numbers)."""
-    return {
-        "router": P(),
-        "w_gate": P(MODEL_AXIS),
-        "w_in": P(MODEL_AXIS),
-        "w_out": P(MODEL_AXIS),
     }
 
 
@@ -183,12 +175,17 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float = 1.25, expert_split: int = 1, mesh=None):
     """x [B, S, d] -> (out [B, S, d], aux_loss).  ``capacity`` is JAX's host
     formula, ``max(8, int(T top_k / n_experts * capacity_factor))`` over the
-    T tokens a rank routes.  With a mesh whose "model" axis has P > 1 ranks
-    (JAX's branch rule), ``x`` is this rank's batch shard, ``params`` its
-    held shard (E/P experts) and the dispatch ``expert_parallel``."""
+    T tokens a rank routes.  Under a mesh ``x`` is this rank's batch shard
+    and ``params`` its shards of ``moe_specs``, gathered over every axis
+    but "model"; with a "model" axis of P > 1 ranks (JAX's branch rule) the
+    dispatch is ``expert_parallel`` over the rank's E/P experts."""
     check_mesh(mesh)
     b, s, d = x.shape
     capacity = max(8, int(b * s * top_k / n_experts * capacity_factor))
+    if mesh is not None:
+        spec = moe_specs()
+        axes = tuple(a for a in mesh.mesh_dim_names if a != MODEL_AXIS)
+        params = {name: gather_param(params[name], spec[name], mesh, axes) for name in spec}
     if (mesh is not None and MODEL_AXIS in mesh.mesh_dim_names
             and axis_size(mesh, (MODEL_AXIS,)) > 1):
         p = axis_size(mesh, (MODEL_AXIS,))

@@ -18,15 +18,26 @@ Entry points:
   serve_step(params, caches, token, off) -> (logits, caches), the caches
                                             written in place
   specs(cfg), cache_specs(cfg, ..)       -> JAX's PartitionSpec trees
-  held_specs(cfg)                        -> what a rank of the port holds
 
-``mesh`` (a ``DeviceMesh``, or None) reaches each MoE layer as JAX's
-``_block`` passes it: the tokens are this rank's batch shard, the experts
-its ``model`` shard (``held_specs``), the dense weights whole on every
-rank.  ``lm_loss`` under a mesh is the mean over the batch axes
-(``layers.batch_axes()``) of each rank's loss, and each rank's backward is
-its own term's: ``launch.mesh.grad_mean`` over those axes completes the
-gradient (``configs.common.mesh_value_and_grad``).
+Under ``mesh`` (a ``DeviceMesh``, or None) the parameters are this rank's
+shards of ``specs(cfg)`` (``launch.mesh.local_tree``) and the tokens its
+batch shard, and every layer does what JAX's GSPMD makes of those specs
+(``layers``' and ``moe``'s docstrings): the FSDP axes gathered a layer at a
+time, "model" tensor-parallel (Megatron) unless the batch axes
+(``layers.batch_axes()``, set by the cells as JAX's are) include it: then
+pure FSDP, every weight gathered.  Under tensor parallelism the embedding
+is held as ``P("model", None)``: a masked gather of the rank's vocabulary
+rows and ``sum_out`` over "model"; the head as ``P(None, "model")``: the
+logits of the rank's vocabulary columns (what ``forward``,
+``serve_prefill`` and ``serve_step`` return: JAX's ``P(.., "model")``
+shard), ``lm_loss``'s log-sum-exp by an all-reduce (max, then sum) over
+"model" and the gold logit from the rank that holds it.  ``serve_prefill``
+writes this rank's slice of each cache's sequence and ``serve_step``
+decodes over it (``cache_axes``: JAX's ``cache_specs`` seq, "model", or
+every axis for long-context decode).  ``lm_loss`` under a mesh is the mean
+over the batch axes of each rank's loss, each rank's backward its own
+term's: ``launch.mesh.grad_mean`` over those axes, by the specs, completes
+the gradient (``configs.common.mesh_value_and_grad``).
 
 JAX's XLA layout knobs (``seq_parallel``, ``flash``, ``kv_chunk``,
 ``attn_chunk``) do not carry over: one ``flash_attention`` call takes a
@@ -44,7 +55,8 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import MODEL_AXIS, P, axis_group, check_mesh, mean_out
+from repro_torch.launch.mesh import (MODEL_AXIS, P, axis_group, axis_size, check_mesh, copy_in,
+                                     max_out, mean_out, sum_out)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.train.tree import leaves, tree_map, unflatten
@@ -173,17 +185,6 @@ def specs(cfg: TransformerConfig):
     return out
 
 
-def held_specs(cfg: TransformerConfig):
-    """The parameters a rank of the port holds under a mesh: the experts
-    cut over "model" (``moe.held_specs``), everything else whole."""
-    layer = {"attn": {k: P() for k in L.attention_specs()}, "ln1": P(), "ln2": P(),
-             "ffn": M.held_specs() if cfg.is_moe else {k: P() for k in L.mlp_specs()}}
-    out = {"embed": P(), "blocks": _stacked(layer), "final_ln": P()}
-    if not cfg.tied_embed:
-        out["unembed"] = P()
-    return out
-
-
 def abstract_params(cfg: TransformerConfig):
     """The parameter tree as meta tensors (no allocation)."""
     return init(cfg, device="meta")
@@ -214,10 +215,10 @@ def _layers(params, cfg: TransformerConfig):
 
 
 def _block_apply(bp, x, positions, cfg: TransformerConfig, window, mesh=None, kv_cache=None,
-                 q_offset=0):
+                 q_offset=0, cache_axes=(MODEL_AXIS,)):
     h, new_kv = L.attention(bp["attn"], L.rmsnorm(x, bp["ln1"]), positions, n_kv=cfg.n_kv,
                             window=window, kv_cache=kv_cache, q_offset=q_offset,
-                            rope_theta=cfg.rope_theta)
+                            rope_theta=cfg.rope_theta, mesh=mesh, cache_axes=cache_axes)
     x = x + h
     h2 = L.rmsnorm(x, bp["ln2"])
     if cfg.is_moe:
@@ -225,21 +226,47 @@ def _block_apply(bp, x, positions, cfg: TransformerConfig, window, mesh=None, kv
                               capacity_factor=cfg.capacity_factor,
                               expert_split=cfg.moe_expert_split, mesh=mesh)
     else:
-        ff, aux = L.mlp(bp["ffn"], h2), None
+        ff, aux = L.mlp(bp["ffn"], h2, mesh), None
     return x + ff, new_kv, aux
 
 
-def _unembed(params, cfg: TransformerConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tied_embed else params["unembed"]
-
-
-def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
     """The embedding rows of ``tokens`` [B, S]: one ``index_select``, whose
     backward is one ``index_add_`` into the table's gradient (no read-back;
     ``embed[tokens]``'s is a sorting ``index_put_``, and ``F.embedding``'s
-    reads a segment count back past 3,072 tokens)."""
-    table = params["embed"]
-    return torch.index_select(table, 0, tokens.reshape(-1).long()).view(*tokens.shape, -1)
+    reads a segment count back past 3,072 tokens).  Under tensor
+    parallelism the table is this rank's vocabulary rows: the ids outside
+    them gather row 0 and are zeroed, then ``sum_out`` over "model"."""
+    table = L.gathered(params["embed"], P(MODEL_AXIS, None), mesh)
+    tp = L.tp_group(mesh)
+    ids = tokens.reshape(-1).long()
+    if tp is None:
+        return torch.index_select(table, 0, ids).view(*tokens.shape, -1)
+    rows = table.shape[0]
+    i = ids - tp[1] * rows
+    hit = (i >= 0) & (i < rows)
+    x = torch.index_select(table, 0, torch.where(hit, i, 0)).masked_fill(~hit[:, None], 0.0)
+    return sum_out(x.view(*tokens.shape, -1), tp[0])
+
+
+def _head(params, cfg: TransformerConfig, mesh=None):
+    """(the unembedding [d, V_r] as this rank uses it, the first vocabulary
+    id of its columns, the "model" group or None): the whole [d, V] without
+    tensor parallelism, else the rank's columns (a tied embedding's rows,
+    transposed)."""
+    if cfg.tied_embed:
+        w = L.gathered(params["embed"], P(MODEL_AXIS, None), mesh).T
+    else:
+        w = L.gathered(params["unembed"], P(None, MODEL_AXIS), mesh)
+    tp = L.tp_group(mesh)
+    return (w, 0, None) if tp is None else (w, tp[1] * w.shape[1], tp[0])
+
+
+def _logits(x: torch.Tensor, head) -> torch.Tensor:
+    """``x @ unembed`` in fp32 over the rank's columns (x entering the
+    tensor-parallel head through ``copy_in``)."""
+    w, _, group = head
+    return L.matmul_f32(x if group is None else copy_in(x, group), w)
 
 
 def _rep_apply(x, rep, positions, cfg: TransformerConfig, mesh=None):
@@ -255,10 +282,11 @@ def _rep_apply(x, rep, positions, cfg: TransformerConfig, mesh=None):
 def hidden_states(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
     """The forward up to and with the final norm: ([B, S, d], aux_loss).
     With ``cfg.remat`` and a gradient enabled, each pattern cycle is
-    checkpointed (recomputed in the backward, its collectives with it)."""
+    checkpointed (recomputed in the backward, its gathers and collectives
+    with it)."""
     check_mesh(mesh)
     s = tokens.shape[1]
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, mesh)
     positions = torch.arange(s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -272,17 +300,31 @@ def hidden_states(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=Non
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None):
-    """tokens [B, S] -> (logits [B, S, V] fp32, aux_loss)."""
+    """tokens [B, S] -> (logits [B, S, V] fp32, aux_loss); under tensor
+    parallelism the rank's vocabulary columns [B, S, V / P]."""
     x, aux = hidden_states(params, tokens, cfg, mesh)
-    return L.matmul_f32(x, _unembed(params, cfg)), aux
+    return _logits(x, _head(params, cfg, mesh)), aux
 
 
-def _chunk_nll(x, labels, unembed):
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor, lo: int = 0, group=None):
+    """``logsumexp(logits) - logits[label]`` a token.  With ``group`` the
+    logits are the rank's vocabulary columns from id ``lo``: the max and
+    the sum of the shifted exponentials over the group, the gold logit
+    from the rank that holds it (zeros elsewhere, summed)."""
+    if group is None:
+        return torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels[..., None])[..., 0]
+    m = max_out(logits.amax(dim=-1), group)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    logz = m + torch.log(sum_out(torch.sum(torch.exp(logits - m[..., None]), dim=-1), group))
+    i = labels - lo
+    hit = (i >= 0) & (i < logits.shape[-1])
+    gold = logits.gather(-1, torch.where(hit, i, 0)[..., None])[..., 0].masked_fill(~hit, 0.0)
+    return logz - sum_out(gold, group)
+
+
+def _chunk_nll(x, labels, unembed, lo: int = 0, group=None):
     """The summed next-token NLL of one [B, c] chunk, JAX's ``chunk_nll``."""
-    logits = L.matmul_f32(x, unembed)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None])[..., 0]
-    return torch.sum(logz - gold)
+    return torch.sum(_token_nll(L.matmul_f32(x, unembed), labels, lo, group))
 
 
 def lm_loss(params, batch, cfg: TransformerConfig, mesh=None, aux_weight: float = 0.01):
@@ -295,22 +337,24 @@ def lm_loss(params, batch, cfg: TransformerConfig, mesh=None, aux_weight: float 
     check_mesh(mesh)
     tokens, labels = batch["tokens"], batch["labels"].long()
     b, s = tokens.shape
-    unembed = _unembed(params, cfg)
     if cfg.loss_chunk and s % cfg.loss_chunk == 0 and s > cfg.loss_chunk:
         x, aux = hidden_states(params, tokens, cfg, mesh)
+        unembed, lo, group = _head(params, cfg, mesh)
+        if group is not None:
+            x = copy_in(x, group)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         grad = torch.is_grad_enabled()
         for xi, li in zip(x.split(cfg.loss_chunk, dim=1), labels.split(cfg.loss_chunk, dim=1)):
             if grad:
-                tot = tot + checkpoint(_chunk_nll, xi, li, unembed, use_reentrant=False)
+                tot = tot + checkpoint(_chunk_nll, xi, li, unembed, lo, group,
+                                       use_reentrant=False)
             else:
-                tot = tot + _chunk_nll(xi, li, unembed)
+                tot = tot + _chunk_nll(xi, li, unembed, lo, group)
         nll = tot / (b * s)
     else:
-        logits, aux = forward(params, tokens, cfg, mesh)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[..., None])[..., 0]
-        nll = torch.mean(logz - gold)
+        x, aux = hidden_states(params, tokens, cfg, mesh)
+        head = _head(params, cfg, mesh)
+        nll = torch.mean(_token_nll(_logits(x, head), labels, head[1], head[2]))
     loss = nll + aux_weight * aux
     axes = () if mesh is None else tuple(a for a in L.batch_axes() if a in mesh.mesh_dim_names)
     return mean_out(loss, axis_group(mesh, axes)) if axes else loss
@@ -355,42 +399,56 @@ def serve_prefill(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=Non
     caches).  ``max_len >= S`` sizes them.  A layer's cache of T slots takes
     the prompt's last T positions at slots 0..T-1 (zeros past S when S < T):
     a ring at its natural slots (position mod T) only when S % T == 0, as
-    in the JAX package."""
+    in the JAX package.  Under a mesh the logits are the rank's vocabulary
+    columns and each cache this rank's slice of T along "model" (JAX's
+    prefill out_specs)."""
     check_mesh(mesh)
     b, s = tokens.shape
     max_len = max_len or s
-    x = _embed(params, tokens)
+    r, n = (0, 1) if mesh is None else (mesh.get_local_rank(MODEL_AXIS),
+                                        axis_size(mesh, (MODEL_AXIS,)))
+    x = _embed(params, tokens, mesh)
     positions = torch.arange(s, device=x.device)
-    caches = init_cache(cfg, b, max_len, device=x.device)
-    for r, p, window, bp in _layers(params, cfg):
+    caches = []
+    for window in cfg.window_pattern:
+        t = cache_len(cfg, window, max_len)
+        if t % n:
+            raise ValueError(f"a cache of {t} slots does not divide into {n} slices")
+        shape = (cfg.n_rep, b, t // n, cfg.n_kv, cfg.head_dim)
+        caches.append((torch.zeros(shape, dtype=cfg.dtype, device=x.device),
+                       torch.zeros(shape, dtype=cfg.dtype, device=x.device)))
+    for rep, p, window, bp in _layers(params, cfg):
         x, (k, v), _ = _block_apply(bp, x, positions, cfg, window, mesh)
         t = cache_len(cfg, window, max_len)
-        ck, cv = caches[p][0][r], caches[p][1][r]
-        if s >= t:
-            ck.copy_(k[:, s - t:])
-            cv.copy_(v[:, s - t:])
-        else:
-            ck[:, :s].copy_(k)
-            cv[:, :s].copy_(v)
+        lo, hi = r * (t // n), (r + 1) * (t // n)  # this rank's slots of the cache
+        # the prompt's last t positions sit at slots 0..t - 1 (0..S - 1 when S < t)
+        first = max(s - t, 0)
+        src_lo, src_hi = first + lo, min(first + hi, s)
+        if src_hi > src_lo:
+            caches[p][0][rep][:, :src_hi - src_lo].copy_(k[:, src_lo:src_hi])
+            caches[p][1][rep][:, :src_hi - src_lo].copy_(v[:, src_lo:src_hi])
         del k, v
     x = L.rmsnorm(x[:, -1:], params["final_ln"])
-    return L.matmul_f32(x, _unembed(params, cfg))[:, 0], caches
+    return _logits(x, _head(params, cfg, mesh))[:, 0], tuple(caches)
 
 
 @torch.inference_mode()
 def serve_step(params, caches, token: torch.Tensor, q_offset: int, cfg: TransformerConfig,
-               mesh=None):
+               mesh=None, cache_axes=(MODEL_AXIS,)):
     """One decode step.  token [B, 1]; ``q_offset`` the new token's absolute
     position, a host int (a step reads nothing back).  Each layer writes
     its new k / v into its cache in place at slot ``q_offset % T``.
-    Returns (logits [B, V] fp32, caches)."""
+    Returns (logits [B, V] fp32, caches).  Under a mesh each cache is this
+    rank's slice of T along ``cache_axes`` (JAX's ``cache_specs`` seq:
+    "model" for decode_32k, every axis for long_500k) and the logits the
+    rank's vocabulary columns."""
     check_mesh(mesh)
     q_offset = int(q_offset)
-    x = _embed(params, token)
+    x = _embed(params, token, mesh)
     positions = torch.full((1,), q_offset, dtype=torch.int64, device=x.device)
     for r, p, window, bp in _layers(params, cfg):
         kv = (caches[p][0][r], caches[p][1][r])
         x, _, _ = _block_apply(bp, x, positions, cfg, window, mesh, kv_cache=kv,
-                               q_offset=q_offset)
+                               q_offset=q_offset, cache_axes=tuple(cache_axes))
     x = L.rmsnorm(x, params["final_ln"])
-    return L.matmul_f32(x, _unembed(params, cfg))[:, 0], caches
+    return _logits(x, _head(params, cfg, mesh))[:, 0], caches

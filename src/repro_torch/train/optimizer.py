@@ -51,7 +51,8 @@ def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     cuts: the norm of the whole tree whose blocks the ranks hold."""
     sq = None
     own = leaves(tree)
-    cuts = [()] * len(own) if specs is None else [spec_axes(s) for s in leaves(specs)]
+    cuts = [()] * len(own) if specs is None else [
+        tuple(a for a in mesh.mesh_dim_names if a in spec_axes(s)) for s in leaves(specs)]
     for g, axes in zip(own, cuts):
         term = torch.sum(torch.square(g.to(torch.float32)))
         if axes:

@@ -4,9 +4,11 @@ port to, on 8 forced host devices, each jitted:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \\
       python tests/_torch_mesh_jax.py INPUTS OUT
 
-The configs are tests/_torch_mesh_ranks.py's (the recsys cells'
+The configs are tests/_torch_mesh_ranks.py's (the recsys and LM cells'
 tests/_torch_mesh_cfgs.py's); the inputs (an .npz keyed by the leaves'
-keystr names) the test's.
+keystr names) the test's.  The LM cells are ``build_cell``'s at
+tests/_torch_mesh_cfgs.py's small shapes (``LM_SHAPES`` replaced in this
+process), jitted with their in_shardings on both meshes.
 """
 import dataclasses
 import sys
@@ -16,9 +18,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+import _torch_mesh_cfgs as C
 from _torch_mesh_cfgs import RECSYS_CFGS, RECSYS_STEP
 from repro.configs import get_arch
-from repro.configs.common import RECSYS_SHAPES, shardings
+from repro.configs import common as jcommon
+from repro.configs.common import RECSYS_SHAPES, LMArch, shardings
 from repro.launch.mesh import make_mesh_compat
 from repro.models import gnn as G
 from repro.models import layers as L
@@ -120,7 +124,55 @@ def main(inputs_path, out_path):
                     res["scores"])
             else:
                 out[pre + "out"] = np.asarray(res)
+    run_lm_cells(inputs, out)
     np.savez(out_path, **out)
+
+
+def run_lm_cells(inputs, out):
+    """Each LM cell of tests/_torch_mesh_cfgs.py's two configs on both
+    meshes: train from drawn moments at LM_STEP, prefill, decode at each
+    LM_DECODE_OFFSETS (q_offset a traced scalar: one compile) from drawn
+    caches, and the dense config's long-context decode."""
+    jcommon.LM_SHAPES.update(C.LM_SHAPES)
+    for cname, fields in C.LM_CFGS.items():
+        cfg = T.TransformerConfig(**fields, dtype=jnp.float32)
+        arch = LMArch(cname, cfg)
+        pre = f"lmc/{cname}/"
+        abstract = T.abstract_params(cfg)
+        params = tree_from(inputs, pre + "params", abstract)
+        opt = AdamWState(step=jnp.asarray(C.LM_STEP, jnp.int32),
+                         mu=tree_from(inputs, pre + "mu", abstract),
+                         nu=tree_from(inputs, pre + "nu", abstract))
+        toks = jnp.asarray(inputs[pre + "tokens"])
+        for mname, (shape, axes) in C.LM_MESHES.items():
+            mesh = make_mesh_compat(shape, axes)
+            at = f"{pre}{mname}/"
+            for shape_name in arch.shape_names():
+                cell = arch.build_cell(shape_name, mesh)
+                step = jax.jit(cell.step_fn, in_shardings=shardings(mesh, cell.in_specs))
+                if shape_name == "train_4k":
+                    with mesh:
+                        new_p, new_o, loss = step(params, opt, {"tokens": toks,
+                                                                "labels": jnp.roll(toks, -1, 1)})
+                    out[at + "train/loss"] = np.asarray(loss)
+                    put(out, at + "train/new", new_p)
+                    put(out, at + "train/mu", new_o.mu)
+                    put(out, at + "train/nu", new_o.nu)
+                elif shape_name == "prefill_32k":
+                    with mesh:
+                        logits, caches = step(params, toks)
+                    out[at + "prefill/logits"] = np.asarray(logits)
+                    put(out, at + "prefill/caches", caches)
+                else:
+                    sh = C.LM_SHAPES[shape_name]
+                    caches = tree_from(inputs, f"{pre}{shape_name}/caches", jax.eval_shape(
+                        lambda: T.init_cache(cfg, sh["batch"], sh["seq"])))
+                    token = jnp.asarray(inputs[f"{pre}{shape_name}/token"])
+                    for q in C.LM_DECODE_OFFSETS:
+                        with mesh:
+                            logits, new = step(params, caches, token, jnp.asarray(q, jnp.int32))
+                        out[f"{at}{shape_name}/{q}/logits"] = np.asarray(logits)
+                        put(out, f"{at}{shape_name}/{q}/caches", new)
 
 
 if __name__ == "__main__":

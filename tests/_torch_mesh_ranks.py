@@ -3,10 +3,11 @@
   python tests/_torch_mesh_ranks.py RANK WORLD STORE INPUTS OUT
 
 Eight ranks join one process group over a FileStore and run the port's
-sharded paths on the (2, 4) (data, model) mesh and on the (8,) data mesh,
-on the inputs the test drew (INPUTS, an .npz keyed by leaf name); rank 0
-also runs the local paths and writes every result to OUT.  The shapes and
-configs are shared with the test and the JAX reference script.
+sharded paths on the (2, 4) (data, model) mesh and on the (8,) data mesh
+(the LM cells also on the (2, 2, 2) (pod, data, model) mesh), on the inputs
+the test drew (INPUTS, an .npz keyed by leaf name); rank 0 also runs the
+local paths and writes every result to OUT.  The shapes and configs are
+shared with the test and the JAX reference script.
 """
 import dataclasses
 import functools
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import _torch_mesh_cfgs as C
 from _torch_mesh_cfgs import RECSYS_CFGS, RECSYS_STEP
 from repro_torch.configs import get_arch
 from repro_torch.configs.common import (RECSYS_SHAPES, GNNArch, LMArch, RecsysArch,
@@ -93,7 +95,7 @@ def run_moe(inputs, mesh, out, rank):
     params = {k: torch.as_tensor(inputs["moe/" + k])
               for k in ("router", "w_gate", "w_in", "w_out")}
     x = torch.as_tensor(inputs["moe/x"])
-    held = local_tree(params, M.held_specs(), mesh)
+    held = local_tree(params, M.moe_specs(), mesh)
     x_blk = local_shard(x, P("data", None, None), mesh)
     kw = dict(n_experts=MOE["experts"], top_k=MOE["top_k"])
     for cf in MOE_CAPACITIES:
@@ -162,25 +164,25 @@ def run_compress(inputs, mesh8, out):
 def run_lm(inputs, mesh, out, rank):
     arch = LMArch("t", LM_CFG)
     cell = arch.build_cell("train_4k", device="cpu", mesh=mesh)  # sets the batch axes
-    held_specs, _, batch_specs = cell.in_specs
+    pspecs, _, batch_specs = cell.in_specs
     axes = spec_axes(batch_specs["tokens"])
     params = tree_from(inputs, "lm/params", T.init(LM_CFG, device="meta"))
     tokens = torch.as_tensor(inputs["lm/tokens"])
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
-    held = local_tree(params, held_specs, mesh)
+    held = local_tree(params, pspecs, mesh)
     blk = local_tree(batch, batch_specs, mesh)
     with torch.no_grad():
         out["lm/loss"] = T.lm_loss(held, blk, LM_CFG, mesh).numpy()
     # the gradient, without the aux statistic (a data shard's) and drops
     cfg16 = dataclasses.replace(LM_CFG, capacity_factor=16.0)
     loss_fn = functools.partial(T.lm_loss, aux_weight=0.0)
-    loss, grads = mesh_value_and_grad(loss_fn, mesh, axes)(held, blk, cfg16)
+    loss, grads = mesh_value_and_grad(loss_fn, mesh, axes, pspecs)(held, blk, cfg16)
     out["lm/grad_loss"] = loss.numpy()
-    put(out, "lm/grad/", gather_tree(grads, held_specs, mesh))
+    put(out, "lm/grad/", gather_tree(grads, pspecs, mesh))
     # the cell's train step on this rank's blocks (written in place)
     new_p, _, loss = cell.step_fn(held, adamw_init(held), blk)
     out["lm_cell/loss"] = loss.numpy()
-    put(out, "lm_cell/new/", gather_tree(new_p, held_specs, mesh))
+    put(out, "lm_cell/new/", gather_tree(new_p, pspecs, mesh))
     if rank == 0:
         with torch.no_grad():
             out["lm/local/loss"] = T.lm_loss(params, batch, LM_CFG).numpy()
@@ -192,6 +194,62 @@ def run_lm(inputs, mesh, out, rank):
                                                                            batch)
         out["lm_cell/local/loss"] = loss.numpy()
         put(out, "lm_cell/local/new/", new_p)
+
+
+def run_lm_cells(inputs, meshes, out, rank):
+    """Each LM cell of C.LM_CFGS's two configs through ``build_cell(...,
+    mesh=)`` on both of C.LM_MESHES, on this rank's blocks of the inputs
+    (``Cell.in_specs``, JAX's), the outputs gathered whole; rank 0 also
+    runs every cell without a mesh ("local")."""
+    for cname, fields in C.LM_CFGS.items():
+        cfg = T.TransformerConfig(**fields, dtype=torch.float32)
+        arch = LMArch(cname, cfg)
+        pre = f"lmc/{cname}/"
+        template = T.init(cfg, device="meta")
+        params = tree_from(inputs, pre + "params", template)
+        moments = (tree_from(inputs, pre + "mu", template), tree_from(inputs, pre + "nu", template))
+        toks = torch.as_tensor(inputs[pre + "tokens"])
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        runs = [(name, meshes[name]) for name in C.LM_MESHES]
+        for where, mesh in runs + ([("local", None)] if rank == 0 else []):
+            def cut(tree, spec, mesh=mesh):
+                return tree_map(torch.clone, tree) if mesh is None else local_tree(tree, spec,
+                                                                                     mesh)
+
+            def whole(tree, spec, mesh=mesh):
+                return tree if mesh is None else gather_tree(tree, spec, mesh)
+
+            at = f"{pre}{where}/"
+            rows = () if mesh is None else batch_axes_of(mesh)
+            for shape in arch.shape_names():
+                cell = arch.build_cell(shape, device="cpu", mesh=mesh)
+                specs = cell.in_specs or (None,) * 4
+                if shape == "train_4k":
+                    opt = AdamWState(step=torch.tensor(C.LM_STEP, dtype=torch.int32),
+                                     mu=moments[0], nu=moments[1])
+                    new_p, new_o, loss = cell.step_fn(cut(params, specs[0]), cut(opt, specs[1]),
+                                                      cut(batch, specs[2]))
+                    out[at + "train/loss"] = loss.detach().numpy()
+                    put(out, at + "train/new", whole(new_p, specs[0]))
+                    put(out, at + "train/mu", whole(new_o.mu, specs[0]))
+                    put(out, at + "train/nu", whole(new_o.nu, specs[0]))
+                elif shape == "prefill_32k":
+                    logits, caches = cell.step_fn(cut(params, specs[0]), cut(toks, specs[1]))
+                    out[at + "prefill/logits"] = whole(logits, P(rows, MODEL_AXIS)).numpy()
+                    put(out, at + "prefill/caches",
+                        whole(caches, T.cache_specs(cfg, batch=rows, seq=(MODEL_AXIS,))))
+                else:
+                    caches = tree_from(inputs, f"{pre}{shape}/caches", T.init_cache(
+                        cfg, C.LM_SHAPES[shape]["batch"], C.LM_SHAPES[shape]["seq"],
+                        device="meta"))
+                    token = torch.as_tensor(inputs[f"{pre}{shape}/token"])
+                    logit_rows = () if shape == "long_500k" else rows
+                    for q in C.LM_DECODE_OFFSETS:
+                        logits, new = cell.step_fn(cut(params, specs[0]), cut(caches, specs[1]),
+                                                   cut(token, specs[2]), q)
+                        out[f"{at}{shape}/{q}/logits"] = whole(
+                            logits, P(logit_rows, MODEL_AXIS)).numpy()
+                        put(out, f"{at}{shape}/{q}/caches", whole(new, specs[1]))
 
 
 def run_retrieval(inputs, mesh, out, rank):
@@ -265,12 +323,16 @@ def main(argv) -> None:
 
     mesh = init_device_mesh("cpu", MESH_SHAPE, mesh_dim_names=MESH_AXES)
     mesh8 = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    lm_meshes = {name: mesh if shape == MESH_SHAPE else
+                 init_device_mesh("cpu", shape, mesh_dim_names=axes)
+                 for name, (shape, axes) in C.LM_MESHES.items()}
     inputs = dict(np.load(inputs_path))
     out = {}
     run_moe(inputs, mesh, out, rank)
     run_gnn(inputs, mesh, out, rank)
     run_compress(inputs, mesh8, out)
     run_lm(inputs, mesh, out, rank)
+    run_lm_cells(inputs, lm_meshes, out, rank)
     run_retrieval(inputs, mesh, out, rank)
     run_recsys(inputs, mesh, out, rank)
     dist.barrier()

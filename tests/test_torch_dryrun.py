@@ -4,8 +4,9 @@ groups of 256 and 512 ranks: JAX's ``tests/test_dryrun.py`` assertions on
 SASRec's ``serve_p99``, the per-rank scaling from one mesh to the other, a
 record's argument bytes against a hand count, the sharded GNN layers'
 collectives against their rule, the roofline's model flops and the cells'
-metadata against the JAX package's, the kernel recorder, and the link
-model's premise."""
+metadata against the JAX package's, the LM cells' in_specs against JAX's
+``build_cell`` and the bytes a rank of each holds against the shards of
+JAX's ``specs()``, the kernel recorder, and the link model's premise."""
 import gzip
 import json
 import math
@@ -18,7 +19,8 @@ from repro_torch.configs import all_cells, get_arch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.topk_merge import topk_merge
 from repro_torch.launch import dryrun, roofline
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import local_tree, make_production_mesh
+from repro_torch.train.tree import named_leaves
 
 from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
@@ -152,6 +154,106 @@ def test_model_flops_and_meta_match_jax(fake_world, multi_pod):
         cell = arch.build_cell(shape, device="meta", mesh=mesh if arch.family == "gnn" else None)
         assert cell.meta == _jax_meta(arch_id, shape, n), cell.name
         assert roofline.model_flops(cell.meta, n) == jax_model_flops(cell.meta, n), cell.name
+
+
+LM_ARCHS = [a for a, shape in all_cells() if shape == "train_4k" and get_arch(a).family == "lm"]
+MESHES = {False: ((16, 16), ("data", "model")), True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def _jax_lm_cell(arch_id: str, shape: str, multi_pod: bool):
+    """JAX's ``build_cell`` on a stand-in of the production mesh (its axis
+    names and sizes: the LM cells read nothing else), JAX's batch axes
+    restored after."""
+    from types import SimpleNamespace
+
+    from repro.configs import get_arch as jax_arch
+    from repro.models import layers as jl
+
+    shape_, names = MESHES[multi_pod]
+    saved = jl.batch_axes()
+    try:
+        return jax_arch(arch_id).build_cell(shape, SimpleNamespace(
+            axis_names=names, shape=dict(zip(names, shape_))))
+    finally:
+        jl.set_batch_axes(saved)
+
+
+def _jax_named(tree) -> list:
+    import jax
+    from jax.sharding import PartitionSpec
+
+    paths = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, PartitionSpec))[0]
+    return [(jax.tree_util.keystr(p), tuple(s)) for p, s in paths]
+
+
+def _port_named(tree) -> list:
+    return [(name, tuple(s)) for name, s in named_leaves(tree)]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_lm_in_specs_are_jax_in_specs(fake_world, multi_pod):
+    """Every LM cell's in_specs under the production mesh equal JAX's
+    ``build_cell``'s, leaf for leaf: (specs, adamw_specs, batch) for
+    train, (specs, tokens) for prefill, (specs, caches, token, q_offset)
+    for decode, where JAX's P() for the offset is None (a host int)."""
+    from jax.sharding import PartitionSpec
+
+    fake_world(512 if multi_pod else 256)
+    mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+    cells = [(a, shape) for a, shape in all_cells() if a in LM_ARCHS]
+    assert len(cells) == 16
+    for arch_id, shape in cells:
+        got = get_arch(arch_id).build_cell(shape, device="meta", mesh=mesh).in_specs
+        want = _jax_lm_cell(arch_id, shape, multi_pod).in_specs
+        if len(want) == 4:  # decode
+            assert got[3] is None and want[3] == PartitionSpec(), (arch_id, shape)
+            got, want = got[:3], want[:3]
+        assert _port_named(got) == _jax_named(want), (arch_id, shape)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_lm_rank_holds_jax_shard_bytes(fake_world, multi_pod):
+    """The parameters and AdamW moments a rank's train_4k cell holds (its
+    in_specs applied by ``local_tree`` to the meta tree) against the local
+    shard of JAX's ``specs()`` (numpy arithmetic on the mesh shape), leaf
+    for leaf, for every LM arch: the bytes equal, and no leaf that JAX cuts
+    is held whole."""
+    import numpy as np
+    from repro.configs import get_arch as jax_arch
+    from repro.models import transformer as jtf
+
+    fake_world(512 if multi_pod else 256)
+    mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+    sizes = dict(zip(MESHES[multi_pod][1], MESHES[multi_pod][0]))
+    for arch_id in LM_ARCHS:
+        cell = get_arch(arch_id).build_cell("train_4k", device="meta", mesh=mesh)
+        held = named_leaves(local_tree(cell.args[0], cell.in_specs[0], mesh))
+        opt = local_tree(cell.args[1], cell.in_specs[1], mesh)
+        jcfg = jax_arch(arch_id).cfg
+        jspecs = dict(_jax_named(jtf.specs(jcfg)))
+        jshapes = dict(_jax_named_shapes(jtf.abstract_params(jcfg)))
+        assert sorted(n for n, _ in held) == sorted(jspecs) == sorted(jshapes)
+        for (name, p), (_, m), (_, v) in zip(held, named_leaves(opt.mu), named_leaves(opt.nu)):
+            shape, itemsize = jshapes[name]
+            parts = [int(np.prod([sizes[a] for a in _axes(e)])) for e in jspecs[name]]
+            parts += [1] * (len(shape) - len(parts))
+            local = int(np.prod([d // c for d, c in zip(shape, parts)]))
+            assert p.numel() * p.element_size() == local * itemsize, (arch_id, name)
+            assert m.numel() * 4 == v.numel() * 4 == local * 4, (arch_id, name)
+            if max(parts) > 1:
+                assert p.numel() < int(np.prod(shape)), (arch_id, name)
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _jax_named_shapes(tree) -> list:
+    import jax
+
+    paths = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return [(jax.tree_util.keystr(p), (tuple(a.shape), a.dtype.itemsize)) for p, a in paths]
 
 
 def test_a_kernel_without_a_cost_raises_inside_the_recorder(monkeypatch):

@@ -8,7 +8,10 @@ One module-scoped run starts, together, eight gloo ranks of the port
 subprocess on 8 forced host devices (``tests/_torch_mesh_jax.py``, every
 call jitted), on the same inputs drawn here with numpy.  The port's sharded
 runs are held to the JAX package's sharded runs and to the port's own local
-paths (the gradients too: a gradient P times too large fails there).  In
+paths (the gradients too: a gradient P times too large fails there).  The
+LM cells (``tests/_torch_mesh_cfgs.py``'s two small configs) run under
+JAX's layouts on the (2, 4) and (2, 2, 2) meshes: parameters as ``specs()``
+shards, pure FSDP or Megatron over "model", sequence-sharded caches.  In
 process: the spec trees against JAX's for every arch, ``placements`` and
 ``local_shard`` on fake process groups of 8 and 256 ranks, the mesh
 helpers, the type checks, and the three examples at a small size.
@@ -44,6 +47,7 @@ from repro_torch.train.tree import named_leaves
 
 from test_torch_build import one_torch_thread  # noqa: F401 -- an autouse fixture
 
+import _torch_mesh_cfgs as C
 import _torch_mesh_ranks as R
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -111,7 +115,31 @@ def _inputs() -> dict:
     for aid, shape in R.recsys_cells():
         for k, v in _recsys_batch(aid, shape, _recsys_arch(aid).cfg, rng).items():
             out[f"recsys/{aid}/{shape}/in/{k}"] = v
+    for cname in C.LM_CFGS:
+        cfg = _lm_cfg(cname)
+        pre = f"lmc/{cname}/"
+        leaves_ = named_leaves(ttf.init(cfg, device="meta"))
+        _draw(rng, leaves_, pre + "params", out)
+        for name, t in leaves_:
+            shape = tuple(t.shape)
+            out[f"{pre}mu{name}"] = (1e-3 * rng.normal(size=shape)).astype(np.float32)
+            out[f"{pre}nu{name}"] = (1e-4 * (1.0 + np.abs(rng.normal(size=shape)))).astype(
+                np.float32)
+        sh = C.LM_SHAPES["train_4k"]
+        out[pre + "tokens"] = rng.integers(0, cfg.vocab, (sh["batch"], sh["seq"])).astype(np.int32)
+        for shape in ("decode_32k", "long_500k"):
+            sh = C.LM_SHAPES[shape]
+            out[f"{pre}{shape}/token"] = rng.integers(0, cfg.vocab, (sh["batch"], 1)).astype(
+                np.int32)
+            for name, t in named_leaves(ttf.init_cache(cfg, sh["batch"], sh["seq"],
+                                                       device="meta")):
+                out[f"{pre}{shape}/caches{name}"] = rng.normal(size=tuple(t.shape)).astype(
+                    np.float32)
     return out
+
+
+def _lm_cfg(name: str) -> ttf.TransformerConfig:
+    return ttf.TransformerConfig(**C.LM_CFGS[name], dtype=torch.float32)
 
 
 def _recsys_arch(aid: str) -> RecsysArch:
@@ -295,6 +323,157 @@ def test_lm_cell_step_under_the_mesh(runs):
     assert sorted(got) == sorted(want)
     for name in want:
         np.testing.assert_allclose(got[name], want[name], rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+# ------------------------------------------------------------- LM cells
+
+# the sharded train step's loss (a mean of the ranks' means, the vocabulary's
+# log-sum-exp summed over "model") against JAX's sharded cell and the port's
+# unsharded one
+LM_CELL_LOSS_RTOL = 1e-5
+# each parameter, AdamW moment, logit and cache after a step, relative to
+# its leaf's largest: GSPMD's and the ranks' partial sums reorder fp32 sums
+LM_CELL_RTOL = 1e-5
+# the MoE's sharded loss against its unsharded one: the mean of the ranks'
+# load-balance statistics is not the whole batch's (the limit of
+# test_lm_sharded_loss_matches_jax_and_local)
+LM_MOE_LOCAL_LOSS_ATOL = 5e-3
+
+
+def _lm_cells(cname: str) -> list:
+    return [(cname, mesh) for mesh in C.LM_MESHES]
+
+
+def _hold(port: dict, ref: dict, got_at: str, want_at: str, what: str) -> list:
+    """Every leaf under ``got_at`` within LM_CELL_RTOL of ``want_at``'s;
+    the leaves' names."""
+    got, want = _leaves(port, got_at), _leaves(ref, want_at)
+    assert got and sorted(got) == sorted(want), (what, sorted(got), sorted(want))
+    for name in want:
+        _within(got[name], want[name], LM_CELL_RTOL, f"{what} {name}")
+    return sorted(got)
+
+
+@pytest.mark.parametrize("cname,mesh", _lm_cells("dense") + _lm_cells("moe"))
+def test_lm_train_cell_under_jax_layouts(runs, cname, mesh):
+    """train_4k from drawn moments at LM_STEP (past the warmup): the dense
+    config on (2, 4) is pure FSDP (the batch over data x model, every weight
+    gathered), the others Megatron over "model" (the MoE's experts over
+    "model" too).  Loss, parameters, mu and nu against JAX's jitted cell
+    with its in_shardings and against the port's unsharded cell; every
+    parameter moved.  The MoE's load-balance loss is a statistic of the
+    batch it sees (a rank's under the mesh, JAX's sharded cell too), so its
+    unsharded loss is held to LM_MOE_LOCAL_LOSS_ATOL and its moments, which
+    carry that gradient, to JAX's cell alone."""
+    inputs, port, ref = runs
+    pre = f"lmc/{cname}/"
+    loss = float(port[f"{pre}{mesh}/train/loss"])
+    np.testing.assert_allclose(loss, float(ref[f"{pre}{mesh}/train/loss"]), rtol=LM_CELL_LOSS_RTOL)
+    local = float(port[f"{pre}local/train/loss"])
+    if cname == "moe":  # the aux statistic is a rank's batch's
+        assert abs(loss - local) < LM_MOE_LOCAL_LOSS_ATOL, (loss, local)
+    else:
+        np.testing.assert_allclose(loss, local, rtol=LM_CELL_LOSS_RTOL)
+    names = [n for n, _ in named_leaves(ttf.init(_lm_cfg(cname), device="meta"))]
+    for part in ("new", "mu", "nu"):
+        oracles = ((ref, mesh),) if cname == "moe" and part != "new" else ((ref, mesh),
+                                                                            (port, "local"))
+        for want, src in oracles:
+            got = _hold(port, want, f"{pre}{mesh}/train/{part}", f"{pre}{src}/train/{part}",
+                        f"{cname} {mesh} {part} vs {'JAX' if want is ref else src}")
+            assert got == sorted(names)
+    new = _leaves(port, f"{pre}{mesh}/train/new")
+    moved = [n for n in names if not np.array_equal(new[n], inputs[f"{pre}params{n}"])]
+    assert moved == names, sorted(set(names) - set(moved))
+
+
+@pytest.mark.parametrize("cname,mesh", _lm_cells("dense") + _lm_cells("moe"))
+def test_lm_prefill_cell_under_jax_layouts(runs, cname, mesh):
+    """prefill_32k: the prompts over the batch axes, Megatron, the logits'
+    vocabulary over "model" and each cache's sequence over "model" (every
+    rank its slice): the gathered logits and caches against JAX's and the
+    unsharded cell's."""
+    _, port, ref = runs
+    pre = f"lmc/{cname}/"
+    for want, src in ((ref, mesh), (port, "local")):
+        what = f"{cname} {mesh} prefill vs {'JAX' if want is ref else src}"
+        _within(port[f"{pre}{mesh}/prefill/logits"], want[f"{pre}{src}/prefill/logits"],
+                LM_CELL_RTOL, what + " logits")
+        _hold(port, want, f"{pre}{mesh}/prefill/caches", f"{pre}{src}/prefill/caches",
+              what + " caches")
+
+
+def _empty_slices(cname: str, shape: str, mesh: str, q_offset: int) -> int:
+    """How many ranks' cache slices hold no valid slot at ``q_offset``, over
+    the config's cache layers (sliced over "model", or every axis for
+    long_500k)."""
+    cfg, sh = _lm_cfg(cname), C.LM_SHAPES[shape]
+    mesh_shape, axes = C.LM_MESHES[mesh]
+    n = int(np.prod(mesh_shape)) if shape == "long_500k" else mesh_shape[axes.index("model")]
+    empty = 0
+    for window in cfg.window_pattern:
+        t = ttf.cache_len(cfg, window, sh["seq"])
+        empty += sum(min(q_offset, t - 1) < r * (t // n) for r in range(n))
+    return empty
+
+
+@pytest.mark.parametrize("q_offset", C.LM_DECODE_OFFSETS)
+@pytest.mark.parametrize("cname,mesh", _lm_cells("dense") + _lm_cells("moe"))
+def test_lm_decode_cell_under_jax_layouts(runs, cname, mesh, q_offset):
+    """decode_32k over sequence-sharded caches (over "model"), at a position
+    where some ranks' slices hold no valid slot (and, at 11, after the
+    8-slot ring wrapped): the logits and every cache (the new token's k / v
+    written by its slot's owner) against JAX's and the unsharded cell's."""
+    _, port, ref = runs
+    if q_offset == C.LM_DECODE_OFFSETS[0]:
+        assert _empty_slices(cname, "decode_32k", mesh, q_offset) > 0
+    at = f"lmc/{cname}/{{}}/decode_32k/{q_offset}/"
+    for want, src in ((ref, mesh), (port, "local")):
+        what = f"{at.format(mesh)} vs {'JAX' if want is ref else src}"
+        _within(port[at.format(mesh) + "logits"], want[at.format(src) + "logits"], LM_CELL_RTOL,
+                what + " logits")
+        _hold(port, want, at.format(mesh) + "caches", at.format(src) + "caches", what + " caches")
+
+
+@pytest.mark.parametrize("q_offset", C.LM_DECODE_OFFSETS)
+@pytest.mark.parametrize("mesh", list(C.LM_MESHES))
+def test_lm_long_context_decode_under_jax_layouts(runs, mesh, q_offset):
+    """long_500k (one row): the caches' sequence over every axis (8 slices,
+    most of them empty early), the token replicated, the logits' vocabulary
+    over "model", against JAX's and the unsharded cell's."""
+    _, port, ref = runs
+    assert _empty_slices("dense", "long_500k", mesh, q_offset) > 0
+    at = f"lmc/dense/{{}}/long_500k/{q_offset}/"
+    for want, src in ((ref, mesh), (port, "local")):
+        what = f"{at.format(mesh)} vs {'JAX' if want is ref else src}"
+        _within(port[at.format(mesh) + "logits"], want[at.format(src) + "logits"], LM_CELL_RTOL,
+                what + " logits")
+        _hold(port, want, at.format(mesh) + "caches", at.format(src) + "caches", what + " caches")
+
+
+@pytest.mark.parametrize("arch_id", [a for a in ARCH_IDS if get_arch(a).family == "lm"])
+def test_kv_heads_map_each_rank_onto_whole_kv_heads(arch_id):
+    """Each of the 16 model ranks' q heads reads a contiguous run of kv
+    heads, each by as many of its heads (granite 2 of a group of 4, gemma
+    1 of 2, internlm2 and grok 3 of 6, qwen3 4 of 16), the run the kernel's
+    grouping of the local heads reads; a split that cuts a group unevenly
+    raises."""
+    from repro_torch.models.layers import kv_heads
+
+    cfg = get_arch(arch_id).cfg
+    h, kv, ranks = cfg.n_heads, cfg.n_kv, 16
+    local = h // ranks
+    for rank in range(ranks):
+        lo, hi = kv_heads(h, kv, ranks, rank)
+        heads = np.arange(rank * local, (rank + 1) * local)
+        read = heads // (h // kv)  # the kv head each global q head reads
+        assert (lo, hi) == (read.min(), read.max() + 1)
+        group = local // (hi - lo)  # the kernel's grouping of the local heads
+        np.testing.assert_array_equal(lo + np.arange(local) // group, read)
+    with pytest.raises(ValueError, match="whole kv heads"):
+        kv_heads(6, 3, 2, 0)  # 3 heads a rank over groups of 2
+    with pytest.raises(ValueError, match="divide"):
+        kv_heads(8, 2, 3, 0)
 
 
 # ------------------------------------------------------------- retrieval
